@@ -1,0 +1,150 @@
+"""The CUDA tap-GEMM kernels on the card: each against its plain version,
+``conv2d`` under ``pallas`` against ``lax``, determinism of the split-K
+weight grad, launch counting, and 20 training steps against ``lax``.
+
+Every test needs an NVIDIA GPU and skips without one.  This file imports no
+JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import conv as tconv  # noqa: E402
+from repro_torch.core.convspec import ConvSpec  # noqa: E402
+from repro_torch.core.im2col_ref import ConvDims  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import tap_gemm as tg  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+#: float32 sums in another order than the plain version or the library:
+#: max |a - b| <= REL_TOL * max |b| (the measure chip_smoke.py uses).  A
+#: pointwise tolerance does not fit: the weight grad sums up to 24,642
+#: products, so an element that cancels to near zero carries the rounding
+#: of terms ~1e3 times its size.
+REL_TOL = 1e-4
+
+
+def _close(got, want):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= REL_TOL * max(want.abs().max().item(), 1e-6), err
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernels cannot run here")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _randn(gen, *shape, dev):
+    return torch.randn(*shape, generator=gen).to(dev)
+
+
+GEOMS = [
+    dict(B=2, C=3, H=16, N=16, K=3, S=2, P=1, G=1),
+    dict(B=2, C=70, H=9, N=130, K=3, S=3, P=1, G=1),
+    dict(B=3, C=1, H=8, N=1, K=3, S=1, P=1, G=16),
+    dict(B=2, C=24, H=12, N=20, K=1, S=2, P=0, G=2),
+    dict(B=2, C=5, H=40, N=9, K=3, S=2, P=0, G=1),
+]
+
+
+@pytest.mark.parametrize("g", GEOMS,
+                         ids=lambda g: "C{C}N{N}K{K}S{S}G{G}".format(**g))
+def test_kernels_match_plain_versions(cuda, g):
+    d = ConvDims(B=g["B"], C=g["C"], H_i=g["H"], W_i=g["H"], N=g["N"],
+                 K_h=g["K"], K_w=g["K"], S=g["S"], P_h=g["P"], P_w=g["P"])
+    gen = torch.Generator().manual_seed(0)
+    x = _randn(gen, d.B, d.C * g["G"], d.H_i, d.W_i, dev=cuda)
+    w = _randn(gen, d.N * g["G"], d.C, d.K_h, d.K_w, dev=cuda)
+    dy = _randn(gen, d.B, d.N * g["G"], d.H_o, d.W_o, dev=cuda)
+    src, wt, taps = ops.forward_operands(x, w, d, g["G"])
+    _close(tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
+           ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o))
+    src, ws, pp = ops.input_grad_operands(dy, w, d, g["G"])
+    _close(
+        tg.tap_gemm_phased(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw),
+        ref.tap_gemm_phased_ref(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw))
+    src, dyn, taps = ops.weight_grad_operands(x, dy, d, g["G"])
+    _close(tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o),
+           ref.tap_wgrad_ref(src, dyn, taps, d.H_o, d.W_o))
+
+
+CONV_CASES = [
+    ((2, 3, 9, 9), (4, 3, 3, 3), dict(stride=2, padding=1)),
+    ((1, 3, 10, 12), (4, 3, 3, 3), dict(stride=(2, 3), padding=1)),
+    ((1, 2, 11, 11), (3, 2, 3, 3), dict(stride=2, padding=2, dilation=2)),
+    ((2, 3, 9, 10), (2, 3, 3, 3), dict(stride=2, padding=((0, 2), (2, 1)))),
+    ((2, 16, 8, 8), (16, 1, 3, 3), dict(stride=1, padding=1, groups=16)),
+    ((2, 8, 12, 12), (12, 4, 3, 3), dict(stride=3, padding=1, groups=2)),
+]
+
+
+@pytest.mark.parametrize("case", CONV_CASES,
+                         ids=["s2", "s2x3", "d2", "asympad", "dw", "g2s3"])
+def test_conv2d_pallas_matches_lax_and_launches_once_per_pass(cuda, case):
+    x_shape, w_shape, kw = case
+    spec = ConvSpec.make(**kw)
+    gen = torch.Generator().manual_seed(1)
+    x0, w0 = _randn(gen, *x_shape, dev=cuda), _randn(gen, *w_shape, dev=cuda)
+    d = tconv.spec_dims(x_shape, w_shape, spec)
+    dy = _randn(gen, d.B, d.N * spec.groups, d.H_o, d.W_o, dev=cuda)
+    out = {}
+    for policy in ("pallas", "lax"):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        tg.reset_launch_counts()
+        y = tconv.conv2d(x, w, spec, policy)
+        y.backward(dy)
+        out[policy] = (y.detach(), x.grad, w.grad, tg.launch_counts())
+    for a, b in zip(out["pallas"][:3], out["lax"][:3]):
+        _close(a, b)
+    assert out["pallas"][3] == {"tap_gemm": 1, "tap_gemm_phased": 1,
+                                "tap_wgrad": 1}
+    assert out["lax"][3] == {"tap_gemm": 0, "tap_gemm_phased": 0,
+                             "tap_wgrad": 0}
+
+
+def test_split_k_weight_grad_is_deterministic(cuda):
+    """The 224/3->64 layer splits its 24,642-row contraction; partials are
+    summed in a fixed order, so two runs agree bit for bit."""
+    d = ConvDims(B=2, C=3, H_i=224, W_i=224, N=64, K_h=3, K_w=3, S=2)
+    gen = torch.Generator().manual_seed(2)
+    x = _randn(gen, d.B, d.C, d.H_i, d.W_i, dev=cuda)
+    dy = _randn(gen, d.B, d.N, d.H_o, d.W_o, dev=cuda)
+    src, dyn, taps = ops.weight_grad_operands(x, dy, d)
+    a = tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o)
+    b = tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o)
+    assert torch.equal(a, b)
+    _close(a, ref.tap_wgrad_ref(src, dyn, taps, d.H_o, d.W_o))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    src = torch.zeros(1, 1, 4, 4, 3, device=cuda)
+    w = torch.zeros(1, 3, 2, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        tg.tap_gemm(src.double(), w.double(), [(0, 0, 0)], 3, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.tap_gemm(src, w.transpose(1, 2).contiguous().transpose(1, 2),
+                    [(0, 0, 0)], 3, 3)
+
+
+def test_training_losses_match_lax(cuda):
+    from repro_torch.train import cnn_bp
+    tg.reset_launch_counts()
+    got = cnn_bp.train("pallas", steps=20, device=cuda)
+    counts = tg.launch_counts()
+    want = cnn_bp.train("lax", steps=20, device=cuda)
+    _close(torch.tensor(got["losses"]), torch.tensor(want["losses"]))
+    assert all(v > 0 for v in counts.values()), counts

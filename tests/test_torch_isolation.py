@@ -1,0 +1,91 @@
+"""The port stands alone: it imports neither ``jax`` nor the JAX package
+``repro``, and its entry points never fall back to the CPU when no card is
+present."""
+
+import importlib
+import pathlib
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s]|$)",
+                     re.MULTILINE)
+
+
+def _modules():
+    import repro_torch
+    return ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch.")]
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+            for p in files for m in _IMPORT.finditer(p.read_text())]
+    assert not hits, hits
+    assert len(files) > 10
+
+
+def test_module_list_covers_the_slice():
+    mods = set(_modules())
+    for m in ("repro_torch.core.conv", "repro_torch.kernels.tap_gemm",
+              "repro_torch.kernels.ops", "repro_torch.train.cnn_bp"):
+        assert m in mods
+        importlib.import_module(m)
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.models import layers
+    from repro_torch.train import cnn_bp
+    import numpy as np
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cnn_bp.train(steps=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cnn_bp.init_params()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cnn_bp.synthetic_task(np.random.RandomState(0), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        layers.init_conv2d(torch.Generator(), 3, 4, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cnn_bp.main(["--steps", "1"])
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without CUDA (here) or without the package beside it, the smoke
+    script exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

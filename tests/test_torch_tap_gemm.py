@@ -1,0 +1,140 @@
+"""The plain versions of the three tap-GEMM kernels against the JAX
+package's oracles (f32, rtol/atol 1e-5), and the CPU dispatch of the kernel
+wrappers.  The CUDA kernels themselves are held against these plain versions
+on a card by tests/test_torch_cuda.py."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import tap_gemm as tg  # noqa: E402
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+TAP_CASES = [
+    # (P, B, Hs, Ws, CIN, COUT, oh, ow, taps)
+    (4, 2, 6, 6, 8, 16, 5, 5, [(0, 0, 0), (1, 0, 1), (2, 1, 0), (3, 1, 1)]),
+    (4, 3, 6, 6, 8, 16, 5, 5, [(0, 0, 0), (1, 0, 1), (2, 1, 0)]),
+    (1, 1, 9, 9, 3, 5, 7, 7, [(0, du, dv) for du in range(3)
+                               for dv in range(3)]),
+    (6, 2, 5, 7, 2, 3, 4, 5, [(5, 1, 2), (0, 0, 0), (3, 1, 0)]),
+]
+
+
+def _rand(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", TAP_CASES, ids=lambda c: f"P{c[0]}T{len(c[-1])}")
+def test_tap_gemm_plain_matches_jax_oracle(case):
+    p, b, hs, ws, cin, cout, oh, ow, taps = case
+    rng = np.random.RandomState(3)
+    src, w = _rand(rng, p, b, hs, ws, cin), _rand(rng, len(taps), cin, cout)
+    got = tref.tap_gemm_ref(torch.from_numpy(src), torch.from_numpy(w),
+                            taps, oh, ow)
+    want = np.asarray(jref.tap_gemm_ref(jnp.asarray(src), jnp.asarray(w),
+                                        taps, oh, ow))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("case", TAP_CASES, ids=lambda c: f"P{c[0]}T{len(c[-1])}")
+def test_tap_wgrad_plain_matches_jax_oracle(case):
+    p, b, hs, ws, cin, cout, oh, ow, taps = case
+    rng = np.random.RandomState(4)
+    src, dy = _rand(rng, p, b, hs, ws, cin), _rand(rng, b, oh, ow, cout)
+    got = tref.tap_wgrad_ref(torch.from_numpy(src), torch.from_numpy(dy),
+                             taps, oh, ow)
+    want = np.asarray(jref.tap_wgrad_ref(jnp.asarray(src), jnp.asarray(dy),
+                                         taps, oh, ow))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+PHASED_CASES = [
+    # (B, Hs, Ws, CIN, COUT, oh, ow, phase_taps, T)
+    (2, 6, 6, 4, 3, 4, 4,
+     (((0, 0, 0), (1, 0, 1), (2, 1, 0), (3, 1, 1)), ((0, 1, 0), (1, 1, 1)),
+      ((0, 0, 1), (1, 1, 1)), ((0, 1, 1),)), 4),
+    (1, 7, 5, 2, 5, 6, 4, (((0, 0, 0),), (), ((1, 1, 1), (0, 0, 0))), 2),
+]
+
+
+@pytest.mark.parametrize("case", PHASED_CASES, ids=["4ph", "3ph-empty"])
+def test_tap_gemm_phased_plain_is_per_phase_tap_gemm(case):
+    """Each phase plane equals JAX's ``tap_gemm_ref`` over that phase's
+    taps and weight rows; an empty phase is zero."""
+    b, hs, ws, cin, cout, oh, ow, phase_taps, t = case
+    rng = np.random.RandomState(5)
+    src = _rand(rng, b, hs, ws, cin)
+    w = _rand(rng, len(phase_taps), t, cin, cout)
+    got = tref.tap_gemm_phased_ref(torch.from_numpy(src),
+                                   torch.from_numpy(w), phase_taps, oh, ow)
+    assert got.shape == (len(phase_taps), b, oh, ow, cout)
+    for p, taps in enumerate(phase_taps):
+        if not taps:
+            assert not got[p].any()
+            continue
+        wp = np.stack([w[p, j] for j, _, _ in taps])
+        want = jref.tap_gemm_ref(jnp.asarray(src[None]), jnp.asarray(wp),
+                                 [(0, du, dv) for _, du, dv in taps], oh, ow)
+        np.testing.assert_allclose(got[p].numpy(), np.asarray(want), **TOL)
+
+
+def test_plain_versions_zero_fill_reads_past_the_plane():
+    """Windows that run past (Hs, Ws) read zeros, as the kernels mask."""
+    rng = np.random.RandomState(6)
+    src = torch.from_numpy(_rand(rng, 1, 1, 3, 3, 2))
+    w = torch.from_numpy(_rand(rng, 1, 2, 2))
+    got = tref.tap_gemm_ref(src, w, [(0, 1, 1)], 3, 3)
+    want = torch.zeros(1, 3, 3, 2)
+    want[:, :2, :2] = torch.einsum("bhwc,cn->bhwn", src[0, :, 1:, 1:], w[0])
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_cpu_wrappers_run_the_plain_versions_per_group():
+    """On CPU tensors the wrappers return the plain versions, a leading
+    group dim computes each group on its own, and nothing is counted as a
+    kernel launch."""
+    rng = np.random.RandomState(7)
+    taps = [(0, 0, 0), (1, 0, 1), (3, 1, 1)]
+    src = torch.from_numpy(_rand(rng, 2, 4, 2, 5, 5, 3))
+    w = torch.from_numpy(_rand(rng, 2, 3, 3, 4))
+    dy = torch.from_numpy(_rand(rng, 2, 2, 4, 4, 4))
+    tg.reset_launch_counts()
+    y = tg.tap_gemm(src, w, taps, 4, 4)
+    dw = tg.tap_wgrad(src, dy, taps, 4, 4)
+    for g in range(2):
+        torch.testing.assert_close(y[g], tref.tap_gemm_ref(src[g], w[g], taps,
+                                                           4, 4), **TOL)
+        torch.testing.assert_close(dw[g], tg.tap_wgrad(src[g], dy[g], taps,
+                                                       4, 4), **TOL)
+    ph_taps = (((0, 0, 0), (1, 1, 1)), ())
+    wp = torch.from_numpy(_rand(rng, 2, 2, 2, 3, 4))
+    out = tg.tap_gemm_phased(src[:, 0], wp, ph_taps, 3, 3)
+    assert out.shape == (2, 2, 2, 3, 3, 4) and not out[:, 1].any()
+    assert tg.launch_counts() == {"tap_gemm": 0, "tap_gemm_phased": 0,
+                                  "tap_wgrad": 0}
+
+
+def test_wrappers_reject_bad_tap_tables():
+    src = torch.zeros(2, 1, 4, 4, 3)
+    with pytest.raises(ValueError, match="bad tap"):
+        tg.tap_gemm(src, torch.zeros(1, 3, 2), [(2, 0, 0)], 3, 3)
+    with pytest.raises(ValueError, match="disagree"):
+        tg.tap_gemm(src, torch.zeros(2, 3, 2), [(0, 0, 0)], 3, 3)
+
+
+def test_wgrad_split_factor_covers_both_ends_of_the_contraction():
+    """Few output tiles and a long contraction split; many tiles or a
+    short contraction do not (the TABLE2 extremes on a 132-SM card)."""
+    # 224/3->64 K3: 9 taps x 1 tile, contraction 2*111*111 = 24642.
+    assert tg.wgrad_splits(9, 24642, 132) == 30
+    # 14/1024->2048 K1: 16*32 tiles, contraction 2*7*7 = 98.
+    assert tg.wgrad_splits(512, 98, 132) == 1
+    assert tg.wgrad_splits(1, 100, 132) == 1
