@@ -6,28 +6,52 @@
 Phases, one JSON object per line on stdout (``--out`` also writes them to
 PATH):
 
-  1. device   -- the card's name and power limit (``nvidia-smi``), library
-                 versions; TF32 is switched off for every library call.
-  2. build    -- ``nvcc`` builds the CUDA kernels from ``src/repro_torch/csrc``.
-  3. kernels  -- for each of the paper's Table II layers (batch 2, float32)
-                 and the three convs of the training run (batch 32), and
-                 each tap-GEMM kernel: the kernel against its plain
-                 PyTorch version on the same operands (largest error relative
-                 to the largest plain value, tolerance ``REL_TOL``), then the
-                 device time per call of the kernel, the plain version and
-                 the library call for the same pass (a CUDA graph of 10
-                 back-to-back calls replayed between CUDA events, median of
-                 10), the host time per kernel call, and the least time the
-                 card could take (``bound_us``).
-  4. layers   -- each Table II layer through ``conv2d(x, w, spec, "pallas")``
-                 and ``.backward()``, against ``policy="lax"``; each kernel
-                 launches exactly once per pass.
-  5. train    -- ``python -m repro_torch.train.cnn_bp --policy pallas`` at its
-                 defaults (200 steps, batch 32) must reach eval accuracy > 0.9
-                 with all three kernels launched; its first 20 losses agree
-                 with a ``lax`` run from the same initialization; a shorter
-                 run under the default ``auto`` policy.
-  6. summary  -- every ported kernel with its launches in the training run.
+  1. device     -- the card's name and power limit (``nvidia-smi``), library
+                   versions; TF32 is switched off for every library call.
+  2. build      -- ``nvcc`` builds both CUDA sources of
+                   ``src/repro_torch/csrc`` (in parallel).
+  3. kernels    -- for each of the paper's Table II layers (batch 2, float32),
+                   the three convs of the CNN's training run (batch 32), the
+                   autoencoder's two encoder convs and the mirror convs of
+                   its two decoder layers (batch 16), and each tap-GEMM
+                   kernel: the kernel against its plain PyTorch version on
+                   the same operands (largest error relative to the largest
+                   plain value, tolerance ``REL_TOL``), then the device time
+                   per call of the kernel, the plain version and the library
+                   call for the same pass (a CUDA graph of 10 back-to-back
+                   calls replayed between CUDA events, median of 10), the
+                   host time per kernel call, and the least time the card
+                   could take (``bound_us``).
+  4. matmul     -- the same for the ``matmul`` kernel at every lowered GEMM
+                   of the ``traditional`` and ``bp_im2col`` engines at the
+                   Table II and CNN shapes, at every GEMM the autoencoder
+                   runs under ``traditional`` (the decoder's stride-1 GEMM
+                   over the zero-inserted input among them), and one
+                   bfloat16 case.  Its plain version and its library call
+                   are one and the same: ``torch.matmul`` with TF32 off.
+  5. layers     -- each Table II layer through ``conv2d(x, w, spec, p)`` and
+                   ``.backward()`` for p in (pallas, traditional, bp_im2col),
+                   against ``policy="lax"``; each kernel launches exactly
+                   once per pass; two split-K weight grads are bit-equal;
+                   the card memory the cached bp_im2col gather maps hold
+                   after it, before they are released.
+  6. transposed -- the autoencoder's two decoder layers and the mirror of
+                   Table II layer 2 through ``conv2d_transpose`` under
+                   pallas and traditional, against the ``lax``
+                   materialization, for y, dx and dw; the pallas forward is
+                   one ``tap_gemm_phased`` launch, the traditional one
+                   ``matmul``.
+  7. train      -- ``python -m repro_torch.train.cnn_bp --policy pallas`` at
+                   its defaults (200 steps, batch 32) must reach eval
+                   accuracy > 0.9 with all three tap kernels launched; its
+                   first 20 losses agree with ``lax`` and with
+                   ``traditional`` (``matmul`` launched) from the same
+                   initialization; a shorter run under ``auto``.
+                   ``python -m repro_torch.train.autoencoder_bp --policy
+                   pallas`` at its defaults (200 steps, batch 16) must reach
+                   MSE < 0.05; 20 steps under traditional match pallas.
+  8. summary    -- every kernel's launches on each path, each path run with
+                   the counts set to 0 just before it and read just after.
 
 Then a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -53,18 +77,30 @@ ROOT = pathlib.Path(__file__).resolve().parent
 REL_TOL = 1e-4
 #: conv2d under "pallas" vs under "lax" on the card, same measure.
 LAYER_TOL = 1e-4
-#: first 20 training losses, pallas vs lax from one initialization.
+#: first 20 training losses, pallas vs lax (and traditional) from one
+#: initialization; 20 autoencoder MSEs, traditional vs pallas (float32 sums
+#: in other orders, carried through 20 SGD or AdamW steps).
 LOSS_TOL = 1e-4
+#: matmul with a bfloat16 output: both sides round a float32 sum to bf16
+#: (a step of 2^-8 relative) after summing in other orders.
+BF16_TOL = 1e-2
 #: H100 SXM float32 peak outside the tensor cores and memory rate (data sheet).
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
+#: kernel -> (the TPU kernel it replaces, its source in the repo)
 KERNELS = {
-    "tap_gemm": "src/repro/kernels/tap_gemm.py:173",
-    "tap_gemm_phased": "src/repro/kernels/tap_gemm.py:226",
-    "tap_wgrad": "src/repro/kernels/tap_gemm.py:285",
+    "tap_gemm": ("src/repro/kernels/tap_gemm.py:173",
+                 "src/repro_torch/csrc/tap_gemm.cu"),
+    "tap_gemm_phased": ("src/repro/kernels/tap_gemm.py:226",
+                        "src/repro_torch/csrc/tap_gemm.cu"),
+    "tap_wgrad": ("src/repro/kernels/tap_gemm.py:285",
+                  "src/repro_torch/csrc/tap_gemm.cu"),
+    "matmul": ("src/repro/kernels/matmul.py:33",
+               "src/repro_torch/csrc/matmul.cu"),
 }
-SOURCE = "src/repro_torch/csrc/tap_gemm.cu"
+TAP_KERNELS = ("tap_gemm", "tap_gemm_phased", "tap_wgrad")
 
 
 class Smoke:
@@ -141,8 +177,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, nbytes_: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes_ / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes_: float,
+          peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes_ / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -151,7 +188,7 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
     holds ``(label, per-group ConvDims, groups, summed)``; the rows with
     ``summed`` make up the totals of the final ``kernels`` line."""
     agg = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-               "bytes": 0.0, "max_abs_err": 0.0} for k in KERNELS}
+               "bytes": 0.0, "max_abs_err": 0.0} for k in TAP_KERNELS}
     for i, (layer, d, g, summed) in enumerate(shapes):
         gen = torch.Generator().manual_seed(i)
         x = torch.randn(d.B, d.C * g, d.H_i, d.W_i, generator=gen).to(dev)
@@ -192,7 +229,7 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
                      tiles, d.B * d.H_o * d.W_o, sms)})
 
         for name, (kern, plain, lib, flops, in_bytes, extra) in zip(
-                KERNELS, (fwd, dgrad, wgrad)):
+                TAP_KERNELS, (fwd, dgrad, wgrad)):
             before = tg.launch_counts()[name]
             got = kern()
             launches = tg.launch_counts()[name] - before
@@ -245,8 +282,138 @@ def cnn_shapes(ConvDims):
                                               P_h=1, P_w=1), 1, False)]
 
 
-def phase_layers(smoke, torch, conv, tg, ConvSpec, table2, dev):
-    """Each Table II layer through the normal entry point, vs lax."""
+def ae_shapes(ConvDims, conv, ConvTransposeSpec):
+    """The autoencoder's convs at the example's defaults (batch 16, 16x16
+    images): its two encoder convs, and the mirror regular conv of each
+    decoder layer (``conv.transpose_dims``), whose passes its
+    ``conv2d_transpose`` runs role-swapped.  Rows as in ``cnn_shapes``,
+    plus the names of the ``gemm_shapes`` the layer runs under
+    ``traditional`` and, for a decoder layer, its ``(x shape, w shape,
+    spec)``.  The first encoder conv takes the images, so it runs no
+    input grad."""
+    enc = [("ae.enc0 16/3/16/3/2/1 b16", ConvDims(B=16, C=3, H_i=16, W_i=16,
+                                                  N=16, K_h=3, K_w=3, S=2,
+                                                  P_h=1, P_w=1), 1, False,
+            ("forward", "weight_grad"), None),
+           ("ae.enc1 8/16/32/3/2/1 b16", ConvDims(B=16, C=16, H_i=8, W_i=8,
+                                                  N=32, K_h=3, K_w=3, S=2,
+                                                  P_h=1, P_w=1), 1, False,
+            ("forward", "input_grad traditional", "weight_grad"), None)]
+    # dX of a decoder layer is its mirror conv's forward, dW the mirror's
+    # weight grad with input and output swapped.
+    dec = [(f"{label} mirror", conv.transpose_dims(xs, ws, spec), 1, False,
+            ("forward", "weight_grad"), (xs, ws, spec))
+           for label, xs, ws, spec in transposed_cases(ConvTransposeSpec)[:2]]
+    return enc + dec
+
+
+def gemm_shapes(d, g: int) -> dict[str, tuple[int, int, int, int]]:
+    """The lowered GEMMs ``(G, M, K, N)`` of one conv under the
+    ``traditional`` and ``bp_im2col`` engines (per-group dims ``d``)."""
+    kk = d.K_h * d.K_w
+    return {"forward": (g, d.B * d.H_o * d.W_o, d.C * kk, d.N),
+            "input_grad traditional": (g, d.B * d.H_i * d.W_i, d.N * kk, d.C),
+            "input_grad bp_im2col": (g, d.C, d.N * kk, d.B * d.H_i * d.W_i),
+            "weight_grad": (g, d.C * kk, d.B * d.H_o2 * d.W_o2, d.N)}
+
+
+def matmul_cases(torch, conv, shapes, ae):
+    """``(label, gemm, (G, M, K, N), dtype, summed)`` for ``phase_matmul``:
+    every GEMM of both baseline engines at ``shapes`` (Table II and the
+    CNN), the GEMMs the autoencoder runs under ``traditional`` at ``ae``
+    (an encoder conv: forward, input grad, weight grad; a decoder layer:
+    the stride-1 GEMM over its zero-inserted input, then its dX and dW),
+    and one bfloat16 case."""
+    f32 = torch.float32
+    cases = [(layer, gemm, shape, f32, summed)
+             for layer, d, g, summed in shapes
+             for gemm, shape in gemm_shapes(d, g).items()]
+    for layer, d, g, _, names, dec in ae:
+        if dec is not None:
+            cases.append((layer, "transposed forward, materialized",
+                          gemm_shapes(conv.materialized_dims(*dec), g)
+                          ["forward"], f32, False))
+        cases += [(layer, name, gemm_shapes(d, g)[name], f32, False)
+                  for name in names]
+    layer, d, g, _ = shapes[1]
+    cases.append((layer, "forward bf16", gemm_shapes(d, g)["forward"],
+                  torch.bfloat16, False))
+    return cases
+
+
+def phase_matmul(smoke, torch, mm, kref, tg, cases, dev):
+    """``matmul`` against its plain version at each of ``cases``
+    (``matmul_cases``).  Cases with ``summed`` add their traditional GEMMs
+    (forward, input grad, weight grad) to the totals of the final
+    ``kernels`` line."""
+    agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
+           "bytes": 0.0, "max_abs_err": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, (layer, gemm, (g, m, k, n), dtype, summed) in enumerate(cases):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        a = torch.randn(g, m, k, device=dev, generator=gen).to(dtype)
+        b = torch.randn(g, k, n, device=dev, generator=gen).to(dtype)
+        kern = lambda: mm.matmul(a, b)                       # noqa: E731
+        plain = lambda: kref.matmul_ref(a, b)                # noqa: E731
+        lib = lambda: torch.matmul(a, b)                     # noqa: E731
+        before = mm.LAUNCHES["matmul"]
+        got = kern()
+        launches = mm.LAUNCHES["matmul"] - before
+        want = plain()
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(torch, got, want)
+        tiles = g * -(-m // mm.TILE_M) * -(-n // mm.TILE_N)
+        splits = tg.wgrad_splits(tiles, k, sms, g)
+        if splits > 1:
+            check(bool(torch.equal(got, kern())),
+                  f"matmul differs run to run at {layer} {gemm}")
+        flops = 2.0 * g * m * k * n
+        by = nbytes(a, b, got)
+        b_s, b_by = bound(flops, by, PEAK_BF16_FLOPS
+                          if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        tol = BF16_TOL if dtype == torch.bfloat16 else REL_TOL
+        rec = {"kernel": "matmul", "layer": layer, "gemm": gemm,
+               "gmkn": [g, m, k, n], "dtype": str(dtype).split(".")[-1],
+               "max_rel_err": err, "max_abs_err": abs_err, "tol": tol,
+               "launches_per_call": launches, "splits": splits,
+               "kernel_ms": time_ms(torch, kern),
+               "kernel_host_ms": host_ms(torch, kern),
+               "plain_ms": time_ms(torch, plain),
+               "library_ms": time_ms(torch, lib),
+               "bound_us": b_s * 1e6, "bound_by": b_by,
+               "gflop": flops / 1e9, "mbytes": by / 1e6}
+        rec["roofline_share"] = rec["bound_us"] / 1e3 / rec["kernel_ms"]
+        smoke.emit("matmul", **rec)
+        check(launches == 1, f"matmul: {launches} launches for one call")
+        check(err <= tol, f"matmul at {layer} {gemm}: relative error {err} "
+                          f"> {tol}")
+        if summed and gemm != "input_grad bp_im2col":
+            for key in ("plain_ms", "library_ms"):
+                agg[key] += rec[key]
+            agg["ms"] += rec["kernel_ms"]
+            agg["flops"] += flops
+            agg["bytes"] += by
+            agg["max_abs_err"] = max(agg["max_abs_err"], abs_err)
+    return agg
+
+
+#: launches of one conv2d forward + backward under each policy
+LAYER_LAUNCHES = {
+    "pallas": {"tap_gemm": 1, "tap_gemm_phased": 1, "tap_wgrad": 1,
+               "matmul": 0},
+    "traditional": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
+                    "matmul": 3},
+    "bp_im2col": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
+                  "matmul": 3},
+    "lax": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
+            "matmul": 0},
+}
+
+
+def phase_layers(smoke, torch, conv, kernels, ConvSpec, table2, dev):
+    """Each Table II layer through the normal entry point under each
+    kernel-backed policy, vs lax; the traditional run is repeated and must
+    be bit-equal (its split-K sums are in a fixed order)."""
     for i, (layer, d) in enumerate(table2):
         gen = torch.Generator().manual_seed(100 + i)
         x0 = torch.randn(d.B, d.C, d.H_i, d.W_i, generator=gen).to(dev)
@@ -254,65 +421,165 @@ def phase_layers(smoke, torch, conv, tg, ConvSpec, table2, dev):
         dy = torch.randn(d.B, d.N, d.H_o, d.W_o, generator=gen).to(dev)
         spec = ConvSpec.make(stride=d.s_h, padding=d.P_h)
         outs = {}
-        for policy in ("pallas", "lax"):
+        for policy in ("pallas", "traditional", "bp_im2col", "lax",
+                       "traditional again"):
             x = x0.clone().requires_grad_(True)
             w = w0.clone().requires_grad_(True)
             conv.reset_dispatch_events()
-            tg.reset_launch_counts()
-            y = conv.conv2d(x, w, spec, policy)
+            kernels.reset_launch_counts()
+            y = conv.conv2d(x, w, spec, policy.split()[0])
             y.backward(dy)
             torch.cuda.synchronize()
             outs[policy] = (y.detach(), x.grad, w.grad,
-                            tg.launch_counts(), conv.dispatch_events())
-        errs = [rel_err(torch, a, b)[0]
-                for a, b in zip(outs["pallas"][:3], outs["lax"][:3])]
-        counts, events = outs["pallas"][3], outs["pallas"][4]
-        smoke.emit("layers", layer=layer, rel_err_y=errs[0],
-                   rel_err_dx=errs[1], rel_err_dw=errs[2], tol=LAYER_TOL,
-                   launches=counts, dispatch=events)
-        check(counts == {k: 1 for k in KERNELS},
-              f"{layer}: launches {counts}, want one per pass")
-        check(max(errs) <= LAYER_TOL, f"{layer}: pallas vs lax {errs}")
-        check(outs["lax"][3] == {k: 0 for k in KERNELS},
-              "lax policy launched a tap-GEMM kernel")
+                            kernels.launch_counts(), conv.dispatch_events())
+        for policy in ("pallas", "traditional", "bp_im2col"):
+            errs = [rel_err(torch, a, b)[0]
+                    for a, b in zip(outs[policy][:3], outs["lax"][:3])]
+            counts, events = outs[policy][3], outs[policy][4]
+            smoke.emit("layers", layer=layer, policy=policy,
+                       rel_err_y=errs[0], rel_err_dx=errs[1],
+                       rel_err_dw=errs[2], tol=LAYER_TOL, launches=counts,
+                       dispatch=events)
+            check(counts == LAYER_LAUNCHES[policy],
+                  f"{layer} {policy}: launches {counts}")
+            check(max(errs) <= LAYER_TOL, f"{layer}: {policy} vs lax {errs}")
+        check(outs["lax"][3] == LAYER_LAUNCHES["lax"],
+              "lax policy launched a kernel")
+        check(all(bool(torch.equal(a, b)) for a, b in zip(
+            outs["traditional"][:3], outs["traditional again"][:3])),
+              f"{layer}: traditional differs run to run")
 
 
-def phase_train(smoke, torch, conv, tg, cnn_bp, dev):
-    """The trainer's CLI at its defaults under pallas, then lax and auto."""
-    conv.reset_dispatch_events()
-    tg.reset_launch_counts()
-    res = cnn_bp.main(["--policy", "pallas", "--device", str(dev)])  # floor
-    counts = tg.launch_counts()
-    events = conv.dispatch_events()
-    smoke.emit("train", policy="pallas", steps=len(res["losses"]),
-               eval_acc=res["eval_acc"], seconds=res["seconds"],
-               first_loss=res["losses"][0], last_loss=res["losses"][-1],
-               launches=counts, dispatch=events)
+def transposed_cases(ConvTransposeSpec):
+    """The autoencoder's two decoder layers at the example's defaults
+    (batch 16, 16x16 images) and the mirror of Table II layer 2."""
+    spec = ConvTransposeSpec.make(stride=2, padding=1, output_padding=1)
+    return [("ae.dec0 32->16 4->8 b16", (16, 32, 4, 4), (32, 16, 3, 3), spec),
+            ("ae.dec1 16->3 8->16 b16", (16, 16, 8, 8), (16, 3, 3, 3), spec),
+            ("mirror L2 64->64 56->112 b2", (2, 64, 56, 56), (64, 64, 3, 3),
+             spec)]
+
+
+def phase_transposed(smoke, torch, conv, kernels, ConvTransposeSpec, dev):
+    """``conv2d_transpose`` under pallas and traditional against the lax
+    materialization (autograd through it gives dx and dw)."""
+    for i, (label, xs, ws, spec) in enumerate(
+            transposed_cases(ConvTransposeSpec)):
+        gen = torch.Generator().manual_seed(200 + i)
+        x0 = torch.randn(*xs, generator=gen).to(dev)
+        w0 = torch.randn(*ws, generator=gen).to(dev)
+        out_shape = conv.conv_transpose_output_shape(xs, ws, spec)
+        dy = torch.randn(*out_shape, generator=gen).to(dev)
+        outs = {}
+        for policy in ("oracle", "pallas", "traditional"):
+            x = x0.clone().requires_grad_(True)
+            w = w0.clone().requires_grad_(True)
+            conv.reset_dispatch_events()
+            kernels.reset_launch_counts()
+            y = (conv.conv2d_transpose_materialized(x, w, spec, "lax")
+                 if policy == "oracle"
+                 else conv.conv2d_transpose(x, w, spec, policy))
+            fwd = kernels.launch_counts()
+            y.backward(dy)
+            torch.cuda.synchronize()
+            outs[policy] = (y.detach(), x.grad, w.grad, fwd,
+                            kernels.launch_counts(), conv.dispatch_events())
+        for policy, fwd_kernel in (("pallas", "tap_gemm_phased"),
+                                   ("traditional", "matmul")):
+            errs = [rel_err(torch, a, b)[0]
+                    for a, b in zip(outs[policy][:3], outs["oracle"][:3])]
+            fwd, total, events = outs[policy][3:]
+            smoke.emit("transposed", layer=label, policy=policy,
+                       rel_err_y=errs[0], rel_err_dx=errs[1],
+                       rel_err_dw=errs[2], tol=LAYER_TOL,
+                       forward_launches=fwd, launches=total,
+                       dispatch=events)
+            check(fwd == {k: int(k == fwd_kernel) for k in KERNELS},
+                  f"{label} {policy}: forward launches {fwd}")
+            check(max(errs) <= LAYER_TOL,
+                  f"{label}: {policy} vs the lax materialization {errs}")
+
+
+def phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp, dev):
+    """The trainers' CLIs at their defaults under pallas, then lax,
+    traditional and auto.  Returns each path's kernel launches, every path
+    run with the counts set to 0 just before it and read just after."""
+    paths = {}
+
+    def run(path, fn):
+        conv.reset_dispatch_events()
+        kernels.reset_launch_counts()
+        res = fn()
+        paths[path] = kernels.launch_counts()
+        return res, paths[path], conv.dispatch_events()
+
+    res, counts, events = run("cnn_bp pallas", lambda: cnn_bp.main(
+        ["--policy", "pallas", "--device", str(dev)]))      # accuracy floor
+    smoke.emit("train", model="cnn", policy="pallas",
+               steps=len(res["losses"]), eval_acc=res["eval_acc"],
+               seconds=res["seconds"], first_loss=res["losses"][0],
+               last_loss=res["losses"][-1], launches=counts, dispatch=events)
     check(res["eval_acc"] > 0.9, f"eval accuracy {res['eval_acc']} <= 0.9")
-    check(all(counts[k] > 0 for k in KERNELS),
-          f"a kernel was never launched on the main path: {counts}")
+    check(all(counts[k] > 0 for k in TAP_KERNELS),
+          f"a tap kernel was never launched on the main path: {counts}")
     check(set(events) == {"forward:pallas", "input_grad:pallas",
                           "weight_grad:pallas"}, f"dispatch {events}")
 
     lax = cnn_bp.train("lax", steps=20, device=dev)
     diff = max(abs(a - b) for a, b in zip(res["losses"][:20], lax["losses"]))
-    smoke.emit("train", policy="lax", steps=20, max_loss_diff_vs_pallas=diff,
-               tol=LOSS_TOL, seconds=lax["seconds"])
+    smoke.emit("train", model="cnn", policy="lax", steps=20,
+               max_loss_diff_vs_pallas=diff, tol=LOSS_TOL,
+               seconds=lax["seconds"])
     check(diff <= LOSS_TOL, f"pallas vs lax losses differ by {diff}")
+
+    trad, counts, events = run("cnn_bp traditional", lambda: cnn_bp.train(
+        "traditional", steps=20, device=dev))
+    diff = max(abs(a - b) for a, b in zip(trad["losses"], lax["losses"]))
+    smoke.emit("train", model="cnn", policy="traditional", steps=20,
+               max_loss_diff_vs_lax=diff, tol=LOSS_TOL,
+               seconds=trad["seconds"], launches=counts, dispatch=events)
+    check(diff <= LOSS_TOL, f"traditional vs lax losses differ by {diff}")
+    check(counts["matmul"] > 0 and not any(counts[k] for k in TAP_KERNELS),
+          f"traditional should run matmul only: {counts}")
 
     conv.reset_dispatch_events()
     auto = cnn_bp.train("auto", steps=50, device=dev)
     events = conv.dispatch_events()
-    smoke.emit("train", policy="auto", steps=50, eval_acc=auto["eval_acc"],
-               last_loss=auto["losses"][-1], seconds=auto["seconds"],
-               dispatch=events)
+    smoke.emit("train", model="cnn", policy="auto", steps=50,
+               eval_acc=auto["eval_acc"], last_loss=auto["losses"][-1],
+               seconds=auto["seconds"], dispatch=events)
     check(all(map(lambda v: v == v and abs(v) < 1e3, auto["losses"])),
           "auto run produced non-finite losses")
     check(events.get("forward:pallas", 0) > 0
           and events.get("forward:bp_phase", 0) > 0,
           f"auto should run strided convs on pallas, the depthwise stride-1 "
           f"conv on bp_phase: {events}")
-    return counts
+
+    ae, counts, events = run("autoencoder_bp pallas", lambda:
+                             autoencoder_bp.main(["--policy", "pallas",
+                                                  "--device", str(dev)]))
+    smoke.emit("train", model="autoencoder", policy="pallas",
+               steps=len(ae["mses"]), seconds=ae["seconds"],
+               first_mse=ae["mses"][0], final_mse=ae["mses"][-1],
+               mse_floor=0.05, launches=counts, dispatch=events)
+    check(ae["mses"][-1] < 0.05, f"autoencoder MSE {ae['mses'][-1]}")
+    check(all(counts[k] > 0 for k in TAP_KERNELS) and counts["matmul"] == 0,
+          f"autoencoder under pallas: launches {counts}")
+    check(events.get("forward_T:pallas", 0) > 0, f"dispatch {events}")
+
+    short = autoencoder_bp.train("pallas", steps=20, device=dev)
+    trad, counts, events = run("autoencoder_bp traditional", lambda:
+                               autoencoder_bp.train("traditional", steps=20,
+                                                    device=dev))
+    diff = max(abs(a - b) for a, b in zip(trad["mses"], short["mses"]))
+    smoke.emit("train", model="autoencoder", policy="traditional", steps=20,
+               max_mse_diff_vs_pallas=diff, tol=LOSS_TOL,
+               seconds=trad["seconds"], pallas_seconds=short["seconds"],
+               launches=counts, dispatch=events)
+    check(diff <= LOSS_TOL, f"traditional vs pallas MSEs differ by {diff}")
+    check(counts["matmul"] > 0 and not any(counts[k] for k in TAP_KERNELS),
+          f"autoencoder under traditional: launches {counts}")
+    return paths
 
 
 def main(argv=None) -> int:
@@ -330,13 +597,15 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
     from torch.nn import grad as nn_grad
 
+    from repro_torch import kernels
     from repro_torch.configs import paper_cnn
-    from repro_torch.core import conv
-    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core import bpim2col, conv
+    from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec
     from repro_torch.core.im2col_ref import ConvDims
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import tap_gemm as tg
-    from repro_torch.train import cnn_bp
+    from repro_torch.train import autoencoder_bp, cnn_bp
 
     smoke = Smoke(args.out)
     torch.backends.cudnn.allow_tf32 = False
@@ -363,26 +632,43 @@ def main(argv=None) -> int:
     table2 = [("/".join(map(str, layer)), paper_cnn.dims(layer))
               for layer in paper_cnn.TABLE2_LAYERS]
     dev = torch.device("cuda")
+    shapes = ([(label, d, 1, True) for label, d in table2]
+              + cnn_shapes(ConvDims))
+    ae = ae_shapes(ConvDims, conv, ConvTransposeSpec)
     agg = phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
-                        [(label, d, 1, True) for label, d in table2]
-                        + cnn_shapes(ConvDims), dev)
-    phase_layers(smoke, torch, conv, tg, ConvSpec, table2, dev)
-    counts = phase_train(smoke, torch, conv, tg, cnn_bp, dev)
-    smoke.emit("summary", launches=counts)
+                        shapes + [row[:4] for row in ae], dev)
+    agg["matmul"] = phase_matmul(smoke, torch, mm, ref, tg,
+                                 matmul_cases(torch, conv, shapes, ae), dev)
+    phase_layers(smoke, torch, conv, kernels, ConvSpec, table2, dev)
+    held = torch.cuda.memory_allocated(dev)
+    bpim2col.clear_gather_maps()
+    smoke.emit("gather_maps", bytes_held_after_layers=held
+               - torch.cuda.memory_allocated(dev))
+    phase_transposed(smoke, torch, conv, kernels, ConvTransposeSpec, dev)
+    paths = phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp,
+                        dev)
+    smoke.emit("summary", launches_by_path=paths)
 
-    kernels = []
-    for name, replaces in KERNELS.items():
+    main_path = {k: "cnn_bp pallas" for k in TAP_KERNELS}
+    main_path["matmul"] = "cnn_bp traditional"
+    out = []
+    for name, (replaces, source) in KERNELS.items():
         a = agg[name]
         b_s, b_by = bound(a["flops"], a["bytes"])
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": counts[name],
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": paths[main_path[name]][name],
             "max_abs_err": a["max_abs_err"], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": b_s * 1e3,
             "bound_by": b_by, "library_ms": a["library_ms"],
-            "shapes": "sum over the 5 Table II layers, batch 2, float32"})
+            "launches_path": main_path[name],
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "shapes": ("sum over the 15 traditional GEMMs (forward, input "
+                       "grad, weight grad) of the 5 Table II layers"
+                       if name == "matmul" else "sum over the 5 Table II "
+                       "layers") + ", batch 2, float32"})
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

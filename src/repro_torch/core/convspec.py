@@ -1,5 +1,5 @@
-"""Structured convolution geometry (``ConvSpec``) and per-pass engine
-selection (``EnginePolicy``).
+"""Structured convolution geometry (``ConvSpec``, ``ConvTransposeSpec``) and
+per-pass engine selection (``EnginePolicy``).
 
 PyTorch counterpart of ``repro.core.convspec``; both classes are plain
 frozen dataclasses, so the same policy string (for example
@@ -33,6 +33,16 @@ def _pair(v, name: str) -> tuple[int, int]:
     a, b = int(v[0]), int(v[1])
     if a < 1 or b < 1:
         raise ValueError(f"{name} must be >= 1, got {(a, b)}")
+    return a, b
+
+
+def _pair0(v, name: str) -> tuple[int, int]:
+    """int | (a, b) -> (a, b) allowing zero (output_padding may be 0)."""
+    if isinstance(v, int):
+        v = (v, v)
+    a, b = int(v[0]), int(v[1])
+    if a < 0 or b < 0:
+        raise ValueError(f"{name} must be >= 0, got {(a, b)}")
     return a, b
 
 
@@ -114,6 +124,93 @@ class ConvSpec:
         return (kh - 1) * self.d_h + 1, (kw - 1) * self.d_w + 1
 
     def with_layout(self, layout: str) -> "ConvSpec":
+        return dataclasses.replace(self, layout=layout)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTransposeSpec:
+    """Complete static geometry of one TRANSPOSED convolution (decoders,
+    GAN generators, upsampling heads).
+
+    ``stride`` is the input (lhs) dilation: the zero-spaced virtual input
+    has ``s - 1`` zeros between pixels -- the zero space of the paper's loss
+    calculation, here in a forward pass.  ``padding`` is the mirror regular
+    conv's padding (it removes ``p`` border rows/cols of the full
+    correlation); ``output_padding`` appends rows/cols at the bottom/right
+    (``0 <= output_padding < stride`` per axis), as ``ConvTranspose2d``
+    does.  ``dilation`` dilates the kernel.  Weights are
+    ``(C_in, C_out/groups, K_h, K_w)``, the mirror conv's OIHW weight with
+    in/out roles swapped.  The output plane is
+
+        H_out = (H_in - 1)*s_h + K_eff_h - p_lo - p_hi + output_padding_h
+    """
+
+    stride: tuple[int, int] = (1, 1)
+    dilation: tuple[int, int] = (1, 1)
+    padding: tuple[tuple[int, int], tuple[int, int]] = ((0, 0), (0, 0))
+    output_padding: tuple[int, int] = (0, 0)
+    groups: int = 1
+    layout: str = "NCHW"
+
+    def __post_init__(self):
+        if self.layout not in LAYOUTS:
+            raise ValueError(f"layout must be one of {LAYOUTS}, "
+                             f"got {self.layout!r}")
+        if self.groups < 1:
+            raise ValueError(f"groups must be >= 1, got {self.groups}")
+        for op, s in zip(self.output_padding, self.stride):
+            if not 0 <= op < s:
+                raise ValueError(
+                    f"output_padding must satisfy 0 <= op < stride per "
+                    f"axis, got output_padding={self.output_padding} for "
+                    f"stride={self.stride}")
+
+    @classmethod
+    def make(cls, stride=1, padding=0, output_padding=0, dilation=1,
+             groups: int = 1, layout: str = "NCHW") -> "ConvTransposeSpec":
+        """Normalizing constructor: ints / loose pairs accepted everywhere."""
+        return cls(stride=_pair(stride, "stride"),
+                   dilation=_pair(dilation, "dilation"),
+                   padding=_norm_padding(padding),
+                   output_padding=_pair0(output_padding, "output_padding"),
+                   groups=int(groups), layout=layout)
+
+    @classmethod
+    def coerce(cls, value) -> "ConvTransposeSpec":
+        """ConvTransposeSpec | None | dict of make() kwargs -> spec."""
+        if value is None:
+            return cls()
+        if isinstance(value, cls):
+            return value
+        if isinstance(value, dict):
+            return cls.make(**value)
+        raise TypeError(f"cannot interpret {value!r} as a ConvTransposeSpec")
+
+    s_h = ConvSpec.s_h
+    s_w = ConvSpec.s_w
+    d_h = ConvSpec.d_h
+    d_w = ConvSpec.d_w
+    has_dilation = ConvSpec.has_dilation
+    effective_kernel = ConvSpec.effective_kernel
+
+    @property
+    def op_h(self) -> int:
+        return self.output_padding[0]
+
+    @property
+    def op_w(self) -> int:
+        return self.output_padding[1]
+
+    def output_shape(self, h: int, w: int, kh: int, kw: int) \
+            -> tuple[int, int]:
+        """Spatial output plane for an (h, w) input and a COMPACT
+        (kh, kw)-tap kernel."""
+        keff_h, keff_w = self.effective_kernel(kh, kw)
+        (ph_lo, ph_hi), (pw_lo, pw_hi) = self.padding
+        return ((h - 1) * self.s_h + keff_h - ph_lo - ph_hi + self.op_h,
+                (w - 1) * self.s_w + keff_w - pw_lo - pw_hi + self.op_w)
+
+    def with_layout(self, layout: str) -> "ConvTransposeSpec":
         return dataclasses.replace(self, layout=layout)
 
 

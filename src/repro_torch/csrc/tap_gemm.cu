@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "splitk_reduce.cuh"
+
 namespace {
 
 constexpr int BM = 64;        // output tile rows (pixels, or cin for wgrad)
@@ -225,18 +227,6 @@ tap_wgrad_kernel(const float* __restrict__ src, const float* __restrict__ dy,
   store_tile(out, acc, m0, n0, CIN, COUT, ty, tx);
 }
 
-// out[i] = sum_s part[s, i], s in increasing order (deterministic).
-__global__ void tap_wgrad_reduce_kernel(const float* __restrict__ part,
-                                        float* __restrict__ out,
-                                        size_t total, int splits) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += part[(size_t)k * total + i];
-    out[i] = s;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -273,12 +263,8 @@ int tap_wgrad_f32(const float* src, const float* dy, const int* taps,
       src, dy, taps, part, G, P, B, Hs, Ws, CIN, T, COUT, OH, OW, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t total = (size_t)G * T * CIN * COUT;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
-                                                      : 4096);
-  tap_wgrad_reduce_kernel<<<blocks, 256, 0, stream>>>(part, out, total,
-                                                      splits);
-  return (int)cudaGetLastError();
+  return (int)splitk::reduce(part, out, (size_t)G * T * CIN * COUT, splits,
+                             stream);
 }
 
 }  // extern "C"

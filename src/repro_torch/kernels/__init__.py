@@ -1,8 +1,19 @@
-"""The hand-written CUDA tap-GEMM kernels (``tap_gemm``), their plain
+"""The hand-written CUDA kernels (``tap_gemm``, ``matmul``), their plain
 versions (``ref``), the build (``build``) and the kernel engine's conv
-passes (``ops``)."""
+passes (``ops``).  :func:`launch_counts` gathers every wrapper's count."""
 
-from repro_torch.kernels.tap_gemm import (LAUNCHES, launch_counts,
-                                          reset_launch_counts)
+from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import tap_gemm as _tg
 
-__all__ = ["LAUNCHES", "launch_counts", "reset_launch_counts"]
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per kernel name, across every wrapper module."""
+    return {**_tg.LAUNCHES, **_mm.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    _tg.reset_launch_counts()
+    _mm.LAUNCHES["matmul"] = 0
+
+
+__all__ = ["launch_counts", "reset_launch_counts"]

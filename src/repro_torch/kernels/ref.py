@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the tap-GEMM kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes the same function as its CUDA kernel in
-``repro_torch/csrc/tap_gemm.cu`` with ordinary tensor ops, not the kernel's
-blocks step by step.  The kernel wrappers in ``repro_torch.kernels.tap_gemm``
-use them for tensors on the CPU; ``chip_smoke.py`` holds each kernel against
-its plain version on the card.
+``repro_torch/csrc/`` (``tap_gemm.cu``, ``matmul.cu``) with ordinary tensor
+ops, not the kernel's blocks step by step.  The kernel wrappers in
+``repro_torch.kernels.tap_gemm`` and ``repro_torch.kernels.matmul`` use them
+for tensors on the CPU; ``chip_smoke.py`` holds each kernel against its
+plain version on the card.
 
 Every function accepts optional leading dims (the kernels' group dim):
 ``src (..., P, B, Hs, Ws, CIN)`` etc.  Reads past the source plane are zero,
@@ -79,3 +80,9 @@ def tap_wgrad_ref(src, dy, taps, oh, ow):
         [torch.einsum("...bhwc,...bhwn->...cn",
                       s[..., p, :, du:du + oh, dv:dv + ow, :].float(), dyf)
          for p, du, dv in taps], dim=-3)
+
+
+def matmul_ref(a, b, out_dtype=None):
+    """``a (..., M, K) @ b (..., K, N)`` summed in float32, returned as
+    ``out_dtype or a.dtype`` (``repro.kernels.ref.matmul_ref``)."""
+    return (a.float() @ b.float()).to(out_dtype or a.dtype)

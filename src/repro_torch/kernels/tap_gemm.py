@@ -202,11 +202,15 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
     return out if grouped else out[0]
 
 
-def wgrad_splits(blocks: int, rows: int, sms: int) -> int:
-    """Split-K factor of the weight grad: enough splits that ``blocks``
-    output tiles fill about two waves of ``sms`` SMs, but never splits of
-    fewer than 256 contraction rows (``rows`` = B*oh*ow)."""
-    return max(1, min(_cdiv(2 * sms, blocks), _cdiv(rows, 256), GRID_YZ_MAX))
+def wgrad_splits(blocks: int, rows: int, sms: int, groups: int = 1) -> int:
+    """Split-K factor: enough splits that ``blocks`` output tiles fill about
+    two waves of ``sms`` SMs, but never splits of fewer than 256
+    contraction rows (``rows`` = B*oh*ow for the weight grad, K for
+    ``matmul``), and at most the grid's y/z limit over ``groups`` (the
+    launches that share one grid dimension among groups and splits).
+    Shared by ``tap_wgrad`` and ``repro_torch.kernels.matmul``."""
+    return max(1, min(_cdiv(2 * sms, blocks), _cdiv(rows, 256),
+                      GRID_YZ_MAX // groups))
 
 
 def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int,

@@ -2,6 +2,7 @@
 policy -- the paper's training scenario, end to end, on the card.
 
     python -m repro_torch.train.cnn_bp --policy pallas
+    python -m repro_torch.train.cnn_bp --policy traditional
     python -m repro_torch.train.cnn_bp --policy fwd=lax,dgrad=pallas,wgrad=bp_phase
 
 Twin of ``examples/train_cnn_bp.py``: the same model (3->16 stride 2, a
@@ -10,7 +11,9 @@ linear head), the same synthetic task made by the same numpy code (so the
 data is bit-identical), and plain SGD.  Every conv goes through
 ``repro_torch.models.layers``, so each backward pass runs the policy's
 per-pass engines; under ``pallas`` all three passes of every conv run the
-hand-written CUDA tap-GEMM kernels.  ``--policy`` defaults to ``auto``.
+hand-written CUDA tap-GEMM kernels, and under ``traditional`` or
+``bp_im2col`` every lowered GEMM runs the hand-written ``matmul`` kernel.
+``--policy`` defaults to ``auto``.
 ``params_from_numpy`` turns the JAX example's parameters (as numpy arrays)
 into this model's, so both packages can be run from one initialization.
 """
@@ -26,6 +29,10 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.tree import params_from_numpy, tree_leaves
+
+__all__ = ["make_model", "init_params", "params_from_numpy",
+           "synthetic_task", "train", "main"]
 
 
 def make_model(policy):
@@ -60,20 +67,6 @@ def init_params(seed: int = 0, device=None):
     }
 
 
-def params_from_numpy(np_params, device=None):
-    """A nested dict of arrays (for example the JAX example's
-    ``init_params()`` passed through ``np.asarray``) -> the same dict of
-    float32 tensors on ``device``."""
-    dev = resolve_device(device)
-
-    def conv(v):
-        if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
-        return torch.as_tensor(np.array(v, dtype=np.float32)).to(dev)
-
-    return conv(np_params)
-
-
 def synthetic_task(rng: np.random.RandomState, n: int, classes: int = 4,
                    device=None):
     """Learnable synthetic vision task: class = dominant quadrant pattern.
@@ -88,13 +81,6 @@ def synthetic_task(rng: np.random.RandomState, n: int, classes: int = 4,
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).long().to(dev)
 
 
-def _leaves(params) -> list[torch.Tensor]:
-    out = []
-    for v in params.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out
-
-
 def train(policy=None, steps: int = 200, batch: int = 32, lr: float = 0.05,
           device=None, params=None, log=None) -> dict:
     """SGD on the synthetic task; returns ``{"losses", "eval_acc",
@@ -102,7 +88,7 @@ def train(policy=None, steps: int = 200, batch: int = 32, lr: float = 0.05,
     is updated in place."""
     dev = resolve_device(device)
     params = init_params(device=dev) if params is None else params
-    leaves = [p.requires_grad_(True) for p in _leaves(params)]
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     _, loss_fn = make_model(policy)
     rng = np.random.RandomState(0)
     losses = []
@@ -133,7 +119,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--policy", default="auto",
                     help="engine policy: a uniform engine name (lax | "
-                         "bp_phase | pallas), 'auto', or a per-pass string "
+                         "traditional | bp_im2col | bp_phase | pallas), "
+                         "'auto', or a per-pass string "
                          "fwd=...,dgrad=...,wgrad=...")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=32)

@@ -1,6 +1,8 @@
-"""The CUDA tap-GEMM kernels on the card: each against its plain version,
-``conv2d`` under ``pallas`` against ``lax``, determinism of the split-K
-weight grad, launch counting, and 20 training steps against ``lax``.
+"""The CUDA kernels on the card: each tap-GEMM kernel and ``matmul``
+against its plain version, ``conv2d`` under ``pallas``, ``traditional`` and
+``bp_im2col`` against ``lax``, ``conv2d_transpose`` against its ``lax``
+materialization, determinism of the split-K sums, launch counting, and 20
+training steps against ``lax``.
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -16,7 +18,9 @@ from repro_torch.core import conv as tconv  # noqa: E402
 from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.core.im2col_ref import ConvDims  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402,E501
 from repro_torch.kernels import tap_gemm as tg  # noqa: E402
+from repro_torch.kernels.matmul import matmul  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +152,99 @@ def test_training_losses_match_lax(cuda):
     want = cnn_bp.train("lax", steps=20, device=cuda)
     _close(torch.tensor(got["losses"]), torch.tensor(want["losses"]))
     assert all(v > 0 for v in counts.values()), counts
+
+
+#: bf16 outputs: both sides round the float32 sum to bfloat16 (2^-8
+#: relative) after summing in another order, so they may differ by one
+#: bf16 step of the largest value.
+BF16_TOL = 1e-2
+
+MATMULS = [(24_642, 27, 64), (6_272, 576, 64), (1, 7, 3), (3, 576, 10_000),
+           (27, 97_682, 64), (98, 1_024, 2_048), (10_000, 576, 3)]
+
+
+@pytest.mark.parametrize("mkn", MATMULS, ids=lambda t: "x".join(map(str, t)))
+def test_matmul_matches_plain_version(cuda, mkn):
+    m, k, n = mkn
+    gen = torch.Generator().manual_seed(3)
+    a, b = _randn(gen, m, k, dev=cuda), _randn(gen, k, n, dev=cuda)
+    reset_launch_counts()
+    _close(matmul(a, b), ref.matmul_ref(a, b))
+    assert launch_counts()["matmul"] == 1
+
+
+def test_matmul_groups_bf16_and_split_k_determinism(cuda):
+    gen = torch.Generator().manual_seed(4)
+    a, b = _randn(gen, 3, 70, 300, dev=cuda), _randn(gen, 3, 300, 50, dev=cuda)
+    _close(matmul(a, b), ref.matmul_ref(a, b))
+    ab, bb = a.bfloat16(), b.bfloat16()
+    for out_dtype in (None, torch.float32):
+        got = matmul(ab, bb, out_dtype=out_dtype)
+        want = ref.matmul_ref(ab, bb, out_dtype)
+        assert got.dtype == want.dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BF16_TOL * want.float().abs().max().item(), err
+    # One output tile over 97,682 rows: split-K, summed in a fixed order.
+    a, b = _randn(gen, 27, 97_682, dev=cuda), _randn(gen, 97_682, 64,
+                                                      dev=cuda)
+    assert torch.equal(matmul(a, b), matmul(a, b))
+
+
+def test_matmul_raises_on_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros(4, 5, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        matmul(a.double(), a.double().t().contiguous())
+    with pytest.raises(TypeError, match="one type"):
+        matmul(a, torch.zeros(5, 4, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul(a, torch.zeros(4, 5, device=cuda).t())
+
+
+@pytest.mark.parametrize("policy", ["traditional", "bp_im2col"])
+@pytest.mark.parametrize("case", CONV_CASES,
+                         ids=["s2", "s2x3", "d2", "asympad", "dw", "g2s3"])
+def test_conv2d_baseline_engines_match_lax_on_matmul(cuda, case, policy):
+    x_shape, w_shape, kw = case
+    spec = ConvSpec.make(**kw)
+    gen = torch.Generator().manual_seed(5)
+    x0, w0 = _randn(gen, *x_shape, dev=cuda), _randn(gen, *w_shape, dev=cuda)
+    d = tconv.spec_dims(x_shape, w_shape, spec)
+    dy = _randn(gen, d.B, d.N * spec.groups, d.H_o, d.W_o, dev=cuda)
+    out = {}
+    for p in (policy, "lax"):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        reset_launch_counts()
+        y = tconv.conv2d(x, w, spec, p)
+        y.backward(dy)
+        out[p] = (y.detach(), x.grad, w.grad, launch_counts()["matmul"])
+    for a, b in zip(out[policy][:3], out["lax"][:3]):
+        _close(a, b)
+    assert out[policy][3] == 3 and out["lax"][3] == 0
+
+
+@pytest.mark.parametrize("policy", ["pallas", "traditional"])
+def test_conv2d_transpose_matches_materialized_lax(cuda, policy):
+    from repro_torch.core.convspec import ConvTransposeSpec
+    spec = ConvTransposeSpec.make(stride=2, padding=1, output_padding=1)
+    gen = torch.Generator().manual_seed(6)
+    x0 = _randn(gen, 2, 32, 8, 8, dev=cuda)
+    w0 = _randn(gen, 32, 16, 3, 3, dev=cuda)
+    dy = _randn(gen, 2, 16, 16, 16, dev=cuda)
+    out = {}
+    for p in (policy, "oracle"):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        reset_launch_counts()
+        y = (tconv.conv2d_transpose_materialized(x, w, spec, "lax")
+             if p == "oracle" else tconv.conv2d_transpose(x, w, spec, p))
+        if p != "oracle":
+            fwd = launch_counts()
+        y.backward(dy)
+        out[p] = (y.detach(), x.grad, w.grad)
+    for a, b in zip(out[policy], out["oracle"]):
+        _close(a, b)
+    if policy == "pallas":
+        assert fwd["tap_gemm_phased"] == 1 and fwd["matmul"] == 0
+    else:
+        assert fwd["matmul"] == 1 and fwd["tap_gemm_phased"] == 0

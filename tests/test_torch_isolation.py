@@ -50,7 +50,11 @@ def test_no_source_imports_jax_or_repro():
 def test_module_list_covers_the_slice():
     mods = set(_modules())
     for m in ("repro_torch.core.conv", "repro_torch.kernels.tap_gemm",
-              "repro_torch.kernels.ops", "repro_torch.train.cnn_bp"):
+              "repro_torch.kernels.ops", "repro_torch.train.cnn_bp",
+              "repro_torch.core.bpim2col", "repro_torch.kernels.matmul",
+              "repro_torch.models.autoencoder", "repro_torch.optim.adamw",
+              "repro_torch.optim.schedule", "repro_torch.train.train_step",
+              "repro_torch.train.autoencoder_bp", "repro_torch.tree"):
         assert m in mods
         importlib.import_module(m)
 
@@ -71,6 +75,15 @@ def test_entry_points_raise_without_a_card():
         layers.init_conv2d(torch.Generator(), 3, 4, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cnn_bp.main(["--steps", "1"])
+    from repro_torch.models import autoencoder
+    from repro_torch.train import autoencoder_bp
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autoencoder_bp.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autoencoder.init_autoencoder(torch.Generator(),
+                                     autoencoder.AutoencoderConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        layers.init_conv2d_transpose(torch.Generator(), 4, 3, 3)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

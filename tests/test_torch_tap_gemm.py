@@ -138,3 +138,7 @@ def test_wgrad_split_factor_covers_both_ends_of_the_contraction():
     # 14/1024->2048 K1: 16*32 tiles, contraction 2*7*7 = 98.
     assert tg.wgrad_splits(512, 98, 132) == 1
     assert tg.wgrad_splits(1, 100, 132) == 1
+    # matmul: the layer-1 weight grad (27 x 97,682) @ (97,682 x 64) is one
+    # tile; splits and groups share the grid's z limit.
+    assert tg.wgrad_splits(1, 97682, 132) == 264
+    assert tg.wgrad_splits(1, 97682, 132, groups=65535) == 1
