@@ -8,7 +8,7 @@ PATH):
 
   1. device     -- the card's name and power limit (``nvidia-smi``), library
                    versions; TF32 is switched off for every library call.
-  2. build      -- ``nvcc`` builds both CUDA sources of
+  2. build      -- ``nvcc`` builds the three CUDA sources of
                    ``src/repro_torch/csrc`` (in parallel).
   3. kernels    -- for each of the paper's Table II layers (batch 2, float32),
                    the three convs of the CNN's training run (batch 32), the
@@ -50,7 +50,35 @@ PATH):
                    ``python -m repro_torch.train.autoencoder_bp --policy
                    pallas`` at its defaults (200 steps, batch 16) must reach
                    MSE < 0.05; 20 steps under traditional match pallas.
-  8. summary    -- every kernel's launches on each path, each path run with
+  8. flash      -- the ``flash_attention`` kernel against its plain version
+                   (``max |kernel - plain| / max |plain|``, tolerance
+                   ``FLASH_TOL`` in float32, ``BF16_TOL`` in bf16) at the
+                   serving shapes, SmolLM-360M's 15 query and 5 KV heads of
+                   64 over causal P in {512, 1,024, 2,048} in bf16 and
+                   float32, a ragged P (1,000), a full (non-causal) case,
+                   256 queries against 1,024 keys, and 15 KV heads; two runs
+                   are bit-equal; kernel, plain and
+                   ``F.scaled_dot_product_attention`` device times (timed
+                   only: the port never calls it), host time, bound.
+  9. serve      -- SmolLM-360M at full width, initialised from a seed: the
+                   port's prefill (one causal pass, the kernel in every
+                   layer) against a lockstep scan of ``decode_step`` (plain
+                   dense attention) on one 1,024-token prompt, logits and
+                   every layer's cache, in bf16 (``SERVE_BF16_TOL``) and
+                   float32 (``SERVE_F32_TOL``); the host wall time and the
+                   device time (``torch.profiler``) of one bf16 prefill and
+                   one decode step of 4 lanes; then
+                   ``python -m repro_torch.launch.serve --full`` for both
+                   engines (8 requests of 1,024 tokens, 32 new, batch 4):
+                   every request ``ok`` with 32 tokens, the continuous engine
+                   launches the kernel 32 x admitted times and the static
+                   engine none; prefill s per request, decode ms per step,
+                   tokens/s, p50 latency; in float32 both engines' greedy
+                   tokens agree on the same 8 requests (static in one wave
+                   of 8, continuous on 4 lanes; where one differs, the
+                   first differing step's top-2 logit margin must be under
+                   ``MARGIN_TOL``).
+ 10. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
 Then a ``{"kernels": [...]}`` line, and last
@@ -84,6 +112,20 @@ LOSS_TOL = 1e-4
 #: matmul with a bfloat16 output: both sides round a float32 sum to bf16
 #: (a step of 2^-8 relative) after summing in other orders.
 BF16_TOL = 1e-2
+#: flash_attention vs its plain version in float32: online softmax against a
+#: full-row softmax, sums in another order.
+FLASH_TOL = 1e-5
+#: the full-width model's one-pass prefill vs its lockstep decode scan, as
+#: max |a - b| / max |b| over the last logits and over each layer's K and V.
+#: bf16: every activation is rounded to bf16 (2^-8 relative) at other places
+#: on the two paths (kernel attention in float32 vs bf16 scores and
+#: probabilities in the dense path), compounding over 32 layers.
+SERVE_BF16_TOL = 5e-2
+#: float32: sums in other orders only.
+SERVE_F32_TOL = 1e-4
+#: float32 greedy tokens of the two engines: where they differ, the logits
+#: at the first differing step must be a near-tie (top-2 margin below this).
+MARGIN_TOL = 1e-3
 #: H100 SXM float32 peak outside the tensor cores and memory rate (data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -99,6 +141,8 @@ KERNELS = {
                   "src/repro_torch/csrc/tap_gemm.cu"),
     "matmul": ("src/repro/kernels/matmul.py:33",
                "src/repro_torch/csrc/matmul.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:70",
+                        "src/repro_torch/csrc/flash_attention.cu"),
 }
 TAP_KERNELS = ("tap_gemm", "tap_gemm_phased", "tap_wgrad")
 
@@ -400,13 +444,13 @@ def phase_matmul(smoke, torch, mm, kref, tg, cases, dev):
 #: launches of one conv2d forward + backward under each policy
 LAYER_LAUNCHES = {
     "pallas": {"tap_gemm": 1, "tap_gemm_phased": 1, "tap_wgrad": 1,
-               "matmul": 0},
+               "matmul": 0, "flash_attention": 0},
     "traditional": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
-                    "matmul": 3},
+                    "matmul": 3, "flash_attention": 0},
     "bp_im2col": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
-                  "matmul": 3},
+                  "matmul": 3, "flash_attention": 0},
     "lax": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
-            "matmul": 0},
+            "matmul": 0, "flash_attention": 0},
 }
 
 
@@ -582,6 +626,255 @@ def phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp, dev):
     return paths
 
 
+#: (label, B, H, Hk, Lq, Lk, causal, dtype name); the first is the shape a
+#: 1,024-token prefill gives the kernel on the serving path.
+FLASH_CASES = (
+    [("serve P1024 bf16", 1, 15, 5, 1024, 1024, True, "bfloat16")]
+    + [(f"serve P{p} {dt[0]}{dt[-2:]}", 1, 15, 5, p, p, True, dt)
+       for dt in ("bfloat16", "float32") for p in (512, 1024, 2048)
+       if (p, dt) != (1024, "bfloat16")]
+    + [("ragged P1000 bf16", 1, 15, 5, 1000, 1000, True, "bfloat16"),
+       ("full P1024 bf16", 1, 15, 5, 1024, 1024, False, "bfloat16"),
+       ("q256 k1024 bf16", 1, 15, 5, 256, 1024, True, "bfloat16"),
+       ("Hk=H P1024 bf16", 1, 15, 15, 1024, 1024, True, "bfloat16")])
+
+
+def attention_pairs(lq: int, lk: int, causal: bool) -> int:
+    """(query, key) pairs the masks keep: row i sees keys j <= lk - lq + i
+    under ``causal``."""
+    if not causal:
+        return lq * lk
+    return sum(min(lk, lk - lq + i + 1) for i in range(lq))
+
+
+def phase_flash(smoke, torch, F, fa, kref, dev):
+    """``flash_attention`` against its plain version at ``FLASH_CASES``.
+    Returns the first case's record (the serving shape), which makes up
+    the kernel's row of the final ``kernels`` line."""
+    d = 64
+    first = None
+    for i, (label, b, h, hk, lq, lk, causal, dt) in enumerate(FLASH_CASES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        q = torch.randn(b, h, lq, d, device=dev, generator=gen).to(dtype)
+        k = torch.randn(b, hk, lk, d, device=dev, generator=gen).to(dtype)
+        v = torch.randn(b, hk, lk, d, device=dev, generator=gen).to(dtype)
+        kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+        plain = lambda: kref.flash_attention_ref(  # noqa: E731
+            q, k, v, causal=causal)
+        # SDPA's is_causal aligns the mask top-left; with fewer queries
+        # than keys the kernel's bottom-right mask goes in explicitly.
+        mask = (torch.ones(lq, lk, dtype=torch.bool, device=dev).tril(lk - lq)
+                if causal and lq != lk else None)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=hk != h)
+        before = fa.LAUNCHES["flash_attention"]
+        got = kern()
+        launches = fa.LAUNCHES["flash_attention"] - before
+        want = plain()
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(torch, got, want)
+        lib_err, _ = rel_err(torch, lib(), want)
+        check(bool(torch.equal(got, kern())),
+              f"flash_attention differs run to run at {label}")
+        flops = 4.0 * b * h * d * attention_pairs(lq, lk, causal)
+        by = nbytes(q, k, v, got)
+        b_s, b_by = bound(flops, by, PEAK_BF16_FLOPS
+                          if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        tol = BF16_TOL if dtype == torch.bfloat16 else FLASH_TOL
+        rec = {"kernel": "flash_attention", "case": label,
+               "q": [b, h, lq, d], "kv": [b, hk, lk, d], "causal": causal,
+               "dtype": dt, "max_rel_err": err, "max_abs_err": abs_err,
+               "tol": tol, "library_rel_err": lib_err,
+               "launches_per_call": launches,
+               "kernel_ms": time_ms(torch, kern),
+               "kernel_host_ms": host_ms(torch, kern),
+               "plain_ms": time_ms(torch, plain),
+               "library_ms": time_ms(torch, lib),
+               "bound_us": b_s * 1e6, "bound_by": b_by,
+               "gflop": flops / 1e9, "mbytes": by / 1e6}
+        rec["roofline_share"] = rec["bound_us"] / 1e3 / rec["kernel_ms"]
+        smoke.emit("flash", **rec)
+        check(launches == 1, f"flash_attention: {launches} launches")
+        check(err <= tol, f"flash_attention at {label}: relative error "
+                          f"{err} > {tol}")
+        if first is None:
+            first = {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                     "library_ms": rec["library_ms"], "flops": flops,
+                     "bytes": by, "max_abs_err": abs_err,
+                     "peak": PEAK_BF16_FLOPS}
+    return first
+
+
+SERVE_ARGV = ["--full", "--requests", "8", "--prompt-len", "1024",
+              "--max-new", "32", "--max-batch", "4"]
+
+
+def prefill_vs_scan(torch, M, T, cfg, params, prompt, dev):
+    """The one-pass prefill against a lockstep scan of decode steps on one
+    prompt: relative errors of the last logits and, per layer, of K and V;
+    and the kernel launches of each side."""
+    from repro_torch import kernels
+    toks = torch.as_tensor([prompt], device=dev)
+    kernels.reset_launch_counts()
+    logits, cache = M.prefill(params, toks, cfg, len(prompt) + 1)
+    torch.cuda.synchronize()
+    pre_launches = kernels.launch_counts()["flash_attention"]
+    kernels.reset_launch_counts()
+    scan = T.init_cache(cfg, 1, len(prompt) + 1, dev)
+    t0 = time.perf_counter()
+    for t in range(len(prompt)):
+        want, scan = M.decode_step(params, scan, toks[:, t], t, cfg)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    scan_launches = kernels.launch_counts()["flash_attention"]
+    kv = [max(rel_err(torch, cache["blocks"][key][i],
+                      scan["blocks"][key][i])[0] for key in ("k", "v"))
+          for i in range(cfg.n_layers)]
+    return {"rel_err_logits": rel_err(torch, logits, want)[0],
+            "rel_err_kv_max": max(kv), "rel_err_kv_by_layer": kv,
+            "prefill_launches": pre_launches, "scan_launches": scan_launches,
+            "scan_seconds": scan_s}
+
+
+def margin_at(torch, M, cfg, params, req, step, dev) -> float:
+    """Top-2 logit margin of the next-token logits after ``req.prompt`` and
+    the first ``step`` generated tokens."""
+    toks = torch.as_tensor([req.prompt + req.out[:step]], device=dev)
+    logits, _ = M.forward(params, {"tokens": toks}, cfg)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+def device_time(torch, fn, reps: int = 3) -> dict:
+    """Host wall time of ``fn`` (median of ``reps`` runs, each ended by a
+    synchronize) against the device time its kernels take, from one run
+    under ``torch.profiler`` (kernels summed by name; the busy share is
+    device time over the unprofiled wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # Device-side events only (kernels, copies): a CPU op's self device
+    # time repeats the time of the kernels it launched.
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    wall_ms = statistics.median(walls) * 1e3
+    busy_ms = sum(e.device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.device_time_total)[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "device_events": sum(e.count for e in dev),
+            "top_kernels_ms": {e.key[:80]: e.device_time_total / 1e3
+                               for e in top}}
+
+
+def phase_serve(smoke, torch, kernels, serve, M, T, dev):
+    """SmolLM-360M at full width: prefill vs the decode scan in bf16 and
+    float32, the launcher for both engines, and the float32 engines'
+    greedy tokens.  Returns each engine's kernel launches."""
+    import dataclasses
+
+    import numpy as np
+    full = serve.get_config("smollm-360m")
+    cfg32 = dataclasses.replace(full, param_dtype="float32",
+                                act_dtype="float32")
+    prompt = np.random.RandomState(0).randint(0, full.vocab, 1024).tolist()
+    for cfg, tol in ((full, SERVE_BF16_TOL), (cfg32, SERVE_F32_TOL)):
+        params = serve.init_params(cfg, 0, dev)
+        rec = prefill_vs_scan(torch, M, T, cfg, params, prompt, dev)
+        rec.update(dtype=cfg.param_dtype, tol=tol, prompt_len=len(prompt),
+                   n_params=M.count_params(params))
+        smoke.emit("serve", check="prefill vs decode scan", **rec)
+        check(rec["prefill_launches"] == cfg.n_layers
+              and rec["scan_launches"] == 0,
+              f"prefill launched {rec['prefill_launches']}, the scan "
+              f"{rec['scan_launches']}")
+        check(max(rec["rel_err_logits"], rec["rel_err_kv_max"]) <= tol,
+              f"{cfg.param_dtype} prefill vs decode scan: logits "
+              f"{rec['rel_err_logits']}, cache {rec['rel_err_kv_max']}")
+        if cfg is full:
+            # Where a request's time goes: one prefill of the prompt, and
+            # one decode step of a full batch of 4 lanes past it.
+            toks = torch.as_tensor([prompt], device=dev)
+            cache = T.init_cache(cfg, 4, len(prompt) + 34, dev)
+            nxt = toks[0, :4].clone()
+            pos = torch.full((4,), len(prompt), device=dev)
+            smoke.emit("serve", check="device time", dtype=cfg.param_dtype,
+                       prefill=device_time(torch, lambda: M.prefill(
+                           params, toks, cfg, len(prompt) + 34)),
+                       decode_step_batch4=device_time(
+                           torch, lambda: M.decode_step(params, cache, nxt,
+                                                        pos, cfg)))
+        del params
+
+    paths = {}
+    for engine in ("static", "continuous"):
+        kernels.reset_launch_counts()
+        res = serve.main(SERVE_ARGV + ["--engine", engine])
+        counts = paths[f"serve {engine}"] = kernels.launch_counts()
+        s = res["summary"]
+        reqs = res["requests"]
+        smoke.emit("serve", engine=engine, dtype=full.param_dtype,
+                   requests=len(reqs),
+                   status=sorted({r.status for r in reqs}),
+                   tokens=[len(r.out) for r in reqs],
+                   admitted=s["admitted"], waves=s["waves"],
+                   decode_steps=s["decode_steps"],
+                   prefill_s_per_request=s["prefill_s"] / len(reqs),
+                   decode_ms_per_step=1e3 * s["decode_s"]
+                   / max(s["decode_steps"], 1),
+                   tok_s=res["tok_s"], p50_latency_s=res["p50_latency_s"],
+                   seconds=res["seconds"], launches=counts, summary=s)
+        check(len(reqs) == 8 and all(r.status == "ok" and len(r.out) == 32
+                                     for r in reqs),
+              f"{engine}: {[(r.status, len(r.out)) for r in reqs]}")
+        want = 32 * s["admitted"] if engine == "continuous" else 0
+        check(counts["flash_attention"] == want
+              and (engine == "static" or s["admitted"] == 8),
+              f"{engine}: {counts['flash_attention']} flash launches, "
+              f"{s['admitted']} admitted")
+
+    # The static engine serves the 8 requests in one wave of 8 (one
+    # lockstep prefill, not two); the continuous one recycles 4 lanes.
+    params = serve.init_params(cfg32, 0, dev)
+    runs = {}
+    for engine, cls in serve.ENGINES.items():
+        eng = cls(cfg32, params, max_batch=8 if engine == "static" else 4,
+                  max_len=1024 + 32 + 2)
+        rng = np.random.RandomState(0)
+        for rid in range(8):
+            eng.submit(serve.Request(
+                rid=rid, prompt=rng.randint(0, full.vocab, 1024).tolist(),
+                max_new=32))
+        runs[engine] = sorted(eng.run(), key=lambda r: r.rid)
+    diffs = []
+    for a, b in zip(runs["static"], runs["continuous"]):
+        if a.out != b.out:
+            step = next(i for i, (x, y) in enumerate(zip(a.out, b.out))
+                        if x != y)
+            diffs.append({"rid": a.rid, "step": step, "margin": margin_at(
+                torch, M, cfg32, params, a, step, dev)})
+    smoke.emit("serve", check="float32 greedy tokens, static vs continuous",
+               identical=sum(a.out == b.out for a, b in
+                             zip(runs["static"], runs["continuous"])),
+               requests=len(runs["static"]), differing=diffs,
+               margin_tol=MARGIN_TOL)
+    check(all(d["margin"] < MARGIN_TOL for d in diffs),
+          f"float32 engines disagree beyond a near-tie: {diffs}")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -603,8 +896,12 @@ def main(argv=None) -> int:
     from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec
     from repro_torch.core.im2col_ref import ConvDims
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import tap_gemm as tg
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
     from repro_torch.train import autoencoder_bp, cnn_bp
 
     smoke = Smoke(args.out)
@@ -647,14 +944,24 @@ def main(argv=None) -> int:
     phase_transposed(smoke, torch, conv, kernels, ConvTransposeSpec, dev)
     paths = phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp,
                         dev)
+    agg["flash_attention"] = phase_flash(smoke, torch, F, fa, ref, dev)
+    paths.update(phase_serve(smoke, torch, kernels, serve, M, T, dev))
     smoke.emit("summary", launches_by_path=paths)
 
     main_path = {k: "cnn_bp pallas" for k in TAP_KERNELS}
     main_path["matmul"] = "cnn_bp traditional"
+    main_path["flash_attention"] = "serve continuous"
+    shapes = {"matmul": "sum over the 15 traditional GEMMs (forward, input "
+                        "grad, weight grad) of the 5 Table II layers, batch "
+                        "2, float32",
+              "flash_attention": "one prefill's attention: causal (1, 15, "
+                                 "1024, 64) queries against (1, 5, 1024, 64) "
+                                 "keys and values, bf16"}
     out = []
     for name, (replaces, source) in KERNELS.items():
         a = agg[name]
-        b_s, b_by = bound(a["flops"], a["bytes"])
+        b_s, b_by = bound(a["flops"], a["bytes"],
+                          a.get("peak", PEAK_F32_FLOPS))
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[main_path[name]][name],
@@ -663,10 +970,8 @@ def main(argv=None) -> int:
             "bound_by": b_by, "library_ms": a["library_ms"],
             "launches_path": main_path[name],
             "launches_by_path": {p: c[name] for p, c in paths.items()},
-            "shapes": ("sum over the 15 traditional GEMMs (forward, input "
-                       "grad, weight grad) of the 5 Table II layers"
-                       if name == "matmul" else "sum over the 5 Table II "
-                       "layers") + ", batch 2, float32"})
+            "shapes": shapes.get(name, "sum over the 5 Table II layers, "
+                                       "batch 2, float32")})
     print(smi)
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {

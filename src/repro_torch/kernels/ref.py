@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes the same function as its CUDA kernel in
-``repro_torch/csrc/`` (``tap_gemm.cu``, ``matmul.cu``) with ordinary tensor
-ops, not the kernel's blocks step by step.  The kernel wrappers in
-``repro_torch.kernels.tap_gemm`` and ``repro_torch.kernels.matmul`` use them
-for tensors on the CPU; ``chip_smoke.py`` holds each kernel against its
+``repro_torch/csrc/`` (``tap_gemm.cu``, ``matmul.cu``,
+``flash_attention.cu``) with ordinary tensor ops, not the kernel's blocks
+step by step.  The kernel wrappers in ``repro_torch.kernels.tap_gemm``,
+``repro_torch.kernels.matmul`` and ``repro_torch.kernels.flash_attention``
+use them for tensors on the CPU; ``chip_smoke.py`` holds each kernel against its
 plain version on the card.
 
 Every function accepts optional leading dims (the kernels' group dim):
@@ -86,3 +87,26 @@ def matmul_ref(a, b, out_dtype=None):
     """``a (..., M, K) @ b (..., K, N)`` summed in float32, returned as
     ``out_dtype or a.dtype`` (``repro.kernels.ref.matmul_ref``)."""
     return (a.float() @ b.float()).to(out_dtype or a.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """``softmax(q k^T * scale + mask) v`` in float32, returned in
+    ``q.dtype`` (``repro.kernels.ref.flash_attention_ref``, with grouped
+    key/value heads).
+
+    q (B, H, Lq, D), k/v (B, Hk, Lk, D) with ``H % Hk == 0``: query head h
+    reads key/value head ``h // (H // Hk)``.  Under ``causal`` row i sees
+    key j when ``Lk - Lq + i >= j``.
+    """
+    b, h, lq, d = q.shape
+    hk, lk = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, hk, h // hk, lq, d)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
+    if causal:
+        mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(
+            lk - lq)
+        logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return out.reshape(b, h, lq, d).to(q.dtype)

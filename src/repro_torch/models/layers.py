@@ -1,6 +1,12 @@
-"""Conv layers: ``init_conv2d``/``init_conv2d_transpose`` build a parameter
-dict, ``conv2d_apply``/``conv2d_transpose_apply`` consume it (counterpart
-of the conv part of ``repro.models.layers``).
+"""Primitive layers: linear / norm / embedding / RoPE / SwiGLU / conv2d
+(counterpart of ``repro.models.layers``).
+
+``init_*`` builds a parameter dict (optionally with a stacked leading
+layer dim ``L``, the layout the JAX package scans over), ``*_apply`` and
+the plain names consume it.  Init draws on the CPU from an explicit
+``torch.Generator`` (so the values do not depend on the device), then
+moves to ``device`` (default: the card).  ``rmsnorm`` and ``apply_rope``
+compute in float32 and cast back to the input's type, as the JAX layers do.
 
 Conv layers go through ``repro_torch.core.conv2d`` and
 ``conv2d_transpose``, so every pass runs the engines selected by the
@@ -10,6 +16,7 @@ per-pass ``policy``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import conv as C
 from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec
@@ -41,11 +48,8 @@ def _loose(spec, spec_cls, **kw):
 
 
 def _init_kernel(generator, shape, fan_in: int, dtype, device):
-    """A fan-in scaled kernel drawn on the CPU from ``generator`` (so the
-    values do not depend on the device), then moved to ``device``."""
-    dev = resolve_device(device)
-    w = torch.randn(shape, generator=generator, dtype=torch.float32)
-    return {"w": (w * fan_in ** -0.5).to(device=dev, dtype=dtype)}
+    """A fan-in scaled conv kernel."""
+    return {"w": _draw(generator, shape, fan_in ** -0.5, dtype, device)}
 
 
 def init_conv2d_transpose(generator: torch.Generator, c_in: int, c_out: int,
@@ -84,3 +88,96 @@ def conv2d_apply(p, x, *, spec: ConvSpec | None = None, policy=None,
     spec = _loose(spec, ConvSpec, stride=stride, padding=padding,
                   dilation=dilation, groups=groups)
     return C.conv2d(x, p["w"].to(x.dtype), spec, policy)
+
+
+# ---------------------------------------------------------------------------
+# Linear / norm / embedding
+# ---------------------------------------------------------------------------
+
+def _stack(shape, L):
+    return tuple(shape) if L is None else (L, *shape)
+
+
+def _draw(generator, shape, scale, dtype, device):
+    """``scale`` x a standard normal drawn on the CPU from ``generator`` (so
+    the values do not depend on the device), then moved to ``device``."""
+    w = torch.randn(shape, generator=generator, dtype=torch.float32)
+    return (w * scale).to(device=resolve_device(device), dtype=dtype)
+
+
+def init_linear(generator: torch.Generator, d_in: int, d_out: int, dtype,
+                L=None, scale=None, device=None):
+    scale = d_in ** -0.5 if scale is None else scale
+    return {"w": _draw(generator, _stack((d_in, d_out), L), scale, dtype,
+                       device)}
+
+
+def linear(p, x):
+    return x @ p["w"].to(x.dtype)
+
+
+def init_rmsnorm(d: int, dtype, L=None, device=None):
+    return {"scale": torch.ones(_stack((d,), L), dtype=dtype,
+                                device=resolve_device(device))}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+def init_embedding(generator: torch.Generator, vocab: int, d: int, dtype,
+                   device=None):
+    return {"w": _draw(generator, (vocab, d), 0.02, dtype, device)}
+
+
+def embed(p, ids):
+    return p["w"][ids]
+
+
+def unembed(p, x):
+    """Logits from the (tied) embedding matrix."""
+    return x @ p["w"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
+    """positions (L,) -> (L, head_dim/2) angles, in float32."""
+    half = head_dim // 2
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                        device=positions.device) / half))
+    return positions.float()[:, None] * inv[None, :]
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor):
+    """x (..., L, H, D) with angles (..., L, D/2): rotate the two halves."""
+    half = x.shape[-1] // 2
+    x32 = x.float()
+    x1, x2 = x32[..., :half], x32[..., half:]
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, d: int, f: int, dtype, L=None,
+             device=None):
+    return {
+        "wi": init_linear(generator, d, f, dtype, L, device=device),  # up
+        "wg": init_linear(generator, d, f, dtype, L, device=device),  # gate
+        "wo": init_linear(generator, f, d, dtype, L, scale=f ** -0.5,
+                          device=device),
+    }
+
+
+def mlp(p, x):
+    return linear(p["wo"], F.silu(linear(p["wg"], x)) * linear(p["wi"], x))

@@ -1,0 +1,90 @@
+"""Block assembly of the dense family (counterpart of
+``repro.models.transformer``).
+
+All layers share one stacked parameter tree (leading dim = #layers), the
+JAX package's layout, so JAX parameters carry across unchanged.  A Python
+loop over the layers takes the place of ``lax.scan``.  The JAX package's
+``constrain_batch`` (mesh sharding, ROADMAP A13) and rematerialisation
+(training only) are dropped.  The other families (MoE, hybrid, SSM, VLM,
+audio) come with ROADMAP A10 and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def _dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense" or cfg.use_mla or cfg.local_window:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family is ported; "
+            f"{cfg.family} blocks, MLA and local windows come with ROADMAP "
+            f"A10")
+
+
+def _layers(stacked):
+    """The per-layer slices of a stacked parameter (or cache) tree."""
+    nl = tree_leaves(stacked)[0].shape[0]
+    return [tree_map(lambda a: a[i], stacked) for i in range(nl)]
+
+
+def init_attn_block(generator: torch.Generator, cfg: ArchConfig, nl: int,
+                    device=None):
+    return {"ln1": L.init_rmsnorm(cfg.d_model, cfg.dtype, nl, device),
+            "attn": A.init_gqa(generator, cfg, nl, device),
+            "ln2": L.init_rmsnorm(cfg.d_model, cfg.dtype, nl, device),
+            "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.dtype, nl,
+                              device)}
+
+
+def attn_block(p, x, cfg: ArchConfig):
+    """One layer (parameters already sliced): ``(x, (k, v))`` with the
+    layer's rope'd keys and values.  (The JAX block returns an aux dict in
+    their place, always empty for the dense family.)"""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    o, k, v = A.gqa_prefill(p["attn"], h, cfg)
+    x = x + o
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(p["mlp"], h), (k, v)
+
+
+def init_stacks(generator: torch.Generator, cfg: ArchConfig, device=None):
+    _dense(cfg)
+    return {"blocks": init_attn_block(generator, cfg, cfg.n_layers, device)}
+
+
+def forward_stacks(params, x, cfg: ArchConfig, cache=None):
+    """x (B, L, D) -> x through all blocks.  With ``cache`` (from
+    :func:`init_cache`), each layer's keys and values are written into its
+    positions ``[0, L)``: the prefill of one causal pass."""
+    _dense(cfg)
+    for i, p in enumerate(_layers(params["blocks"])):
+        x, (k, v) = attn_block(p, x, cfg)
+        if cache is not None:
+            cache["blocks"]["k"][i, :, :k.shape[1]] = k
+            cache["blocks"]["v"][i, :, :v.shape[1]] = v
+    return x
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
+    _dense(cfg)
+    return {"blocks": A.gqa_init_cache(cfg, batch, max_len, cfg.n_layers,
+                                       device)}
+
+
+def decode_stacks(params, cache, x, pos, cfg: ArchConfig):
+    """x (B,1,D), ``pos`` an int or a per-lane (B,) tensor -> (x, cache);
+    the cache is updated in place."""
+    _dense(cfg)
+    for p, c in zip(_layers(params["blocks"]), _layers(cache["blocks"])):
+        hn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        o, _, _ = A.gqa_decode(p["attn"], hn, c["k"], c["v"], pos, cfg)
+        x = x + o
+        hn = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp(p["mlp"], hn)
+    return x, cache

@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card: each tap-GEMM kernel and ``matmul``
-against its plain version, ``conv2d`` under ``pallas``, ``traditional`` and
+"""The CUDA kernels on the card: each tap-GEMM kernel, ``matmul`` and
+``flash_attention`` against its plain version, a prefill's one kernel
+launch per layer against a lockstep scan of decode steps, ``conv2d`` under ``pallas``, ``traditional`` and
 ``bp_im2col`` against ``lax``, ``conv2d_transpose`` against its ``lax``
 materialization, determinism of the split-K sums, launch counting, and 20
 training steps against ``lax``.
@@ -248,3 +249,77 @@ def test_conv2d_transpose_matches_materialized_lax(cuda, policy):
         assert fwd["tap_gemm_phased"] == 1 and fwd["matmul"] == 0
     else:
         assert fwd["matmul"] == 1 and fwd["tap_gemm_phased"] == 0
+
+
+#: flash attention, float32: online softmax against the plain version's
+#: full-row softmax, sums in another order.
+FLASH_TOL = 1e-5
+
+#: (B, H, Hk, Lq, Lk, D, causal, dtype)
+FLASH_CASES = [
+    (1, 15, 5, 1024, 1024, 64, True, torch.float32),   # SmolLM prefill
+    (1, 15, 5, 1000, 1000, 64, True, torch.bfloat16),  # ragged, bf16
+    (2, 4, 4, 200, 200, 128, True, torch.float32),     # Hk == H, D = 128
+    (1, 6, 2, 256, 1024, 64, True, torch.float32),     # Lq < Lk
+    (1, 3, 1, 77, 130, 16, False, torch.float32),      # full, small D
+    (1, 4, 2, 1, 33, 100, True, torch.bfloat16),       # one row, odd D
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "H{}Hk{}q{}k{}D{}"
+                         "{}{}".format(*c[1:6], "c" if c[6] else "f",
+                                       str(c[7])[-4:]))
+def test_flash_attention_matches_plain_version(cuda, case):
+    from repro_torch.kernels.flash_attention import flash_attention
+    b, h, hk, lq, lk, d, causal, dtype = case
+    gen = torch.Generator().manual_seed(7)
+    q = _randn(gen, b, h, lq, d, dev=cuda).to(dtype)
+    k = _randn(gen, b, hk, lk, d, dev=cuda).to(dtype)
+    v = _randn(gen, b, hk, lk, d, dev=cuda).to(dtype)
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    tol = FLASH_TOL if dtype == torch.float32 else BF16_TOL
+    assert err <= tol * want.float().abs().max().item(), err
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+
+
+def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="one type"):
+        flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3), q)
+    wide = torch.zeros(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(wide, wide, wide)
+
+
+def test_prefill_launches_the_kernel_once_per_layer(cuda):
+    """The port's prefill (one causal pass, the kernel in every layer)
+    against a lockstep scan of decode steps (plain dense attention, no
+    launch) on the card, at the smoke config in float32."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("smollm-360m")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 45),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    reset_launch_counts()
+    logits, cache = M.prefill(params, toks, cfg, 50)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    scan = T.init_cache(cfg, 2, 50, cuda)
+    for t in range(toks.shape[1]):
+        want, scan = M.decode_step(params, scan, toks[:, t], t, cfg)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    _close(logits, want)
+    for key in ("k", "v"):
+        _close(cache["blocks"][key], scan["blocks"][key])

@@ -54,7 +54,14 @@ def test_module_list_covers_the_slice():
               "repro_torch.core.bpim2col", "repro_torch.kernels.matmul",
               "repro_torch.models.autoencoder", "repro_torch.optim.adamw",
               "repro_torch.optim.schedule", "repro_torch.train.train_step",
-              "repro_torch.train.autoencoder_bp", "repro_torch.tree"):
+              "repro_torch.train.autoencoder_bp", "repro_torch.tree",
+              "repro_torch.configs.base", "repro_torch.configs.smollm_360m",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.models.attention",
+              "repro_torch.models.transformer", "repro_torch.models.model",
+              "repro_torch.serve.request", "repro_torch.serve.sampling",
+              "repro_torch.serve.cache", "repro_torch.serve.engine",
+              "repro_torch.serve.continuous", "repro_torch.launch.serve"):
         assert m in mods
         importlib.import_module(m)
 
