@@ -9,7 +9,9 @@ PATH):
   1. device     -- the card's name and power limit (``nvidia-smi``), library
                    versions; TF32 is switched off for every library call.
   2. build      -- ``nvcc`` builds the three CUDA sources of
-                   ``src/repro_torch/csrc`` (in parallel).
+                   ``src/repro_torch/csrc`` (in parallel); the registers,
+                   spills and shared memory of each entry of the forward
+                   tap GEMM and of the bf16 flash attention.
   3. kernels    -- for each of the paper's Table II layers (batch 2, float32),
                    the three convs of the CNN's training run (batch 32), the
                    autoencoder's two encoder convs and the mirror convs of
@@ -21,7 +23,9 @@ PATH):
                    call for the same pass (a CUDA graph of 10 back-to-back
                    calls replayed between CUDA events, median of 10), the
                    host time per kernel call, and the least time the card
-                   could take (``bound_us``).
+                   could take (``bound_us``); the forward's and the weight
+                   grad's split counts; the forward and the weight grad
+                   are bit-equal run to run.
   4. matmul     -- the same for the ``matmul`` kernel at every lowered GEMM
                    of the ``traditional`` and ``bp_im2col`` engines at the
                    Table II and CNN shapes, at every GEMM the autoencoder
@@ -110,7 +114,9 @@ LAYER_TOL = 1e-4
 #: in other orders, carried through 20 SGD or AdamW steps).
 LOSS_TOL = 1e-4
 #: matmul with a bfloat16 output: both sides round a float32 sum to bf16
-#: (a step of 2^-8 relative) after summing in other orders.
+#: (a step of 2^-8 relative) after summing in other orders.  bf16
+#: flash_attention also rounds each probability to bf16 (2^-9 relative)
+#: before its P V product.
 BF16_TOL = 1e-2
 #: flash_attention vs its plain version in float32: online softmax against a
 #: full-row softmax, sums in another order.
@@ -227,6 +233,53 @@ def bound(flops: float, nbytes_: float,
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
+#: kernel -> a piece of the mangled name of each entry of the forward tap
+#: GEMM and of the bf16 (tensor-core) flash attention, whose registers,
+#: spills and shared memory the build phase reports.
+REDESIGNED = {"tap_gemm": "3fwd6kernel",
+              "flash_attention": "flash_bf16_kernel"}
+
+
+def flash_bf16_smem(dm: int) -> int:
+    """Dynamic shared memory of ``flash_bf16_kernel<DM>``: Q plus two stages
+    of K and V, 64 rows each, of DM + 8 bf16 (csrc/flash_attention.cu)."""
+    return (64 + 4 * 64) * (dm + 8) * 2
+
+
+def kernel_resources(log_dir: pathlib.Path) -> list[dict]:
+    """Registers, spill bytes and shared memory of every entry of the
+    ``REDESIGNED`` kernels, from the ``-Xptxas -v`` build logs."""
+    out, cur = [], None
+    for log in sorted(log_dir.glob("*.log")):
+        for ln in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                name = m.group(1)
+                kernel = next((k for k, mark in REDESIGNED.items()
+                               if mark in name), None)
+                cur = {"kernel": kernel, "entry": name} if kernel else None
+                if cur:
+                    dm = re.search(r"ILi(\d+)E", name)
+                    cur["dynamic_smem_bytes"] = (
+                        flash_bf16_smem(int(dm.group(1)))
+                        if kernel == "flash_attention" else 0)
+                    out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_store_bytes"], cur["spill_load_bytes"] = map(
+                    int, m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", ln)
+                cur["registers"] = int(m.group(1))
+                cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
     """Each kernel at each shape against its plain version.  ``shapes``
     holds ``(label, per-group ConvDims, groups, summed)``; the rows with
@@ -242,11 +295,13 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
         macs = g * d.N * d.C          # per output pixel and tap
 
         src, wt, taps = ops.forward_operands(x, w, d, g)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         fwd = (lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
                lambda: ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o),
                lambda: F.conv2d(x, w, stride=stride, padding=pad, groups=g),
                2.0 * d.B * d.H_o * d.W_o * macs * len(taps),
-               nbytes(src, wt), {})
+               nbytes(src, wt), {"splits": tg.forward_splits(
+                   d.B * d.H_o * d.W_o, d.N, len(taps), d.C, sms, g)})
         gsrc, ws, pp = ops.input_grad_operands(dy, w, d, g)
         n_taps = sum(len(t) for t in pp.phase_taps)
         dgrad = (lambda: tg.tap_gemm_phased(gsrc, ws, pp.phase_taps, pp.n_qh,
@@ -261,7 +316,6 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
                  nbytes(gsrc) + 4 * n_taps * macs,
                  {"active_phases": sum(1 for t in pp.phase_taps if t)})
         wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         tiles = (tg._cdiv(d.C, tg.TILE_M) * tg._cdiv(d.N, tg.TILE_N)
                  * len(wtaps) * g)
         wgrad = (lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
@@ -280,7 +334,7 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
             want = plain()
             torch.cuda.synchronize()
             err, abs_err = rel_err(torch, got, want)
-            if name == "tap_wgrad":
+            if name in ("tap_gemm", "tap_wgrad"):
                 again = kern()
                 check(bool(torch.equal(got, again)),
                       f"{name} differs run to run at {layer}")
@@ -925,6 +979,12 @@ def main(argv=None) -> int:
              if re.search(r"registers|spill|Compiling entry", ln)]
     smoke.emit("build", seconds=time.perf_counter() - t0,
                libraries={k: str(v) for k, v in libs.items()}, ptxas=ptxas)
+    resources = kernel_resources(build.build_dir())
+    smoke.emit("build", redesigned_kernels=resources)
+    check(sorted(r["kernel"] for r in resources)
+          == ["flash_attention"] * 4 + ["tap_gemm"] * 4
+          and all("registers" in r for r in resources),
+          f"build logs lack the redesigned kernels' entries: {resources}")
 
     table2 = [("/".join(map(str, layer)), paper_cnn.dims(layer))
               for layer in paper_cnn.TABLE2_LAYERS]

@@ -16,21 +16,36 @@
 // passes need 0.4 GFLOP against ~10 MB, i.e. ~40 FLOP/byte, above the
 // card's float32 ridge (67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte), so they are
 // bound by float32 operations; the first layer (C = 3) is bound by bytes.
-// Design: one 256-thread block owns a 64x64 output tile and walks the
-// contraction (taps x channel chunks, or batch x space for the weight
-// grad) in steps of 16, staging both operands through 8 KB of shared
-// memory and accumulating a 4x4 register tile per thread with FMA.  The
-// tap halo is a pointer offset; reads past the source plane or the
-// ragged channel edge are masked to zero, so no operand is padded.  The
-// shared-memory footprint does not depend on the geometry, so every
-// layer launches.  No tensor cores and no TF32 in this version: results
-// are full float32, like the paper's FP32 setup.
+// No tensor cores and no TF32: results are full float32, like the paper's
+// FP32 setup.  Every tile is 64 x 64 outputs; the tap halo is a pointer
+// offset and reads past the source plane or the contraction are masked to
+// zero, so no operand is padded and shared memory does not depend on the
+// geometry.
+//
+// Forward (fwd::kernel).  At the paper's deep layers its 64 x 64 tiles are
+// too few to fill 132 SMs (layer 4: 28 tiles), and chunking each tap's
+// channels by 16 wastes lanes on a ragged edge (C = 3: 13 of 16).  So:
+//   * the contraction runs over the flattened (tap, channel) index
+//     kk = t * CIN + c, whose weight operand is one (T*CIN) x COUT matrix:
+//     no lane is empty but the last step's;
+//   * split-K refills the card where the tiles cannot (splits chosen by
+//     the wrapper), each split writing float32 partials;
+//   * 64 threads, each with an 8 x 8 register tile: 4 FMA per float read
+//     from shared memory;
+//   * a 2-stage shared-memory ring filled by cp.async (16-byte copies
+//     of 4 channels of one pixel where CIN % 4 == 0, 4-byte otherwise),
+//     so step k+1 loads while step k computes, with one barrier a step.
+//     18,432 B of shared memory.
+// Input grad and weight grad (tap_loop, mma_tile): one 256-thread block
+// walks taps x channel chunks (or batch x space for the weight grad) in
+// steps of 16, staging both operands through 8,448 B of shared memory, a
+// 4 x 4 register tile per thread, no overlap of loads with compute.
 //
 // Groups are a grid dimension with per-group operand offsets, so a
-// grouped or depthwise conv is one launch per pass.  The weight grad
-// splits its contraction over blocks (split-K); each split writes float32
-// partials and a second kernel sums them in a fixed order.  No atomics, so
-// results are identical run to run.
+// grouped or depthwise conv is one launch per pass.  The forward and the
+// weight grad split their contraction over blocks (split-K); each split
+// writes float32 partials and a second kernel sums them in a fixed order.
+// No atomics, so results are identical run to run.
 //
 // Every entry returns cudaGetLastError() right after its launches.
 
@@ -41,6 +56,7 @@
 
 namespace {
 
+// Tiles of the input-grad and weight-grad kernels.
 constexpr int BM = 64;        // output tile rows (pixels, or cin for wgrad)
 constexpr int BN = 64;        // output tile columns (cout)
 constexpr int BK = 16;        // contraction step
@@ -83,14 +99,12 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out,
   }
 }
 
-// Pixel-major contraction over one list of taps: shared by the forward and
-// the phased input grad.  src_g: (P, B, Hs, Ws, CIN) of one group (P == 1
-// for the phased kernel); w_g: (T, CIN, COUT); rows of `taps` are
-// (sel, du, dv): with plane_from_tap, sel is the source plane and tap t
-// reads w[t] (forward); otherwise sel indexes w and the source has one plane.
+// Pixel-major contraction over one list of taps, for the phased input grad.
+// src_g: (B, Hs, Ws, CIN) of one group and phase; w_g: (T, CIN, COUT);
+// rows of `taps` are (j, du, dv): tap j reads w[j] at offset (du, dv).
 __device__ __forceinline__ void tap_loop(
     const float* __restrict__ src_g, const float* __restrict__ w_g,
-    const int* __restrict__ taps, int ntaps, bool plane_from_tap,
+    const int* __restrict__ taps, int ntaps,
     int B, int Hs, int Ws, int CIN, int COUT, int OH, int OW, int m0, int n0,
     float (*As)[AS_LD], float (*Bs)[BN], float acc[4][4]) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -112,18 +126,16 @@ __device__ __forceinline__ void tap_loop(
   }
   // B loads: column tid % BN, rows tid / BN + 4*r.
   const int b_n = tid % BN, b_k = tid / BN;
-  const size_t plane = (size_t)B * Hs * Ws * CIN;
   for (int t = 0; t < ntaps; ++t) {
     const int sel = taps[3 * t], du = taps[3 * t + 1], dv = taps[3 * t + 2];
-    const float* sp = src_g + (plane_from_tap ? (size_t)sel * plane : 0);
-    const float* wt = w_g + (size_t)(plane_from_tap ? t : sel) * CIN * COUT;
+    const float* wt = w_g + (size_t)sel * CIN * COUT;
     for (int c0 = 0; c0 < CIN; c0 += BK) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = a_oh[r] + du, col = a_ow[r] + dv, c = c0 + a_k;
         float v = 0.f;
         if (a_ok[r] && row < Hs && col < Ws && c < CIN)
-          v = sp[(((size_t)a_b[r] * Hs + row) * Ws + col) * CIN + c];
+          v = src_g[(((size_t)a_b[r] * Hs + row) * Ws + col) * CIN + c];
         As[a_k][tid / BK + 16 * r] = v;
       }
 #pragma unroll
@@ -139,24 +151,239 @@ __device__ __forceinline__ void tap_loop(
   }
 }
 
-// Forward: out[g, b, oh, ow, :] = sum_t src[g, p_t, b, oh+du_t, ow+dv_t, :] @ w[g, t].
-// grid = (cdiv(B*OH*OW, BM), cdiv(COUT, BN), G)
-__global__ void __launch_bounds__(THREADS)
-tap_gemm_kernel(const float* __restrict__ src, const float* __restrict__ w,
-                const int* __restrict__ taps, float* __restrict__ out, int P,
-                int B, int Hs, int Ws, int CIN, int T, int COUT, int OH,
-                int OW) {
-  __shared__ __align__(16) float As[BK][AS_LD];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int g = blockIdx.z, m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = B * OH * OW;
-  float acc[4][4] = {};
-  tap_loop(src + (size_t)g * P * B * Hs * Ws * CIN,
-           w + (size_t)g * T * CIN * COUT, taps, T, true, B, Hs, Ws, CIN,
-           COUT, OH, OW, m0, n0, As, Bs, acc);
-  store_tile(out + (size_t)g * M * COUT, acc, m0, n0, M, COUT,
-             threadIdx.x / 16, threadIdx.x % 16);
+// ---------------------------------------------------------------------------
+// Forward: packed taps, split-K, 8 x 8 register micro-tile, cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace fwd {
+
+constexpr int BM = 64, BN = 64, BK = 16;  // output tile, contraction step
+constexpr int THREADS = 64;  // 8 x 8 threads, 8 x 8 outputs each
+constexpr int LDA = BK + 4;  // A row pitch: conflict-free float4 reads
+
+struct Tiles {
+  float a[2][BM][LDA];  // [stage][pixel][kk]
+  float b[2][BK][BN];   // [stage][kk][cout]
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
+// Async copies; with ok false nothing is read and the destination is
+// zero-filled (src-size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// out[z, m, n] = sum over kk in split s of A[m, kk] * w_g[kk, n], where
+// z = s * G + g, m = (b * OH + oh) * OW + ow, kk = t * CIN + c and
+// A[m, kk] = src[g, sel_t, b, oh + du_t, ow + dv_t, c] (zero past the
+// plane).  out holds (splits, G, M, COUT) partials, or the output when
+// there is one split.  VEC_A: CIN % 4 == 0 and src 16-byte aligned, so a
+// channel quad never straddles a tap; VEC_B: COUT % 4 == 0 and w, out
+// 16-byte aligned.  grid = (cdiv(M, BM), cdiv(COUT, BN), splits * G).
+template <bool VEC_A, bool VEC_B>
+__global__ void __launch_bounds__(THREADS)
+kernel(const float* __restrict__ src, const float* __restrict__ w,
+       const int* __restrict__ taps, float* __restrict__ out, int G, int P,
+       int B, int Hs, int Ws, int CIN, int T, int COUT, int OH, int OW,
+       int chunk) {
+  __shared__ __align__(16) Tiles sm;
+  const int tid = threadIdx.x;
+  const int g = blockIdx.z % G, split = blockIdx.z / G;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = B * OH * OW, K = T * CIN;
+  const int k_begin = split * chunk, k_end = min(K, k_begin + chunk);
+  const size_t plane = (size_t)B * Hs * Ws * CIN;
+  const float* src_g = src + (size_t)g * P * plane;
+  const float* w_g = w + (size_t)g * K * COUT;
+
+  // The A rows this thread fills, fixed for the whole walk: with VEC_A
+  // pixels tid / 4 + 16 j and channel quad tid % 4 of every step (16-byte
+  // copies); otherwise pixel tid and all BK columns (4-byte copies).
+  constexpr int AR = VEC_A ? 4 : 1;
+  int a_oh[AR], a_ow[AR];
+  size_t a_off[AR];
+  bool a_ok[AR];
+#pragma unroll
+  for (int j = 0; j < AR; ++j) {
+    const int m = m0 + (VEC_A ? tid / 4 + 16 * j : tid);
+    a_ok[j] = m < M;
+    const int mm = a_ok[j] ? m : 0;
+    a_ow[j] = mm % OW;
+    const int q = mm / OW;
+    a_oh[j] = q % OH;
+    a_off[j] = (((size_t)(q / OH) * Hs + a_oh[j]) * Ws + a_ow[j]) * CIN;
+  }
+
+  auto load = [&](int st, int k0) {
+    if constexpr (VEC_A) {
+      const int kk = k0 + (tid % 4) * 4;
+      const bool k_ok = kk < k_end;
+      int du = 0, dv = 0;
+      size_t off = 0;
+      if (k_ok) {
+        const int t = kk / CIN;
+        du = taps[3 * t + 1];
+        dv = taps[3 * t + 2];
+        off = taps[3 * t] * plane + ((size_t)du * Ws + dv) * CIN +
+              (kk - t * CIN);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = k_ok && a_ok[j] && a_oh[j] + du < Hs &&
+                        a_ow[j] + dv < Ws;
+        cp_async16(&sm.a[st][tid / 4 + 16 * j][(tid % 4) * 4],
+                   ok ? src_g + off + a_off[j] : src_g, ok);
+      }
+    } else {
+      // Step (t, c) along the flattened contraction, one tap per CIN.
+      int t = k0 / CIN, c = k0 - t * CIN;
+      int du = 0, dv = 0;
+      size_t off = 0;
+      auto tap = [&] {
+        if (t < T) {
+          du = taps[3 * t + 1];
+          dv = taps[3 * t + 2];
+          off = taps[3 * t] * plane + ((size_t)du * Ws + dv) * CIN;
+        }
+      };
+      tap();
+#pragma unroll
+      for (int e = 0; e < BK; ++e) {
+        const bool ok = k0 + e < k_end && a_ok[0] && a_oh[0] + du < Hs &&
+                        a_ow[0] + dv < Ws;
+        cp_async4(&sm.a[st][tid][e], ok ? src_g + off + a_off[0] + c : src_g,
+                  ok);
+        if (++c == CIN) {
+          c = 0;
+          ++t;
+          tap();
+        }
+      }
+    }
+    if constexpr (VEC_B) {
+      const int n = n0 + (tid % 16) * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kr = tid / 16 + 4 * j, k = k0 + kr;
+        const bool ok = k < k_end && n < COUT;
+        cp_async16(&sm.b[st][kr][(tid % 16) * 4],
+                   ok ? w_g + (size_t)k * COUT + n : w_g, ok);
+      }
+    } else {
+      const int n = n0 + tid;
+#pragma unroll
+      for (int kr = 0; kr < BK; ++kr) {
+        const int k = k0 + kr;
+        const bool ok = k < k_end && n < COUT;
+        cp_async4(&sm.b[st][kr][tid], ok ? w_g + (size_t)k * COUT + n : w_g,
+                  ok);
+      }
+    }
+  };
+
+  // Thread (ty, tx) owns rows ty + 8 i and columns tx * 4 + j, 32 + tx * 4
+  // + j (i, j < 8 and 4): 16 floats read per 64 FMA of each kk.
+  const int ty = tid / 8, tx = tid % 8;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int steps = k_end > k_begin ? cdiv(k_end - k_begin, BK) : 0;
+  if (steps > 0) {
+    load(0, k_begin);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    // Step `step` has landed, and every thread is done with step - 1,
+    // whose stage the next load overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < steps) {
+      load((step + 1) % 2, k_begin + (step + 1) * BK);
+      cp_async_commit();
+    }
+    const int st = step % 2;
+#pragma unroll
+    for (int kq = 0; kq < BK; kq += 4) {
+      float a[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&sm.a[st][ty + 8 * i][kq]);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+        a[i][2] = v.z;
+        a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 =
+            *reinterpret_cast<const float4*>(&sm.b[st][kq + kk][tx * 4]);
+        const float4 b1 =
+            *reinterpret_cast<const float4*>(&sm.b[st][kq + kk][32 + tx * 4]);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(a[i][kk], bv[j], acc[i][j]);
+      }
+    }
+  }
+
+  float* out_z = out + (size_t)blockIdx.z * M * COUT;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty + 8 * i;
+    if (m >= M) continue;
+    float* row = out_z + (size_t)m * COUT;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 32 + tx * 4;
+      if (VEC_B) {
+        if (n < COUT)
+          *reinterpret_cast<float4*>(row + n) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < COUT) row[n + j] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
+template <bool VEC_A, bool VEC_B>
+cudaError_t launch(const float* src, const float* w, const int* taps,
+                   float* out, int G, int P, int B, int Hs, int Ws, int CIN,
+                   int T, int COUT, int OH, int OW, int splits, int chunk,
+                   cudaStream_t stream) {
+  const dim3 grid(cdiv(B * OH * OW, BM), cdiv(COUT, BN), splits * G);
+  kernel<VEC_A, VEC_B><<<grid, THREADS, 0, stream>>>(
+      src, w, taps, out, G, P, B, Hs, Ws, CIN, T, COUT, OH, OW, chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd
 
 // Input grad, all stride phases in one launch: blockIdx.z = g*PH + phase.
 // Phase p runs counts[p] taps (j, du, dv) from taps[p, :, :]; a phase with
@@ -178,7 +405,7 @@ tap_gemm_phased_kernel(const float* __restrict__ src,
   float acc[4][4] = {};
   tap_loop(src + (size_t)g * B * Hs * Ws * CIN,
            w + ((size_t)g * PH + ph) * T * CIN * COUT, taps + ph * T * 3,
-           counts[ph], false, B, Hs, Ws, CIN, COUT, QH, QW, m0, n0, As, Bs,
+           counts[ph], B, Hs, Ws, CIN, COUT, QH, QW, m0, n0, As, Bs,
            acc);
   store_tile(out + ((size_t)g * PH + ph) * M * COUT, acc, m0, n0, M, COUT,
              threadIdx.x / 16, threadIdx.x % 16);
@@ -231,13 +458,25 @@ tap_wgrad_kernel(const float* __restrict__ src, const float* __restrict__ dy,
 
 extern "C" {
 
+// `part` holds splits * G*M*COUT floats (M = B*OH*OW); with splits == 1 it
+// may alias `out` and the reduction is skipped.
 int tap_gemm_f32(const float* src, const float* w, const int* taps,
-                 float* out, int G, int P, int B, int Hs, int Ws, int CIN,
-                 int T, int COUT, int OH, int OW, cudaStream_t stream) {
-  const dim3 grid(cdiv(B * OH * OW, BM), cdiv(COUT, BN), G);
-  tap_gemm_kernel<<<grid, THREADS, 0, stream>>>(src, w, taps, out, P, B, Hs,
-                                                Ws, CIN, T, COUT, OH, OW);
-  return (int)cudaGetLastError();
+                 float* part, float* out, int G, int P, int B, int Hs,
+                 int Ws, int CIN, int T, int COUT, int OH, int OW,
+                 int splits, cudaStream_t stream) {
+  const int chunk = cdiv(cdiv(T * CIN, splits), fwd::BK) * fwd::BK;
+  const bool vec_a = CIN % 4 == 0 && (uintptr_t)src % 16 == 0;
+  const bool vec_b =
+      COUT % 4 == 0 && ((uintptr_t)w | (uintptr_t)part) % 16 == 0;
+  auto run = vec_a ? (vec_b ? &fwd::launch<true, true>
+                            : &fwd::launch<true, false>)
+                   : (vec_b ? &fwd::launch<false, true>
+                            : &fwd::launch<false, false>);
+  cudaError_t err = run(src, w, taps, part, G, P, B, Hs, Ws, CIN, T, COUT,
+                        OH, OW, splits, chunk, stream);
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return (int)splitk::reduce(part, out, (size_t)G * B * OH * OW * COUT,
+                             splits, stream);
 }
 
 int tap_gemm_phased_f32(const float* src, const float* w, const int* counts,

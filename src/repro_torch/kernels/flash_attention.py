@@ -8,6 +8,10 @@ plus grouped key/value heads (``k``, ``v`` may have ``Hk`` heads with
 attention of every prefill of the LM server
 (``repro_torch.models.attention._sdpa``).
 
+bfloat16 inputs run on the tensor cores (``mma.sync``) and round each
+probability to bf16 before the P V product, where the TPU kernel keeps
+float32 P; float32 inputs run full float32 FMA.
+
 The TPU kernel's ``block_q``/``block_k`` tile arguments and its
 ``interpret`` flag are dropped: the CUDA kernel's tiles are fixed and
 ragged edges are masked instead of padded.  A causal call with ``Lq > Lk``

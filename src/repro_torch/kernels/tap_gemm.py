@@ -29,7 +29,8 @@ from repro_torch.kernels import build, ref
 LAUNCHES: dict[str, int] = {"tap_gemm": 0, "tap_gemm_phased": 0,
                             "tap_wgrad": 0}
 
-#: the kernels' fixed output tile (must match BM, BN in csrc/tap_gemm.cu).
+#: the kernels' fixed output tile (must match BM, BN and fwd::BM, fwd::BN
+#: in csrc/tap_gemm.cu).
 TILE_M, TILE_N = 64, 64
 GRID_YZ_MAX = 65_535
 INT32_MAX = 2**31 - 1
@@ -52,8 +53,11 @@ def launch_gap(m: int, cout: int, grid_z: int) -> str | None:
     """None when a launch with ``m`` output rows (or contraction rows),
     ``cout`` columns and ``grid_z`` groups x phases (or taps) fits the
     kernels' limits, else why not.  The tiles are fixed and no halo is
-    staged, so shared memory (8,448 B per block) never depends on the
-    geometry; only the grid and the 32-bit row index can overflow."""
+    staged, so shared memory (18,432 B per forward block, 8,448 B per
+    input-grad or weight-grad block) never depends on the geometry; only
+    the grid and the 32-bit row index can overflow.  The forward's and the
+    weight grad's split counts keep their grids' z within the limit
+    (:func:`wgrad_splits`)."""
     if m > INT32_MAX:
         return f"{m} rows exceed the kernels' 32-bit row index"
     if _cdiv(cout, TILE_N) > GRID_YZ_MAX:
@@ -72,7 +76,7 @@ def _lib() -> ctypes.CDLL:
     """The built library, with every entry's C signature declared (each
     pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     lib = build.load("tap_gemm")
-    lib.tap_gemm_f32.argtypes = [_P] * 4 + [_I] * 10 + [_P]
+    lib.tap_gemm_f32.argtypes = [_P] * 5 + [_I] * 11 + [_P]
     lib.tap_gemm_phased_f32.argtypes = [_P] * 5 + [_I] * 10 + [_P]
     lib.tap_wgrad_f32.argtypes = [_P] * 5 + [_I] * 11 + [_P]
     for fn in (lib.tap_gemm_f32, lib.tap_gemm_phased_f32, lib.tap_wgrad_f32):
@@ -150,11 +154,15 @@ def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int,
     gap = launch_gap(m, cout, g)
     if gap:
         raise ValueError(f"tap_gemm: {gap}")
+    splits = forward_splits(m, cout, t, cin, _sms(src.device), g)
     out = torch.empty((g, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
+    part = out if splits == 1 else torch.empty(
+        (splits, g, b, oh, ow, cout), dtype=torch.float32, device=src.device)
     _run("tap_gemm", _lib().tap_gemm_f32, s6.data_ptr(), w4.data_ptr(),
-         _table(taps, src.device).data_ptr(), out.data_ptr(),
-         g, p, b, hs, ws, cin, t, cout, oh, ow, _stream(src))
+         _table(taps, src.device).data_ptr(), part.data_ptr(),
+         out.data_ptr(), g, p, b, hs, ws, cin, t, cout, oh, ow, splits,
+         _stream(src))
     return out if grouped else out[0]
 
 
@@ -205,12 +213,27 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
 def wgrad_splits(blocks: int, rows: int, sms: int, groups: int = 1) -> int:
     """Split-K factor: enough splits that ``blocks`` output tiles fill about
     two waves of ``sms`` SMs, but never splits of fewer than 256
-    contraction rows (``rows`` = B*oh*ow for the weight grad, K for
-    ``matmul``), and at most the grid's y/z limit over ``groups`` (the
-    launches that share one grid dimension among groups and splits).
-    Shared by ``tap_wgrad`` and ``repro_torch.kernels.matmul``."""
+    contraction rows (``rows`` = B*oh*ow for the weight grad, taps*CIN for
+    the forward, K for ``matmul``), and at most the grid's y/z limit over
+    ``groups`` (the launches that share one grid dimension among groups
+    and splits).  Shared by ``tap_wgrad``, ``tap_gemm`` (through
+    :func:`forward_splits`) and ``repro_torch.kernels.matmul``."""
     return max(1, min(_cdiv(2 * sms, blocks), _cdiv(rows, 256),
                       GRID_YZ_MAX // groups))
+
+
+def forward_splits(m: int, cout: int, taps: int, cin: int, sms: int,
+                   groups: int = 1) -> int:
+    """Split-K factor of the forward: :func:`wgrad_splits` over its
+    ``groups`` x ``m`` x ``cout`` output in 64 x 64 tiles and its
+    contraction of ``taps * cin`` rows (a tap's channels, tap after tap)."""
+    tiles = _cdiv(m, TILE_M) * _cdiv(cout, TILE_N) * groups
+    return wgrad_splits(tiles, taps * cin, sms, groups)
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int,
@@ -239,8 +262,7 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int,
     if gap:
         raise ValueError(f"tap_wgrad: {gap}")
     tiles = _cdiv(cin, TILE_M) * _cdiv(cout, TILE_N)
-    sms = torch.cuda.get_device_properties(src.device).multi_processor_count
-    splits = wgrad_splits(tiles * g * t, rows, sms)
+    splits = wgrad_splits(tiles * g * t, rows, _sms(src.device))
     out = torch.empty((g, t, cin, cout), dtype=torch.float32,
                       device=src.device)
     part = out if splits == 1 else torch.empty(

@@ -135,6 +135,33 @@ def test_split_k_weight_grad_is_deterministic(cuda):
     _close(a, ref.tap_wgrad_ref(src, dyn, taps, d.H_o, d.W_o))
 
 
+@pytest.mark.parametrize("layer", [(28, 244, 244, 3, 2, 1),
+                                   (14, 1024, 2048, 1, 2, 0),
+                                   (224, 3, 64, 3, 2, 0)],
+                         ids=["L4", "L5", "L1"])
+def test_forward_split_k_matches_plain_version_and_is_deterministic(cuda,
+                                                                    layer):
+    """Table II layers 4 and 5 split the forward's (tap, channel)
+    contraction over 9 and 4 blocks; layer 1 (C = 3, 4-byte copies) does
+    not split.  Partials are summed in a fixed order: runs agree bit for
+    bit."""
+    from repro_torch.configs import paper_cnn
+    d = paper_cnn.dims(layer)
+    gen = torch.Generator().manual_seed(8)
+    x = _randn(gen, d.B, d.C, d.H_i, d.W_i, dev=cuda)
+    w = _randn(gen, d.N, d.C, d.K_h, d.K_w, dev=cuda)
+    src, wt, taps = ops.forward_operands(x, w, d)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = tg.forward_splits(d.B * d.H_o * d.W_o, d.N, len(taps), d.C, sms)
+    assert (splits > 1) == (d.C > 3)
+    reset_launch_counts()
+    a = tg.tap_gemm(src, wt, taps, d.H_o, d.W_o)
+    b = tg.tap_gemm(src, wt, taps, d.H_o, d.W_o)
+    assert launch_counts()["tap_gemm"] == 2
+    assert torch.equal(a, b)
+    _close(a, ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     src = torch.zeros(1, 1, 4, 4, 3, device=cuda)
     w = torch.zeros(1, 3, 2, device=cuda)
@@ -157,7 +184,8 @@ def test_training_losses_match_lax(cuda):
 
 #: bf16 outputs: both sides round the float32 sum to bfloat16 (2^-8
 #: relative) after summing in another order, so they may differ by one
-#: bf16 step of the largest value.
+#: bf16 step of the largest value.  bf16 flash attention also rounds each
+#: probability to bf16 (2^-9 relative) before its P V product.
 BF16_TOL = 1e-2
 
 MATMULS = [(24_642, 27, 64), (6_272, 576, 64), (1, 7, 3), (3, 576, 10_000),
@@ -263,6 +291,13 @@ FLASH_CASES = [
     (1, 6, 2, 256, 1024, 64, True, torch.float32),     # Lq < Lk
     (1, 3, 1, 77, 130, 16, False, torch.float32),      # full, small D
     (1, 4, 2, 1, 33, 100, True, torch.bfloat16),       # one row, odd D
+    # bf16 runs on the tensor cores: D = 128, rows of D = 100 that are not
+    # 16-byte aligned (plain loads), Lq < Lk, and one query row.
+    (1, 4, 2, 200, 200, 128, True, torch.bfloat16),
+    (1, 4, 2, 77, 130, 100, True, torch.bfloat16),
+    (1, 3, 1, 77, 130, 100, False, torch.bfloat16),
+    (1, 6, 2, 256, 1024, 64, True, torch.bfloat16),
+    (1, 15, 5, 1, 1024, 64, True, torch.bfloat16),
 ]
 
 

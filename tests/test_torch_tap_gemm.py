@@ -142,3 +142,47 @@ def test_wgrad_split_factor_covers_both_ends_of_the_contraction():
     # tile; splits and groups share the grid's z limit.
     assert tg.wgrad_splits(1, 97682, 132) == 264
     assert tg.wgrad_splits(1, 97682, 132, groups=65535) == 1
+
+
+def test_forward_split_counts_at_the_paper_and_cnn_shapes():
+    """The forward's split-K factor on a 132-SM H100 (64 x 64 output tiles,
+    contraction over taps x CIN): Table II layers 1-5 split (1, 3, 1, 9, 4),
+    filling layer 4's 28 tiles and layer 5's 64 to over 250 blocks; the
+    example CNN's three convs (batch 32) split none."""
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core.im2col_ref import ConvDims
+
+    def splits(d, groups=1):
+        return tg.forward_splits(d.B * d.H_o * d.W_o, d.N,
+                                 d.k_taps_h * d.k_taps_w, d.C, 132, groups)
+
+    assert [splits(paper_cnn.dims(layer))
+            for layer in paper_cnn.TABLE2_LAYERS] == [1, 3, 1, 9, 4]
+    cnn = [(ConvDims(B=32, C=3, H_i=16, W_i=16, N=16, K_h=3, K_w=3, S=2,
+                     P_h=1, P_w=1), 1),
+           (ConvDims(B=32, C=1, H_i=8, W_i=8, N=1, K_h=3, K_w=3, S=1,
+                     P_h=1, P_w=1), 16),
+           (ConvDims(B=32, C=16, H_i=8, W_i=8, N=32, K_h=3, K_w=3, S=2,
+                     P_h=1, P_w=1), 1)]
+    assert [splits(d, g) for d, g in cnn] == [1, 1, 1]
+
+
+def test_cpu_forward_at_a_split_shape_is_the_plain_version():
+    """A shape the card would split 3 ways: on CPU tensors the wrapper
+    returns the plain version itself (equal to JAX's oracle) and counts no
+    launch."""
+    rng = np.random.RandomState(8)
+    taps = [(p, du, dv) for p in range(4) for du in range(2)
+            for dv in range(2)][:9]
+    src, w = _rand(rng, 4, 1, 5, 5, 64), _rand(rng, len(taps), 64, 8)
+    assert tg.forward_splits(16, 8, len(taps), 64, 132) == 3
+    tg.reset_launch_counts()
+    got = tg.tap_gemm(torch.from_numpy(src), torch.from_numpy(w), taps, 4, 4)
+    assert torch.equal(got, tref.tap_gemm_ref(torch.from_numpy(src),
+                                              torch.from_numpy(w), taps, 4,
+                                              4))
+    want = np.asarray(jref.tap_gemm_ref(jnp.asarray(src), jnp.asarray(w),
+                                        taps, 4, 4))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert tg.launch_counts() == {"tap_gemm": 0, "tap_gemm_phased": 0,
+                                  "tap_wgrad": 0}
