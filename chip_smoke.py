@@ -10,8 +10,12 @@ PATH):
                    versions; TF32 is switched off for every library call.
   2. build      -- ``nvcc`` builds the three CUDA sources of
                    ``src/repro_torch/csrc`` (in parallel); the registers,
-                   spills and shared memory of each entry of the forward
-                   tap GEMM and of the bf16 flash attention.
+                   spills and shared memory of each entry of the
+                   redesigned kernels (forward and weight-grad tap GEMMs,
+                   the four ``matmul`` tiles, the bf16 flash attention);
+                   the blocks an SM holds of each weight-grad and
+                   ``matmul`` instance (the occupancy calculator) against
+                   the number their split plans assume.
   3. kernels    -- for each of the paper's Table II layers (batch 2, float32),
                    the three convs of the CNN's training run (batch 32), the
                    autoencoder's two encoder convs and the mirror convs of
@@ -23,16 +27,19 @@ PATH):
                    call for the same pass (a CUDA graph of 10 back-to-back
                    calls replayed between CUDA events, median of 10), the
                    host time per kernel call, and the least time the card
-                   could take (``bound_us``); the forward's and the weight
-                   grad's split counts; the forward and the weight grad
-                   are bit-equal run to run.
+                   could take (``bound_us``); the forward's split count
+                   and the weight grad's variant and split count
+                   (``wgrad_plan``); the forward and the weight grad are
+                   bit-equal run to run.
   4. matmul     -- the same for the ``matmul`` kernel at every lowered GEMM
                    of the ``traditional`` and ``bp_im2col`` engines at the
                    Table II and CNN shapes, at every GEMM the autoencoder
                    runs under ``traditional`` (the decoder's stride-1 GEMM
                    over the zero-inserted input among them), and one
-                   bfloat16 case.  Its plain version and its library call
-                   are one and the same: ``torch.matmul`` with TF32 off.
+                   bfloat16 case, each with its variant and split count
+                   (``matmul_plan``) and bit-equal run to run.  Its plain
+                   version and its library call are one and the same:
+                   ``torch.matmul`` with TF32 off.
   5. layers     -- each Table II layer through ``conv2d(x, w, spec, p)`` and
                    ``.backward()`` for p in (pallas, traditional, bp_im2col),
                    against ``policy="lax"``; each kernel launches exactly
@@ -233,11 +240,15 @@ def bound(flops: float, nbytes_: float,
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
-#: kernel -> a piece of the mangled name of each entry of the forward tap
-#: GEMM and of the bf16 (tensor-core) flash attention, whose registers,
-#: spills and shared memory the build phase reports.
-REDESIGNED = {"tap_gemm": "3fwd6kernel",
-              "flash_attention": "flash_bf16_kernel"}
+#: kernel -> pieces of the mangled names of the entries of its redesigned
+#: kernels (the forward and weight-grad tap GEMMs, the four ``matmul``
+#: tiles, the bf16 tensor-core flash attention), whose registers, spills
+#: and shared memory the build phase reports, and how many entries each has.
+REDESIGNED = {"tap_gemm": (("3fwd6kernel",), 4),
+              "tap_wgrad": (("5wgrad6kernel",), 8),
+              "matmul": (("4gemm6kernel", "4tall6kernel", "6mirror6kernel"),
+                         22),
+              "flash_attention": (("flash_bf16_kernel",), 4)}
 
 
 def flash_bf16_smem(dm: int) -> int:
@@ -255,8 +266,8 @@ def kernel_resources(log_dir: pathlib.Path) -> list[dict]:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 name = m.group(1)
-                kernel = next((k for k, mark in REDESIGNED.items()
-                               if mark in name), None)
+                kernel = next((k for k, (marks, _) in REDESIGNED.items()
+                               if any(mark in name for mark in marks)), None)
                 cur = {"kernel": kernel, "entry": name} if kernel else None
                 if cur:
                     dm = re.search(r"ILi(\d+)E", name)
@@ -278,6 +289,47 @@ def kernel_resources(log_dir: pathlib.Path) -> list[dict]:
                 cur["registers"] = int(m.group(1))
                 cur["static_smem_bytes"] = int(smem.group(1)) if smem else 0
     return out
+
+
+def plan_occupancy(tg, mm) -> list[dict]:
+    """Blocks an SM holds of every weight-grad and ``matmul`` instance, from
+    the card's occupancy calculator, beside the ``per_sm`` the plans assume
+    for its variant."""
+    rows = []
+    for variant, tile in tg.WGRAD_TILES.items():
+        for vec_a in (False, True):
+            for vec_b in (False, True):
+                rows.append({"kernel": "tap_wgrad", "variant": variant,
+                             "in": "float32", "vec_a": vec_a, "vec_b": vec_b,
+                             "plan_per_sm": tile.per_sm,
+                             "blocks_per_sm": tg.wgrad_blocks_per_sm(
+                                 variant, vec_a, vec_b)})
+    for variant, tile in mm.VARIANTS.items():
+        for in_bf16, vec_a, vec_b in ((False, False, False),
+                                      (False, False, True),
+                                      (False, True, False),
+                                      (False, True, True),
+                                      (True, False, False)):
+            rows.append({"kernel": "matmul", "variant": variant,
+                         "in": "bfloat16" if in_bf16 else "float32",
+                         "vec_a": vec_a, "vec_b": vec_b,
+                         "plan_per_sm": tile.per_sm,
+                         "blocks_per_sm": mm.blocks_per_sm(
+                             variant, in_bf16, vec_a, vec_b)})
+    return rows
+
+
+def check_occupancy(rows: list[dict]) -> None:
+    """Each plan's ``per_sm`` is the least the card holds of the variant's
+    float32 instances."""
+    for kernel, variant in {(r["kernel"], r["variant"]) for r in rows}:
+        mine = [r for r in rows if (r["kernel"], r["variant"], r["in"])
+                == (kernel, variant, "float32")]
+        check(min(r["blocks_per_sm"] for r in mine)
+              == mine[0]["plan_per_sm"],
+              f"{kernel} {variant}: the plan assumes "
+              f"{mine[0]['plan_per_sm']} blocks per SM, the card holds "
+              f"{[r['blocks_per_sm'] for r in mine]}")
 
 
 def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
@@ -316,15 +368,14 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
                  nbytes(gsrc) + 4 * n_taps * macs,
                  {"active_phases": sum(1 for t in pp.phase_taps if t)})
         wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
-        tiles = (tg._cdiv(d.C, tg.TILE_M) * tg._cdiv(d.N, tg.TILE_N)
-                 * len(wtaps) * g)
+        variant, splits = tg.wgrad_plan(g, len(wtaps), d.C, d.N,
+                                        d.B * d.H_o * d.W_o, sms)
         wgrad = (lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
                  lambda: ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o),
                  lambda: nn_grad.conv2d_weight(x, w.shape, dy, stride=stride,
                                                padding=pad, groups=g),
                  2.0 * d.B * d.H_o * d.W_o * macs * len(wtaps),
-                 nbytes(wsrc, dyn), {"splits": tg.wgrad_splits(
-                     tiles, d.B * d.H_o * d.W_o, sms)})
+                 nbytes(wsrc, dyn), {"variant": variant, "splits": splits})
 
         for name, (kern, plain, lib, flops, in_bytes, extra) in zip(
                 TAP_KERNELS, (fwd, dgrad, wgrad)):
@@ -441,9 +492,11 @@ def matmul_cases(torch, conv, shapes, ae):
 
 def phase_matmul(smoke, torch, mm, kref, tg, cases, dev):
     """``matmul`` against its plain version at each of ``cases``
-    (``matmul_cases``).  Cases with ``summed`` add their traditional GEMMs
-    (forward, input grad, weight grad) to the totals of the final
-    ``kernels`` line."""
+    (``matmul_cases``), with the variant and split count of its plan, and
+    bit-equal run to run.  Cases with ``summed`` add their traditional
+    GEMMs (forward, input grad, weight grad) to the totals of the final
+    ``kernels`` line.  ``tg`` is not read: the parameters are those
+    ``scripts/ab_kernel_times.py`` passes to every checkout's phase."""
     agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
            "bytes": 0.0, "max_abs_err": 0.0}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -460,11 +513,9 @@ def phase_matmul(smoke, torch, mm, kref, tg, cases, dev):
         want = plain()
         torch.cuda.synchronize()
         err, abs_err = rel_err(torch, got, want)
-        tiles = g * -(-m // mm.TILE_M) * -(-n // mm.TILE_N)
-        splits = tg.wgrad_splits(tiles, k, sms, g)
-        if splits > 1:
-            check(bool(torch.equal(got, kern())),
-                  f"matmul differs run to run at {layer} {gemm}")
+        variant, splits = mm.matmul_plan(g, m, k, n, sms)
+        check(bool(torch.equal(got, kern())),
+              f"matmul differs run to run at {layer} {gemm}")
         flops = 2.0 * g * m * k * n
         by = nbytes(a, b, got)
         b_s, b_by = bound(flops, by, PEAK_BF16_FLOPS
@@ -473,7 +524,8 @@ def phase_matmul(smoke, torch, mm, kref, tg, cases, dev):
         rec = {"kernel": "matmul", "layer": layer, "gemm": gemm,
                "gmkn": [g, m, k, n], "dtype": str(dtype).split(".")[-1],
                "max_rel_err": err, "max_abs_err": abs_err, "tol": tol,
-               "launches_per_call": launches, "splits": splits,
+               "launches_per_call": launches, "variant": variant,
+               "splits": splits,
                "kernel_ms": time_ms(torch, kern),
                "kernel_host_ms": host_ms(torch, kern),
                "plain_ms": time_ms(torch, plain),
@@ -982,9 +1034,12 @@ def main(argv=None) -> int:
     resources = kernel_resources(build.build_dir())
     smoke.emit("build", redesigned_kernels=resources)
     check(sorted(r["kernel"] for r in resources)
-          == ["flash_attention"] * 4 + ["tap_gemm"] * 4
+          == sorted(k for k, (_, n) in REDESIGNED.items() for _ in range(n))
           and all("registers" in r for r in resources),
           f"build logs lack the redesigned kernels' entries: {resources}")
+    occupancy = plan_occupancy(tg, mm)
+    smoke.emit("build", occupancy=occupancy)
+    check_occupancy(occupancy)
 
     table2 = [("/".join(map(str, layer)), paper_cnn.dims(layer))
               for layer in paper_cnn.TABLE2_LAYERS]

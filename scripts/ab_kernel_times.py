@@ -6,8 +6,10 @@
 
 Runs, in the order parent, child, child, parent, each checkout's own
 ``chip_smoke.py`` phases ``kernels`` (the three tap-GEMM kernels at the
-five Table II layers), ``matmul`` (every lowered GEMM of those layers, and
-the bf16 case) and ``flash`` (``FLASH_CASES``), one process per turn, so
+five Table II layers and at the example CNN's and autoencoder's training
+shapes, ``cnn_shapes`` and ``ae_shapes``), ``matmul`` (every lowered GEMM
+of those layers and shapes, and the bf16 case) and ``flash``
+(``FLASH_CASES``), one process per turn, so
 both sides build their own kernels from their own sources and run on the
 same card.  ``--child`` defaults to the checkout that holds this script;
 ``--parent`` is typically ``git archive`` of the parent commit unpacked
@@ -38,6 +40,8 @@ from torch.nn import grad as nn_grad
 import chip_smoke as cs
 from repro_torch.configs import paper_cnn
 from repro_torch.core import conv
+from repro_torch.core.convspec import ConvTransposeSpec
+from repro_torch.core.im2col_ref import ConvDims
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
@@ -46,11 +50,13 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 smoke = cs.Smoke(None)
-shapes = [("/".join(map(str, layer)), paper_cnn.dims(layer), 1, True)
-          for layer in paper_cnn.TABLE2_LAYERS]
-cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev)
+shapes = ([("/".join(map(str, layer)), paper_cnn.dims(layer), 1, True)
+           for layer in paper_cnn.TABLE2_LAYERS] + cs.cnn_shapes(ConvDims))
+ae = cs.ae_shapes(ConvDims, conv, ConvTransposeSpec)
+cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
+                 shapes + [row[:4] for row in ae], dev)
 cs.phase_matmul(smoke, torch, mm, ref, tg,
-                cs.matmul_cases(torch, conv, shapes, []), dev)
+                cs.matmul_cases(torch, conv, shapes, ae), dev)
 cs.phase_flash(smoke, torch, F, fa, ref, dev)
 """
 

@@ -26,6 +26,8 @@ __global__ void reduce_kernel(const float* __restrict__ part,
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
     float v = 0.f;
+    // Unrolled so that eight loads are in flight; the sum keeps its order.
+#pragma unroll 8
     for (int k = 0; k < splits; ++k) v += part[(size_t)k * total + i];
     store(out + i, v);
   }

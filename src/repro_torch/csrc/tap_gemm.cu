@@ -15,49 +15,55 @@
 // What bounds them on an H100: at the paper's layers (batch 2, FP32) most
 // passes need 0.4 GFLOP against ~10 MB, i.e. ~40 FLOP/byte, above the
 // card's float32 ridge (67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte), so they are
-// bound by float32 operations; the first layer (C = 3) is bound by bytes.
-// No tensor cores and no TF32: results are full float32, like the paper's
-// FP32 setup.  Every tile is 64 x 64 outputs; the tap halo is a pointer
-// offset and reads past the source plane or the contraction are masked to
-// zero, so no operand is padded and shared memory does not depend on the
-// geometry.
+// bound by float32 operations; the first layer (C = 3) and the example
+// CNN's and autoencoder's convs are bound by bytes (and, at their sizes,
+// by latency: a few microseconds of work).  No tensor cores and no TF32:
+// results are full float32, like the paper's FP32 setup.  The tap halo is
+// a pointer offset and reads past the source plane or the contraction are
+// masked to zero (cp.async with src-size 0), so no operand is padded and
+// shared memory does not depend on the geometry.
 //
-// Forward (fwd::kernel).  At the paper's deep layers its 64 x 64 tiles are
-// too few to fill 132 SMs (layer 4: 28 tiles), and chunking each tap's
-// channels by 16 wastes lanes on a ragged edge (C = 3: 13 of 16).  So:
-//   * the contraction runs over the flattened (tap, channel) index
-//     kk = t * CIN + c, whose weight operand is one (T*CIN) x COUT matrix:
-//     no lane is empty but the last step's;
-//   * split-K refills the card where the tiles cannot (splits chosen by
-//     the wrapper), each split writing float32 partials;
-//   * 64 threads, each with an 8 x 8 register tile: 4 FMA per float read
-//     from shared memory;
-//   * a 2-stage shared-memory ring filled by cp.async (16-byte copies
-//     of 4 channels of one pixel where CIN % 4 == 0, 4-byte otherwise),
+// Forward (fwd::kernel) and weight grad (wgrad::kernel) share one design:
+//   * (tap, channel) packed into one index, so a narrow layer (C = 3) or a
+//     depthwise conv (C = 1 per group) fills its tile rows instead of
+//     padding each tap to a tile: the forward contracts over
+//     kk = t * CIN + c against a (T*CIN) x COUT weight matrix; the weight
+//     grad's output rows are r = t * CIN + c of one (T*CIN) x COUT matrix
+//     per group, contracted over the pixels l = (b*OH + oh)*OW + ow;
+//   * split-K over the contraction, summed by a second kernel in a fixed
+//     order (splits chosen by the wrappers' plans);
+//   * 64 threads, each with an 8 x 8 register tile (4 FMA per float read
+//     from shared memory) over a 64 x 64 output tile; the weight grad has
+//     a 64 x 16 variant (4 x 4 per thread) for COUT <= 16;
+//   * a 2-stage shared-memory ring filled by cp.async (16-byte copies of
+//     4 channels where CIN % 4 == 0, so a copy never straddles a tap, and
+//     of 4 output channels where COUT % 4 == 0; 4-byte copies otherwise),
 //     so step k+1 loads while step k computes, with one barrier a step.
-//     18,432 B of shared memory.
-// Input grad and weight grad (tap_loop, mma_tile): one 256-thread block
-// walks taps x channel chunks (or batch x space for the weight grad) in
-// steps of 16, staging both operands through 8,448 B of shared memory, a
-// 4 x 4 register tile per thread, no overlap of loads with compute.
+//     Forward 18,432 B of shared memory; weight grad 16,384 B (64 x 64) or
+//     10,240 B (64 x 16).  A weight-grad thread fills 4 rows of 4 pixels
+//     a step: it decodes the taps of its rows once per kernel and walks
+//     its pixels incrementally.
+// Input grad (tap_gemm_phased_kernel: tap_loop, mma_tile): one 256-thread
+// block walks taps x channel chunks in steps of 16, staging both operands
+// through 8,448 B of shared memory, a 4 x 4 register tile per thread, no
+// overlap of loads with compute.
 //
 // Groups are a grid dimension with per-group operand offsets, so a
-// grouped or depthwise conv is one launch per pass.  The forward and the
-// weight grad split their contraction over blocks (split-K); each split
-// writes float32 partials and a second kernel sums them in a fixed order.
-// No atomics, so results are identical run to run.
+// grouped or depthwise conv is one launch per pass.  No atomics: results
+// are identical run to run.
 //
 // Every entry returns cudaGetLastError() right after its launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "splitk_reduce.cuh"
 
 namespace {
 
-// Tiles of the input-grad and weight-grad kernels.
-constexpr int BM = 64;        // output tile rows (pixels, or cin for wgrad)
+// Tiles of the input-grad kernel.
+constexpr int BM = 64;        // output tile rows (pixels)
 constexpr int BN = 64;        // output tile columns (cout)
 constexpr int BK = 16;        // contraction step
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
@@ -165,30 +171,6 @@ struct Tiles {
   float a[2][BM][LDA];  // [stage][pixel][kk]
   float b[2][BK][BN];   // [stage][kk][cout]
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// Async copies; with ok false nothing is read and the destination is
-// zero-filled (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // out[z, m, n] = sum over kk in split s of A[m, kk] * w_g[kk, n], where
 // z = s * G + g, m = (b * OH + oh) * OW + ow, kk = t * CIN + c and
@@ -411,48 +393,232 @@ tap_gemm_phased_kernel(const float* __restrict__ src,
              threadIdx.x / 16, threadIdx.x % 16);
 }
 
-// Weight grad: part[s, g, t, c, n] = sum over contraction rows l of split s
-// (l = (b*OH + oh)*OW + ow) of src[g, p_t, b, oh+du, ow+dv, c] * dy[g, l, n].
-// grid = (cdiv(CIN, BM) * cdiv(COUT, BN), splits, G*T)
-__global__ void __launch_bounds__(THREADS)
-tap_wgrad_kernel(const float* __restrict__ src, const float* __restrict__ dy,
-                 const int* __restrict__ taps, float* __restrict__ part,
-                 int G, int P, int B, int Hs, int Ws, int CIN, int T,
-                 int COUT, int OH, int OW, int chunk) {
-  __shared__ __align__(16) float As[BK][AS_LD];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n_tiles = cdiv(COUT, BN);
-  const int m0 = (blockIdx.x / n_tiles) * BM, n0 = (blockIdx.x % n_tiles) * BN;
-  const int g = blockIdx.z / T, t = blockIdx.z % T;
-  const int L = B * OH * OW;
-  const int l_begin = blockIdx.y * chunk;
-  const int l_end = min(L, l_begin + chunk);
-  const int p = taps[3 * t], du = taps[3 * t + 1], dv = taps[3 * t + 2];
-  const float* sp = src + ((size_t)g * P + p) * B * Hs * Ws * CIN;
-  const float* dyg = dy + (size_t)g * L * COUT;
-  // Loads: column tid % 64 (cin for A, cout for B), rows tid / 64 + 4*r.
-  const int col = tid % 64, k_lo = tid / 64;
-  float acc[4][4] = {};
-  for (int l0 = l_begin; l0 < l_end; l0 += BK) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = k_lo + 4 * r, l = l0 + k;
-      const bool ok = l < l_end;
-      const int ll = ok ? l : 0;
-      const int ow = ll % OW, q = ll / OW, oh = q % OH, b = q / OH;
-      const int row = oh + du, cl = ow + dv, c = m0 + col, n = n0 + col;
-      As[k][col] = (ok && row < Hs && cl < Ws && c < CIN)
-          ? sp[(((size_t)b * Hs + row) * Ws + cl) * CIN + c] : 0.f;
-      Bs[k][col] = (ok && n < COUT) ? dyg[(size_t)ll * COUT + n] : 0.f;
-    }
-    __syncthreads();
-    mma_tile(As, Bs, acc, ty, tx);
-    __syncthreads();
-  }
-  float* out = part + (((size_t)blockIdx.y * G + g) * T + t) * CIN * COUT;
-  store_tile(out, acc, m0, n0, CIN, COUT, ty, tx);
+// ---------------------------------------------------------------------------
+// Weight grad: rows packed over (tap, channel), split-K, cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace wgrad {
+
+constexpr int BM = 64;  // output rows r = t * CIN + c of a block
+constexpr int BK = 16;  // pixels per step
+constexpr int THREADS = 64;
+
+// A pixel l = (b * OH + oh) * OW + ow of the contraction.
+struct Pix {
+  int l, b, oh, ow;
+};
+__device__ __forceinline__ Pix pixel(int l, int OH, int OW) {
+  const int q = l / OW;
+  return {l, q / OH, q % OH, l - q * OW};
 }
+__device__ __forceinline__ void advance(Pix& p, int d, int OH, int OW) {
+  p.l += d;
+  p.ow += d;
+  while (p.ow >= OW) {
+    p.ow -= OW;
+    if (++p.oh == OH) {
+      p.oh = 0;
+      ++p.b;
+    }
+  }
+}
+
+template <int BN>
+struct Tiles {
+  float a[2][BK][BM];  // [stage][pixel][row]
+  float b[2][BK][BN];  // [stage][pixel][cout]
+};
+
+// part[z, r, n] = sum over the pixels l of split s of
+//   src[g, p_t, b, oh + du_t, ow + dv_t, c] * dy[g, l, n],
+// r = t * CIN + c, z = s * G + g (zero past the plane).  part holds
+// (splits, G, T*CIN, COUT) partials, or the output when there is one
+// split.  A BM x BN tile, TM x TN outputs per thread.  VEC_A: CIN % 4 == 0
+// and src 16-byte aligned, so a channel quad never straddles a tap; VEC_B:
+// COUT % 4 == 0 and dy, part 16-byte aligned.
+// grid = (cdiv(T*CIN, BM) * cdiv(COUT, BN), 1, splits * G).
+template <int BN, int TM, int TN, bool VEC_A, bool VEC_B>
+__global__ void __launch_bounds__(THREADS)
+kernel(const float* __restrict__ src, const float* __restrict__ dy,
+       const int* __restrict__ taps, float* __restrict__ part, int G, int P,
+       int B, int Hs, int Ws, int CIN, int T, int COUT, int OH, int OW,
+       int chunk) {
+  static_assert((BM / TM) * (BN / TN) == THREADS, "TM x TN per thread");
+  static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 fragments");
+  __shared__ __align__(16) Tiles<BN> sm;
+  const int tid = threadIdx.x;
+  const int col_tiles = cdiv(COUT, BN);
+  const int r0 = (blockIdx.x / col_tiles) * BM;
+  const int n0 = (blockIdx.x % col_tiles) * BN;
+  const int g = blockIdx.z % G, split = blockIdx.z / G;
+  const int R = T * CIN, L = B * OH * OW;
+  const int l_begin = split * chunk, l_end = min(L, l_begin + chunk);
+  const size_t plane = (size_t)B * Hs * Ws * CIN;
+  const float* src_g = src + (size_t)g * P * plane;
+  const float* dy_g = dy + (size_t)g * L * COUT;
+
+  // The A rows this thread fills, fixed for the whole walk: the quad
+  // r0 + 4 (tid % 16) + [0, 4) of pixels 4 (tid / 16) + [0, 4) of each
+  // step.  Their taps are decoded once: with VEC_A the quad lies in one
+  // tap (one 16-byte copy a pixel); otherwise each row has its own (four
+  // 4-byte copies a pixel).
+  constexpr int AQ = VEC_A ? 1 : 4;
+  int du[AQ], dv[AQ];
+  size_t a_tap[AQ];
+  bool a_ok[AQ];
+#pragma unroll
+  for (int q = 0; q < AQ; ++q) {
+    const int r = r0 + (tid % 16) * 4 + q;
+    a_ok[q] = r < R;
+    du[q] = dv[q] = 0;
+    a_tap[q] = 0;
+    if (a_ok[q]) {
+      const int t = r / CIN;
+      du[q] = taps[3 * t + 1];
+      dv[q] = taps[3 * t + 2];
+      a_tap[q] = taps[3 * t] * plane + ((size_t)du[q] * Ws + dv[q]) * CIN +
+                 (r - t * CIN);
+    }
+  }
+  // The first of this thread's pixels in the next step to load.
+  Pix a_pix = pixel(l_begin + (tid / 16) * 4, OH, OW);
+
+  auto load = [&](int st, int l0) {
+    Pix p = a_pix;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const size_t pix = (((size_t)p.b * Hs + p.oh) * Ws + p.ow) * CIN;
+      float* d = &sm.a[st][(tid / 16) * 4 + j][(tid % 16) * 4];
+#pragma unroll
+      for (int q = 0; q < AQ; ++q) {
+        const bool ok = a_ok[q] && p.l < l_end && p.oh + du[q] < Hs &&
+                        p.ow + dv[q] < Ws;
+        const float* s = ok ? src_g + a_tap[q] + pix : src_g;
+        if constexpr (VEC_A)
+          cp_async16(d, s, ok);
+        else
+          cp_async4(d + q, s, ok);
+      }
+      if (j < 3) advance(p, 1, OH, OW);
+    }
+    advance(a_pix, BK, OH, OW);
+    if constexpr (VEC_B) {
+      // Column quad tid % QB of pixels tid / QB + (THREADS / QB) j.
+      constexpr int QB = BN / 4;
+      const int n = n0 + (tid % QB) * 4;
+#pragma unroll
+      for (int j = 0; j < BK * QB / THREADS; ++j) {
+        const int e = tid / QB + (THREADS / QB) * j, l = l0 + e;
+        const bool ok = l < l_end && n < COUT;
+        cp_async16(&sm.b[st][e][(tid % QB) * 4],
+                   ok ? dy_g + (size_t)l * COUT + n : dy_g, ok);
+      }
+    } else {
+      const int n = n0 + tid % BN;
+#pragma unroll
+      for (int j = 0; j < BK * BN / THREADS; ++j) {
+        const int e = tid / BN + (THREADS / BN) * j, l = l0 + e;
+        const bool ok = l < l_end && n < COUT;
+        cp_async4(&sm.b[st][e][tid % BN],
+                  ok ? dy_g + (size_t)l * COUT + n : dy_g, ok);
+      }
+    }
+  };
+
+  // Thread (ty, tx) owns rows h * (4 BM / TM) + 4 ty + [0, 4) and columns
+  // h * (4 BN / TN) + 4 tx + [0, 4): float4 reads of both operands.
+  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
+  constexpr int RS = 4 * BM / TM, CS = 4 * BN / TN;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  const int steps = l_end > l_begin ? cdiv(l_end - l_begin, BK) : 0;
+  if (steps > 0) {
+    load(0, l_begin);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    // Step `step` has landed, and every thread is done with step - 1,
+    // whose stage the next load overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < steps) {
+      load((step + 1) % 2, l_begin + (step + 1) * BK);
+      cp_async_commit();
+    }
+    const int st = step % 2;
+#pragma unroll
+    for (int e = 0; e < BK; ++e) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&sm.a[st][e][h * RS + ty * 4]);
+        a[4 * h] = v.x;
+        a[4 * h + 1] = v.y;
+        a[4 * h + 2] = v.z;
+        a[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < TN / 4; ++h) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&sm.b[st][e][h * CS + tx * 4]);
+        b[4 * h] = v.x;
+        b[4 * h + 1] = v.y;
+        b[4 * h + 2] = v.z;
+        b[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  float* out_z = part + (size_t)blockIdx.z * R * COUT;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = r0 + (i / 4) * RS + ty * 4 + i % 4;
+    if (r >= R) continue;
+    float* row = out_z + (size_t)r * COUT;
+#pragma unroll
+    for (int h = 0; h < TN / 4; ++h) {
+      const int n = n0 + h * CS + tx * 4;
+      if (VEC_B) {
+        if (n < COUT)
+          *reinterpret_cast<float4*>(row + n) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (n + j < COUT) row[n + j] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
+using KernelFn = void (*)(const float*, const float*, const int*, float*, int,
+                          int, int, int, int, int, int, int, int, int, int);
+
+// The two tiles: 64 x 64 with 8 x 8 per thread and, for COUT <= 16,
+// 64 x 16 with 4 x 4 per thread.
+constexpr int BN_WIDE = 64, BN_NARROW = 16;
+
+template <bool VEC_A, bool VEC_B>
+KernelFn pick(bool narrow) {
+  return narrow ? &kernel<BN_NARROW, 4, 4, VEC_A, VEC_B>
+                : &kernel<BN_WIDE, 8, 8, VEC_A, VEC_B>;
+}
+inline KernelFn pick(bool narrow, bool vec_a, bool vec_b) {
+  return vec_a ? (vec_b ? pick<true, true>(narrow) : pick<true, false>(narrow))
+               : (vec_b ? pick<false, true>(narrow)
+                        : pick<false, false>(narrow));
+}
+
+}  // namespace wgrad
 
 }  // namespace
 
@@ -490,20 +656,35 @@ int tap_gemm_phased_f32(const float* src, const float* w, const int* counts,
 }
 
 // `part` holds splits * G*T*CIN*COUT floats; with splits == 1 it may alias
-// `out` and the reduction is skipped.
+// `out` and the reduction is skipped.  narrow != 0 takes the 64 x 16 tile
+// (COUT <= 16), else the 64 x 64 tile.
 int tap_wgrad_f32(const float* src, const float* dy, const int* taps,
                   float* part, float* out, int G, int P, int B, int Hs,
                   int Ws, int CIN, int T, int COUT, int OH, int OW,
-                  int splits, cudaStream_t stream) {
+                  int narrow, int splits, cudaStream_t stream) {
   const int L = B * OH * OW;
-  const int chunk = cdiv(cdiv(L, splits), BK) * BK;
-  const dim3 grid(cdiv(CIN, BM) * cdiv(COUT, BN), splits, G * T);
-  tap_wgrad_kernel<<<grid, THREADS, 0, stream>>>(
-      src, dy, taps, part, G, P, B, Hs, Ws, CIN, T, COUT, OH, OW, chunk);
+  const int chunk = cdiv(cdiv(L, splits), wgrad::BK) * wgrad::BK;
+  const bool vec_a = CIN % 4 == 0 && (uintptr_t)src % 16 == 0;
+  const bool vec_b =
+      COUT % 4 == 0 && ((uintptr_t)dy | (uintptr_t)part) % 16 == 0;
+  const int cols = narrow ? wgrad::BN_NARROW : wgrad::BN_WIDE;
+  const dim3 grid(cdiv(T * CIN, wgrad::BM) * cdiv(COUT, cols), 1,
+                  splits * G);
+  const wgrad::KernelFn kernel = wgrad::pick(narrow, vec_a, vec_b);
+  kernel<<<grid, wgrad::THREADS, 0, stream>>>(src, dy, taps, part, G, P, B,
+                                              Hs, Ws, CIN, T, COUT, OH, OW,
+                                              chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return (int)splitk::reduce(part, out, (size_t)G * T * CIN * COUT, splits,
                              stream);
+}
+
+// Blocks of one weight-grad instance an SM holds (registers and shared
+// memory), which the plan in kernels/tap_gemm.py assumes.
+int tap_wgrad_blocks_per_sm(int narrow, int vec_a, int vec_b, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, wgrad::pick(narrow, vec_a, vec_b), wgrad::THREADS, 0);
 }
 
 }  // extern "C"

@@ -197,12 +197,10 @@ def input_grad_plan(d: ConvDims) -> PhasePlan:
 def launch_gap(pass_name: str, d: ConvDims) -> str | None:
     """None when the kernel of ``pass_name`` can launch for the per-group
     geometry ``d``, else the reason (recorded by the engine resolver)."""
-    if pass_name == "forward":
-        return tg.launch_gap(d.B * d.H_o * d.W_o, d.N, 1)
     if pass_name == "input_grad":
         m = d.B * _cdiv(d.H_i, d.s_h) * _cdiv(d.W_i, d.s_w)
         return tg.launch_gap(m, d.C, d.s_h * d.s_w)
-    return tg.launch_gap(d.B * d.H_o * d.W_o, d.N, d.k_taps_h * d.k_taps_w)
+    return tg.launch_gap(d.B * d.H_o * d.W_o, d.N, 1)
 
 
 def plan_report(d: ConvDims) -> dict[str, object]:

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,8 +30,9 @@ from repro_torch.kernels import build, ref
 LAUNCHES: dict[str, int] = {"tap_gemm": 0, "tap_gemm_phased": 0,
                             "tap_wgrad": 0}
 
-#: the kernels' fixed output tile (must match BM, BN and fwd::BM, fwd::BN
-#: in csrc/tap_gemm.cu).
+#: the forward's and the input grad's fixed output tile (must match
+#: fwd::BM, fwd::BN and BM, BN in csrc/tap_gemm.cu; the weight grad's tiles
+#: are :data:`WGRAD_TILES`).
 TILE_M, TILE_N = 64, 64
 GRID_YZ_MAX = 65_535
 INT32_MAX = 2**31 - 1
@@ -51,13 +53,14 @@ def _cdiv(a: int, b: int) -> int:
 
 def launch_gap(m: int, cout: int, grid_z: int) -> str | None:
     """None when a launch with ``m`` output rows (or contraction rows),
-    ``cout`` columns and ``grid_z`` groups x phases (or taps) fits the
-    kernels' limits, else why not.  The tiles are fixed and no halo is
-    staged, so shared memory (18,432 B per forward block, 8,448 B per
-    input-grad or weight-grad block) never depends on the geometry; only
-    the grid and the 32-bit row index can overflow.  The forward's and the
-    weight grad's split counts keep their grids' z within the limit
-    (:func:`wgrad_splits`)."""
+    ``cout`` columns and ``grid_z`` groups (x phases for the input grad)
+    fits the kernels' limits, else why not.  The tiles are fixed and no
+    halo is staged, so shared memory (18,432 B per forward block, 8,448 B
+    per input-grad block, 16,384 B or 10,240 B per weight-grad block)
+    never depends on the geometry; only the grid and the 32-bit row index
+    can overflow.  The forward's and the weight grad's split counts keep
+    their grids' z within the limit (:func:`wgrad_splits`,
+    :func:`split_count`)."""
     if m > INT32_MAX:
         return f"{m} rows exceed the kernels' 32-bit row index"
     if _cdiv(cout, TILE_N) > GRID_YZ_MAX:
@@ -78,8 +81,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("tap_gemm")
     lib.tap_gemm_f32.argtypes = [_P] * 5 + [_I] * 11 + [_P]
     lib.tap_gemm_phased_f32.argtypes = [_P] * 5 + [_I] * 10 + [_P]
-    lib.tap_wgrad_f32.argtypes = [_P] * 5 + [_I] * 11 + [_P]
-    for fn in (lib.tap_gemm_f32, lib.tap_gemm_phased_f32, lib.tap_wgrad_f32):
+    lib.tap_wgrad_f32.argtypes = [_P] * 5 + [_I] * 12 + [_P]
+    lib.tap_wgrad_blocks_per_sm.argtypes = [_I] * 3 + [_P]
+    for fn in (lib.tap_gemm_f32, lib.tap_gemm_phased_f32, lib.tap_wgrad_f32,
+               lib.tap_wgrad_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -211,13 +216,10 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
 
 
 def wgrad_splits(blocks: int, rows: int, sms: int, groups: int = 1) -> int:
-    """Split-K factor: enough splits that ``blocks`` output tiles fill about
-    two waves of ``sms`` SMs, but never splits of fewer than 256
-    contraction rows (``rows`` = B*oh*ow for the weight grad, taps*CIN for
-    the forward, K for ``matmul``), and at most the grid's y/z limit over
-    ``groups`` (the launches that share one grid dimension among groups
-    and splits).  Shared by ``tap_wgrad``, ``tap_gemm`` (through
-    :func:`forward_splits`) and ``repro_torch.kernels.matmul``."""
+    """Split-K factor of the forward: enough splits that ``blocks`` output
+    tiles fill about two waves of ``sms`` SMs, but never splits of fewer
+    than 256 contraction rows (``rows`` = taps*CIN), and at most the grid's
+    z limit over ``groups`` (groups and splits share the grid's z)."""
     return max(1, min(_cdiv(2 * sms, blocks), _cdiv(rows, 256),
                       GRID_YZ_MAX // groups))
 
@@ -229,6 +231,73 @@ def forward_splits(m: int, cout: int, taps: int, cin: int, sms: int,
     contraction of ``taps * cin`` rows (a tap's channels, tap after tap)."""
     tiles = _cdiv(m, TILE_M) * _cdiv(cout, TILE_N) * groups
     return wgrad_splits(tiles, taps * cin, sms, groups)
+
+
+#: the least contraction rows of a split under the weight grad's and
+#: ``matmul``'s plans (4 steps of 16), and the most splits.
+MIN_SPLIT_ROWS = 64
+MAX_SPLITS = 256
+
+
+class Tile(NamedTuple):
+    """One kernel variant as the split-K plan sees it."""
+    rows: int       # output tile rows
+    cols: int       # output tile columns
+    step: int       # contraction rows per step
+    per_sm: int     # blocks an SM holds (registers, shared memory)
+
+
+#: weight-grad variants (csrc/tap_gemm.cu, wgrad::kernel), 64 threads a
+#: block: 64 x 64 with 8 x 8 outputs a thread (16,384 B of shared memory,
+#: 126-153 registers) and, for COUT <= 16, 64 x 16 with 4 x 4 (10,240 B,
+#: 55-71 registers).  ``per_sm`` is the least over each variant's instances
+#: that the card's occupancy calculator gives; ``chip_smoke.py`` holds it
+#: to the card.
+WGRAD_TILES = {"64x64": Tile(64, 64, 16, 6), "64x16": Tile(64, 16, 16, 14)}
+
+
+def split_chunk(rows: int, splits: int, step: int) -> int:
+    """Contraction rows of each split but the last, as the kernels cut
+    them: ``rows / splits`` rounded up to whole steps."""
+    return _cdiv(_cdiv(rows, splits), step) * step
+
+
+def split_count(tile: Tile, tiles: int, rows: int, sms: int,
+                groups: int) -> int:
+    """Split-K factor of the weight grad and ``matmul``: enough splits that
+    ``tiles`` output tiles (over all groups) fill the blocks the card holds
+    at once (``tile.per_sm`` on each of ``sms`` SMs), but no split under
+    :data:`MIN_SPLIT_ROWS` of the ``rows`` contraction rows, at most
+    :data:`MAX_SPLITS`, and within the grid's z limit over ``groups``;
+    rounded so that no split is empty once each is cut to whole steps
+    (:func:`split_chunk`)."""
+    s = max(1, min(tile.per_sm * sms // tiles, rows // MIN_SPLIT_ROWS,
+                   MAX_SPLITS, GRID_YZ_MAX // groups))
+    return max(1, _cdiv(rows, max(tile.step, split_chunk(rows, s,
+                                                          tile.step))))
+
+
+def wgrad_plan(g: int, t: int, cin: int, cout: int, rows: int,
+               sms: int) -> tuple[str, int]:
+    """``(variant, splits)`` of a weight grad of ``g`` groups, ``t`` taps,
+    ``cin`` x ``cout`` channels and ``rows`` = B*oh*ow contraction rows on
+    a card of ``sms`` SMs: the 64 x 16 tile for ``cout <= 16``, else
+    64 x 64, over ``t * cin`` packed (tap, channel) output rows."""
+    variant = "64x16" if cout <= 16 else "64x64"
+    tile = WGRAD_TILES[variant]
+    tiles = _cdiv(t * cin, tile.rows) * _cdiv(cout, tile.cols) * g
+    return variant, split_count(tile, tiles, rows, sms, g)
+
+
+def wgrad_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool) -> int:
+    """Blocks of one weight-grad instance an SM of the current card holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = ctypes.c_int(0)
+    err = _lib().tap_wgrad_blocks_per_sm(int(variant == "64x16"), int(vec_a),
+                                         int(vec_b), ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"tap_wgrad_blocks_per_sm: CUDA error {err}")
+    return blocks.value
 
 
 @functools.cache
@@ -258,17 +327,18 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int,
     _check_cuda("tap_wgrad", s6, d5)
     t = len(taps)
     rows = b * oh * ow
-    gap = launch_gap(rows, cout, g * t)
+    gap = launch_gap(rows, cout, g)
     if gap:
         raise ValueError(f"tap_wgrad: {gap}")
-    tiles = _cdiv(cin, TILE_M) * _cdiv(cout, TILE_N)
-    splits = wgrad_splits(tiles * g * t, rows, _sms(src.device))
+    variant, splits = wgrad_plan(g, t, cin, cout, rows, _sms(src.device))
     out = torch.empty((g, t, cin, cout), dtype=torch.float32,
                       device=src.device)
+    if out.numel() == 0:
+        return out if grouped else out[0]
     part = out if splits == 1 else torch.empty(
         (splits, g, t, cin, cout), dtype=torch.float32, device=src.device)
     _run("tap_wgrad", _lib().tap_wgrad_f32, s6.data_ptr(), d5.data_ptr(),
          _table(taps, src.device).data_ptr(), part.data_ptr(),
-         out.data_ptr(), g, p, b, hs, ws, cin, t, cout, oh, ow, splits,
-         _stream(src))
+         out.data_ptr(), g, p, b, hs, ws, cin, t, cout, oh, ow,
+         int(variant == "64x16"), splits, _stream(src))
     return out if grouped else out[0]

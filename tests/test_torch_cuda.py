@@ -20,6 +20,7 @@ from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.core.im2col_ref import ConvDims  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402,E501
+from repro_torch.kernels import matmul as mm  # noqa: E402
 from repro_torch.kernels import tap_gemm as tg  # noqa: E402
 from repro_torch.kernels.matmul import matmul  # noqa: E402
 
@@ -189,7 +190,8 @@ def test_training_losses_match_lax(cuda):
 BF16_TOL = 1e-2
 
 MATMULS = [(24_642, 27, 64), (6_272, 576, 64), (1, 7, 3), (3, 576, 10_000),
-           (27, 97_682, 64), (98, 1_024, 2_048), (10_000, 576, 3)]
+           (27, 97_682, 64), (98, 1_024, 2_048), (10_000, 576, 3),
+           (2_048, 27, 16), (27, 7_200, 16), (1_000, 13, 10)]
 
 
 @pytest.mark.parametrize("mkn", MATMULS, ids=lambda t: "x".join(map(str, t)))
@@ -277,6 +279,122 @@ def test_conv2d_transpose_matches_materialized_lax(cuda, policy):
         assert fwd["tap_gemm_phased"] == 1 and fwd["matmul"] == 0
     else:
         assert fwd["matmul"] == 1 and fwd["tap_gemm_phased"] == 0
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _shifted(gen, *shape, dev, dtype=torch.float32):
+    """A contiguous tensor whose base lies one element past a 16-byte
+    boundary (a view offset by one element)."""
+    n = 1
+    for v in shape:
+        n *= v
+    buf = torch.randn(n + 1, generator=gen).to(dev, dtype)
+    out = buf[1:].view(shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+#: weight grads of each variant and copy width: the (tap, channel) rows of
+#: a tile span tap boundaries at C = 3 and C = 5 (4-byte copies), COUT 9
+#: and 1 take 4-byte copies of dy, the depthwise conv is 16 groups of one
+#: channel split 32 ways.
+WGRAD_GEOMS = [
+    dict(B=4, C=3, H=17, N=16, K=3, S=2, P=1, G=1),
+    dict(B=2, C=5, H=21, N=9, K=3, S=1, P=1, G=1),
+    dict(B=2, C=5, H=21, N=40, K=3, S=2, P=0, G=1),
+    dict(B=32, C=1, H=8, N=1, K=3, S=1, P=1, G=16),
+    dict(B=4, C=16, H=16, N=32, K=3, S=2, P=1, G=1),
+    dict(B=2, C=64, H=30, N=64, K=3, S=2, P=1, G=2),
+]
+
+
+@pytest.mark.parametrize("g", WGRAD_GEOMS,
+                         ids=lambda g: "C{C}N{N}S{S}G{G}".format(**g))
+def test_tap_wgrad_variants_match_plain_version_and_are_deterministic(cuda,
+                                                                      g):
+    d = ConvDims(B=g["B"], C=g["C"], H_i=g["H"], W_i=g["H"], N=g["N"],
+                 K_h=g["K"], K_w=g["K"], S=g["S"], P_h=g["P"], P_w=g["P"])
+    gen = torch.Generator().manual_seed(9)
+    x = _randn(gen, d.B, d.C * g["G"], d.H_i, d.W_i, dev=cuda)
+    dy = _randn(gen, d.B, d.N * g["G"], d.H_o, d.W_o, dev=cuda)
+    src, dyn, taps = ops.weight_grad_operands(x, dy, d, g["G"])
+    variant, splits = tg.wgrad_plan(g["G"], len(taps), d.C, d.N,
+                                    d.B * d.H_o * d.W_o, _sms(cuda))
+    assert variant == ("64x16" if d.N <= 16 else "64x64")
+    reset_launch_counts()
+    a = tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o)
+    b = tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o)
+    assert launch_counts()["tap_wgrad"] == 2
+    assert torch.equal(a, b), (variant, splits)
+    _close(a, ref.tap_wgrad_ref(src, dyn, taps, d.H_o, d.W_o))
+
+
+#: (G, M, K, N) of the 128 x 8 and 8 x 128 tiles: edges of 3 (layer 1's
+#: and the CNN's input grads) and of 1 with 16 groups (the depthwise
+#: conv), K % 4 != 0 (4-byte copies of the streamed operand), N % 4 != 0,
+#: and a split contraction.
+EDGE_GEMMS = [(1, 8192, 144, 3), (1, 3, 144, 8192), (16, 2048, 9, 1),
+              (16, 1, 9, 2048), (16, 9, 2048, 1), (1, 10_000, 27, 3),
+              (1, 3, 27, 10_000), (1, 2, 300, 1001), (1, 100_352, 576, 3)]
+
+
+@pytest.mark.parametrize("gmkn", EDGE_GEMMS,
+                         ids=lambda t: "x".join(map(str, t)))
+def test_matmul_edge_tiles_match_plain_version_and_are_deterministic(cuda,
+                                                                     gmkn):
+    g, m, k, n = gmkn
+    variant, splits = mm.matmul_plan(g, m, k, n, _sms(cuda))
+    assert variant == ("128x8" if n <= m else "8x128")
+    gen = torch.Generator().manual_seed(10)
+    a, b = _randn(gen, g, m, k, dev=cuda), _randn(gen, g, k, n, dev=cuda)
+    reset_launch_counts()
+    got, again = matmul(a, b), matmul(a, b)
+    assert launch_counts()["matmul"] == 2
+    assert torch.equal(got, again), (variant, splits)
+    _close(got, ref.matmul_ref(a, b))
+
+
+def test_kernels_take_operands_off_a_16_byte_boundary(cuda):
+    """Operands whose base is one float past a 16-byte boundary take the
+    kernels' 4-byte copies (CIN, COUT, K and N are multiples of 4, so only
+    the base rules out 16-byte copies)."""
+    gen = torch.Generator().manual_seed(11)
+    d = ConvDims(B=2, C=16, H_i=12, W_i=12, N=32, K_h=3, K_w=3, S=2, P_h=1,
+                 P_w=1)
+    x = _randn(gen, d.B, d.C, d.H_i, d.W_i, dev=cuda)
+    dy = _randn(gen, d.B, d.N, d.H_o, d.W_o, dev=cuda)
+    src, dyn, taps = ops.weight_grad_operands(x, dy, d)
+    src_s = _shifted(gen, *src.shape, dev=cuda).copy_(src)
+    dyn_s = _shifted(gen, *dyn.shape, dev=cuda).copy_(dyn)
+    _close(tg.tap_wgrad(src_s, dyn_s, taps, d.H_o, d.W_o),
+           ref.tap_wgrad_ref(src, dyn, taps, d.H_o, d.W_o))
+    for m, k, n in [(300, 64, 96), (1000, 64, 4), (4, 64, 1000)]:
+        a = _shifted(gen, m, k, dev=cuda)
+        b = _shifted(gen, k, n, dev=cuda)
+        _close(matmul(a, b), ref.matmul_ref(a, b))
+
+
+@pytest.mark.parametrize("gmkn", [(1, 300, 200, 100), (1, 3000, 96, 3),
+                                  (2, 5, 96, 3000), (1, 27, 5000, 64),
+                                  (1, 1000, 27, 16)],
+                         ids=lambda t: "x".join(map(str, t)))
+def test_matmul_bf16_in_every_tile_with_f32_and_bf16_out(cuda, gmkn):
+    """bf16 operands (converted to float32 as they are staged) in each
+    tile, split and not, with float32 and bf16 outputs."""
+    g, m, k, n = gmkn
+    gen = torch.Generator().manual_seed(12)
+    a = _randn(gen, g, m, k, dev=cuda).bfloat16()
+    b = _randn(gen, g, k, n, dev=cuda).bfloat16()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = matmul(a, b, out_dtype=out_dtype)
+        want = ref.matmul_ref(a, b, out_dtype)
+        assert got.dtype == out_dtype
+        assert torch.equal(got, matmul(a, b, out_dtype=out_dtype))
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BF16_TOL * want.float().abs().max().item(), err
 
 
 #: flash attention, float32: online softmax against the plain version's

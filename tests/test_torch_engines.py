@@ -31,7 +31,9 @@ from repro_torch.core import bpim2col as tbp  # noqa: E402
 from repro_torch.core import conv as tconv  # noqa: E402
 from repro_torch.core import im2col_ref as tref  # noqa: E402
 from repro_torch.core.convspec import ConvSpec  # noqa: E402
+from repro_torch.kernels import matmul as tmm  # noqa: E402
 from repro_torch.kernels import ref as tkref  # noqa: E402
+from repro_torch.kernels import tap_gemm as ttg  # noqa: E402
 from repro_torch.kernels.matmul import matmul  # noqa: E402
 from repro_torch.train import cnn_bp  # noqa: E402
 
@@ -181,6 +183,74 @@ def test_matmul_batches_groups_and_output_type():
         matmul(a, b[:, :6])
     with pytest.raises(ValueError, match="both be 2-D or both 3-D"):
         matmul(a, b[0])
+
+
+def _smoke_gemms():
+    """Every GEMM chip_smoke.py gives ``matmul``: both baseline engines' at
+    Table II and the CNN, the autoencoder's under ``traditional``, and the
+    bf16 case, as ``(label, (G, M, K, N))``."""
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core.convspec import ConvTransposeSpec
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    shapes = ([("/".join(map(str, layer)), paper_cnn.dims(layer), 1, True)
+               for layer in paper_cnn.TABLE2_LAYERS]
+              + chip_smoke.cnn_shapes(tref.ConvDims))
+    ae = chip_smoke.ae_shapes(tref.ConvDims, tconv, ConvTransposeSpec)
+    return [(f"{layer} {gemm}", gmkn) for layer, gemm, gmkn, _, _ in
+            chip_smoke.matmul_cases(torch, tconv, shapes, ae)]
+
+
+SMOKE_GEMMS = _smoke_gemms()
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("gmkn", [g for _, g in SMOKE_GEMMS],
+                         ids=[label for label, _ in SMOKE_GEMMS])
+def test_matmul_plan_at_every_smoke_gemm(gmkn):
+    """``matmul``'s plan on a 132-SM H100: the 128 x 8 tile where N <= 8
+    and the 8 x 128 tile where M <= 8 (the smaller edge decides), else
+    64 x 16 where N <= 16, else 64 x 64; its grid within the card's
+    limits; no split empty and none under ``MIN_SPLIT_ROWS`` rows (as the
+    kernel cuts them)."""
+    g, m, k, n = gmkn
+    variant, splits = tmm.matmul_plan(g, m, k, n, H100_SMS)
+    if min(m, n) <= 8:
+        assert variant == ("128x8" if n <= m else "8x128")
+    else:
+        assert variant == ("64x16" if n <= 16 else "64x64")
+    tile = tmm.VARIANTS[variant]
+    grid = {"64x64": (-(-m // 64), -(-n // 64)),
+            "64x16": (-(-m // 64), -(-n // 16)), "128x8": (-(-m // 128), 1),
+            "8x128": (-(-n // 128), 1)}[variant]
+    assert grid[0] <= ttg.INT32_MAX and grid[1] <= ttg.GRID_YZ_MAX
+    assert 1 <= splits and splits * g <= ttg.GRID_YZ_MAX
+    chunk = ttg.split_chunk(k, splits, tile.step)
+    assert (splits - 1) * chunk < k <= splits * chunk
+    assert splits == 1 or chunk >= ttg.MIN_SPLIT_ROWS
+
+
+def test_matmul_plan_gives_the_edge_of_3_and_depthwise_gemms_narrow_tiles():
+    """Layer 1's and the CNN's first conv's input grads (an edge of 3) and
+    the depthwise conv's GEMMs (an edge of 1) take the 128 x 8 or 8 x 128
+    tile; a one-tile weight grad splits its long contraction."""
+    edge = {label for label, (g, m, k, n) in SMOKE_GEMMS
+            if tmm.matmul_plan(g, m, k, n, H100_SMS)[0] in ("128x8",
+                                                             "8x128")}
+    assert edge == {
+        "224/3/64/3/2/0 input_grad traditional",
+        "224/3/64/3/2/0 input_grad bp_im2col",
+        "cnn.c1 16/3/16/3/2/1 input_grad traditional",
+        "cnn.c1 16/3/16/3/2/1 input_grad bp_im2col",
+        "cnn.dw 8/16/16/3/1/1 g16 forward",
+        "cnn.dw 8/16/16/3/1/1 g16 input_grad traditional",
+        "cnn.dw 8/16/16/3/1/1 g16 input_grad bp_im2col",
+        "cnn.dw 8/16/16/3/1/1 g16 weight_grad",
+        "ae.dec1 16->3 8->16 b16 mirror transposed forward, materialized"}
+    assert tmm.matmul_plan(1, 100_352, 576, 3, H100_SMS) == ("128x8", 1)
+    assert tmm.matmul_plan(1, 3, 576, 100_352, H100_SMS) == ("8x128", 1)
+    variant, splits = tmm.matmul_plan(1, 27, 97_682, 64, H100_SMS)
+    assert variant == "64x64" and splits > 100
 
 
 # (x shape, w shape, ConvSpec.make kwargs); grouped and depthwise included.

@@ -3,6 +3,9 @@ package's oracles (f32, rtol/atol 1e-5), and the CPU dispatch of the kernel
 wrappers.  The CUDA kernels themselves are held against these plain versions
 on a card by tests/test_torch_cuda.py."""
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 
@@ -12,8 +15,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 
+from repro_torch.configs import paper_cnn  # noqa: E402
+from repro_torch.core import conv as tconv  # noqa: E402
+from repro_torch.core.convspec import ConvTransposeSpec  # noqa: E402
+from repro_torch.core.im2col_ref import ConvDims  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import tap_gemm as tg  # noqa: E402
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -186,3 +196,63 @@ def test_cpu_forward_at_a_split_shape_is_the_plain_version():
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert tg.launch_counts() == {"tap_gemm": 0, "tap_gemm_phased": 0,
                                   "tap_wgrad": 0}
+
+
+#: every conv shape chip_smoke.py gives the tap kernels: Table II (batch
+#: 2), the example CNN's convs and the autoencoder's (with the mirror
+#: convs of its decoder layers), as ``(label, per-group dims, groups)``.
+SMOKE_SHAPES = [
+    row[:3] for row in
+    [("/".join(map(str, layer)), paper_cnn.dims(layer), 1, True)
+     for layer in paper_cnn.TABLE2_LAYERS]
+    + chip_smoke.cnn_shapes(ConvDims)
+    + chip_smoke.ae_shapes(ConvDims, tconv, ConvTransposeSpec)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("layer,d,g", SMOKE_SHAPES,
+                         ids=[row[0] for row in SMOKE_SHAPES])
+def test_wgrad_plan_at_every_smoke_shape(layer, d, g):
+    """The weight grad's plan on a 132-SM H100: its grid within the card's
+    limits, no split empty and none under ``MIN_SPLIT_ROWS`` rows (as the
+    kernel cuts them), and the 64 x 16 tile exactly where COUT <= 16."""
+    t, rows = d.k_taps_h * d.k_taps_w, d.B * d.H_o * d.W_o
+    variant, splits = tg.wgrad_plan(g, t, d.C, d.N, rows, H100_SMS)
+    assert variant == ("64x16" if d.N <= 16 else "64x64")
+    tile = tg.WGRAD_TILES[variant]
+    grid_x = tg._cdiv(t * d.C, tile.rows) * tg._cdiv(d.N, tile.cols)
+    assert 1 <= grid_x <= tg.INT32_MAX
+    assert 1 <= splits and splits * g <= tg.GRID_YZ_MAX
+    chunk = tg.split_chunk(rows, splits, tile.step)
+    assert (splits - 1) * chunk < rows <= splits * chunk
+    assert splits == 1 or chunk >= tg.MIN_SPLIT_ROWS
+
+
+def test_wgrad_plan_narrows_the_edge_of_3_and_depthwise_convs():
+    """The 64 x 16 tile serves the convs with 16 or 1 output channels (the
+    CNN's first and depthwise convs, the autoencoder's first encoder conv
+    and the mirror of its last decoder layer), and the short walks of the
+    training shapes split to 64-row walks: the depthwise conv's 16 groups
+    of 2,048 pixels into 32 splits each."""
+    narrow = {layer.split()[0] for layer, d, g in SMOKE_SHAPES
+              if tg.wgrad_plan(g, d.k_taps_h * d.k_taps_w, d.C, d.N,
+                               d.B * d.H_o * d.W_o, H100_SMS)[0] == "64x16"}
+    assert narrow == {"cnn.c1", "cnn.dw", "ae.enc0", "ae.dec1"}
+    assert tg.wgrad_plan(16, 9, 1, 1, 32 * 8 * 8, H100_SMS) == ("64x16", 32)
+    assert tg.wgrad_plan(1, 9, 16, 32, 16 * 4 * 4, H100_SMS) == ("64x64", 4)
+    # Table II layer 5 (98 rows) cannot split; layer 1 splits to the cap.
+    assert tg.wgrad_plan(1, 1, 1024, 2048, 98, H100_SMS) == ("64x64", 1)
+    assert tg.wgrad_plan(1, 9, 3, 64, 24642, 4096)[1] <= tg.MAX_SPLITS
+
+
+def test_split_count_leaves_no_split_empty_and_respects_the_grid():
+    """Across contraction lengths and group counts the split count is at
+    least 1, cuts no empty split, and keeps splits x groups within the
+    grid's z limit."""
+    tile = tg.WGRAD_TILES["64x64"]
+    for rows in (0, 1, 63, 64, 65, 127, 392, 1000, 24642, 10**6):
+        for groups in (1, 16, 4096, tg.GRID_YZ_MAX):
+            s = tg.split_count(tile, groups, rows, H100_SMS, groups)
+            assert s >= 1 and s * groups <= tg.GRID_YZ_MAX
+            chunk = tg.split_chunk(rows, s, tile.step)
+            assert s == 1 or (s - 1) * chunk < rows
