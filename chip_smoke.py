@@ -11,9 +11,9 @@ PATH):
   2. build      -- ``nvcc`` builds the three CUDA sources of
                    ``src/repro_torch/csrc`` (in parallel); the registers,
                    spills and shared memory of each entry of the
-                   redesigned kernels (forward and weight-grad tap GEMMs,
-                   the four ``matmul`` tiles, the bf16 flash attention);
-                   the blocks an SM holds of each weight-grad and
+                   redesigned kernels (the three tap GEMMs, the four
+                   ``matmul`` tiles, the bf16 flash attention); the blocks
+                   an SM holds of each input-grad, weight-grad and
                    ``matmul`` instance (the occupancy calculator) against
                    the number their split plans assume.
   3. kernels    -- for each of the paper's Table II layers (batch 2, float32),
@@ -27,10 +27,13 @@ PATH):
                    call for the same pass (a CUDA graph of 10 back-to-back
                    calls replayed between CUDA events, median of 10), the
                    host time per kernel call, and the least time the card
-                   could take (``bound_us``); the forward's split count
-                   and the weight grad's variant and split count
-                   (``wgrad_plan``); the forward and the weight grad are
-                   bit-equal run to run.
+                   could take (``bound_us``); the forward's split count,
+                   the input grad's variant, split count and partial bytes
+                   (``phased_plan``, ``phased_work``) and the device time of
+                   its operands (``operands_ms``: ``input_grad_operands``,
+                   the same CUDA-graph replay), the weight grad's variant and
+                   split count (``wgrad_plan``); all three are bit-equal run
+                   to run.
   4. matmul     -- the same for the ``matmul`` kernel at every lowered GEMM
                    of the ``traditional`` and ``bp_im2col`` engines at the
                    Table II and CNN shapes, at every GEMM the autoencoder
@@ -241,10 +244,11 @@ def bound(flops: float, nbytes_: float,
 
 
 #: kernel -> pieces of the mangled names of the entries of its redesigned
-#: kernels (the forward and weight-grad tap GEMMs, the four ``matmul``
-#: tiles, the bf16 tensor-core flash attention), whose registers, spills
-#: and shared memory the build phase reports, and how many entries each has.
+#: kernels (the three tap GEMMs, the four ``matmul`` tiles, the bf16
+#: tensor-core flash attention), whose registers, spills and shared memory
+#: the build phase reports, and how many entries each has.
 REDESIGNED = {"tap_gemm": (("3fwd6kernel",), 4),
+              "tap_gemm_phased": (("6phased6kernel",), 12),
               "tap_wgrad": (("5wgrad6kernel",), 8),
               "matmul": (("4gemm6kernel", "4tall6kernel", "6mirror6kernel"),
                          22),
@@ -292,10 +296,18 @@ def kernel_resources(log_dir: pathlib.Path) -> list[dict]:
 
 
 def plan_occupancy(tg, mm) -> list[dict]:
-    """Blocks an SM holds of every weight-grad and ``matmul`` instance, from
-    the card's occupancy calculator, beside the ``per_sm`` the plans assume
-    for its variant."""
+    """Blocks an SM holds of every input-grad, weight-grad and ``matmul``
+    instance, from the card's occupancy calculator, beside the ``per_sm``
+    the plans assume for its variant."""
     rows = []
+    for variant, tile in tg.PHASED_TILES.items():
+        for vec_a in (False, True):
+            for vec_b in (False, True):
+                rows.append({"kernel": "tap_gemm_phased", "variant": variant,
+                             "in": "float32", "vec_a": vec_a, "vec_b": vec_b,
+                             "plan_per_sm": tile.per_sm,
+                             "blocks_per_sm": tg.phased_blocks_per_sm(
+                                 variant, vec_a, vec_b)})
     for variant, tile in tg.WGRAD_TILES.items():
         for vec_a in (False, True):
             for vec_b in (False, True):
@@ -355,7 +367,12 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
                nbytes(src, wt), {"splits": tg.forward_splits(
                    d.B * d.H_o * d.W_o, d.N, len(taps), d.C, sms, g)})
         gsrc, ws, pp = ops.input_grad_operands(dy, w, d, g)
-        n_taps = sum(len(t) for t in pp.phase_taps)
+        counts = [len(t) for t in pp.phase_taps]
+        n_taps = sum(counts)
+        m_q = d.B * pp.n_qh * pp.n_qw
+        dvariant, dsplits = tg.phased_plan(g, counts, d.N, d.C, m_q, sms)
+        slots = tg.phased_work(counts, d.N, dsplits,
+                               tg.PHASED_TILES[dvariant].step)[2]
         dgrad = (lambda: tg.tap_gemm_phased(gsrc, ws, pp.phase_taps, pp.n_qh,
                                             pp.n_qw),
                  lambda: ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps,
@@ -366,7 +383,12 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
                  # only the weight rows the taps read: the stacks of
                  # phases without taps are zeros the kernel never loads
                  nbytes(gsrc) + 4 * n_taps * macs,
-                 {"active_phases": sum(1 for t in pp.phase_taps if t)})
+                 {"active_phases": sum(1 for c in counts if c),
+                  "variant": dvariant, "splits": dsplits,
+                  "partial_mbytes": 4 * slots * g * m_q * d.C / 1e6,
+                  "operands_ms": time_ms(torch, lambda:
+                                         ops.input_grad_operands(dy, w, d,
+                                                                 g))})
         wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
         variant, splits = tg.wgrad_plan(g, len(wtaps), d.C, d.N,
                                         d.B * d.H_o * d.W_o, sms)
@@ -385,10 +407,8 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
             want = plain()
             torch.cuda.synchronize()
             err, abs_err = rel_err(torch, got, want)
-            if name in ("tap_gemm", "tap_wgrad"):
-                again = kern()
-                check(bool(torch.equal(got, again)),
-                      f"{name} differs run to run at {layer}")
+            check(bool(torch.equal(got, kern())),
+                  f"{name} differs run to run at {layer}")
             by = in_bytes + nbytes(got)
             b_s, b_by = bound(flops, by)
             rec = {"kernel": name, "layer": layer, "groups": g,

@@ -11,8 +11,15 @@ shapes, ``cnn_shapes`` and ``ae_shapes``), ``matmul`` (every lowered GEMM
 of those layers and shapes, and the bf16 case) and ``flash``
 (``FLASH_CASES``), one process per turn, so
 both sides build their own kernels from their own sources and run on the
-same card.  ``--child`` defaults to the checkout that holds this script;
-``--parent`` is typically ``git archive`` of the parent commit unpacked
+same card.  Last in each turn, after every timing (a process that has
+run ``torch.profiler`` pays a per-kernel cost from then on), it times its
+checkout's ``input_grad_operands`` (the input grad's operands: padded dY
+and the weight stacks) at the same conv shapes and inputs, as the kernel
+``input_grad_operands``: the device time of 10 calls under
+``torch.profiler`` (the parent's operands copy index lists to the card,
+which a CUDA graph does not capture), the median of 3 such windows.
+``--child`` defaults to the checkout that holds this script; ``--parent``
+is typically ``git archive`` of the parent commit unpacked
 into a git-ignored directory.  Every phase line goes to ``--out`` with
 ``side`` and ``turn`` added; the summary printed last gives, per kernel
 and shape, each side's device time (mean of its two turns) and their
@@ -31,7 +38,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 #: run inside each turn's process, with the checkout's root as argv[1]
 TURN = r"""
-import pathlib, sys
+import json, pathlib, statistics, sys
 root = pathlib.Path(sys.argv[1])
 sys.path[:0] = [str(root), str(root / "src")]
 import torch
@@ -58,6 +65,31 @@ cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
 cs.phase_matmul(smoke, torch, mm, ref, tg,
                 cs.matmul_cases(torch, conv, shapes, ae), dev)
 cs.phase_flash(smoke, torch, F, fa, ref, dev)
+
+
+def profiled_ms(fn, calls=10):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+for i, (layer, d, g, _) in enumerate(shapes + [row[:4] for row in ae]):
+    gen = torch.Generator().manual_seed(i)     # phase_kernels' inputs
+    torch.randn(d.B, d.C * g, d.H_i, d.W_i, generator=gen)
+    w = torch.randn(d.N * g, d.C, d.K_h, d.K_w, generator=gen).to(dev)
+    dy = torch.randn(d.B, d.N * g, d.H_o, d.W_o, generator=gen).to(dev)
+    ms = statistics.median(profiled_ms(
+        lambda: ops.input_grad_operands(dy, w, d, g)) for _ in range(3))
+    print(json.dumps({"kernel": "input_grad_operands", "layer": layer,
+                      "kernel_ms": ms}))
 """
 
 

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Device time of the weight grad and ``matmul`` at each split-K count, on one card.
+"""Device time of the input grad, the weight grad and ``matmul`` at each split-K count, on one card.
 
     python3 scripts/split_sweep.py [--out PATH]
 
-For every weight-grad shape and every ``traditional`` / ``bp_im2col`` GEMM
-that ``chip_smoke.py`` runs (Table II at batch 2, the example CNN's and
-autoencoder's training shapes), times the kernel (``chip_smoke.time_ms``:
-CUDA-graph replay) with its plan's split count replaced by each of 1, 2,
-3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192 and 256 that leaves every
-split at least one step, beside the count the plan picks.  The plans'
-rule (``repro_torch.kernels.tap_gemm.split_count``: as many splits as
-fill the blocks the card holds at once) was chosen from these times.
+For every input-grad and weight-grad shape and every ``traditional`` /
+``bp_im2col`` GEMM that ``chip_smoke.py`` runs (Table II at batch 2, the
+example CNN's and autoencoder's training shapes), times the kernel
+(``chip_smoke.time_ms``: CUDA-graph replay) with its plan's split count
+replaced by each of 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128,
+192 and 256 that leaves every split at least one step, beside the count
+the plan picks (for the input grad, the split count of its longest
+phase).  The plans' rule (``repro_torch.kernels.tap_gemm.split_count``:
+as many splits as fill the blocks the card holds at once) was chosen from
+these times.
 One JSON object per line on stdout (and ``--out``); the card's name and
 power limit first.  Exits non-zero without a CUDA device.
 """
@@ -65,6 +67,24 @@ def main(argv=None) -> int:
                for layer in paper_cnn.TABLE2_LAYERS]
               + cs.cnn_shapes(ConvDims))
     ae = cs.ae_shapes(ConvDims, conv, ConvTransposeSpec)
+
+    phased_plan = tg.phased_plan
+    for i, (layer, d, g, _) in enumerate(shapes + [r[:4] for r in ae]):
+        gen = torch.Generator().manual_seed(i)
+        w = torch.randn(d.N * g, d.C, d.K_h, d.K_w, generator=gen).to(dev)
+        dy = torch.randn(d.B, d.N * g, d.H_o, d.W_o, generator=gen).to(dev)
+        src, ws, pp = ops.input_grad_operands(dy, w, d, g)
+        counts = [len(t) for t in pp.phase_taps]
+        rows = max(counts) * d.N
+        variant, plan = phased_plan(g, counts, d.N, d.C,
+                                    d.B * pp.n_qh * pp.n_qw, sms)
+        for s in sorted({c for c in COUNTS if c * 16 <= rows} | {1, plan}):
+            tg.phased_plan = lambda *_, s=s: (variant, s)
+            emit({"kernel": "tap_gemm_phased", "layer": layer,
+                  "variant": variant, "plan": plan, "splits": s,
+                  "ms": cs.time_ms(torch, lambda: tg.tap_gemm_phased(
+                      src, ws, pp.phase_taps, pp.n_qh, pp.n_qw))})
+        tg.phased_plan = phased_plan
 
     wgrad_plan = tg.wgrad_plan
     for i, (layer, d, g, _) in enumerate(shapes + [r[:4] for r in ae]):

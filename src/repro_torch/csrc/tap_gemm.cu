@@ -23,30 +23,39 @@
 // masked to zero (cp.async with src-size 0), so no operand is padded and
 // shared memory does not depend on the geometry.
 //
-// Forward (fwd::kernel) and weight grad (wgrad::kernel) share one design:
+// All three kernels share one design:
 //   * (tap, channel) packed into one index, so a narrow layer (C = 3) or a
 //     depthwise conv (C = 1 per group) fills its tile rows instead of
 //     padding each tap to a tile: the forward contracts over
-//     kk = t * CIN + c against a (T*CIN) x COUT weight matrix; the weight
+//     kk = t * CIN + c against a (T*CIN) x COUT weight matrix; input-grad
+//     phase p over kk = t * CIN + c for its own counts[p] taps, weight row
+//     j_t * CIN + c of its stack (j_t from the tap table); the weight
 //     grad's output rows are r = t * CIN + c of one (T*CIN) x COUT matrix
 //     per group, contracted over the pixels l = (b*OH + oh)*OW + ow;
 //   * split-K over the contraction, summed by a second kernel in a fixed
 //     order (splits chosen by the wrappers' plans);
 //   * 64 threads, each with an 8 x 8 register tile (4 FMA per float read
-//     from shared memory) over a 64 x 64 output tile; the weight grad has
-//     a 64 x 16 variant (4 x 4 per thread) for COUT <= 16;
+//     from shared memory) over a 64 x 64 output tile; for narrow outputs a
+//     64 x 16 tile (4 x 4 per thread, COUT <= 16) and, for the input grad,
+//     a 128 x 8 tile (2 x 8 per thread, COUT <= 8) that streams the source
+//     once at full width and reads the few weight columns as broadcasts;
 //   * a 2-stage shared-memory ring filled by cp.async (16-byte copies of
 //     4 channels where CIN % 4 == 0, so a copy never straddles a tap, and
 //     of 4 output channels where COUT % 4 == 0; 4-byte copies otherwise),
 //     so step k+1 loads while step k computes, with one barrier a step.
-//     Forward 18,432 B of shared memory; weight grad 16,384 B (64 x 64) or
-//     10,240 B (64 x 16).  A weight-grad thread fills 4 rows of 4 pixels
-//     a step: it decodes the taps of its rows once per kernel and walks
-//     its pixels incrementally.
-// Input grad (tap_gemm_phased_kernel: tap_loop, mma_tile): one 256-thread
-// block walks taps x channel chunks in steps of 16, staging both operands
-// through 8,448 B of shared memory, a 4 x 4 register tile per thread, no
-// overlap of loads with compute.
+// The forward and the input grad run one tile walk (tile::run): the
+// forward's 64 x 64 instance, 18,432 B of shared memory; the input grad's
+// 64 x 64, 64 x 16 (12,288 B) and 128 x 8 (21,504 B) instances.  The
+// weight grad's A rows are packed taps rather than pixels, so it has its
+// own walk (wgrad::kernel, 16,384 B or 10,240 B): a thread fills 4 rows
+// of 4 pixels a step, decodes the taps of its rows once per kernel and
+// walks its pixels incrementally.
+// Input grad: one launch for every (group, phase, split).  A small int32
+// work table lists the blocks' (phase, contraction range, destination):
+// the active phases' splits, cut to one chunk length so blocks carry equal
+// work, and one empty entry per phase without taps, which stores its zeros
+// straight into the output.  Only the phases that split write partials
+// (one plane a split), summed per phase by splitk::reduce_planes.
 //
 // Groups are a grid dimension with per-group operand offsets, so a
 // grouped or depthwise conv is one launch per pass.  No atomics: results
@@ -62,155 +71,97 @@
 
 namespace {
 
-// Tiles of the input-grad kernel.
-constexpr int BM = 64;        // output tile rows (pixels)
-constexpr int BN = 64;        // output tile columns (cout)
-constexpr int BK = 16;        // contraction step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int AS_LD = BM + 4; // padded row: fewer bank conflicts on stores
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// acc[i][j] += sum_k As[k][ty*4+i] * Bs[k][tx*4+j]
-__device__ __forceinline__ void mma_tile(float (*As)[AS_LD],
-                                         float (*Bs)[BN],
-                                         float acc[4][4], int ty, int tx) {
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// Store the 4x4 register tile of an (M x COUT) row-major output.
-__device__ __forceinline__ void store_tile(float* __restrict__ out,
-                                           float acc[4][4], int m0,
-                                           int n0, int M, int COUT, int ty,
-                                           int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < COUT) out[(size_t)m * COUT + n] = acc[i][j];
-    }
-  }
-}
-
-// Pixel-major contraction over one list of taps, for the phased input grad.
-// src_g: (B, Hs, Ws, CIN) of one group and phase; w_g: (T, CIN, COUT);
-// rows of `taps` are (j, du, dv): tap j reads w[j] at offset (du, dv).
-__device__ __forceinline__ void tap_loop(
-    const float* __restrict__ src_g, const float* __restrict__ w_g,
-    const int* __restrict__ taps, int ntaps,
-    int B, int Hs, int Ws, int CIN, int COUT, int OH, int OW, int m0, int n0,
-    float (*As)[AS_LD], float (*Bs)[BN], float acc[4][4]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int M = B * OH * OW;
-  // A loads: element e = tid + THREADS*r -> channel k = tid % BK (fixed),
-  // pixel row tid / BK + 16*r of the tile (fixed across the whole loop).
-  const int a_k = tid % BK;
-  int a_b[4], a_oh[4], a_ow[4];
-  bool a_ok[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + tid / BK + 16 * r;
-    a_ok[r] = m < M;
-    const int mm = a_ok[r] ? m : 0;
-    a_ow[r] = mm % OW;
-    const int t = mm / OW;
-    a_oh[r] = t % OH;
-    a_b[r] = t / OH;
-  }
-  // B loads: column tid % BN, rows tid / BN + 4*r.
-  const int b_n = tid % BN, b_k = tid / BN;
-  for (int t = 0; t < ntaps; ++t) {
-    const int sel = taps[3 * t], du = taps[3 * t + 1], dv = taps[3 * t + 2];
-    const float* wt = w_g + (size_t)sel * CIN * COUT;
-    for (int c0 = 0; c0 < CIN; c0 += BK) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = a_oh[r] + du, col = a_ow[r] + dv, c = c0 + a_k;
-        float v = 0.f;
-        if (a_ok[r] && row < Hs && col < Ws && c < CIN)
-          v = src_g[(((size_t)a_b[r] * Hs + row) * Ws + col) * CIN + c];
-        As[a_k][tid / BK + 16 * r] = v;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int k = c0 + b_k + 4 * r, n = n0 + b_n;
-        Bs[b_k + 4 * r][b_n] =
-            (k < CIN && n < COUT) ? wt[(size_t)k * COUT + n] : 0.f;
-      }
-      __syncthreads();
-      mma_tile(As, Bs, acc, ty, tx);
-      __syncthreads();
-    }
-  }
-}
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------------------
-// Forward: packed taps, split-K, 8 x 8 register micro-tile, cp.async ring
+// The tile walk of the forward and the input grad: packed taps, 8 x 8 (or
+// narrower) register tiles, cp.async ring
 // ---------------------------------------------------------------------------
 
-namespace fwd {
+namespace tile {
 
-constexpr int BM = 64, BN = 64, BK = 16;  // output tile, contraction step
-constexpr int THREADS = 64;  // 8 x 8 threads, 8 x 8 outputs each
+constexpr int BK = 16;       // contraction rows per step
+constexpr int THREADS = 64;
 constexpr int LDA = BK + 4;  // A row pitch: conflict-free float4 reads
 
+template <int BM, int BN>
 struct Tiles {
   float a[2][BM][LDA];  // [stage][pixel][kk]
   float b[2][BK][BN];   // [stage][kk][cout]
 };
 
-// out[z, m, n] = sum over kk in split s of A[m, kk] * w_g[kk, n], where
-// z = s * G + g, m = (b * OH + oh) * OW + ow, kk = t * CIN + c and
-// A[m, kk] = src[g, sel_t, b, oh + du_t, ow + dv_t, c] (zero past the
-// plane).  out holds (splits, G, M, COUT) partials, or the output when
-// there is one split.  VEC_A: CIN % 4 == 0 and src 16-byte aligned, so a
-// channel quad never straddles a tap; VEC_B: COUT % 4 == 0 and w, out
-// 16-byte aligned.  grid = (cdiv(M, BM), cdiv(COUT, BN), splits * G).
-template <bool VEC_A, bool VEC_B>
-__global__ void __launch_bounds__(THREADS)
-kernel(const float* __restrict__ src, const float* __restrict__ w,
-       const int* __restrict__ taps, float* __restrict__ out, int G, int P,
-       int B, int Hs, int Ws, int CIN, int T, int COUT, int OH, int OW,
-       int chunk) {
-  __shared__ __align__(16) Tiles sm;
+// Contraction row k = t * CIN + c as (t, c), moved forward without a
+// division.
+struct Row {
+  int t, c;
+};
+__device__ __forceinline__ void advance(Row& r, int d, int CIN) {
+  r.c += d;
+  while (r.c >= CIN) {
+    r.c -= CIN;
+    ++r.t;
+  }
+}
+
+// out_z[m, n] = sum over kk in [k_begin, k_end) of A[m, kk] * W[kk, n] for
+// the BM x BN output tile at (m0, n0), with m = (b * OH + oh) * OW + ow,
+// kk = t * CIN + c and A[m, kk] = src_g[taps[3t] * plane + pixel
+// (b, oh + du_t, ow + dv_t), c] (zero past the Hs x Ws plane).  W's row kk
+// is w_g's row kk, or with TAP_ROWS its row taps[3t] * CIN + c (the input
+// grad's weight slot j of tap t).  Rows of the tap table below T may be
+// read.  TM x TN outputs a thread.  VEC_A: CIN % 4 == 0 and src 16-byte
+// aligned, so a channel quad never straddles a tap; VEC_B: COUT % 4 == 0
+// and w, out 16-byte aligned.
+template <int BM, int BN, int TM, int TN, bool VEC_A, bool VEC_B,
+          bool TAP_ROWS>
+__device__ __forceinline__ void run(
+    Tiles<BM, BN>& sm, const float* __restrict__ src_g, size_t plane,
+    const float* __restrict__ w_g, const int* __restrict__ taps, int T,
+    int B, int Hs, int Ws, int CIN, int COUT, int OH, int OW, int m0, int n0,
+    int k_begin, int k_end, float* __restrict__ out_z) {
+  static_assert((BM / TM) * (BN / TN) == THREADS, "TM x TN per thread");
+  static_assert(TN % 4 == 0 && BM % 16 == 0 && BM % THREADS == 0,
+                "float4 fragments, whole copy passes");
   const int tid = threadIdx.x;
-  const int g = blockIdx.z % G, split = blockIdx.z / G;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = B * OH * OW, K = T * CIN;
-  const int k_begin = split * chunk, k_end = min(K, k_begin + chunk);
-  const size_t plane = (size_t)B * Hs * Ws * CIN;
-  const float* src_g = src + (size_t)g * P * plane;
-  const float* w_g = w + (size_t)g * K * COUT;
+  const int M = B * OH * OW;
 
   // The A rows this thread fills, fixed for the whole walk: with VEC_A
   // pixels tid / 4 + 16 j and channel quad tid % 4 of every step (16-byte
-  // copies); otherwise pixel tid and all BK columns (4-byte copies).
-  constexpr int AR = VEC_A ? 4 : 1;
+  // copies); otherwise pixels tid + 64 j and all BK columns (4-byte
+  // copies).
+  constexpr int AR = VEC_A ? BM / 16 : BM / THREADS;
   int a_oh[AR], a_ow[AR];
   size_t a_off[AR];
   bool a_ok[AR];
 #pragma unroll
   for (int j = 0; j < AR; ++j) {
-    const int m = m0 + (VEC_A ? tid / 4 + 16 * j : tid);
+    const int m = m0 + (VEC_A ? tid / 4 + 16 * j : tid + THREADS * j);
     a_ok[j] = m < M;
     const int mm = a_ok[j] ? m : 0;
     a_ow[j] = mm % OW;
     const int q = mm / OW;
     a_oh[j] = q % OH;
     a_off[j] = (((size_t)(q / OH) * Hs + a_oh[j]) * Ws + a_ow[j]) * CIN;
+  }
+
+  // The B rows this thread fills: with VEC_B column quad tid % QB of rows
+  // tid / QB + (THREADS / QB) j; otherwise column tid % BN of rows
+  // tid / BN + (THREADS / BN) j.  With TAP_ROWS, step_row is the (t, c) of
+  // the first row of the next step to load: a step within one tap reads
+  // its rows shifted by (j_t - t) * CIN, one offset for the whole step.
+  constexpr int QB = BN / 4;
+  constexpr int B_PER_ROW = VEC_B ? QB : BN;  // threads on one row
+  constexpr int B_STRIDE = THREADS / B_PER_ROW;
+  constexpr int NB = VEC_B ? cdiv(BK * QB, THREADS) : BK * BN / THREADS;
+  constexpr bool B_COL = !VEC_B && BN == THREADS;  // one column a thread
+  const int b_r0 = B_COL ? 0 : tid / B_PER_ROW;
+  const int b_n = n0 + (VEC_B ? (tid % QB) * 4 : B_COL ? tid : tid % BN);
+  Row step_row = {0, 0};
+  if constexpr (TAP_ROWS) {
+    if (k_end > k_begin) {
+      step_row.t = k_begin / CIN;
+      step_row.c = k_begin - step_row.t * CIN;
+    }
   }
 
   auto load = [&](int st, int k0) {
@@ -227,7 +178,7 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
               (kk - t * CIN);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < AR; ++j) {
         const bool ok = k_ok && a_ok[j] && a_oh[j] + du < Hs &&
                         a_ow[j] + dv < Ws;
         cp_async16(&sm.a[st][tid / 4 + 16 * j][(tid % 4) * 4],
@@ -248,10 +199,13 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
       tap();
 #pragma unroll
       for (int e = 0; e < BK; ++e) {
-        const bool ok = k0 + e < k_end && a_ok[0] && a_oh[0] + du < Hs &&
-                        a_ow[0] + dv < Ws;
-        cp_async4(&sm.a[st][tid][e], ok ? src_g + off + a_off[0] + c : src_g,
-                  ok);
+#pragma unroll
+        for (int j = 0; j < AR; ++j) {
+          const bool ok = k0 + e < k_end && a_ok[j] && a_oh[j] + du < Hs &&
+                          a_ow[j] + dv < Ws;
+          cp_async4(&sm.a[st][tid + THREADS * j][e],
+                    ok ? src_g + off + a_off[j] + c : src_g, ok);
+        }
         if (++c == CIN) {
           c = 0;
           ++t;
@@ -259,35 +213,45 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
         }
       }
     }
-    if constexpr (VEC_B) {
-      const int n = n0 + (tid % 16) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kr = tid / 16 + 4 * j, k = k0 + kr;
-        const bool ok = k < k_end && n < COUT;
-        cp_async16(&sm.b[st][kr][(tid % 16) * 4],
-                   ok ? w_g + (size_t)k * COUT + n : w_g, ok);
-      }
-    } else {
-      const int n = n0 + tid;
-#pragma unroll
-      for (int kr = 0; kr < BK; ++kr) {
-        const int k = k0 + kr;
-        const bool ok = k < k_end && n < COUT;
-        cp_async4(&sm.b[st][kr][tid], ok ? w_g + (size_t)k * COUT + n : w_g,
-                  ok);
-      }
+    // With TAP_ROWS: the step's rows lie in one tap (shift) or not (each
+    // row decoded).
+    const bool one_tap = !TAP_ROWS || step_row.c + BK <= CIN;
+    int shift = 0;
+    if constexpr (TAP_ROWS) {
+      if (one_tap) shift = (taps[3 * step_row.t] - step_row.t) * CIN;
     }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int kr = b_r0 + B_STRIDE * j, k = k0 + kr;
+      if constexpr (VEC_B && BK * QB % THREADS != 0) {
+        if (kr >= BK) break;  // more threads than quads a step
+      }
+      const bool ok = k < k_end && b_n < COUT;
+      size_t row = k + shift;
+      if (TAP_ROWS && !one_tap && ok) {
+        Row r = step_row;
+        advance(r, kr, CIN);
+        row = (size_t)taps[3 * r.t] * CIN + r.c;
+      }
+      const float* s = ok ? w_g + row * COUT + b_n : w_g;
+      if constexpr (VEC_B)
+        cp_async16(&sm.b[st][kr][b_n - n0], s, ok);
+      else
+        cp_async4(&sm.b[st][kr][b_n - n0], s, ok);
+    }
+    if constexpr (TAP_ROWS) advance(step_row, BK, CIN);
   };
 
-  // Thread (ty, tx) owns rows ty + 8 i and columns tx * 4 + j, 32 + tx * 4
-  // + j (i, j < 8 and 4): 16 floats read per 64 FMA of each kk.
-  const int ty = tid / 8, tx = tid % 8;
-  float acc[8][8];
+  // Thread (ty, tx) owns rows ty + RS i and columns h * CS + tx * 4 + j
+  // (i < TM, h < TN / 4, j < 4): float4 reads of both operands; with
+  // 8 x 8, 16 floats read per 64 FMA of each kk.
+  const int ty = tid / (BN / TN), tx = tid % (BN / TN);
+  constexpr int RS = BM / TM, CS = 4 * BN / TN;
+  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   const int steps = k_end > k_begin ? cdiv(k_end - k_begin, BK) : 0;
   if (steps > 0) {
     load(0, k_begin);
@@ -305,11 +269,11 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
     const int st = step % 2;
 #pragma unroll
     for (int kq = 0; kq < BK; kq += 4) {
-      float a[8][4];
+      float a[TM][4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < TM; ++i) {
         const float4 v =
-            *reinterpret_cast<const float4*>(&sm.a[st][ty + 8 * i][kq]);
+            *reinterpret_cast<const float4*>(&sm.a[st][ty + RS * i][kq]);
         a[i][0] = v.x;
         a[i][1] = v.y;
         a[i][2] = v.z;
@@ -317,29 +281,33 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 =
-            *reinterpret_cast<const float4*>(&sm.b[st][kq + kk][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&sm.b[st][kq + kk][32 + tx * 4]);
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        float bv[TN];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int h = 0; h < TN / 4; ++h) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &sm.b[st][kq + kk][h * CS + tx * 4]);
+          bv[4 * h] = v.x;
+          bv[4 * h + 1] = v.y;
+          bv[4 * h + 2] = v.z;
+          bv[4 * h + 3] = v.w;
+        }
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
             acc[i][j] = fmaf(a[i][kk], bv[j], acc[i][j]);
       }
     }
   }
 
-  float* out_z = out + (size_t)blockIdx.z * M * COUT;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 8 * i;
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + RS * i;
     if (m >= M) continue;
     float* row = out_z + (size_t)m * COUT;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * 32 + tx * 4;
+    for (int h = 0; h < TN / 4; ++h) {
+      const int n = n0 + h * CS + tx * 4;
       if (VEC_B) {
         if (n < COUT)
           *reinterpret_cast<float4*>(row + n) =
@@ -354,44 +322,118 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
   }
 }
 
+}  // namespace tile
+
+// ---------------------------------------------------------------------------
+// Forward: packed taps, split-K, 8 x 8 register micro-tile, cp.async ring
+// ---------------------------------------------------------------------------
+
+namespace fwd {
+
+constexpr int BM = 64, BN = 64;  // output tile
+
+// out[z, m, n] = sum over kk in split s of A[m, kk] * w_g[kk, n], where
+// z = s * G + g, m = (b * OH + oh) * OW + ow, kk = t * CIN + c and
+// A[m, kk] = src[g, sel_t, b, oh + du_t, ow + dv_t, c] (zero past the
+// plane).  out holds (splits, G, M, COUT) partials, or the output when
+// there is one split.  grid = (cdiv(M, BM), cdiv(COUT, BN), splits * G).
+template <bool VEC_A, bool VEC_B>
+__global__ void __launch_bounds__(tile::THREADS)
+kernel(const float* __restrict__ src, const float* __restrict__ w,
+       const int* __restrict__ taps, float* __restrict__ out, int G, int P,
+       int B, int Hs, int Ws, int CIN, int T, int COUT, int OH, int OW,
+       int chunk) {
+  __shared__ __align__(16) tile::Tiles<BM, BN> sm;
+  const int g = blockIdx.z % G, split = blockIdx.z / G;
+  const int M = B * OH * OW, K = T * CIN;
+  const int k_begin = split * chunk;
+  const size_t plane = (size_t)B * Hs * Ws * CIN;
+  tile::run<BM, BN, 8, 8, VEC_A, VEC_B, false>(
+      sm, src + (size_t)g * P * plane, plane, w + (size_t)g * K * COUT, taps,
+      T, B, Hs, Ws, CIN, COUT, OH, OW, blockIdx.x * BM, blockIdx.y * BN,
+      k_begin, min(K, k_begin + chunk),
+      out + (size_t)blockIdx.z * M * COUT);
+}
+
 template <bool VEC_A, bool VEC_B>
 cudaError_t launch(const float* src, const float* w, const int* taps,
                    float* out, int G, int P, int B, int Hs, int Ws, int CIN,
                    int T, int COUT, int OH, int OW, int splits, int chunk,
                    cudaStream_t stream) {
   const dim3 grid(cdiv(B * OH * OW, BM), cdiv(COUT, BN), splits * G);
-  kernel<VEC_A, VEC_B><<<grid, THREADS, 0, stream>>>(
+  kernel<VEC_A, VEC_B><<<grid, tile::THREADS, 0, stream>>>(
       src, w, taps, out, G, P, B, Hs, Ws, CIN, T, COUT, OH, OW, chunk);
   return cudaGetLastError();
 }
 
 }  // namespace fwd
 
-// Input grad, all stride phases in one launch: blockIdx.z = g*PH + phase.
-// Phase p runs counts[p] taps (j, du, dv) from taps[p, :, :]; a phase with
-// no taps writes zeros (its rows of dI receive no contribution).
-// src: (G, B, Hs, Ws, CIN) padded compact dY; w: (G, PH, T, CIN, COUT);
-// out: (G, PH, B, QH, QW, COUT).
-__global__ void __launch_bounds__(THREADS)
-tap_gemm_phased_kernel(const float* __restrict__ src,
-                       const float* __restrict__ w,
-                       const int* __restrict__ counts,
-                       const int* __restrict__ taps, float* __restrict__ out,
-                       int PH, int B, int Hs, int Ws, int CIN, int T,
-                       int COUT, int QH, int QW) {
-  __shared__ __align__(16) float As[BK][AS_LD];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int g = blockIdx.z / PH, ph = blockIdx.z % PH;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = B * QH * QW;
-  float acc[4][4] = {};
-  tap_loop(src + (size_t)g * B * Hs * Ws * CIN,
-           w + ((size_t)g * PH + ph) * T * CIN * COUT, taps + ph * T * 3,
-           counts[ph], B, Hs, Ws, CIN, COUT, QH, QW, m0, n0, As, Bs,
-           acc);
-  store_tile(out + ((size_t)g * PH + ph) * M * COUT, acc, m0, n0, M, COUT,
-             threadIdx.x / 16, threadIdx.x % 16);
+// ---------------------------------------------------------------------------
+// Input grad: every phase in one launch, packed per-phase taps, narrow
+// tiles, phase-aware split-K
+// ---------------------------------------------------------------------------
+
+namespace phased {
+
+// Work entry z / G of the table: (phase, k_begin, k_end, slot).  Phase p
+// contracts over kk = t * CIN + c, t < counts[p], against weight rows
+// j_t * CIN + c of w[g, p] (rows (j, du, dv) of taps[p]); an entry with
+// k_begin == k_end stores zeros (a phase without taps).  slot < 0 writes
+// out[g, p] (G, PH, M, COUT); else part[slot, g] (slots, G, M, COUT).
+// src: (G, B, Hs, Ws, CIN) padded compact dY; w: (G, PH, T, CIN, COUT).
+// grid = (cdiv(M, BM), cdiv(COUT, BN), entries * G).
+template <int BM, int BN, int TM, int TN, bool VEC_A, bool VEC_B>
+__global__ void __launch_bounds__(tile::THREADS)
+kernel(const float* __restrict__ src, const float* __restrict__ w,
+       const int* __restrict__ taps, const int* __restrict__ work,
+       float* __restrict__ part, float* __restrict__ out, int G, int PH,
+       int B, int Hs, int Ws, int CIN, int T, int COUT, int QH, int QW) {
+  __shared__ __align__(16) tile::Tiles<BM, BN> sm;
+  const int g = blockIdx.z % G;
+  const int* e = work + 4 * (blockIdx.z / G);
+  const int p = e[0], slot = e[3];
+  const size_t plane_out = (size_t)B * QH * QW * COUT;
+  float* dst = slot < 0 ? out + ((size_t)g * PH + p) * plane_out
+                        : part + ((size_t)slot * G + g) * plane_out;
+  tile::run<BM, BN, TM, TN, VEC_A, VEC_B, true>(
+      sm, src + (size_t)g * B * Hs * Ws * CIN, 0,
+      w + ((size_t)g * PH + p) * T * CIN * COUT, taps + 3 * p * T, T, B, Hs,
+      Ws, CIN, COUT, QH, QW, blockIdx.x * BM, blockIdx.y * BN, e[1], e[2],
+      dst);
 }
+
+using KernelFn = void (*)(const float*, const float*, const int*, const int*,
+                          float*, float*, int, int, int, int, int, int, int,
+                          int, int, int);
+
+// The plan's variants (kernels/tap_gemm.py: PHASED_TILES): 64 x 64 with
+// 8 x 8 a thread; 64 x 16 with 4 x 4 (COUT <= 16); 128 x 8 with 2 x 8
+// (COUT <= 8).
+enum Variant { WIDE = 0, NARROW = 1, TALL = 2 };
+constexpr int rows(int v) { return v == TALL ? 128 : 64; }
+constexpr int cols(int v) { return v == WIDE ? 64 : v == NARROW ? 16 : 8; }
+
+template <bool VEC_A, bool VEC_B>
+KernelFn pick(int variant) {
+  switch (variant) {
+    case WIDE:
+      return &kernel<64, 64, 8, 8, VEC_A, VEC_B>;
+    case NARROW:
+      return &kernel<64, 16, 4, 4, VEC_A, VEC_B>;
+    case TALL:
+      return &kernel<128, 8, 2, 8, VEC_A, VEC_B>;
+  }
+  return nullptr;
+}
+// nullptr for an unknown variant.
+inline KernelFn pick(int variant, bool vec_a, bool vec_b) {
+  return vec_a ? (vec_b ? pick<true, true>(variant)
+                        : pick<true, false>(variant))
+               : (vec_b ? pick<false, true>(variant)
+                        : pick<false, false>(variant));
+}
+
+}  // namespace phased
 
 // ---------------------------------------------------------------------------
 // Weight grad: rows packed over (tap, channel), split-K, cp.async ring
@@ -630,7 +672,7 @@ int tap_gemm_f32(const float* src, const float* w, const int* taps,
                  float* part, float* out, int G, int P, int B, int Hs,
                  int Ws, int CIN, int T, int COUT, int OH, int OW,
                  int splits, cudaStream_t stream) {
-  const int chunk = cdiv(cdiv(T * CIN, splits), fwd::BK) * fwd::BK;
+  const int chunk = cdiv(cdiv(T * CIN, splits), tile::BK) * tile::BK;
   const bool vec_a = CIN % 4 == 0 && (uintptr_t)src % 16 == 0;
   const bool vec_b =
       COUT % 4 == 0 && ((uintptr_t)w | (uintptr_t)part) % 16 == 0;
@@ -645,14 +687,43 @@ int tap_gemm_f32(const float* src, const float* w, const int* taps,
                              splits, stream);
 }
 
-int tap_gemm_phased_f32(const float* src, const float* w, const int* counts,
-                        const int* taps, float* out, int G, int PH, int B,
-                        int Hs, int Ws, int CIN, int T, int COUT, int QH,
-                        int QW, cudaStream_t stream) {
-  const dim3 grid(cdiv(B * QH * QW, BM), cdiv(COUT, BN), G * PH);
-  tap_gemm_phased_kernel<<<grid, THREADS, 0, stream>>>(
-      src, w, counts, taps, out, PH, B, Hs, Ws, CIN, T, COUT, QH, QW);
-  return (int)cudaGetLastError();
+// taps: (PH, T, 3) rows (j, du, dv); work: n_work rows (phase, k_begin,
+// k_end, slot) from the wrapper's plan; sums: n_sums rows (phase, first
+// slot, count) of the phases that split, whose partials `part` holds
+// (slots, G, M, COUT) (M = B*QH*QW; not read when n_sums == 0).  variant:
+// 0 the 64 x 64 tile, 1 the 64 x 16 tile (COUT <= 16), 2 the 128 x 8 tile
+// (COUT <= 8).
+int tap_gemm_phased_f32(const float* src, const float* w, const int* taps,
+                        const int* work, int n_work, const int* sums,
+                        int n_sums, float* part, float* out, int G, int PH,
+                        int B, int Hs, int Ws, int CIN, int T, int COUT,
+                        int QH, int QW, int variant, cudaStream_t stream) {
+  const bool vec_a = CIN % 4 == 0 && (uintptr_t)src % 16 == 0;
+  const bool vec_b = COUT % 4 == 0 &&
+                     ((uintptr_t)w | (uintptr_t)part | (uintptr_t)out) % 16 ==
+                         0;
+  const phased::KernelFn kernel = phased::pick(variant, vec_a, vec_b);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const int M = B * QH * QW;
+  const dim3 grid(cdiv(M, phased::rows(variant)),
+                  cdiv(COUT, phased::cols(variant)), n_work * G);
+  kernel<<<grid, tile::THREADS, 0, stream>>>(src, w, taps, work, part, out, G,
+                                             PH, B, Hs, Ws, CIN, T, COUT, QH,
+                                             QW);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_sums == 0) return (int)err;
+  return (int)splitk::reduce_planes(part, out, sums, n_sums,
+                                    (size_t)M * COUT, G, PH, stream);
+}
+
+// Blocks of one input-grad instance an SM holds (registers and shared
+// memory), which the plan in kernels/tap_gemm.py assumes.
+int tap_gemm_phased_blocks_per_sm(int variant, int vec_a, int vec_b,
+                                  int* blocks) {
+  const phased::KernelFn kernel = phased::pick(variant, vec_a, vec_b);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, tile::THREADS, 0);
 }
 
 // `part` holds splits * G*T*CIN*COUT floats; with splits == 1 it may alias

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import phase_decomp
-from repro_torch.core.im2col_ref import ConvDims, rot180, zero_pad
+from repro_torch.core.im2col_ref import ConvDims, zero_pad
 from repro_torch.kernels import tap_gemm as tg
 
 _cdiv = tg._cdiv
@@ -246,24 +246,48 @@ def forward_operands(x, w, d: ConvDims, groups: int = 1):
     return _split_source(x, d, groups), wt, _forward_taps(_canonical(d))
 
 
-def input_grad_operands(dy, w, d: ConvDims, groups: int = 1):
-    """``(src, w_stack, plan)`` of ``tap_gemm_phased`` for an input grad:
-    the per-phase weight stacks gathered out of ``rot180(w)`` (zero-padded
-    to ``t_max``; an inactive phase gets zeros) and dY padded by ``g_lo``
-    on the low side."""
+@functools.lru_cache(maxsize=1024)
+def _stack_index(d: ConvDims, device: torch.device):
+    """Where each weight-stack slot of the input grad comes from:
+    ``(slots, kh, kw, empty)`` as int64 tensors on ``device``.  Slot
+    ``p * t_max + t`` (tap t of active phase p) holds the compact kernel's
+    tap ``(kh, kw)`` (``rot180`` folded into the indices); the slots in
+    ``empty`` (taps past a phase's count, phases without taps) are zero."""
     pp = input_grad_plan(d)
-    wf = rot180(w).reshape(groups, d.N, d.C, d.k_taps_h, d.k_taps_w)
-    blocks = []
-    for spec in pp.phase_specs:
+    kh_n, kw_n = d.k_taps_h, d.k_taps_w
+    full, kh, kw = [], [], []
+    for p, spec in enumerate(pp.phase_specs):
         if spec is None:
-            blocks.append(wf.new_zeros((groups, pp.t_max, d.N, d.C)))
             continue
         rows, cols = spec
-        wk = wf[:, :, :, list(rows)][:, :, :, :, list(cols)]
-        wk = wk.permute(0, 3, 4, 1, 2).reshape(groups, len(rows) * len(cols),
-                                               d.N, d.C)
-        blocks.append(F.pad(wk, (0, 0, 0, 0, 0, pp.t_max - wk.shape[1])))
-    w_stack = torch.stack(blocks, dim=1).contiguous()   # (G, PH, T, N, C)
+        for i, r in enumerate(rows):
+            for j, c in enumerate(cols):
+                full.append(p * pp.t_max + i * len(cols) + j)
+                kh.append(kh_n - 1 - r)
+                kw.append(kw_n - 1 - c)
+    taken = set(full)
+    empty = [k for k in range(len(pp.phase_specs) * pp.t_max)
+             if k not in taken]
+    return tuple(torch.tensor(v, dtype=torch.int64, device=device)
+                 for v in (full, kh, kw, empty))
+
+
+def input_grad_operands(dy, w, d: ConvDims, groups: int = 1):
+    """``(src, w_stack, plan)`` of ``tap_gemm_phased`` for an input grad:
+    the ``(G, PH, t_max, N, C)`` per-phase weight stacks gathered out of
+    ``rot180(w)`` (an inactive phase's slots and those past a phase's taps
+    are zero), written once into one tensor, and dY padded by ``g_lo`` on
+    the low side."""
+    pp = input_grad_plan(d)
+    full, kh, kw, empty = _stack_index(_canonical(d), w.device)
+    ph = len(pp.phase_specs)
+    w_stack = w.new_empty((groups, ph, pp.t_max, d.N, d.C))
+    slots = w_stack.view(groups, ph * pp.t_max, d.N, d.C)
+    if len(empty):
+        slots.index_fill_(1, empty, 0)
+    if len(full):
+        wk = w.reshape(groups, d.N, d.C, d.k_taps_h, d.k_taps_w)
+        slots.index_copy_(1, full, wk[:, :, :, kh, kw].permute(0, 3, 1, 2))
     src = F.pad(_group_nhwc(dy, groups),
                 (0, 0, pp.g_lo_w, 0, pp.g_lo_h, 0)).contiguous()
     return src, w_stack, pp

@@ -5,7 +5,8 @@ over phase-split, channels-last compact operands,
 
   * ``tap_gemm``        forward conv
   * ``tap_gemm_phased`` input grad (transposed mode), all stride phases in
-                        one launch
+                        one launch (plus a fixed-order reduce where a
+                        phase splits)
   * ``tap_wgrad``       weight grad (dilated mode), float32 output
 
 with an optional leading group dim on every operand, so a grouped or
@@ -30,9 +31,9 @@ from repro_torch.kernels import build, ref
 LAUNCHES: dict[str, int] = {"tap_gemm": 0, "tap_gemm_phased": 0,
                             "tap_wgrad": 0}
 
-#: the forward's and the input grad's fixed output tile (must match
-#: fwd::BM, fwd::BN and BM, BN in csrc/tap_gemm.cu; the weight grad's tiles
-#: are :data:`WGRAD_TILES`).
+#: the forward's fixed output tile (must match fwd::BM, fwd::BN in
+#: csrc/tap_gemm.cu), also the widest tile of the input grad and of the
+#: weight grad (their tiles are :data:`PHASED_TILES`, :data:`WGRAD_TILES`).
 TILE_M, TILE_N = 64, 64
 GRID_YZ_MAX = 65_535
 INT32_MAX = 2**31 - 1
@@ -55,12 +56,12 @@ def launch_gap(m: int, cout: int, grid_z: int) -> str | None:
     """None when a launch with ``m`` output rows (or contraction rows),
     ``cout`` columns and ``grid_z`` groups (x phases for the input grad)
     fits the kernels' limits, else why not.  The tiles are fixed and no
-    halo is staged, so shared memory (18,432 B per forward block, 8,448 B
-    per input-grad block, 16,384 B or 10,240 B per weight-grad block)
-    never depends on the geometry; only the grid and the 32-bit row index
-    can overflow.  The forward's and the weight grad's split counts keep
-    their grids' z within the limit (:func:`wgrad_splits`,
-    :func:`split_count`)."""
+    halo is staged, so shared memory (18,432 B per forward block; 18,432,
+    12,288 or 21,504 B per input-grad block; 16,384 or 10,240 B per
+    weight-grad block) never depends on the geometry; only the grid and the
+    32-bit row index can overflow.  The split counts keep the grids' z
+    within the limit (:func:`wgrad_splits`, :func:`split_count`: the input
+    grad's z is at most splits x ``grid_z``)."""
     if m > INT32_MAX:
         return f"{m} rows exceed the kernels' 32-bit row index"
     if _cdiv(cout, TILE_N) > GRID_YZ_MAX:
@@ -80,10 +81,13 @@ def _lib() -> ctypes.CDLL:
     pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     lib = build.load("tap_gemm")
     lib.tap_gemm_f32.argtypes = [_P] * 5 + [_I] * 11 + [_P]
-    lib.tap_gemm_phased_f32.argtypes = [_P] * 5 + [_I] * 10 + [_P]
+    lib.tap_gemm_phased_f32.argtypes = ([_P] * 4 + [_I, _P, _I, _P, _P]
+                                        + [_I] * 11 + [_P])
+    lib.tap_gemm_phased_blocks_per_sm.argtypes = [_I] * 3 + [_P]
     lib.tap_wgrad_f32.argtypes = [_P] * 5 + [_I] * 12 + [_P]
     lib.tap_wgrad_blocks_per_sm.argtypes = [_I] * 3 + [_P]
-    for fn in (lib.tap_gemm_f32, lib.tap_gemm_phased_f32, lib.tap_wgrad_f32,
+    for fn in (lib.tap_gemm_f32, lib.tap_gemm_phased_f32,
+               lib.tap_gemm_phased_blocks_per_sm, lib.tap_wgrad_f32,
                lib.tap_wgrad_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
@@ -182,7 +186,8 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
                                       taps is all zeros
 
     ``phase_taps[p]`` is a tuple of ``(j, du, dv)``: tap j of phase p reads
-    the source window at offset (du, dv).
+    the source window at offset (du, dv).  The kernel's tile and split count
+    come from :func:`phased_plan`, its blocks from :func:`phased_work`.
     """
     phase_taps = tuple(tuple(tuple(int(v) for v in r) for r in taps)
                        for taps in phase_taps)
@@ -196,6 +201,9 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
                          "disagree")
     for taps in phase_taps:
         _check_taps("tap_gemm_phased", taps, t)
+        if len(taps) > t:
+            raise ValueError(f"tap_gemm_phased: {len(taps)} taps for {t} "
+                             "weight slots")
     if not _on_cuda("tap_gemm_phased", src):
         return ref.tap_gemm_phased_ref(src, w, phase_taps, oh, ow)
     _check_cuda("tap_gemm_phased", s5, w5)
@@ -203,15 +211,24 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
     gap = launch_gap(m, cout, g * ph)
     if gap:
         raise ValueError(f"tap_gemm_phased: {gap}")
-    counts = tuple(len(taps) for taps in phase_taps)
-    rows = tuple(v for taps in phase_taps
-                 for r in (*taps, *((0, 0, 0),) * (t - len(taps))) for v in r)
     out = torch.empty((g, ph, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
+    if out.numel() == 0:
+        return out if grouped else out[0]
+    counts = tuple(len(taps) for taps in phase_taps)
+    variant, splits = phased_plan(g, counts, cin, cout, m, _sms(src.device))
+    work, sums, slots = phased_work(counts, cin, splits,
+                                    PHASED_TILES[variant].step)
+    rows = tuple(v for taps in phase_taps
+                 for r in (*taps, *((0, 0, 0),) * (t - len(taps))) for v in r)
+    part = out if slots == 0 else torch.empty(
+        (slots, g, m, cout), dtype=torch.float32, device=src.device)
     _run("tap_gemm_phased", _lib().tap_gemm_phased_f32, s5.data_ptr(),
-         w5.data_ptr(), _table(counts, src.device).data_ptr(),
-         _table(rows, src.device).data_ptr(), out.data_ptr(),
-         g, ph, b, hs, ws, cin, t, cout, oh, ow, _stream(src))
+         w5.data_ptr(), _table(rows, src.device).data_ptr(),
+         _table(sum(work, ()), src.device).data_ptr(), len(work),
+         _table(sum(sums, ()), src.device).data_ptr(), len(sums),
+         part.data_ptr(), out.data_ptr(), g, ph, b, hs, ws, cin, t, cout, oh,
+         ow, PHASED_VARIANTS.index(variant), _stream(src))
     return out if grouped else out[0]
 
 
@@ -287,6 +304,89 @@ def wgrad_plan(g: int, t: int, cin: int, cout: int, rows: int,
     tile = WGRAD_TILES[variant]
     tiles = _cdiv(t * cin, tile.rows) * _cdiv(cout, tile.cols) * g
     return variant, split_count(tile, tiles, rows, sms, g)
+
+
+#: input-grad variants (csrc/tap_gemm.cu, phased::kernel on tile::run), 64
+#: threads a block: 64 x 64 with 8 x 8 outputs a thread (18,432 B of shared
+#: memory), 64 x 16 with 4 x 4 for COUT <= 16 (12,288 B) and 128 x 8 with
+#: 2 x 8 for COUT <= 8 (21,504 B).  ``per_sm`` as in :data:`WGRAD_TILES`,
+#: held to the card by ``chip_smoke.py``.  The C entry's ``variant`` is the
+#: index in :data:`PHASED_VARIANTS`.
+PHASED_TILES = {"64x64": Tile(64, 64, 16, 4), "64x16": Tile(64, 16, 16, 8),
+                "128x8": Tile(128, 8, 16, 6)}
+PHASED_VARIANTS = ("64x64", "64x16", "128x8")
+
+
+def phased_plan(g: int, counts, cin: int, cout: int, m: int,
+                sms: int) -> tuple[str, int]:
+    """``(variant, splits)`` of an input grad of ``g`` groups whose phases
+    run ``counts[p]`` taps of ``cin`` channels into ``cout`` channels over
+    ``m`` = B*oh*ow output pixels each, on a card of ``sms`` SMs: the
+    128 x 8 tile for ``cout <= 8``, 64 x 16 for ``cout <= 16``, else
+    64 x 64.  ``splits`` is :func:`split_count` over the longest phase's
+    ``counts[p] * cin`` rows and the output tiles of the phases with taps,
+    each phase's tiles weighted by its share of the longest phase's rows:
+    :func:`phased_work` cuts every phase to the longest phase's chunk
+    length, so a shorter phase splits fewer ways (Table II layers 2 and 4,
+    phases of 1, 2, 2 and 4 taps, count 2.25 phases, not 4)."""
+    variant = "128x8" if cout <= 8 else "64x16" if cout <= 16 else "64x64"
+    tile = PHASED_TILES[variant]
+    longest = max(counts, default=0)
+    tiles = _cdiv(_cdiv(m, tile.rows) * _cdiv(cout, tile.cols) * g
+                  * sum(counts), max(longest, 1))
+    return variant, split_count(tile, max(tiles, 1), longest * cin, sms,
+                                g * len(counts))
+
+
+def phased_work(counts, cin: int, splits: int, step: int):
+    """The input-grad kernel's blocks for :func:`phased_plan`'s ``splits``:
+    ``(work, sums, slots)``.
+
+    ``work`` rows ``(phase, k_begin, k_end, slot)``, one per block z (per
+    group): each active phase's ``counts[p] * cin`` contraction rows cut
+    into chunks of :func:`split_chunk` of the longest phase (so every block
+    walks at most one chunk), then one ``(p, 0, 0, -1)`` row per phase
+    without taps, whose blocks store zeros.  A phase of one chunk writes the
+    output itself (slot -1); the chunks of a phase that splits write
+    partial planes ``slot``, ``slots`` in all, and ``sums`` holds its row
+    ``(phase, first slot, count)`` for the fixed-order reduce.  Longer
+    chunks come first, so the last blocks the card takes are the short."""
+    return _phased_work(tuple(counts), cin, splits, step)
+
+
+@functools.lru_cache(maxsize=4096)
+def _phased_work(counts: tuple, cin: int, splits: int, step: int):
+    k_max = max(counts, default=0) * cin
+    chunk = split_chunk(k_max, splits, step) if k_max else 0
+    work, zeros, sums = [], [], []
+    slots = 0
+    for p, n in enumerate(counts):
+        k = n * cin
+        if k == 0:
+            zeros.append((p, 0, 0, -1))
+            continue
+        parts = _cdiv(k, chunk)
+        if parts == 1:
+            work.append((p, 0, k, -1))
+            continue
+        sums.append((p, slots, parts))
+        work += [(p, i * chunk, min(k, (i + 1) * chunk), slots + i)
+                 for i in range(parts)]
+        slots += parts
+    work.sort(key=lambda r: r[1] - r[2])         # stable: longest first
+    return tuple(work + zeros), tuple(sums), slots
+
+
+def phased_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool) -> int:
+    """Blocks of one input-grad instance an SM of the current card holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = ctypes.c_int(0)
+    err = _lib().tap_gemm_phased_blocks_per_sm(
+        PHASED_VARIANTS.index(variant), int(vec_a), int(vec_b),
+        ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"tap_gemm_phased_blocks_per_sm: CUDA error {err}")
+    return blocks.value
 
 
 def wgrad_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool) -> int:

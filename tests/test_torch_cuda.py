@@ -476,3 +476,90 @@ def test_prefill_launches_the_kernel_once_per_layer(cuda):
     _close(logits, want)
     for key in ("k", "v"):
         _close(cache["blocks"][key], scan["blocks"][key])
+
+
+#: input grads of each variant and copy width, as (x shape, w shape, conv
+#: spec): COUT 3 (128 x 8 tile, 4-byte copies of the weights); COUT 1 with
+#: 16 groups (the depthwise conv, CIN 1); CIN 5 (4-byte copies of dY, a
+#: step of 16 rows spans taps) into COUT 12 (64 x 16); a 1x1 stride-2 conv
+#: (three phases without taps) that splits its one phase; stride (2, 3),
+#: whose six phases run 1, 1, 1, 2, 2 and 2 taps; stride 3 with a 2x2
+#: kernel (phases without taps, COUT 6 on the 128 x 8 tile).
+PHASED_GEOMS = [
+    ((2, 3, 33, 33), (64, 3, 3, 3), dict(stride=2)),
+    ((4, 16, 12, 12), (16, 1, 3, 3), dict(stride=1, padding=1, groups=16)),
+    ((2, 12, 17, 17), (5, 12, 3, 3), dict(stride=2, padding=1)),
+    ((2, 256, 28, 28), (512, 256, 1, 1), dict(stride=2)),
+    ((2, 20, 14, 15), (24, 20, 3, 3), dict(stride=(2, 3), padding=1)),
+    ((2, 6, 13, 13), (10, 6, 2, 2), dict(stride=3)),
+]
+
+
+def _phased_operands(cuda, case, seed=13):
+    x_shape, w_shape, kw = case
+    spec = ConvSpec.make(**kw)
+    d = tconv.spec_dims(x_shape, w_shape, spec)
+    gen = torch.Generator().manual_seed(seed)
+    w = _randn(gen, *w_shape, dev=cuda)
+    dy = _randn(gen, d.B, d.N * spec.groups, d.H_o, d.W_o, dev=cuda)
+    src, ws, pp = ops.input_grad_operands(dy, w, d, spec.groups)
+    counts = [len(t) for t in pp.phase_taps]
+    plan = tg.phased_plan(spec.groups, counts, d.N, d.C,
+                          d.B * pp.n_qh * pp.n_qw, _sms(cuda))
+    return src, ws, pp, counts, plan
+
+
+def _phased_matches(src, ws, phase_taps, oh, ow):
+    reset_launch_counts()
+    got = tg.tap_gemm_phased(src, ws, phase_taps, oh, ow)
+    again = tg.tap_gemm_phased(src, ws, phase_taps, oh, ow)
+    assert launch_counts()["tap_gemm_phased"] == 2
+    assert torch.equal(got, again)
+    _close(got, ref.tap_gemm_phased_ref(src, ws, phase_taps, oh, ow))
+    return got
+
+
+@pytest.mark.parametrize("case", PHASED_GEOMS,
+                         ids=["cout3", "dw_g16", "cin5", "1x1s2split",
+                              "s2x3", "s3empty"])
+def test_tap_gemm_phased_variants_match_plain_version(cuda, case):
+    src, ws, pp, counts, (variant, splits) = _phased_operands(cuda, case)
+    cout = ws.shape[-1]
+    assert variant == ("128x8" if cout <= 8 else
+                       "64x16" if cout <= 16 else "64x64")
+    got = _phased_matches(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    for p, n in enumerate(counts):
+        if n == 0:
+            assert not got[:, p].any()
+
+
+def test_tap_gemm_phased_splits_only_the_active_phase(cuda):
+    """The 1x1 stride-2 conv splits its one active phase; its three
+    inactive phases are zeros stored straight into the output."""
+    src, ws, pp, counts, (variant, splits) = _phased_operands(
+        cuda, PHASED_GEOMS[3])
+    assert counts == [1, 0, 0, 0] and splits > 1
+    work, sums, slots = tg.phased_work(counts, ws.shape[-2], splits,
+                                       tg.PHASED_TILES[variant].step)
+    assert slots == splits and sums == ((0, 0, splits),)
+    _phased_matches(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+
+
+def test_tap_gemm_phased_takes_an_unaligned_src_and_any_tap_slot(cuda):
+    """dY whose base is one float past a 16-byte boundary takes the 4-byte
+    copies (CIN 24 would take 16-byte ones); a tap table whose weight slot
+    j is not the tap's position reads slot j."""
+    src, ws, pp, counts, _ = _phased_operands(cuda, PHASED_GEOMS[4])
+    gen = torch.Generator().manual_seed(14)
+    src_s = _shifted(gen, *src.shape, dev=cuda).copy_(src)
+    _phased_matches(src_s, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    t = ws.shape[2]                                   # (G, PH, T, N, C)
+    perm = [(j * 3 + 1) % t for j in range(t)]        # t = 2: 1, 0
+    assert sorted(perm) == list(range(t)) and perm != list(range(t))
+    w2 = torch.empty_like(ws)
+    w2[:, :, perm] = ws
+    taps2 = tuple(tuple((perm[j], du, dv) for j, du, dv in taps)
+                  for taps in pp.phase_taps)
+    want = _phased_matches(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    got = _phased_matches(src, w2, taps2, pp.n_qh, pp.n_qw)
+    _close(got, want)

@@ -138,6 +138,9 @@ def test_wrappers_reject_bad_tap_tables():
         tg.tap_gemm(src, torch.zeros(1, 3, 2), [(2, 0, 0)], 3, 3)
     with pytest.raises(ValueError, match="disagree"):
         tg.tap_gemm(src, torch.zeros(2, 3, 2), [(0, 0, 0)], 3, 3)
+    w = torch.zeros(1, 1, 3, 2)           # one phase, one weight slot
+    with pytest.raises(ValueError, match="2 taps for 1 weight slots"):
+        tg.tap_gemm_phased(src[0], w, (((0, 0, 0), (0, 1, 1)),), 3, 3)
 
 
 def test_wgrad_split_factor_covers_both_ends_of_the_contraction():
@@ -256,3 +259,146 @@ def test_split_count_leaves_no_split_empty_and_respects_the_grid():
             assert s >= 1 and s * groups <= tg.GRID_YZ_MAX
             chunk = tg.split_chunk(rows, s, tile.step)
             assert s == 1 or (s - 1) * chunk < rows
+
+
+#: every geometry chip_smoke.py gives the input-grad kernel: the conv
+#: shapes above and the mirror convs of its transposed cases (the
+#: autoencoder's decoder layers and the mirror of Table II layer 2).
+PHASED_SHAPES = SMOKE_SHAPES + [
+    (f"{label} T", tconv.transpose_dims(xs, ws, spec), 1)
+    for label, xs, ws, spec in chip_smoke.transposed_cases(ConvTransposeSpec)]
+
+
+def _phased_geometry(d, g):
+    from repro_torch.kernels import ops
+    pp = ops.input_grad_plan(d)
+    return [len(t) for t in pp.phase_taps], d.B * pp.n_qh * pp.n_qw
+
+
+@pytest.mark.parametrize("layer,d,g", PHASED_SHAPES,
+                         ids=[row[0] for row in PHASED_SHAPES])
+def test_phased_plan_at_every_smoke_shape(layer, d, g):
+    """The input grad's plan on a 132-SM H100: the narrow tiles exactly
+    where COUT <= 16 (128 x 8 for COUT <= 8), its grid within the card's
+    limits, no split of the longest phase empty or under
+    ``MIN_SPLIT_ROWS`` rows, one empty (zero-storing) block row per phase
+    without taps and no split of it, and partials of at most splits x
+    active phases x M x COUT floats a group."""
+    counts, m = _phased_geometry(d, g)
+    cin, cout = d.N, d.C                 # dY's channels in, dX's out
+    variant, splits = tg.phased_plan(g, counts, cin, cout, m, H100_SMS)
+    assert variant == ("128x8" if cout <= 8 else
+                       "64x16" if cout <= 16 else "64x64")
+    tile = tg.PHASED_TILES[variant]
+    work, sums, slots = tg.phased_work(counts, cin, splits, tile.step)
+    assert 1 <= tg._cdiv(m, tile.rows) <= tg.INT32_MAX
+    assert tg._cdiv(cout, tile.cols) <= tg.GRID_YZ_MAX
+    assert 1 <= splits and 1 <= len(work) * g <= tg.GRID_YZ_MAX
+    rows = max(counts) * cin
+    chunk = tg.split_chunk(rows, splits, tile.step)
+    assert (splits - 1) * chunk < rows <= splits * chunk
+    assert splits == 1 or chunk >= tg.MIN_SPLIT_ROWS
+    active = [p for p, n in enumerate(counts) if n]
+    assert [r for r in work if r[1] == r[2]] == [
+        (p, 0, 0, -1) for p, n in enumerate(counts) if not n]
+    for p in active:                   # each phase's rows, cut in order
+        mine = sorted(r[1:3] for r in work if r[0] == p)
+        assert mine[0][0] == 0 and mine[-1][1] == counts[p] * cin
+        assert all(a[1] == b[0] for a, b in zip(mine, mine[1:]))
+        assert all(e - b <= chunk for b, e in mine)
+    assert sorted(s for r in work for s in [r[3]] if s >= 0) == list(
+        range(slots))
+    assert sum(n for _, _, n in sums) == slots
+    assert 4 * slots * g * m * cout <= 4 * splits * len(active) * m * cout * g
+
+
+def test_phased_plan_splits_the_one_phase_of_table2_1x1_layers():
+    """Table II layers 3 and 5 (1x1, stride 2) have one active phase of
+    four: it alone splits (5 and 16 partial planes, against the 20 and 64
+    of splitting every phase as many ways), and the three inactive phases
+    are one zero-storing block row each; layer 1 (COUT 3) fills the card
+    without a split on the 128 x 8 tile.  Layers 2 and 4 count each
+    phase's own chunks: their 1/2/2/4-tap phases split 2 and 8 ways where
+    a full split of every phase would allow 1 and 4."""
+    layers = [paper_cnn.dims(layer) for layer in paper_cnn.TABLE2_LAYERS]
+    plans = []
+    for d in layers:
+        counts, m = _phased_geometry(d, 1)
+        variant, splits = tg.phased_plan(1, counts, d.N, d.C, m, H100_SMS)
+        work, sums, slots = tg.phased_work(counts, d.N, splits,
+                                           tg.PHASED_TILES[variant].step)
+        plans.append((variant, splits, slots, len(work)))
+    assert plans[0] == ("128x8", 1, 0, 4)
+    assert plans[1] == ("64x64", 2, 2, 5)
+    assert plans[2] == ("64x64", 5, 5, 5 + 3)
+    assert plans[3] == ("64x64", 8, 18, 18)
+    assert plans[4] == ("64x64", 16, 16, 16 + 3)
+
+
+def test_phased_work_orders_long_chunks_first_and_zero_phases_last():
+    work, sums, slots = tg.phased_work((1, 2, 2, 4), 64, 2, 16)
+    assert work == ((1, 0, 128, -1), (2, 0, 128, -1), (3, 0, 128, 0),
+                    (3, 128, 256, 1), (0, 0, 64, -1))
+    assert sums == ((3, 0, 2),) and slots == 2
+    work, sums, slots = tg.phased_work((0, 3, 0), 5, 1, 16)
+    assert work == ((1, 0, 15, -1), (0, 0, 0, -1), (2, 0, 0, -1))
+    assert sums == () and slots == 0
+    assert tg.phased_work((0, 0), 8, 1, 16) == (
+        ((0, 0, 0, -1), (1, 0, 0, -1)), (), 0)
+
+
+def _stack_before(w, d, groups):
+    """The weight stack as ``input_grad_operands`` built it before it wrote
+    one preallocated tensor: per phase a gather out of ``rot180(w)``, a
+    permute, a pad to ``t_max``, zeros for an inactive phase, then a
+    stack."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.im2col_ref import rot180
+    from repro_torch.kernels import ops
+    pp = ops.input_grad_plan(d)
+    wf = rot180(w).reshape(groups, d.N, d.C, d.k_taps_h, d.k_taps_w)
+    blocks = []
+    for spec in pp.phase_specs:
+        if spec is None:
+            blocks.append(wf.new_zeros((groups, pp.t_max, d.N, d.C)))
+            continue
+        rows, cols = spec
+        wk = wf[:, :, :, list(rows)][:, :, :, :, list(cols)]
+        wk = wk.permute(0, 3, 4, 1, 2).reshape(groups, len(rows) * len(cols),
+                                               d.N, d.C)
+        blocks.append(F.pad(wk, (0, 0, 0, 0, 0, pp.t_max - wk.shape[1])))
+    return torch.stack(blocks, dim=1).contiguous()
+
+
+#: dilated, asymmetric-stride and grouped geometries beside the smoke
+#: shapes: (label, per-group dims, groups).
+OPERAND_EXTRA = [
+    ("d2 s2", ConvDims(B=1, C=2, H_i=11, W_i=11, N=3, K_h=5, K_w=5, S=2,
+                       P_h=2, P_w=2, D_h=2, D_w=2), 1),
+    ("s2x3", ConvDims(B=1, C=3, H_i=10, W_i=12, N=4, K_h=3, K_w=3, S=2,
+                      S_w=3, P_h=1, P_w=1), 1),
+    ("s3 k2 empty phases", ConvDims(B=1, C=6, H_i=10, W_i=10, N=10, K_h=2,
+                                    K_w=2, S=3), 1),
+    ("g2 s3", ConvDims(B=2, C=4, H_i=12, W_i=12, N=6, K_h=3, K_w=3, S=3,
+                       P_h=1, P_w=1), 2),
+]
+
+
+@pytest.mark.parametrize("layer,d,g", PHASED_SHAPES + OPERAND_EXTRA,
+                         ids=[row[0] for row in PHASED_SHAPES + OPERAND_EXTRA])
+def test_input_grad_operands_equal_the_stacked_construction(layer, d, g):
+    """The weight stack written once into one tensor equals, element for
+    element, the one stacked out of per-phase gathers and zero blocks; dY
+    is padded as before."""
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(9)
+    w = torch.from_numpy(_rand(rng, d.N * g, d.C, d.k_taps_h, d.k_taps_w))
+    dy = torch.from_numpy(_rand(rng, d.B, d.N * g, d.H_o, d.W_o))
+    src, stack, pp = ops.input_grad_operands(dy, w, d, g)
+    assert stack.is_contiguous() and src.is_contiguous()
+    assert torch.equal(stack, _stack_before(w, d, g))
+    want = torch.nn.functional.pad(
+        dy.reshape(d.B, g, d.N, d.H_o, d.W_o).permute(1, 0, 3, 4, 2),
+        (0, 0, pp.g_lo_w, 0, pp.g_lo_h, 0))
+    assert torch.equal(src, want)
