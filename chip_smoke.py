@@ -64,7 +64,16 @@ PATH):
                    ``python -m repro_torch.train.autoencoder_bp --policy
                    pallas`` at its defaults (200 steps, batch 16) must reach
                    MSE < 0.05; 20 steps under traditional match pallas.
-  8. flash      -- the ``flash_attention`` kernel against its plain version
+  8. autotune   -- the measured autotuner, over fresh temporary plan caches:
+                   at each shape of the kernels phase, every candidate plan
+                   of each tap kernel (``ops.plan_candidates``) against the
+                   plain version (``REL_TOL``) with its device time, and
+                   the tuner's winner (``autotune="measure"``) beside the
+                   analytic plan; then the CNN CLI under ``--policy pallas
+                   --autotune measure`` and ``--autotune cached``: the
+                   cached run is all hits, ``torch.equal`` losses, eval
+                   accuracy > 0.9 and the ``off`` run's launches.
+  9. flash      -- the ``flash_attention`` kernel against its plain version
                    (``max |kernel - plain| / max |plain|``, tolerance
                    ``FLASH_TOL`` in float32, ``BF16_TOL`` in bf16) at the
                    serving shapes, SmolLM-360M's 15 query and 5 KV heads of
@@ -74,7 +83,7 @@ PATH):
                    are bit-equal; kernel, plain and
                    ``F.scaled_dot_product_attention`` device times (timed
                    only: the port never calls it), host time, bound.
-  9. serve      -- SmolLM-360M at full width, initialised from a seed: the
+ 10. serve      -- SmolLM-360M at full width, initialised from a seed: the
                    port's prefill (one causal pass, the kernel in every
                    layer) against a lockstep scan of ``decode_step`` (plain
                    dense attention) on one 1,024-token prompt, logits and
@@ -92,7 +101,7 @@ PATH):
                    of 8, continuous on 4 lanes; where one differs, the
                    first differing step's top-2 logit margin must be under
                    ``MARGIN_TOL``).
- 10. summary    -- every kernel's launches on each path, each path run with
+ 11. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
 Then a ``{"kernels": [...]}`` line, and last
@@ -184,32 +193,15 @@ def time_ms(torch, fn, batches: int = 10, calls: int = 10,
             warm: int = 3) -> float:
     """Device time per call: ``calls`` back-to-back calls, captured in one
     CUDA graph after ``warm`` calls, replayed ``batches`` times between two
-    CUDA events; the median replay over ``calls``.  A replay runs the device
-    work without the host's cost of each call, so a small kernel reads its
-    own time, not its launch cost.  Operands stay warm in L2 (the same
-    tensors every call)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warm):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1) / calls)
-    return statistics.median(times)
+    CUDA events; the median replay over ``calls``
+    (``repro_torch.kernels.timing.time_ms``, the measured autotuner's
+    timer).  A replay runs the device work without the host's cost of each
+    call, so a small kernel reads its own time, not its launch cost.
+    Operands stay warm in L2 (the same tensors every call).  ``torch`` is
+    not read: the parameters are those ``scripts/ab_kernel_times.py``
+    passes to every checkout's helper."""
+    from repro_torch.kernels import timing
+    return timing.time_ms(fn, batches, calls, warm)
 
 
 def host_ms(torch, fn, calls: int = 100) -> float:
@@ -752,6 +744,130 @@ def phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp, dev):
     return paths
 
 
+def phase_autotune(smoke, torch, ops, tg, ref, autotune, config, kernels,
+                   cnn_bp, shapes, off_counts, dev):
+    """The measured autotuner (``kernels/autotune.py``), each step over a
+    fresh temporary plan cache, never the default one (a cache an earlier
+    run left would change the plans).  At each of ``shapes``
+    (``phase_kernels``' rows) and each role: every candidate plan against
+    the plain version (``REL_TOL``, bit-equal run to run) with its device
+    time, and the tuner's winner (``autotune="measure"``: the top
+    ``config.autotune_top_k`` timed by CUDA-graph replay) beside the
+    analytic plan.  Then the CNN CLI under ``--policy pallas --autotune
+    measure`` and again under ``--autotune cached`` over the same cache:
+    the cached run is served only hits, its per-step losses are
+    ``torch.equal`` to the measure run's, its eval accuracy is > 0.9 and
+    its launches are ``off_counts`` (the ``off`` run's).  Returns both
+    runs' launches; config is back to ``autotune="off"`` after."""
+    import shutil
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_plans_"))
+    paths = {}
+    try:
+        config.update(autotune="measure", plan_cache_dir=str(tmp / "shapes"))
+        ops.reset_plan_events()
+        for i, (layer, d, g, _) in enumerate(shapes):
+            gen = torch.Generator().manual_seed(400 + i)
+            x = torch.randn(d.B, d.C * g, d.H_i, d.W_i, generator=gen).to(dev)
+            w = torch.randn(d.N * g, d.C, d.K_h, d.K_w, generator=gen).to(dev)
+            dy = torch.randn(d.B, d.N * g, d.H_o, d.W_o,
+                             generator=gen).to(dev)
+            src, wt, taps = ops.forward_operands(x, w, d, g)
+            gsrc, ws, pp = ops.input_grad_operands(dy, w, d, g)
+            wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
+            calls = {
+                "forward": (
+                    lambda p: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o, p),
+                    lambda: ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o)),
+                "input_grad": (
+                    lambda p: tg.tap_gemm_phased(gsrc, ws, pp.phase_taps,
+                                                 pp.n_qh, pp.n_qw, p),
+                    lambda: ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps,
+                                                    pp.n_qh, pp.n_qw)),
+                "weight_grad": (
+                    lambda p: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o,
+                                           p),
+                    lambda: ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o,
+                                              d.W_o))}
+            for role, (kern, plain) in calls.items():
+                want = plain()
+                tuned = ops.pass_plan(role, d, g, dev)
+                rows = []
+                for plan in ops.plan_candidates(role, d, g, k=100,
+                                                device=dev):
+                    got = kern(plan)
+                    torch.cuda.synchronize()
+                    err, _ = rel_err(torch, got, want)
+                    check(err <= REL_TOL, f"{role} at {layer} under "
+                                          f"{plan.key}: relative error {err}")
+                    check(bool(torch.equal(got, kern(plan))),
+                          f"{role} at {layer} under {plan.key} differs run "
+                          "to run")
+                    rows.append({"variant": plan.variant,
+                                 "splits": plan.splits, "max_rel_err": err,
+                                 "ms": time_ms(torch, lambda: kern(plan))})
+                mine = next(r for r in rows
+                            if (r["variant"], r["splits"]) == tuned.key)
+                smoke.emit("autotune", layer=layer, role=role, groups=g,
+                           analytic=rows[0],
+                           tuned={**mine, "measured_us": tuned.measured_us,
+                                  "candidates_timed": tuned.candidates_timed,
+                                  "cache": tuned.cache},
+                           analytic_over_tuned=rows[0]["ms"] / mine["ms"],
+                           candidates=rows, tol=REL_TOL)
+                check(tuned.autotuned and tuned.cache == "miss"
+                      and tuned.candidates_timed == min(
+                          len(rows), config.autotune_top_k),
+                      f"{role} at {layer}: tuner gave {tuned}")
+        events = ops.plan_events()
+        check(set(events) == {f"{r}_autotune_miss" for r in ops.PLAN_ROLES},
+              f"tuner events at the shapes: {events}")
+
+        argv = ["--policy", "pallas", "--device", str(dev),
+                "--plan-cache-dir", str(tmp / "train")]
+        runs = {}
+        for mode in ("measure", "cached"):
+            kernels.reset_launch_counts()
+            ops.reset_plan_events()
+            res = cnn_bp.main(argv + ["--autotune", mode])
+            counts = paths[f"cnn_bp pallas autotune {mode}"] = \
+                kernels.launch_counts()
+            events = ops.plan_events()
+            plans = sorted(
+                [k.split("|")[1], k.split("|")[-2], p.variant, p.splits,
+                 p.measured_us, p.cache]
+                for k, p in autotune._MEMO.items())
+            runs[mode] = res, events, plans
+            smoke.emit("autotune", model="cnn", policy="pallas",
+                       autotune=mode, steps=len(res["losses"]),
+                       eval_acc=res["eval_acc"], seconds=res["seconds"],
+                       first_step_seconds=res["first_step_seconds"],
+                       last_loss=res["losses"][-1], launches=counts,
+                       plan_events=events, plans=plans)
+            check(res["eval_acc"] > 0.9,
+                  f"autotune {mode}: eval accuracy {res['eval_acc']}")
+        (meas, ev_m, plans_m), (cached, ev_c, plans_c) = \
+            runs["measure"], runs["cached"]
+        check(set(ev_m) == {f"{r}_autotune_miss" for r in ops.PLAN_ROLES},
+              f"measure run: {ev_m}")
+        check(set(ev_c) == {f"{r}_autotune_hit" for r in ops.PLAN_ROLES}
+              and sum(ev_c.values()) == sum(ev_m.values()),
+              f"cached run: {ev_c} (measure run: {ev_m})")
+        check([p[:4] for p in plans_c] == [p[:4] for p in plans_m],
+              "the cached run's plans differ from the measure run's")
+        check(bool(torch.equal(torch.tensor(cached["losses"]),
+                               torch.tensor(meas["losses"]))),
+              "cached run's losses differ from the measure run's")
+        check(paths["cnn_bp pallas autotune cached"] == off_counts,
+              f"cached run launched {paths['cnn_bp pallas autotune cached']}"
+              f", the off run {off_counts}")
+    finally:
+        config.update(autotune="off", plan_cache_dir=None)
+        ops.reset_plan_events()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 #: (label, B, H, Hk, Lq, Lk, causal, dtype name); the first is the shape a
 #: 1,024-token prefill gives the kernel on the serving path.
 FLASH_CASES = (
@@ -1019,9 +1135,10 @@ def main(argv=None) -> int:
     from repro_torch import kernels
     from repro_torch.configs import paper_cnn
     from repro_torch.core import bpim2col, conv
+    from repro_torch.core.config import config
     from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec
     from repro_torch.core.im2col_ref import ConvDims
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import autotune, build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import tap_gemm as tg
@@ -1031,6 +1148,7 @@ def main(argv=None) -> int:
     from repro_torch.train import autoencoder_bp, cnn_bp
 
     smoke = Smoke(args.out)
+    config.update(autotune="off", plan_cache_dir=None)   # analytic plans
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -1079,6 +1197,9 @@ def main(argv=None) -> int:
     phase_transposed(smoke, torch, conv, kernels, ConvTransposeSpec, dev)
     paths = phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp,
                         dev)
+    paths.update(phase_autotune(
+        smoke, torch, ops, tg, ref, autotune, config, kernels, cnn_bp,
+        shapes + [row[:4] for row in ae], paths["cnn_bp pallas"], dev))
     agg["flash_attention"] = phase_flash(smoke, torch, F, fa, ref, dev)
     paths.update(phase_serve(smoke, torch, kernels, serve, M, T, dev))
     smoke.emit("summary", launches_by_path=paths)

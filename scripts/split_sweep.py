@@ -8,11 +8,11 @@ For every input-grad and weight-grad shape and every ``traditional`` /
 example CNN's and autoencoder's training shapes), times the kernel
 (``chip_smoke.time_ms``: CUDA-graph replay) with its plan's split count
 replaced by each of 1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128,
-192 and 256 that leaves every split at least one step, beside the count
-the plan picks (for the input grad, the split count of its longest
-phase).  The plans' rule (``repro_torch.kernels.tap_gemm.split_count``:
-as many splits as fill the blocks the card holds at once) was chosen from
-these times.
+192 and 256 that leaves no split empty (the plans the wrappers accept:
+``tap_gemm.plan_gap``), beside the count the plan picks (for the input
+grad, the split count of its longest phase).  The plans' rule
+(``repro_torch.kernels.tap_gemm.split_count``: as many splits as fill the
+blocks the card holds at once) was chosen from these times.
 One JSON object per line on stdout (and ``--out``); the card's name and
 power limit first.  Exits non-zero without a CUDA device.
 """
@@ -68,7 +68,6 @@ def main(argv=None) -> int:
               + cs.cnn_shapes(ConvDims))
     ae = cs.ae_shapes(ConvDims, conv, ConvTransposeSpec)
 
-    phased_plan = tg.phased_plan
     for i, (layer, d, g, _) in enumerate(shapes + [r[:4] for r in ae]):
         gen = torch.Generator().manual_seed(i)
         w = torch.randn(d.N * g, d.C, d.K_h, d.K_w, generator=gen).to(dev)
@@ -76,31 +75,30 @@ def main(argv=None) -> int:
         src, ws, pp = ops.input_grad_operands(dy, w, d, g)
         counts = [len(t) for t in pp.phase_taps]
         rows = max(counts) * d.N
-        variant, plan = phased_plan(g, counts, d.N, d.C,
-                                    d.B * pp.n_qh * pp.n_qw, sms)
-        for s in sorted({c for c in COUNTS if c * 16 <= rows} | {1, plan}):
-            tg.phased_plan = lambda *_, s=s: (variant, s)
+        variant, plan = tg.phased_plan(g, counts, d.N, d.C,
+                                       d.B * pp.n_qh * pp.n_qw, sms)
+        for s in sorted({c for c in COUNTS
+                        if tg._whole_splits(rows, c, 16) == c} | {plan}):
             emit({"kernel": "tap_gemm_phased", "layer": layer,
                   "variant": variant, "plan": plan, "splits": s,
                   "ms": cs.time_ms(torch, lambda: tg.tap_gemm_phased(
-                      src, ws, pp.phase_taps, pp.n_qh, pp.n_qw))})
-        tg.phased_plan = phased_plan
+                      src, ws, pp.phase_taps, pp.n_qh, pp.n_qw,
+                      tg.Plan("input_grad", variant, s)))})
 
-    wgrad_plan = tg.wgrad_plan
     for i, (layer, d, g, _) in enumerate(shapes + [r[:4] for r in ae]):
         gen = torch.Generator().manual_seed(i)
         x = torch.randn(d.B, d.C * g, d.H_i, d.W_i, generator=gen).to(dev)
         dy = torch.randn(d.B, d.N * g, d.H_o, d.W_o, generator=gen).to(dev)
         src, dyn, taps = ops.weight_grad_operands(x, dy, d, g)
         rows = d.B * d.H_o * d.W_o
-        variant, plan = wgrad_plan(g, len(taps), d.C, d.N, rows, sms)
-        for s in sorted({c for c in COUNTS if c * 16 <= rows} | {1, plan}):
-            tg.wgrad_plan = lambda *_, s=s: (variant, s)
+        variant, plan = tg.wgrad_plan(g, len(taps), d.C, d.N, rows, sms)
+        for s in sorted({c for c in COUNTS
+                        if tg._whole_splits(rows, c, 16) == c} | {plan}):
             emit({"kernel": "tap_wgrad", "layer": layer, "variant": variant,
                   "plan": plan, "splits": s, "ms": cs.time_ms(
-                      torch, lambda: tg.tap_wgrad(src, dyn, taps, d.H_o,
-                                                  d.W_o))})
-        tg.wgrad_plan = wgrad_plan
+                      torch, lambda: tg.tap_wgrad(
+                          src, dyn, taps, d.H_o, d.W_o,
+                          tg.Plan("weight_grad", variant, s)))})
 
     matmul_plan = mm.matmul_plan
     for i, (layer, gemm, (g, m, k, n), dtype, _) in enumerate(

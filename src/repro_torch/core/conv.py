@@ -321,11 +321,17 @@ _TRANSPOSE_ROLE = {"forward": "input_grad", "input_grad": "forward",
                    "weight_grad": "weight_grad"}
 
 
-def _kernel_gap(pass_name: str, d: ConvDims,
-                transposed: bool = False) -> str | None:
+def _kernel_gap(pass_name: str, d: ConvDims, transposed: bool = False,
+                groups: int = 1, device=None) -> str | None:
+    """Why the kernel of this pass cannot launch, or None.  On a CUDA
+    ``device`` the pass is judged by the plan that will launch
+    (``ops.pass_plan``: the tuned plan when ``config.autotune`` is on); a
+    transposed pass plans under its mirror role."""
     from repro_torch.kernels import ops
-    return ops.launch_gap(_TRANSPOSE_ROLE[pass_name] if transposed
-                          else pass_name, d)
+    role = _TRANSPOSE_ROLE[pass_name] if transposed else pass_name
+    plan = None if device is None else ops.pass_plan(role, d, groups,
+                                                     device)
+    return ops.launch_gap(role, d, groups, plan)
 
 
 _FALLBACK_CHAIN = ("bp_phase", "lax")
@@ -339,13 +345,16 @@ def _first_capable(d: ConvDims, reason: str) -> tuple[str, str]:
 
 
 def resolve_engine(requested: str, pass_name: str, d: ConvDims,
-                   transposed: bool = False) -> tuple[str, str]:
+                   transposed: bool = False, groups: int = 1,
+                   device=None) -> tuple[str, str]:
     """One pass's selection: ``(engine actually used, reason)``.
 
     ``transposed=True`` resolves a pass of a TRANSPOSED conv over its
     mirror dims ``d`` (:func:`transpose_dims`): the kernel limits consulted
     are those of the role-swapped pass (the transposed forward runs the
-    mirror input grad's ``tap_gemm_phased``)."""
+    mirror input grad's ``tap_gemm_phased``).  With a CUDA ``device`` they
+    are those of the plan the kernel of ``groups`` groups launches with
+    there (:func:`_kernel_gap`); without one, those every plan shares."""
     if requested == AUTO:
         if d.s_h == 1 and d.s_w == 1 and not d.has_dilation:
             if _capability_gap(ENGINES["bp_phase"], d) is None:
@@ -355,7 +364,7 @@ def resolve_engine(requested: str, pass_name: str, d: ConvDims,
             return _first_capable(
                 d, "auto: stride 1, geometry outside implicit constraints")
         gap = _capability_gap(ENGINES["pallas"], d) or \
-            _kernel_gap(pass_name, d, transposed)
+            _kernel_gap(pass_name, d, transposed, groups, device)
         if gap is None:
             if transposed:
                 return "pallas", ("auto: transposed conv is the tap-GEMM "
@@ -371,7 +380,7 @@ def resolve_engine(requested: str, pass_name: str, d: ConvDims,
     if gap is not None:
         return _first_capable(d, f"{requested} requested but {gap}")
     if requested == "pallas":
-        gap = _kernel_gap(pass_name, d, transposed)
+        gap = _kernel_gap(pass_name, d, transposed, groups, device)
         if gap is not None:
             return _first_capable(d, f"pallas requested but {gap}")
     return requested, "requested"
@@ -382,10 +391,12 @@ def _dims_key(d: ConvDims) -> tuple:
 
 
 def _dispatch(pass_name: str, requested: str, d: ConvDims,
-              transposed: bool = False) -> Engine:
-    """Resolve one pass, record the event and the decision.  A transposed
-    conv's passes count under their own keys (``"forward_T:pallas"``)."""
-    name, reason = resolve_engine(requested, pass_name, d, transposed)
+              transposed: bool, groups: int, device) -> Engine:
+    """Resolve one pass on ``device``, record the event and the decision.
+    A transposed conv's passes count under their own keys
+    (``"forward_T:pallas"``)."""
+    name, reason = resolve_engine(requested, pass_name, d, transposed,
+                                  groups, device)
     key = f"{pass_name}{'_T' if transposed else ''}:{name}"
     DISPATCH_EVENTS[key] = DISPATCH_EVENTS.get(key, 0) + 1
     if len(POLICY_DECISIONS) < _MAX_DECISIONS:
@@ -403,13 +414,18 @@ def _validate_policy(policy: EnginePolicy) -> EnginePolicy:
     return policy
 
 
-def resolve_policy(d: ConvDims, policy=None) -> dict[str, dict[str, str]]:
+def resolve_policy(d: ConvDims, policy=None, transposed: bool = False,
+                   groups: int = 1,
+                   device=None) -> dict[str, dict[str, str]]:
     """Pure per-pass resolution for one per-group geometry (no tensors, no
-    event recording): ``{pass: {requested, engine, reason}}``."""
+    event recording): ``{pass: {requested, engine, reason}}``.
+    ``transposed=True`` resolves over the mirror dims of a transposed
+    conv; ``groups`` and ``device`` as for :func:`resolve_engine`."""
     p = _validate_policy(EnginePolicy.coerce(policy))
     out = {}
     for pass_name, requested in p.slots():
-        engine, reason = resolve_engine(requested, pass_name, d)
+        engine, reason = resolve_engine(requested, pass_name, d, transposed,
+                                        groups, device)
         out[pass_name] = {"requested": requested, "engine": engine,
                           "reason": reason}
     return out
@@ -455,7 +471,8 @@ class _Conv2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, spec: ConvSpec, policy: EnginePolicy):
         d = spec_dims(x.shape, w.shape, spec)
-        eng = _dispatch("forward", policy.forward, d)
+        eng = _dispatch("forward", policy.forward, d, False, spec.groups,
+                        x.device)
         ctx.save_for_backward(x, w)
         ctx.spec, ctx.policy = spec, policy
         return eng.forward(x, _weight_for(eng, w, spec), d, spec.groups)
@@ -468,11 +485,13 @@ class _Conv2d(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            eng = _dispatch("input_grad", policy.input_grad, d)
+            eng = _dispatch("input_grad", policy.input_grad, d, False,
+                            spec.groups, dy.device)
             dx = eng.input_grad(dy, _weight_for(eng, w, spec), d,
                                 spec.groups).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            eng = _dispatch("weight_grad", policy.weight_grad, d)
+            eng = _dispatch("weight_grad", policy.weight_grad, d, False,
+                            spec.groups, dy.device)
             dw = _run_wgrad(x, dy, d, eng, spec).to(w.dtype)
         return dx, dw, None, None
 
@@ -556,7 +575,8 @@ class _Conv2dTranspose(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, spec: ConvTransposeSpec, policy: EnginePolicy):
         d = transpose_dims(x.shape, w.shape, spec)
-        eng = _dispatch("forward", policy.forward, d, True)
+        eng = _dispatch("forward", policy.forward, d, True, spec.groups,
+                        x.device)
         ctx.save_for_backward(x, w)
         ctx.spec, ctx.policy = spec, policy
         if not eng.native_transpose:
@@ -573,11 +593,13 @@ class _Conv2dTranspose(torch.autograd.Function):
         # dX is the mirror STRIDED conv of dy; dW the mirror weight grad
         # with the input and output roles swapped.
         if ctx.needs_input_grad[0]:
-            eng = _dispatch("input_grad", policy.input_grad, d, True)
+            eng = _dispatch("input_grad", policy.input_grad, d, True,
+                            spec.groups, dy.device)
             dx = eng.forward(dy, _weight_for(eng, w, spec), d,
                              spec.groups).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            eng = _dispatch("weight_grad", policy.weight_grad, d, True)
+            eng = _dispatch("weight_grad", policy.weight_grad, d, True,
+                            spec.groups, dy.device)
             dw = _run_wgrad(dy, x, d, eng, spec).to(w.dtype)
         return dx, dw, None, None
 
@@ -602,3 +624,55 @@ def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, spec=None,
                                    spec.with_layout("NCHW"), policy)
         return y.permute(0, 2, 3, 1)
     return _Conv2dTranspose.apply(x, w, spec, policy)
+
+
+# ---------------------------------------------------------------------------
+# Static introspection: what WOULD dispatch, and why
+# ---------------------------------------------------------------------------
+
+def output_shape(d: ConvDims) -> tuple[int, int, int, int]:
+    return (d.B, d.N, d.H_o, d.W_o)
+
+
+def policy_report(x_shape, w_shape, spec=None, policy=None,
+                  device=None) -> dict:
+    """Static dispatch summary for one conv layer under one policy: the
+    per-pass engines the resolver would pick (with reasons) and each
+    pass's kernel plan on ``device`` (``ops.plan_report``: variant,
+    splits and, when tuned, the tuner's record; no plan without a device
+    or on the CPU).
+
+    ``spec`` may be a :class:`ConvTransposeSpec` (then ``w_shape`` is the
+    transposed ``(C_in, C_out/g, K_h, K_w)`` convention): the report plans
+    the MIRROR regular conv the transposed layer role-swaps onto, flags
+    ``"transpose": True``, and adds the zero-insertion tap accounting
+    (``taps.real`` vs ``taps.zero_inserted``)."""
+    from repro_torch.kernels import ops
+    if isinstance(spec, ConvTransposeSpec):
+        d = transpose_dims(x_shape, w_shape, spec)
+        report = {"passes": resolve_policy(d, policy, True, spec.groups,
+                                           device),
+                  "spec": str(spec), "transpose": True,
+                  "plan": ops.plan_report(d, spec.groups, device),
+                  "taps": transpose_tap_counts(d)}
+    else:
+        spec = ConvSpec.coerce(spec)
+        d = spec_dims(x_shape, w_shape, spec)
+        report = {"passes": resolve_policy(d, policy, False, spec.groups,
+                                           device),
+                  "spec": str(spec), "transpose": False,
+                  "plan": ops.plan_report(d, spec.groups, device)}
+    report["pallas_path"] = all(
+        v["engine"] == "pallas" for v in report["passes"].values())
+    return report
+
+
+def conv_plan_report(x_shape, w_shape, stride=1, padding=0, groups: int = 1,
+                     *, dilation=1, device=None) -> dict[str, object]:
+    """``ops.plan_report`` of one conv layer given its array shapes instead
+    of a ``ConvDims``: the taps, whether each kernel launches, and each
+    pass's plan on ``device``.  Pure introspection, no tensors touched
+    (the tuner may time candidates when ``config.autotune`` is on)."""
+    from repro_torch.kernels import ops
+    d = make_dims(x_shape, w_shape, stride, padding, groups, dilation)
+    return ops.plan_report(d, groups, device)

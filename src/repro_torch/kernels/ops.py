@@ -9,12 +9,16 @@ Counterpart of ``repro.kernels.ops``.  Responsibilities:
     stride phase, per axis (asymmetric strides) and dilation-native (only
     the ``k_taps_h * k_taps_w`` real taps are enumerated).  They equal the
     JAX planner's tables exactly;
+  * each pass's launch plan (:func:`pass_plan`: the kernel's tile variant
+    and split-K count, analytic or measured by ``kernels/autotune.py``
+    when ``config.autotune`` asks for it);
   * calling the kernels of ``repro_torch.kernels.tap_gemm``.
 
 The TPU planner's VMEM tile search has no counterpart: the CUDA kernels use
 fixed tiles and stage no halo, so every geometry launches within the
-card's limits (:func:`launch_gap` says when one would not).  Channels are
-not padded to 128: ragged channel edges are masked inside the kernels.
+card's limits (:func:`launch_gap` says when one would not); what a plan
+chooses is the variant and the split count.  Channels are not padded to
+128: ragged channel edges are masked inside the kernels.
 """
 
 from __future__ import annotations
@@ -26,10 +30,30 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import phase_decomp
+from repro_torch.core.config import config
 from repro_torch.core.im2col_ref import ConvDims, zero_pad
 from repro_torch.kernels import tap_gemm as tg
 
 _cdiv = tg._cdiv
+
+#: the three tap-kernel roles the plans (and the tuner) speak.
+PLAN_ROLES = ("forward", "weight_grad", "input_grad")
+
+#: the tuner's outcomes, ``{role}_autotune_{hit,miss,stale,poisoned,
+#: measure_failed}`` -> count (``kernels/autotune.py``).
+PLAN_EVENTS: dict[str, int] = {}
+
+
+def _count_event(name: str) -> None:
+    PLAN_EVENTS[name] = PLAN_EVENTS.get(name, 0) + 1
+
+
+def plan_events() -> dict[str, int]:
+    return dict(PLAN_EVENTS)
+
+
+def reset_plan_events() -> None:
+    PLAN_EVENTS.clear()
 
 
 def _taps_halo(taps) -> tuple[int, int]:
@@ -194,35 +218,145 @@ def input_grad_plan(d: ConvDims) -> PhasePlan:
     return PhasePlan(*_input_grad_geom(_canonical(d)))
 
 
-def launch_gap(pass_name: str, d: ConvDims) -> str | None:
+def launch_gap(pass_name: str, d: ConvDims, groups: int = 1,
+               plan: tg.Plan | None = None) -> str | None:
     """None when the kernel of ``pass_name`` can launch for the per-group
-    geometry ``d``, else the reason (recorded by the engine resolver)."""
+    geometry ``d``, else the reason (recorded by the engine resolver).
+    With a ``plan`` (:func:`pass_plan`), whether that plan can launch for
+    ``groups`` groups (:func:`repro_torch.kernels.tap_gemm.plan_gap`);
+    without one, the limits every plan shares."""
+    if plan is not None:
+        return tg.plan_gap(problem(pass_name, d, groups), plan)
     if pass_name == "input_grad":
         m = d.B * _cdiv(d.H_i, d.s_h) * _cdiv(d.W_i, d.s_w)
         return tg.launch_gap(m, d.C, d.s_h * d.s_w)
     return tg.launch_gap(d.B * d.H_o * d.W_o, d.N, 1)
 
 
-def plan_report(d: ConvDims) -> dict[str, object]:
+# ---------------------------------------------------------------------------
+# Launch plans: analytic, or measured (kernels/autotune.py)
+# ---------------------------------------------------------------------------
+
+def _check_role(role: str) -> None:
+    if role not in PLAN_ROLES:
+        raise ValueError(f"unknown plan role {role!r}; roles: {PLAN_ROLES}")
+
+
+@functools.lru_cache(maxsize=4096)
+def _problem(role: str, d: ConvDims, groups: int) -> tg.Problem:
+    if role == "input_grad":
+        pp = input_grad_plan(d)
+        return tg.Problem(role, groups,
+                          tuple(len(t) for t in pp.phase_taps), d.N, d.C,
+                          d.B * pp.n_qh * pp.n_qw)
+    return tg.Problem(role, groups, (len(_forward_taps(d)),), d.C, d.N,
+                      d.B * d.H_o * d.W_o)
+
+
+def problem(role: str, d: ConvDims, groups: int = 1) -> tg.Problem:
+    """What the plan of pass ``role`` depends on, for ``groups`` groups of
+    the per-group geometry ``d`` (the input grad's ``cin`` is dY's N
+    channels, its ``cout`` dX's C)."""
+    _check_role(role)
+    return _problem(role, _canonical(d), groups)
+
+
+@functools.lru_cache(maxsize=4096)
+def _analytic(role: str, d: ConvDims, groups: int, sms: int):
+    prob = _problem(role, d, groups)
+    plan = tg.analytic_plan(prob, sms)
+    return plan, tg.plan_gap(prob, plan)
+
+
+def pass_plan(role: str, d: ConvDims, groups: int,
+              device) -> tg.Plan | None:
+    """The plan the kernel of pass ``role`` launches with on ``device``:
+    the analytic plan, or with ``config.autotune`` on, the tuner's
+    (``kernels/autotune.py``: measured, served from the plan cache, or the
+    analytic plan annotated).  A plan that cannot launch is never tuned.
+    None on a CPU device: the plain versions have no plan."""
+    _check_role(role)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    d = _canonical(d)
+    plan, gap = _analytic(role, d, groups, tg._sms(device))
+    if config.autotune == "off" or gap is not None:
+        return plan
+    from repro_torch.kernels import autotune
+    return autotune.tuned_plan(role, d, groups, device, plan)
+
+
+def plan_candidates(role: str, d: ConvDims, groups: int = 1,
+                    k: int | None = None,
+                    device="cuda") -> list[tg.Plan]:
+    """The tuner's shortlist on ``device``'s card: up to ``k``
+    (``config.autotune_top_k``) valid plans, the analytic plan first
+    (:func:`repro_torch.kernels.tap_gemm.candidate_plans`)."""
+    _check_role(role)
+    k = config.autotune_top_k if k is None else k
+    prob = _problem(role, _canonical(d), groups)
+    return tg.candidate_plans(prob, tg._sms(torch.device(device)))[:k]
+
+
+def plan_from_entry(role: str, d: ConvDims, groups: int,
+                    entry) -> tg.Plan | None:
+    """The plan of a PERSISTED ``[variant, splits]`` entry, revalidated
+    against the current geometry and kernels; None when it is garbage or
+    no longer launches (a stale plan-cache entry: the caller re-tunes)."""
+    _check_role(role)
+    try:
+        variant, splits = entry
+    except (TypeError, ValueError):
+        return None
+    if not isinstance(variant, str) or not isinstance(splits, int) \
+            or isinstance(splits, bool):
+        return None
+    plan = tg.Plan(role, variant, splits)
+    gap = tg.plan_gap(_problem(role, _canonical(d), groups), plan)
+    return plan if gap is None else None
+
+
+def plan_report(d: ConvDims, groups: int = 1,
+                device=None) -> dict[str, object]:
     """Static per-shape dispatch summary.  ``kernel_taps``: ``real`` taps
-    the kernels run vs ``materialized`` (the zero-dilated extent)."""
+    the kernels run vs ``materialized`` (the zero-dilated extent).  Each
+    pass carries the ``variant`` and ``splits`` of its plan on ``device``
+    (:func:`pass_plan`; None without a device or on the CPU, whose plain
+    versions have no plan) and, when the plan went through the tuner, an
+    ``autotune`` record: ``autotuned``, ``measured_us``,
+    ``candidates_timed``, ``cache`` (``hit|miss|stale|poisoned``)."""
     d = _canonical(d)
     taps = _forward_taps(d)
     pp = input_grad_plan(d)
-    gaps = {p: launch_gap(p, d) for p in ("forward", "input_grad",
-                                          "weight_grad")}
+    plans = {r: None if device is None else pass_plan(r, d, groups, device)
+             for r in PLAN_ROLES}
+    gaps = {r: launch_gap(r, d, groups, plans[r]) for r in PLAN_ROLES}
+
+    def _plan(role: str) -> dict[str, object]:
+        p = plans[role]
+        t = {"fits": gaps[role] is None,
+             "variant": None if p is None else p.variant,
+             "splits": None if p is None else p.splits}
+        if p is not None and p.cache:      # the plan went through the tuner
+            t["autotune"] = {"autotuned": p.autotuned,
+                             "measured_us": p.measured_us,
+                             "candidates_timed": p.candidates_timed,
+                             "cache": p.cache}
+        return t
+
     return {
         "phases": d.s_h * d.s_w,
         "kernel_taps": {"real": d.k_taps_h * d.k_taps_w,
                         "materialized": d.K_h * d.K_w},
         "forward": {"taps": len(taps), "halo": list(_taps_halo(taps)),
-                    "fits": gaps["forward"] is None},
+                    **_plan("forward")},
         "weight_grad": {"taps": len(taps), "halo": list(_taps_halo(taps)),
-                        "fits": gaps["weight_grad"] is None},
+                        **_plan("weight_grad")},
         "input_grad": {"fused": True, "t_max": pp.t_max,
                        "taps_total": sum(len(t) for t in pp.phase_taps),
                        "halo": [pp.halo_h, pp.halo_w],
-                       "fits": gaps["input_grad"] is None},
+                       **_plan("input_grad")},
         "pallas_path": all(g is None for g in gaps.values()),
     }
 
@@ -303,27 +437,39 @@ def weight_grad_operands(x, dy, d: ConvDims, groups: int = 1):
 # The three passes of the kernel engine
 # ---------------------------------------------------------------------------
 
-def conv2d_forward(x, w, d: ConvDims, groups: int = 1) -> torch.Tensor:
+def conv2d_forward(x, w, d: ConvDims, groups: int = 1,
+                   plan: tg.Plan | None = None) -> torch.Tensor:
     """Forward conv through ``tap_gemm``.  ``w`` is the COMPACT kernel
     (``k_taps_h x k_taps_w``); a dilation's zero taps are skipped by the
-    tap table."""
+    tap table.  ``plan`` defaults to :func:`pass_plan`'s."""
+    if plan is None:
+        plan = pass_plan("forward", d, groups, x.device)
     src, wt, taps = forward_operands(x, w, d, groups)
-    y = tg.tap_gemm(src, wt, taps, d.H_o, d.W_o)         # (G, B, Ho, Wo, N)
+    y = tg.tap_gemm(src, wt, taps, d.H_o, d.W_o, plan)  # (G, B, Ho, Wo, N)
     return _ungroup_nchw(y).to(x.dtype)
 
 
-def conv2d_input_grad(dy, w, d: ConvDims, groups: int = 1) -> torch.Tensor:
-    """Input grad through ONE ``tap_gemm_phased`` launch over all phases."""
+def conv2d_input_grad(dy, w, d: ConvDims, groups: int = 1,
+                      plan: tg.Plan | None = None) -> torch.Tensor:
+    """Input grad through ONE ``tap_gemm_phased`` launch over all phases;
+    ``plan`` defaults to :func:`pass_plan`'s."""
+    if plan is None:
+        plan = pass_plan("input_grad", d, groups, dy.device)
     src, w_stack, pp = input_grad_operands(dy, w, d, groups)
-    out = tg.tap_gemm_phased(src, w_stack, pp.phase_taps, pp.n_qh, pp.n_qw)
+    out = tg.tap_gemm_phased(src, w_stack, pp.phase_taps, pp.n_qh, pp.n_qw,
+                             plan)
     di = _phase_unsplit(out, (d.s_h, d.s_w), d.H_i, d.W_i)  # (G, B, H, W, C)
     return _ungroup_nchw(di).to(dy.dtype)
 
 
-def conv2d_weight_grad(x, dy, d: ConvDims, groups: int = 1) -> torch.Tensor:
-    """Weight grad through ``tap_wgrad``, at the compact kernel extent."""
+def conv2d_weight_grad(x, dy, d: ConvDims, groups: int = 1,
+                       plan: tg.Plan | None = None) -> torch.Tensor:
+    """Weight grad through ``tap_wgrad``, at the compact kernel extent;
+    ``plan`` defaults to :func:`pass_plan`'s."""
+    if plan is None:
+        plan = pass_plan("weight_grad", d, groups, x.device)
     src, dyn, taps = weight_grad_operands(x, dy, d, groups)
-    dw = tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o)     # (G, T, C, N) f32
+    dw = tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o, plan)  # (G, T, C, N)
     dw = dw.reshape(groups, d.k_taps_h, d.k_taps_w, d.C, d.N)
     return (dw.permute(0, 4, 3, 1, 2)
             .reshape(groups * d.N, d.C, d.k_taps_h, d.k_taps_w).to(x.dtype))

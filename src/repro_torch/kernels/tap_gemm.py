@@ -11,15 +11,18 @@ over phase-split, channels-last compact operands,
 
 with an optional leading group dim on every operand, so a grouped or
 depthwise conv is one launch per pass.  On a CUDA tensor a wrapper checks
-its operands, launches its kernel (built at first use by
-``repro_torch.kernels.build``) or raises; it never falls back.  On a CPU
-tensor it returns the plain version from ``repro_torch.kernels.ref``.
-``LAUNCHES`` counts kernel launches per wrapper (CUDA only).
+its operands and its :class:`Plan` (the tile variant and split-K count:
+:func:`analytic_plan` unless the caller passes one), launches its kernel
+(built at first use by ``repro_torch.kernels.build``) or raises; it never
+falls back.  On a CPU tensor it returns the plain version from
+``repro_torch.kernels.ref``, which has no plan.  ``LAUNCHES`` counts kernel
+launches per wrapper (CUDA only).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -52,10 +55,12 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def launch_gap(m: int, cout: int, grid_z: int) -> str | None:
+def launch_gap(m: int, cout: int, grid_z: int,
+               cols: int = TILE_N) -> str | None:
     """None when a launch with ``m`` output rows (or contraction rows),
-    ``cout`` columns and ``grid_z`` groups (x phases for the input grad)
-    fits the kernels' limits, else why not.  The tiles are fixed and no
+    ``cout`` columns in tiles of ``cols`` and ``grid_z`` groups (x phases
+    for the input grad, x splits under a plan: :func:`plan_gap`) fits the
+    kernels' limits, else why not.  The tiles are fixed and no
     halo is staged, so shared memory (18,432 B per forward block; 18,432,
     12,288 or 21,504 B per input-grad block; 16,384 or 10,240 B per
     weight-grad block) never depends on the geometry; only the grid and the
@@ -64,7 +69,7 @@ def launch_gap(m: int, cout: int, grid_z: int) -> str | None:
     grad's z is at most splits x ``grid_z``)."""
     if m > INT32_MAX:
         return f"{m} rows exceed the kernels' 32-bit row index"
-    if _cdiv(cout, TILE_N) > GRID_YZ_MAX:
+    if _cdiv(cout, cols) > GRID_YZ_MAX:
         return f"{cout} output channels exceed the grid's y limit"
     if grid_z > GRID_YZ_MAX:
         return f"grid z = {grid_z} exceeds {GRID_YZ_MAX}"
@@ -139,13 +144,16 @@ def _check_taps(name: str, taps, n_planes: int) -> None:
                              f"{n_planes} planes/weights")
 
 
-def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int,
-             ow: int) -> torch.Tensor:
+def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int, ow: int,
+             plan: Plan | None = None) -> torch.Tensor:
     """Forward multi-tap GEMM.
 
     src : ([G,] P, B, Hs, Ws, CIN)   phase-split compact source
     w   : ([G,] T, CIN, COUT)        per-tap weight slices, T == len(taps)
     out : ([G,] B, oh, ow, COUT)
+
+    ``plan``: a ``"forward"`` :class:`Plan` (only its split count varies:
+    the kernel has one tile), or None for :func:`analytic_plan`.
     """
     taps = tuple(tuple(int(v) for v in t) for t in taps)
     grouped = src.dim() == 6
@@ -156,14 +164,13 @@ def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int,
         raise ValueError(f"tap_gemm: src {tuple(src.shape)} / w "
                          f"{tuple(w.shape)} / {len(taps)} taps disagree")
     _check_taps("tap_gemm", taps, p)
-    if not _on_cuda("tap_gemm", src):
+    cuda = _on_cuda("tap_gemm", src)
+    plan = _checked("tap_gemm", Problem("forward", g, (t,), cin, cout,
+                                        b * oh * ow), plan, src.device, cuda)
+    if not cuda:
         return ref.tap_gemm_ref(src, w, taps, oh, ow)
     _check_cuda("tap_gemm", s6, w4)
-    m = b * oh * ow
-    gap = launch_gap(m, cout, g)
-    if gap:
-        raise ValueError(f"tap_gemm: {gap}")
-    splits = forward_splits(m, cout, t, cin, _sms(src.device), g)
+    splits = plan.splits
     out = torch.empty((g, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
     part = out if splits == 1 else torch.empty(
@@ -176,7 +183,7 @@ def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int,
 
 
 def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
-                    ow: int) -> torch.Tensor:
+                    ow: int, plan: Plan | None = None) -> torch.Tensor:
     """All-phases input-grad tap GEMM in ONE launch.
 
     src : ([G,] B, Hs, Ws, CIN)       globally padded compact dY, shared by
@@ -187,7 +194,8 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
 
     ``phase_taps[p]`` is a tuple of ``(j, du, dv)``: tap j of phase p reads
     the source window at offset (du, dv).  The kernel's tile and split count
-    come from :func:`phased_plan`, its blocks from :func:`phased_work`.
+    come from ``plan`` (an ``"input_grad"`` :class:`Plan`), or None for
+    :func:`phased_plan`; its blocks from :func:`phased_work`.
     """
     phase_taps = tuple(tuple(tuple(int(v) for v in r) for r in taps)
                        for taps in phase_taps)
@@ -204,19 +212,20 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
         if len(taps) > t:
             raise ValueError(f"tap_gemm_phased: {len(taps)} taps for {t} "
                              "weight slots")
-    if not _on_cuda("tap_gemm_phased", src):
+    m = b * oh * ow
+    counts = tuple(len(taps) for taps in phase_taps)
+    cuda = _on_cuda("tap_gemm_phased", src)
+    plan = _checked("tap_gemm_phased", Problem("input_grad", g, counts, cin,
+                                               cout, m), plan, src.device,
+                    cuda)
+    if not cuda:
         return ref.tap_gemm_phased_ref(src, w, phase_taps, oh, ow)
     _check_cuda("tap_gemm_phased", s5, w5)
-    m = b * oh * ow
-    gap = launch_gap(m, cout, g * ph)
-    if gap:
-        raise ValueError(f"tap_gemm_phased: {gap}")
+    variant, splits = plan.variant, plan.splits
     out = torch.empty((g, ph, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
     if out.numel() == 0:
         return out if grouped else out[0]
-    counts = tuple(len(taps) for taps in phase_taps)
-    variant, splits = phased_plan(g, counts, cin, cout, m, _sms(src.device))
     work, sums, slots = phased_work(counts, cin, splits,
                                     PHASED_TILES[variant].step)
     rows = tuple(v for taps in phase_taps
@@ -245,9 +254,13 @@ def forward_splits(m: int, cout: int, taps: int, cin: int, sms: int,
                    groups: int = 1) -> int:
     """Split-K factor of the forward: :func:`wgrad_splits` over its
     ``groups`` x ``m`` x ``cout`` output in 64 x 64 tiles and its
-    contraction of ``taps * cin`` rows (a tap's channels, tap after tap)."""
+    contraction of ``taps * cin`` rows (a tap's channels, tap after tap),
+    at most :data:`MAX_SPLITS` and rounded so that no split is empty once
+    each is cut to whole steps (the rounding drops only a split that would
+    sum nothing)."""
     tiles = _cdiv(m, TILE_M) * _cdiv(cout, TILE_N) * groups
-    return wgrad_splits(tiles, taps * cin, sms, groups)
+    return _whole_splits(taps * cin, min(MAX_SPLITS, wgrad_splits(
+        tiles, taps * cin, sms, groups)), FORWARD_TILES["64x64"].step)
 
 
 #: the least contraction rows of a split under the weight grad's and
@@ -279,31 +292,38 @@ def split_chunk(rows: int, splits: int, step: int) -> int:
     return _cdiv(_cdiv(rows, splits), step) * step
 
 
-def split_count(tile: Tile, tiles: int, rows: int, sms: int,
-                groups: int) -> int:
+def split_count(tile: Tile, tiles: int, rows: int, sms: int, groups: int,
+                min_rows: int = MIN_SPLIT_ROWS) -> int:
     """Split-K factor of the weight grad and ``matmul``: enough splits that
     ``tiles`` output tiles (over all groups) fill the blocks the card holds
     at once (``tile.per_sm`` on each of ``sms`` SMs), but no split under
-    :data:`MIN_SPLIT_ROWS` of the ``rows`` contraction rows, at most
-    :data:`MAX_SPLITS`, and within the grid's z limit over ``groups``;
-    rounded so that no split is empty once each is cut to whole steps
-    (:func:`split_chunk`)."""
-    s = max(1, min(tile.per_sm * sms // tiles, rows // MIN_SPLIT_ROWS,
+    ``min_rows`` (:data:`MIN_SPLIT_ROWS`) of the ``rows`` contraction rows,
+    at most :data:`MAX_SPLITS`, and within the grid's z limit over
+    ``groups``; rounded so that no split is empty once each is cut to whole
+    steps (:func:`split_chunk`)."""
+    s = max(1, min(tile.per_sm * sms // tiles, rows // min_rows,
                    MAX_SPLITS, GRID_YZ_MAX // groups))
-    return max(1, _cdiv(rows, max(tile.step, split_chunk(rows, s,
-                                                          tile.step))))
+    return _whole_splits(rows, s, tile.step)
 
 
-def wgrad_plan(g: int, t: int, cin: int, cout: int, rows: int,
-               sms: int) -> tuple[str, int]:
+def _whole_splits(rows: int, splits: int, step: int) -> int:
+    """``splits`` rounded down to a count that leaves no split empty once
+    ``rows`` are cut to whole steps."""
+    return max(1, _cdiv(rows, max(step, split_chunk(rows, splits, step))))
+
+
+def wgrad_plan(g: int, t: int, cin: int, cout: int, rows: int, sms: int,
+               variant: str | None = None,
+               min_rows: int = MIN_SPLIT_ROWS) -> tuple[str, int]:
     """``(variant, splits)`` of a weight grad of ``g`` groups, ``t`` taps,
     ``cin`` x ``cout`` channels and ``rows`` = B*oh*ow contraction rows on
     a card of ``sms`` SMs: the 64 x 16 tile for ``cout <= 16``, else
-    64 x 64, over ``t * cin`` packed (tap, channel) output rows."""
-    variant = "64x16" if cout <= 16 else "64x64"
+    64 x 64 (or the given ``variant``), over ``t * cin`` packed (tap,
+    channel) output rows; splits of at least ``min_rows``."""
+    variant = variant or ("64x16" if cout <= 16 else "64x64")
     tile = WGRAD_TILES[variant]
     tiles = _cdiv(t * cin, tile.rows) * _cdiv(cout, tile.cols) * g
-    return variant, split_count(tile, tiles, rows, sms, g)
+    return variant, split_count(tile, tiles, rows, sms, g, min_rows)
 
 
 #: input-grad variants (csrc/tap_gemm.cu, phased::kernel on tile::run), 64
@@ -317,8 +337,9 @@ PHASED_TILES = {"64x64": Tile(64, 64, 16, 4), "64x16": Tile(64, 16, 16, 8),
 PHASED_VARIANTS = ("64x64", "64x16", "128x8")
 
 
-def phased_plan(g: int, counts, cin: int, cout: int, m: int,
-                sms: int) -> tuple[str, int]:
+def phased_plan(g: int, counts, cin: int, cout: int, m: int, sms: int,
+                variant: str | None = None,
+                min_rows: int = MIN_SPLIT_ROWS) -> tuple[str, int]:
     """``(variant, splits)`` of an input grad of ``g`` groups whose phases
     run ``counts[p]`` taps of ``cin`` channels into ``cout`` channels over
     ``m`` = B*oh*ow output pixels each, on a card of ``sms`` SMs: the
@@ -328,14 +349,16 @@ def phased_plan(g: int, counts, cin: int, cout: int, m: int,
     each phase's tiles weighted by its share of the longest phase's rows:
     :func:`phased_work` cuts every phase to the longest phase's chunk
     length, so a shorter phase splits fewer ways (Table II layers 2 and 4,
-    phases of 1, 2, 2 and 4 taps, count 2.25 phases, not 4)."""
-    variant = "128x8" if cout <= 8 else "64x16" if cout <= 16 else "64x64"
+    phases of 1, 2, 2 and 4 taps, count 2.25 phases, not 4).  A given
+    ``variant`` replaces the rule's tile; ``min_rows`` is the split floor."""
+    variant = variant or ("128x8" if cout <= 8 else
+                          "64x16" if cout <= 16 else "64x64")
     tile = PHASED_TILES[variant]
     longest = max(counts, default=0)
     tiles = _cdiv(_cdiv(m, tile.rows) * _cdiv(cout, tile.cols) * g
                   * sum(counts), max(longest, 1))
     return variant, split_count(tile, max(tiles, 1), longest * cin, sms,
-                                g * len(counts))
+                                g * len(counts), min_rows)
 
 
 def phased_work(counts, cin: int, splits: int, step: int):
@@ -377,6 +400,154 @@ def _phased_work(counts: tuple, cin: int, splits: int, step: int):
     return tuple(work + zeros), tuple(sums), slots
 
 
+#: the forward's one tile (csrc/tap_gemm.cu, fwd::kernel on tile::run):
+#: 64 x 64 with 8 x 8 outputs a thread, 18,432 B of shared memory, 168
+#: registers, 6 blocks an SM (its build log).  Its analytic split rule is
+#: :func:`forward_splits`; the tuner's candidates also try
+#: :func:`split_count` over this tile.
+FORWARD_TILES = {"64x64": Tile(64, 64, 16, 6)}
+
+#: plan role -> the variants its kernel has: the forward (``tap_gemm``),
+#: the input grad (``tap_gemm_phased``), the weight grad (``tap_wgrad``).
+ROLE_TILES = {"forward": FORWARD_TILES, "input_grad": PHASED_TILES,
+              "weight_grad": WGRAD_TILES}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of a tap kernel: its ``role`` (a key of
+    :data:`ROLE_TILES`), tile ``variant`` and split-K count ``splits``.
+    The trailing fields are the tuner's record (``kernels/autotune.py``),
+    metadata only: ``autotuned`` marks a measured winner, ``measured_us``
+    its device time, ``candidates_timed`` how many candidates were timed,
+    ``cache`` how the tuner resolved it (``hit``, ``miss``, ``stale`` or
+    ``poisoned``).  An analytic plan leaves them at their defaults."""
+    role: str
+    variant: str
+    splits: int
+    autotuned: bool = False
+    measured_us: float = -1.0
+    candidates_timed: int = 0
+    cache: str = ""
+
+    @property
+    def key(self) -> tuple[str, int]:
+        return self.variant, self.splits
+
+
+class Problem(NamedTuple):
+    """What a tap kernel's plan depends on: ``groups``, the taps of each
+    phase (``counts``: one entry for the forward and the weight grad), the
+    contraction's channels ``cin``, the output's ``cout`` and ``m``, the
+    output pixels (the weight grad: its contraction pixels)."""
+    role: str
+    groups: int
+    counts: tuple
+    cin: int
+    cout: int
+    m: int
+
+    @property
+    def rows(self) -> int:
+        """Contraction rows of the longest split walk: the forward's taps x
+        CIN, the input grad's longest phase's, the weight grad's pixels."""
+        if self.role == "weight_grad":
+            return self.m
+        return max(self.counts, default=0) * self.cin
+
+
+def analytic_plan(prob: Problem, sms: int) -> Plan:
+    """The rule's plan on a card of ``sms`` SMs: :func:`forward_splits`,
+    :func:`phased_plan` or :func:`wgrad_plan`."""
+    g, counts, cin, cout, m = prob[1:]
+    if prob.role == "forward":
+        return Plan("forward", "64x64",
+                    forward_splits(m, cout, counts[0], cin, sms, g))
+    if prob.role == "input_grad":
+        return Plan("input_grad", *phased_plan(g, counts, cin, cout, m, sms))
+    return Plan("weight_grad", *wgrad_plan(g, counts[0], cin, cout, m, sms))
+
+
+def plan_gap(prob: Problem, plan: Plan) -> str | None:
+    """None when ``plan`` can launch ``prob``'s kernel, else why not: its
+    role and variant must be the kernel's, ``1 <= splits <=``
+    :data:`MAX_SPLITS`, no split empty once cut by :func:`split_chunk`,
+    and the grid within the card's limits (:func:`launch_gap`; the input
+    grad's z is its :func:`phased_work` rows x groups)."""
+    if plan.role != prob.role:
+        return f"a {plan.role} plan for the {prob.role} kernel"
+    tiles = ROLE_TILES[prob.role]
+    if plan.variant not in tiles:
+        return (f"the {prob.role} kernel has no variant {plan.variant!r} "
+                f"(it has {tuple(tiles)})")
+    s = plan.splits
+    if not isinstance(s, int) or isinstance(s, bool) \
+            or not 1 <= s <= MAX_SPLITS:
+        return f"splits {s!r} outside 1..{MAX_SPLITS}"
+    tile, rows = tiles[plan.variant], prob.rows
+    if s > 1 and (rows == 0
+                  or _cdiv(rows, split_chunk(rows, s, tile.step)) != s):
+        return f"{s} splits of {rows} contraction rows leave a split empty"
+    z = s
+    if prob.role == "input_grad":
+        z = len(phased_work(prob.counts, prob.cin, s, tile.step)[0])
+    return launch_gap(prob.m, prob.cout, z * prob.groups, tile.cols)
+
+
+def _checked(name: str, prob: Problem, plan: Plan | None,
+             device: torch.device, cuda: bool) -> Plan | None:
+    """``plan`` checked to launch ``prob`` (raises if it cannot); None
+    becomes the analytic plan on a ``cuda`` device's card, and stays None
+    on the CPU (a CPU tensor's plain version has no plan)."""
+    if plan is None and cuda:
+        plan = analytic_plan(prob, _sms(device))
+    gap = None if plan is None else plan_gap(prob, plan)
+    if gap:
+        raise ValueError(f"{name}: {gap}")
+    return plan
+
+
+def _rule_splits(prob: Problem, sms: int, variant: str,
+                 min_rows: int) -> int:
+    """The occupancy rule's split count for ``variant`` with a split floor
+    of ``min_rows``."""
+    g, counts, cin, cout, m = prob[1:]
+    if prob.role == "input_grad":
+        return phased_plan(g, counts, cin, cout, m, sms, variant,
+                           min_rows)[1]
+    if prob.role == "weight_grad":
+        return wgrad_plan(g, counts[0], cin, cout, m, sms, variant,
+                          min_rows)[1]
+    tile = FORWARD_TILES[variant]
+    tiles = _cdiv(m, tile.rows) * _cdiv(cout, tile.cols) * g
+    return split_count(tile, tiles, prob.rows, sms, g, min_rows)
+
+
+def candidate_plans(prob: Problem, sms: int) -> list[Plan]:
+    """The tuner's candidates, in order: :func:`analytic_plan`, the
+    occupancy rule (:func:`split_count`) with its split floor at 32 and at
+    16 rows instead of :data:`MIN_SPLIT_ROWS`, half and double the
+    analytic split count (rounded to leave no split empty), then the
+    role's other variants under the rule.  Deduplicated, each valid
+    (:func:`plan_gap`)."""
+    head = analytic_plan(prob, sms)
+    step = ROLE_TILES[prob.role][head.variant].step
+    splits = [_rule_splits(prob, sms, head.variant, 32),
+              _rule_splits(prob, sms, head.variant, 16),
+              _whole_splits(prob.rows, max(1, head.splits // 2), step),
+              _whole_splits(prob.rows, min(MAX_SPLITS, 2 * head.splits),
+                            step)]
+    plans = [head] + [Plan(prob.role, head.variant, s) for s in splits] + [
+        Plan(prob.role, v, _rule_splits(prob, sms, v, MIN_SPLIT_ROWS))
+        for v in ROLE_TILES[prob.role] if v != head.variant]
+    out, seen = [], set()
+    for plan in plans:
+        if plan.key not in seen and plan_gap(prob, plan) is None:
+            seen.add(plan.key)
+            out.append(plan)
+    return out
+
+
 def phased_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool) -> int:
     """Blocks of one input-grad instance an SM of the current card holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
@@ -405,13 +576,16 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int,
-              ow: int) -> torch.Tensor:
+def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int, ow: int,
+              plan: Plan | None = None) -> torch.Tensor:
     """Weight gradient: float32 ``([G,] T, CIN, COUT)`` summed over batch and
     space.
 
     src : ([G,] P, B, Hs, Ws, CIN)   phase-split padded input
     dy  : ([G,] B, oh, ow, COUT)     compact output loss
+
+    ``plan``: a ``"weight_grad"`` :class:`Plan`, or None for
+    :func:`wgrad_plan`.
     """
     taps = tuple(tuple(int(v) for v in t) for t in taps)
     grouped = src.dim() == 6
@@ -422,15 +596,14 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int,
         raise ValueError(f"tap_wgrad: src {tuple(src.shape)} / dy "
                          f"{tuple(dy.shape)} / ({oh}, {ow}) disagree")
     _check_taps("tap_wgrad", taps, p)
-    if not _on_cuda("tap_wgrad", src):
+    t = len(taps)
+    cuda = _on_cuda("tap_wgrad", src)
+    plan = _checked("tap_wgrad", Problem("weight_grad", g, (t,), cin, cout,
+                                         b * oh * ow), plan, src.device, cuda)
+    if not cuda:
         return ref.tap_wgrad_ref(src, dy, taps, oh, ow)
     _check_cuda("tap_wgrad", s6, d5)
-    t = len(taps)
-    rows = b * oh * ow
-    gap = launch_gap(rows, cout, g)
-    if gap:
-        raise ValueError(f"tap_wgrad: {gap}")
-    variant, splits = wgrad_plan(g, t, cin, cout, rows, _sms(src.device))
+    variant, splits = plan.variant, plan.splits
     out = torch.empty((g, t, cin, cout), dtype=torch.float32,
                       device=src.device)
     if out.numel() == 0:

@@ -17,7 +17,9 @@ never built); under ``traditional`` it physically zero-inserts the input
 and every lowered GEMM runs the hand-written ``matmul`` kernel.
 ``--policy`` takes a uniform engine name (lax | traditional | bp_im2col |
 bp_phase | pallas), ``auto``, or a per-pass string fwd=...,dgrad=...,
-wgrad=...  ``--device`` defaults to the card and never falls back.
+wgrad=...  ``--device`` defaults to the card and never falls back.  Its
+tap kernels' plans follow ``repro_torch.core.config`` (``REPRO_AUTOTUNE``,
+``REPRO_PLAN_CACHE_DIR``), as its JAX twin follows ``repro.config``.
 """
 
 from __future__ import annotations

@@ -4,6 +4,8 @@ policy -- the paper's training scenario, end to end, on the card.
     python -m repro_torch.train.cnn_bp --policy pallas
     python -m repro_torch.train.cnn_bp --policy traditional
     python -m repro_torch.train.cnn_bp --policy fwd=lax,dgrad=pallas,wgrad=bp_phase
+    python -m repro_torch.train.cnn_bp --policy pallas --autotune measure \
+        --plan-cache-dir /tmp/plans
 
 Twin of ``examples/train_cnn_bp.py``: the same model (3->16 stride 2, a
 depthwise 16->16 ``groups=16`` layer, 16->32 stride 2, global average pool,
@@ -13,7 +15,10 @@ data is bit-identical), and plain SGD.  Every conv goes through
 per-pass engines; under ``pallas`` all three passes of every conv run the
 hand-written CUDA tap-GEMM kernels, and under ``traditional`` or
 ``bp_im2col`` every lowered GEMM runs the hand-written ``matmul`` kernel.
-``--policy`` defaults to ``auto``.
+``--policy`` defaults to ``auto``.  ``--autotune measure`` times the tap
+kernels' candidate plans on the card and persists the winners under
+``--plan-cache-dir``; ``--autotune cached`` serves persisted winners and
+never times (``repro_torch.core.config``, ``kernels/autotune.py``).
 ``params_from_numpy`` turns the JAX example's parameters (as numpy arrays)
 into this model's, so both packages can be run from one initialization.
 """
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.config import config
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.tree import params_from_numpy, tree_leaves
@@ -84,14 +90,18 @@ def synthetic_task(rng: np.random.RandomState, n: int, classes: int = 4,
 def train(policy=None, steps: int = 200, batch: int = 32, lr: float = 0.05,
           device=None, params=None, log=None) -> dict:
     """SGD on the synthetic task; returns ``{"losses", "eval_acc",
-    "seconds", "params"}``.  ``params`` defaults to :func:`init_params` and
-    is updated in place."""
+    "seconds", "first_step_seconds", "params"}`` (``first_step_seconds``:
+    host time to the end of step 0, which includes planning every pass --
+    with ``config.autotune="measure"`` a cold plan cache times the
+    candidates there).  ``params`` defaults to :func:`init_params` and is
+    updated in place."""
     dev = resolve_device(device)
     params = init_params(device=dev) if params is None else params
     leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
     _, loss_fn = make_model(policy)
     rng = np.random.RandomState(0)
     losses = []
+    first = None
     t0 = time.perf_counter()
     for step in range(steps):
         x, y = synthetic_task(rng, batch, device=dev)
@@ -101,6 +111,8 @@ def train(policy=None, steps: int = 200, batch: int = 32, lr: float = 0.05,
             for p, g in zip(leaves, grads):
                 p.sub_(lr * g)
         losses.append(loss.detach())
+        if first is None:
+            first = time.perf_counter() - t0
         if log is not None and (step % 20 == 0 or step == steps - 1):
             log(f"[{policy}] step={step:4d} loss={loss.item():.4f}")
     losses = torch.stack(losses).tolist() if losses else []
@@ -112,7 +124,7 @@ def train(policy=None, steps: int = 200, batch: int = 32, lr: float = 0.05,
     with torch.no_grad():
         acc = (fwd(params, xe).argmax(-1) == ye).float().mean().item()
     return {"losses": losses, "eval_acc": acc, "seconds": seconds,
-            "params": params}
+            "first_step_seconds": first, "params": params}
 
 
 def main(argv=None) -> dict:
@@ -128,7 +140,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--acc-floor", type=float, default=0.9)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; never falls back)")
+    ap.add_argument("--autotune", default=None,
+                    choices=["off", "measure", "cached"],
+                    help="measured autotuning of the tap kernels' plans "
+                         "(config.autotune)")
+    ap.add_argument("--plan-cache-dir", default=None,
+                    help="persistent plan-cache directory "
+                         "(config.plan_cache_dir)")
     args = ap.parse_args(argv)
+    config.update(**{k: v for k, v in (("autotune", args.autotune),
+                                       ("plan_cache_dir",
+                                        args.plan_cache_dir))
+                     if v is not None})
     res = train(args.policy, args.steps, args.batch, args.lr, args.device,
                 log=print)
     print(f"[{args.policy}] done in {res['seconds']:.1f}s  "

@@ -2,8 +2,10 @@
 ``flash_attention`` against its plain version, a prefill's one kernel
 launch per layer against a lockstep scan of decode steps, ``conv2d`` under ``pallas``, ``traditional`` and
 ``bp_im2col`` against ``lax``, ``conv2d_transpose`` against its ``lax``
-materialization, determinism of the split-K sums, launch counting, and 20
-training steps against ``lax``.
+materialization, determinism of the split-K sums, launch counting, 20
+training steps against ``lax``, and the measured autotuner: every candidate
+plan against the plain version, tuning from inside ``backward``, and a
+``cached`` process served only hits.
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -16,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import conv as tconv  # noqa: E402
-from repro_torch.core.convspec import ConvSpec  # noqa: E402
+from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec  # noqa: E402,E501
 from repro_torch.core.im2col_ref import ConvDims  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import launch_counts, reset_launch_counts  # noqa: E402,E501
@@ -563,3 +565,151 @@ def test_tap_gemm_phased_takes_an_unaligned_src_and_any_tap_slot(cuda):
     want = _phased_matches(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
     got = _phased_matches(src, w2, taps2, pp.n_qh, pp.n_qw)
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Measured autotuning (kernels/autotune.py)
+# ---------------------------------------------------------------------------
+
+_DEC = ConvTransposeSpec.make(stride=2, padding=1, output_padding=1)
+
+#: the training shapes: the CNN's three convs (batch 32) and the
+#: autoencoder's two encoder convs and its decoder layers' mirror convs
+#: (batch 16), as (per-group dims, groups) -- chip_smoke.py's cnn_shapes and
+#: ae_shapes.
+TRAIN_SHAPES = [
+    (ConvDims(B=32, C=3, H_i=16, W_i=16, N=16, K_h=3, K_w=3, S=2, P_h=1,
+              P_w=1), 1),
+    (ConvDims(B=32, C=1, H_i=8, W_i=8, N=1, K_h=3, K_w=3, S=1, P_h=1,
+              P_w=1), 16),
+    (ConvDims(B=32, C=16, H_i=8, W_i=8, N=32, K_h=3, K_w=3, S=2, P_h=1,
+              P_w=1), 1),
+    (ConvDims(B=16, C=3, H_i=16, W_i=16, N=16, K_h=3, K_w=3, S=2, P_h=1,
+              P_w=1), 1),
+    (ConvDims(B=16, C=16, H_i=8, W_i=8, N=32, K_h=3, K_w=3, S=2, P_h=1,
+              P_w=1), 1),
+    (tconv.transpose_dims((16, 32, 4, 4), (32, 16, 3, 3), _DEC), 1),
+    (tconv.transpose_dims((16, 16, 8, 8), (16, 3, 3, 3), _DEC), 1),
+]
+
+
+@pytest.fixture
+def tuned(cuda, tmp_path):
+    """autotune=measure over a private plan cache; config restored, memo
+    and counters dropped."""
+    from repro_torch.core.config import config
+    from repro_torch.kernels import autotune
+    saved = config.snapshot()
+    config.update(autotune="measure", plan_cache_dir=str(tmp_path))
+    autotune.clear_memo()
+    ops.reset_plan_events()
+    yield tmp_path
+    config.update(**saved)
+    autotune.clear_memo()
+    ops.reset_plan_events()
+
+
+@pytest.mark.parametrize("d,g", TRAIN_SHAPES,
+                         ids=["cnn.c1", "cnn.dw", "cnn.c2", "ae.enc0",
+                              "ae.enc1", "ae.dec0", "ae.dec1"])
+def test_every_candidate_matches_the_plain_version(cuda, d, g):
+    """Every plan the tuner may pick, each role, at the training shapes:
+    within REL_TOL of the plain version and bit-equal run to run."""
+    gen = torch.Generator().manual_seed(21)
+    x = _randn(gen, d.B, d.C * g, d.H_i, d.W_i, dev=cuda)
+    w = _randn(gen, d.N * g, d.C, d.K_h, d.K_w, dev=cuda)
+    dy = _randn(gen, d.B, d.N * g, d.H_o, d.W_o, dev=cuda)
+    src, wt, taps = ops.forward_operands(x, w, d, g)
+    gsrc, ws, pp = ops.input_grad_operands(dy, w, d, g)
+    wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
+    calls = {
+        "forward": (lambda p: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o, p),
+                    ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o)),
+        "input_grad": (lambda p: tg.tap_gemm_phased(
+            gsrc, ws, pp.phase_taps, pp.n_qh, pp.n_qw, p),
+            ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps, pp.n_qh,
+                                    pp.n_qw)),
+        "weight_grad": (lambda p: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o,
+                                               d.W_o, p),
+                        ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o))}
+    timed = 0
+    for role, (kern, want) in calls.items():
+        cands = ops.plan_candidates(role, d, g, k=100, device=cuda)
+        timed += len(cands)
+        for plan in cands:
+            got = kern(plan)
+            _close(got, want)
+            assert torch.equal(got, kern(plan)), (role, plan)
+    assert timed >= 5          # the depthwise conv's forward has one plan
+
+
+def test_tuning_from_inside_backward(tuned):
+    """The grad roles are first planned on the autograd engine's thread,
+    mid-backward: their candidates are timed there (CUDA-graph capture),
+    none fails, and the grads agree with lax."""
+    from repro_torch.kernels import autotune
+    x_shape, w_shape = (8, 12, 10, 10), (20, 12, 3, 3)
+    spec = ConvSpec.make(stride=2, padding=1)
+    gen = torch.Generator().manual_seed(22)
+    x0 = _randn(gen, *x_shape, dev="cuda")
+    w0 = _randn(gen, *w_shape, dev="cuda")
+    out = {}
+    for policy in ("pallas", "lax"):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        y = tconv.conv2d(x, w, spec, policy)
+        if policy == "pallas":
+            assert ops.plan_events() == {"forward_autotune_miss": 1}
+        y.square().sum().backward()
+        out[policy] = (y.detach(), x.grad, w.grad)
+    assert ops.plan_events() == {f"{r}_autotune_miss": 1
+                                 for r in ops.PLAN_ROLES}
+    assert all(p.autotuned and p.measured_us > 0
+               for p in autotune._MEMO.values())
+    for a, b in zip(out["pallas"], out["lax"]):
+        _close(a, b)
+
+
+def test_a_cached_process_is_served_only_hits(tuned):
+    """A process with autotune=cached over the plan cache a measure run
+    wrote times nothing and serves every plan from it, computing the same
+    bits."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch.core import conv\n"
+        "from repro_torch.core.convspec import ConvSpec\n"
+        "from repro_torch.kernels import ops\n"
+        "g = torch.Generator().manual_seed(23)\n"
+        "x = torch.randn(8, 12, 10, 10, generator=g).cuda()"
+        ".requires_grad_(True)\n"
+        "w = torch.randn(20, 12, 3, 3, generator=g).cuda()"
+        ".requires_grad_(True)\n"
+        "y = conv.conv2d(x, w, ConvSpec.make(stride=2, padding=1), "
+        "'pallas')\n"
+        "y.square().sum().backward()\n"
+        "torch.save([y.detach().cpu(), x.grad.cpu(), w.grad.cpu()], "
+        "sys.argv[1])\n"
+        "print(json.dumps(ops.plan_events()))\n")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"),
+           "REPRO_PLAN_CACHE_DIR": str(tuned)}
+    events = {}
+    for mode in ("measure", "cached"):
+        proc = subprocess.run(
+            [sys.executable, "-c", code, str(tuned / f"{mode}.pt")],
+            env={**env, "REPRO_AUTOTUNE": mode}, capture_output=True,
+            text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        events[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert events["measure"] == {f"{r}_autotune_miss": 1
+                                 for r in ops.PLAN_ROLES}
+    assert events["cached"] == {f"{r}_autotune_hit": 1
+                                for r in ops.PLAN_ROLES}
+    a = torch.load(tuned / "measure.pt")
+    b = torch.load(tuned / "cached.pt")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))

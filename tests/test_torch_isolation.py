@@ -61,7 +61,9 @@ def test_module_list_covers_the_slice():
               "repro_torch.models.transformer", "repro_torch.models.model",
               "repro_torch.serve.request", "repro_torch.serve.sampling",
               "repro_torch.serve.cache", "repro_torch.serve.engine",
-              "repro_torch.serve.continuous", "repro_torch.launch.serve"):
+              "repro_torch.serve.continuous", "repro_torch.launch.serve",
+              "repro_torch.core.config", "repro_torch.kernels.autotune",
+              "repro_torch.kernels.timing"):
         assert m in mods
         importlib.import_module(m)
 
