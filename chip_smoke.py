@@ -87,8 +87,9 @@ PATH):
                    port's prefill (one causal pass, the kernel in every
                    layer) against a lockstep scan of ``decode_step`` (plain
                    dense attention) on one 1,024-token prompt, logits and
-                   every layer's cache, in bf16 (``SERVE_BF16_TOL``) and
-                   float32 (``SERVE_F32_TOL``); the host wall time and the
+                   every layer's cache, in bf16 (``SERVE_BF16_TOL``) and,
+                   at ``SERVE_F32_LAYERS`` layers, float32
+                   (``SERVE_F32_TOL``); the host wall time and the
                    device time (``torch.profiler``) of one bf16 prefill and
                    one decode step of 4 lanes; then
                    ``python -m repro_torch.launch.serve --full`` for both
@@ -96,12 +97,27 @@ PATH):
                    every request ``ok`` with 32 tokens, the continuous engine
                    launches the kernel 32 x admitted times and the static
                    engine none; prefill s per request, decode ms per step,
-                   tokens/s, p50 latency; in float32 both engines' greedy
-                   tokens agree on the same 8 requests (static in one wave
-                   of 8, continuous on 4 lanes; where one differs, the
-                   first differing step's top-2 logit margin must be under
-                   ``MARGIN_TOL``).
- 11. summary    -- every kernel's launches on each path, each path run with
+                   tokens/s, p50 latency; in float32 (``SERVE_F32_LAYERS``
+                   layers) both engines' greedy tokens agree on the same 8
+                   requests (static in one wave of 8, continuous on 4
+                   lanes; where one differs, the first differing step's
+                   top-2 logit margin must be under ``MARGIN_TOL``).
+ 11. lm_train   -- ``python -m repro_torch.launch.train --arch smollm-360m``
+                   at the published widths (bf16, seed 0, batch 8, seq 512,
+                   ``--lr`` 3e-4, the guard on): (a) 30 steps with
+                   checkpoints every 15; (b) the same stopped after 15 and
+                   resumed to 30 from its checkpoint; (c) (a)'s first 5
+                   steps with ``--accum 2``; (d) 5 steps of
+                   ``make_train_step(..., compress_grads=True)`` on the
+                   pipeline's batches.  Every loss finite and no step
+                   dropped by the guard; (a)'s last 5 losses below its
+                   first; within ``LM_TRAIN_TOL`` of (a): every loss of (b)
+                   and (c)'s first two losses (its first gradient norm
+                   within ``LM_GNORM_TOL``); (d)
+                   falls; no kernel launched.  Median step time, tokens/s,
+                   peak memory, and one profiled step's device-busy share
+                   (last: the profiler slows later kernels).
+ 12. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
 Then a ``{"kernels": [...]}`` line, and last
@@ -114,6 +130,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -148,9 +165,26 @@ FLASH_TOL = 1e-5
 SERVE_BF16_TOL = 5e-2
 #: float32: sums in other orders only.
 SERVE_F32_TOL = 1e-4
+#: the float32 serve checks run half the published depth (every width
+#: kept): float32 GEMMs and 1,024 lockstep scan steps at 32 layers took
+#: ~100 s, and the script keeps its time with the lm_train phase added.
+SERVE_F32_LAYERS = 16
 #: float32 greedy tokens of the two engines: where they differ, the logits
 #: at the first differing step must be a near-tie (top-2 margin below this).
 MARGIN_TOL = 1e-3
+#: LM training at full width in bf16, relative difference of two losses of
+#: one step: (b)'s against (a)'s, (c)'s first two against (a)'s.  A restore
+#: is bit-exact and the steps are deterministic, so (b) reads 0 on the
+#: H100; (c) sums bf16 microbatch grads in float32, and its second loss
+#: (after one update) reads 2.0e-5.  A resume that restores fresh weights,
+#: zeroed moments or a zeroed step count reads 9.9e-3, 5.5e-3 and 2.9e-3
+#: at its worst step; keeping only the first microbatch reads 1.5e-3 on
+#: the second loss (PERF.md, §6).
+LM_TRAIN_TOL = 1e-4
+#: (c)'s first gradient norm against (a)'s: the bf16 microbatch grads read
+#: 2.2e-4; keeping only the first microbatch reads 0.43, leaving out the
+#: division 1.0 (where the losses cannot tell: AdamW is scale-free).
+LM_GNORM_TOL = 1e-3
 #: H100 SXM float32 peak outside the tensor cores and memory rate (data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -173,11 +207,16 @@ TAP_KERNELS = ("tap_gemm", "tap_gemm_phased", "tap_wgrad")
 
 
 class Smoke:
+    """Phase lines on stdout (and ``out``), each with ``t_s``: the seconds
+    since the script began."""
+
     def __init__(self, out: pathlib.Path | None):
         self.out = open(out, "w") if out else None
+        self.t0 = time.perf_counter()
 
     def emit(self, phase: str, **fields) -> None:
-        line = json.dumps({"phase": phase, **fields})
+        line = json.dumps({"phase": phase, **fields,
+                           "t_s": time.perf_counter() - self.t0})
         print(line, flush=True)
         if self.out:
             self.out.write(line + "\n")
@@ -1030,7 +1069,8 @@ def phase_serve(smoke, torch, kernels, serve, M, T, dev):
     import numpy as np
     full = serve.get_config("smollm-360m")
     cfg32 = dataclasses.replace(full, param_dtype="float32",
-                                act_dtype="float32")
+                                act_dtype="float32",
+                                n_layers=SERVE_F32_LAYERS)
     prompt = np.random.RandomState(0).randint(0, full.vocab, 1024).tolist()
     for cfg, tol in ((full, SERVE_BF16_TOL), (cfg32, SERVE_F32_TOL)):
         params = serve.init_params(cfg, 0, dev)
@@ -1117,6 +1157,116 @@ def phase_serve(smoke, torch, kernels, serve, M, T, dev):
     return paths
 
 
+#: the launcher's own --lr: 3e-3 (what examples/train_lm.py passes at the
+#: smoke config) drives the full-width model's loss up within 30 steps of
+#: a one-step warmup on the H100 (PERF.md, §6).
+LM_TRAIN_ARGV = ["--arch", "smollm-360m", "--batch", "8", "--seq", "512",
+                 "--lr", "3e-4", "--log-every", "5"]
+
+
+def phase_lm_train(smoke, torch, kernels, train, smi, dev):
+    """SmolLM-360M trained at full width through the port's launcher: runs
+    (a)-(d), their checks, and one profiled step.  Returns the path's
+    kernel launches (counts set to 0 just before (a), read after (d))."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    t_phase = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="lm_train_"))
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist = {}
+
+    def run(name, extra):
+        hist[name] = []
+        return train.main(LM_TRAIN_ARGV + extra, history=hist[name])
+
+    try:
+        full = ["--steps", "30", "--ckpt-every", "15"]
+        a = run("a", full + ["--ckpt-dir", str(tmp / "a")])
+        shutil.rmtree(tmp / "a")
+        b = run("b", full + ["--ckpt-dir", str(tmp / "b"),
+                             "--stop-after", "15"])
+        b += run("b resumed", full + ["--ckpt-dir", str(tmp / "b")])
+        shutil.rmtree(tmp / "b")
+        # (a)'s schedule, so that each of (c)'s steps is one of (a)'s.
+        c = run("c", ["--steps", "30", "--stop-after", "5", "--accum", "2"])
+        cfg = train.get_config("smollm-360m")
+        params = M.init_params(torch.Generator().manual_seed(0), cfg, dev)
+        opt = adamw.init_state(params)
+        lr = float(LM_TRAIN_ARGV[LM_TRAIN_ARGV.index("--lr") + 1])
+        step_fn = TS.make_train_step(cfg, adamw.AdamWConfig(peak_lr=lr),
+                                     total_steps=30, warmup=1,
+                                     compress_grads=True)
+        dcfg = DataConfig(seed=0, seq_len=512, global_batch=8,
+                          vocab=cfg.vocab)
+        d = []
+        for step in range(5):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in make_batch(cfg, dcfg, step).items()}
+            params, opt, metrics = step_fn(params, opt, batch, step)
+            d.append(float(metrics["loss"]))
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = [h["seconds"] for h in hist["a"]]
+    step_s = statistics.median(secs)
+    rel = lambda x, y: abs(x - y) / abs(y)     # noqa: E731
+    resume_err = max(rel(x, y) for x, y in zip(b, a))
+    # The forward, the summed microbatch gradients, and one update.
+    accum_err = {"loss_0": rel(c[0], a[0]),
+                 "grad_norm_0": rel(hist["c"][0]["grad_norm"],
+                                    hist["a"][0]["grad_norm"]),
+                 "loss_1": rel(c[1], a[1])}
+    smoke.emit("lm_train", nvidia_smi=smi, config="smollm-360m",
+               dtype=cfg.param_dtype, batch=8, seq=512, lr=lr,
+               n_params=M.count_params(params),
+               median_step_s=step_s, first_step_s=secs[0],
+               tokens_per_s=8 * 512 / step_s,
+               max_memory_allocated_bytes=peak,
+               losses={"a": a, "b": b, "c": c, "d": d},
+               grad_norms={k: [h["grad_norm"] for h in v]
+                           for k, v in hist.items()},
+               first_loss=a[0], last_loss=a[-1],
+               guard_bad={k: sum(h["guard_bad"] for h in v)
+                          for k, v in hist.items()},
+               resume_max_rel_err=resume_err, accum_rel_err=accum_err,
+               tol=LM_TRAIN_TOL, grad_norm_tol=LM_GNORM_TOL,
+               launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    every = a + b + c + d
+    check(all(math.isfinite(x) for x in every), f"non-finite loss: {every}")
+    check(not any(h["guard_bad"] for v in hist.values() for h in v),
+          "the guard dropped a step")
+    check(len(a) == len(b) == 30 and len(c) == len(d) == 5,
+          f"steps run: {len(a)}, {len(b)}, {len(c)}, {len(d)}")
+    check(statistics.mean(a[-5:]) < a[0],
+          f"(a) did not learn: first {a[0]}, last five {a[-5:]}")
+    check(resume_err <= LM_TRAIN_TOL,
+          f"resumed run differs from the uninterrupted one by {resume_err}")
+    check(max(accum_err["loss_0"], accum_err["loss_1"]) <= LM_TRAIN_TOL
+          and accum_err["grad_norm_0"] <= LM_GNORM_TOL,
+          f"accum 2 differs from accum 1: {accum_err}")
+    check(d[-1] < d[0], f"compressed run did not fall: {d}")
+    check(not any(launches.values()),
+          f"a kernel launched while training: {launches}")
+
+    # One guarded step as the launcher runs it, under the profiler, last.
+    step_fn = TS.make_train_step(cfg, adamw.AdamWConfig(peak_lr=lr),
+                                 total_steps=30, warmup=1,
+                                 guard=TS.GuardConfig())
+    opt = adamw.init_state(params)
+    prof = device_time(torch, lambda: step_fn(params, opt, batch, 0))
+    smoke.emit("lm_train", check="one profiled step", nvidia_smi=smi,
+               **prof)
+    return {"lm_train": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -1142,7 +1292,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import tap_gemm as tg
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     from repro_torch.train import autoencoder_bp, cnn_bp
@@ -1202,6 +1352,7 @@ def main(argv=None) -> int:
         shapes + [row[:4] for row in ae], paths["cnn_bp pallas"], dev))
     agg["flash_attention"] = phase_flash(smoke, torch, F, fa, ref, dev)
     paths.update(phase_serve(smoke, torch, kernels, serve, M, T, dev))
+    paths.update(phase_lm_train(smoke, torch, kernels, train, smi, dev))
     smoke.emit("summary", launches_by_path=paths)
 
     main_path = {k: "cnn_bp pallas" for k in TAP_KERNELS}

@@ -39,6 +39,7 @@ class ArchConfig:
     act_dtype: str = "float32"
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    remat: str = "block"              # none | block (training only)
 
     @property
     def dtype(self) -> torch.dtype:

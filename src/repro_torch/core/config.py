@@ -1,7 +1,8 @@
 """Global runtime configuration of the port: ``repro_torch.core.config``.
 
-Counterpart of ``repro.core.config`` for the fields the port reads, the
-measured autotuning of the tap kernels' plans:
+Counterpart of ``repro.core.config`` for the fields the port reads: the
+measured autotuning of the tap kernels' plans, the key length at which
+training attention goes blockwise, and the rematerialization override:
 
     from repro_torch.core.config import config
 
@@ -12,10 +13,11 @@ measured autotuning of the tap kernels' plans:
 
 Fields initialize once from the environment (``REPRO_AUTOTUNE``,
 ``REPRO_AUTOTUNE_TOP_K``, ``REPRO_AUTOTUNE_REPS``, ``REPRO_PLAN_CACHE_DIR``,
-parsed as the JAX package parses them), and direct attribute assignment
-raises: mutation goes through :meth:`GlobalConfig.update` /
-:meth:`GlobalConfig.override`, which validate values and drop the tuner's
-in-process memo when a plan-affecting field changes.
+``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_REMAT``, parsed as the JAX package
+parses them), and direct attribute assignment raises: mutation goes
+through :meth:`GlobalConfig.update` / :meth:`GlobalConfig.override`, which
+validate values and drop the tuner's in-process memo when a plan-affecting
+field changes.
 """
 
 from __future__ import annotations
@@ -84,6 +86,16 @@ FIELDS: dict[str, _Field] = {
     "plan_cache_dir": _Field("REPRO_PLAN_CACHE_DIR", None,
                              _parse_optional_str, _check_optional_str,
                              plan_affecting=True),
+    # Key length above which attention under autograd switches from the
+    # dense scores to the blockwise online-softmax loop
+    # (models/attention.py).
+    "blockwise_kv_threshold": _Field("REPRO_BLOCKWISE_THRESHOLD", 1024, int,
+                                     _check_positive_int(
+                                         "blockwise_kv_threshold")),
+    # Remat override: None defers to each ArchConfig.remat; "none"/"block"
+    # force the policy globally (models/transformer.py).
+    "remat": _Field("REPRO_REMAT", None, _parse_optional_str,
+                    _check_optional_str),
 }
 
 

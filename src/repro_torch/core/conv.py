@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import Callable
 
 import torch
@@ -503,18 +504,98 @@ def _run_wgrad(x, dy, d: ConvDims, eng: Engine, spec) -> torch.Tensor:
     return dw if eng.native_dilation else _undilate_dweight(dw, spec)
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, spec=None,
-           policy=None) -> torch.Tensor:
+_LEGACY_POSITIONAL = ("stride", "padding", "mode", "groups")
+
+
+def _is_spec(value, cls) -> bool:
+    """A spec in the spec slot: the spec itself, a dict of its ``make``
+    kwargs, or None for the default geometry."""
+    return value is None or isinstance(value, (cls, dict))
+
+
+def _deprecated_mode(mode) -> EnginePolicy:
+    warnings.warn(
+        "conv2d(..., mode=...) is deprecated; pass policy='<engine>' "
+        "(uniform) or an EnginePolicy (per-pass) instead",
+        DeprecationWarning, stacklevel=4)
+    return EnginePolicy.uniform(mode)
+
+
+def _canon_call(args: tuple, kw: dict) -> tuple[ConvSpec, EnginePolicy | None]:
+    """Interpret both call surfaces (``repro.core.conv._canon_call``):
+
+    new:    conv2d(x, w, spec: ConvSpec, policy=...)  (or geometry kwargs)
+    legacy: conv2d(x, w, stride, padding, mode, groups)  (mode deprecated)
+    """
+    spec = kw.pop("spec", None)
+    policy = kw.pop("policy", None)
+    mode = kw.pop("mode", None)
+    geom = {k: kw.pop(k) for k in ("stride", "padding", "dilation", "groups",
+                                   "layout") if k in kw}
+    if kw:
+        raise TypeError(f"conv2d got unexpected kwargs {sorted(kw)}")
+    args = list(args)
+    if args and _is_spec(args[0], ConvSpec):
+        if spec is not None:
+            raise TypeError("ConvSpec given both positionally and as spec=")
+        spec = args.pop(0)
+        if args:
+            if policy is not None:
+                raise TypeError("policy given twice")
+            policy = args.pop(0)
+        if args:
+            raise TypeError("too many positional arguments after ConvSpec")
+    elif args and isinstance(args[0], (str, EnginePolicy)):
+        # conv2d(x, w, "pallas"): a leading policy with default or kwarg
+        # geometry (a legacy stride is numeric, so this is unambiguous).
+        if policy is not None:
+            raise TypeError("policy given twice")
+        policy = args.pop(0)
+        if args:
+            raise TypeError("too many positional arguments after policy")
+    elif args:
+        # Legacy positional (stride, padding, mode, groups).
+        if len(args) > len(_LEGACY_POSITIONAL):
+            raise TypeError("too many positional arguments")
+        for name, val in zip(_LEGACY_POSITIONAL, args):
+            if name == "mode":
+                if mode is not None:
+                    raise TypeError("mode given twice")
+                mode = val
+            else:
+                if name in geom:
+                    raise TypeError(f"{name} given twice")
+                geom[name] = val
+    if mode is not None:
+        if policy is not None:
+            raise TypeError("pass either policy= or the deprecated mode=, "
+                            "not both")
+        policy = _deprecated_mode(mode)
+    if spec is None:
+        spec = ConvSpec.make(**geom)
+    elif geom:
+        raise TypeError(
+            f"geometry given both in the ConvSpec and as kwargs "
+            f"{sorted(geom)}; put it all in the spec")
+    return ConvSpec.coerce(spec), policy
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *args, **kwargs) -> torch.Tensor:
     """NCHW x OIHW -> NCHW convolution with per-pass backprop engines.
 
-    ``spec`` is a :class:`ConvSpec` (or a dict of ``ConvSpec.make`` kwargs,
-    or None for a plain stride-1 conv); ``policy`` an :class:`EnginePolicy`,
-    a policy string, a bare engine name, or None for ``auto``.  A
-    surrounding :func:`conv_policy` overrides it.  The input grad is only
-    computed when ``x`` requires it.  ``spec.layout == "NHWC"`` transposes
-    activations at the boundary.
+    New surface: ``conv2d(x, w, spec, policy)``: ``spec`` a
+    :class:`ConvSpec` (or a dict of ``ConvSpec.make`` kwargs, or None for a
+    plain stride-1 conv), or the geometry kwargs ``stride= padding=
+    dilation= groups= layout=``, which build it; ``policy`` an
+    :class:`EnginePolicy`, a policy string, a bare engine name, or None for
+    ``auto`` (also positional in the spec's place).  The legacy surface
+    ``conv2d(x, w, stride, padding, mode, groups)`` still works; ``mode=``
+    emits a ``DeprecationWarning``.  A surrounding :func:`conv_policy`
+    overrides the policy.  The input grad is only computed when ``x``
+    requires it.  ``spec.layout == "NHWC"`` transposes activations at the
+    boundary.
     """
-    spec = ConvSpec.coerce(spec)
+    spec, policy = _canon_call(args, kwargs)
     policy = _validate_policy(effective_policy(policy))
     if spec.layout == "NHWC":
         y = _Conv2d.apply(x.permute(0, 3, 1, 2), w, spec.with_layout("NCHW"),
@@ -604,12 +685,52 @@ class _Conv2dTranspose(torch.autograd.Function):
         return dx, dw, None, None
 
 
-def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, spec=None,
-                     policy=None) -> torch.Tensor:
+def _canon_transpose_call(args: tuple, kw: dict) \
+        -> tuple[ConvTransposeSpec, EnginePolicy | None]:
+    """conv2d_transpose(x, w, spec | policy, policy=..., <geometry kwargs>)
+    -- the structured surface only (this API postdates ``mode=``)."""
+    spec = kw.pop("spec", None)
+    policy = kw.pop("policy", None)
+    geom = {k: kw.pop(k) for k in ("stride", "padding", "output_padding",
+                                   "dilation", "groups", "layout")
+            if k in kw}
+    if kw:
+        raise TypeError(
+            f"conv2d_transpose got unexpected kwargs {sorted(kw)}")
+    args = list(args)
+    if args and _is_spec(args[0], ConvTransposeSpec):
+        if spec is not None:
+            raise TypeError(
+                "ConvTransposeSpec given both positionally and as spec=")
+        spec = args.pop(0)
+    if args:
+        if policy is not None:
+            raise TypeError("policy given twice")
+        if not isinstance(args[0], (str, EnginePolicy)):
+            raise TypeError(
+                "expected a policy (str | EnginePolicy) after the spec, "
+                f"got {args[0]!r}")
+        policy = args.pop(0)
+    if args:
+        raise TypeError("too many positional arguments")
+    if spec is None:
+        spec = ConvTransposeSpec.make(**geom)
+    elif geom:
+        raise TypeError(
+            f"geometry given both in the ConvTransposeSpec and as kwargs "
+            f"{sorted(geom)}; put it all in the spec")
+    return ConvTransposeSpec.coerce(spec), policy
+
+
+def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *args,
+                     **kwargs) -> torch.Tensor:
     """NCHW x (C_in, C_out/g, K_h, K_w) -> NCHW TRANSPOSED convolution.
 
-    ``spec`` is a :class:`ConvTransposeSpec` (or a dict of its ``make``
-    kwargs, or None); ``policy`` selects the engine per pass as for
+    ``conv2d_transpose(x, w, spec, policy)``: ``spec`` a
+    :class:`ConvTransposeSpec` (or a dict of its ``make`` kwargs, or None),
+    or the geometry kwargs ``stride= padding= output_padding= dilation=
+    groups= layout=``, which build it; ``policy`` (also positional in the
+    spec's place) selects the engine per pass as for
     :func:`conv2d`, and a surrounding :func:`conv_policy` overrides it.
     Under ``pallas`` the forward is ONE ``tap_gemm_phased`` launch over all
     ``s_h*s_w`` output phases (the zero-inserted input is never built), dX
@@ -617,7 +738,7 @@ def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, spec=None,
     forward zero-inserts the input and runs the explicit GEMM on
     ``matmul``.  ``spec.layout == "NHWC"`` transposes activations at the
     boundary."""
-    spec = ConvTransposeSpec.coerce(spec)
+    spec, policy = _canon_transpose_call(args, kwargs)
     policy = _validate_policy(effective_policy(policy))
     if spec.layout == "NHWC":
         y = _Conv2dTranspose.apply(x.permute(0, 3, 1, 2), w,

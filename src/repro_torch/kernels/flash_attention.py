@@ -16,7 +16,10 @@ The TPU kernel's ``block_q``/``block_k`` tile arguments and its
 ``interpret`` flag are dropped: the CUDA kernel's tiles are fixed and
 ragged edges are masked instead of padded.  A causal call with ``Lq > Lk``
 raises (a query row would have no key; the TPU kernel's output there is an
-artefact of its padding).  On a CUDA tensor the wrapper checks its
+artefact of its padding).  The kernel has no backward (nor has the TPU
+kernel): with grad mode on and an operand that requires grad the wrapper
+raises, on the card and on the CPU alike, rather than return an output
+that drops the gradient.  On a CUDA tensor the wrapper checks its
 operands and launches the kernel (built at first use by
 ``repro_torch.kernels.build``) or raises; it never falls back.  On a CPU
 tensor it returns the plain version
@@ -63,6 +66,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} must be "
                          f"(B, H, Lq, D) and two equal (B, Hk, Lk, D)")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError("flash_attention: the kernel has no backward; "
+                           "call it with grad mode off or on operands that "
+                           "do not require grad")
     b, h, lq, d = q.shape
     hk, lk = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or hk == 0 or h % hk:

@@ -12,12 +12,16 @@ Entry points, as in the JAX package:
 Layouts are the JAX package's: q (B, L, H, D), k/v (B, L, Hk, D), caches
 (n_layers, B, L_max, Hk, D).
 
-``_sdpa`` sends every full-sequence causal call with no ``window`` and no
+``_sdpa`` sends a full-sequence causal call with no ``window`` and no
 ``kv_len`` to the flash-attention kernel wrapper
 (``repro_torch.kernels.flash_attention``: the CUDA kernel on the card, its
-plain version on the CPU); every other call, decode included, runs the
-dense plain-PyTorch attention ``_sdpa_dense``.  The JAX package's
-``_sdpa_blockwise`` is the kernel's own function and has no port.  A local
+plain version on the CPU) only when no gradient can flow through it (grad
+mode off, or none of q, k, v requires grad): the kernel has no backward,
+in the JAX package as here, and the JAX package trains through its XLA
+attention.  Every other call -- training, decode -- runs the JAX
+package's plain attention at that length: ``_sdpa_dense``, or
+``_sdpa_blockwise`` (the online softmax over key blocks, in plain
+PyTorch) for more than ``config.blockwise_kv_threshold`` keys.  A local
 window and MLA come with their families (ROADMAP A10) and raise.
 """
 
@@ -26,11 +30,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.config import config
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+#: keys per block of ``_sdpa_blockwise`` (the JAX package's ``BLOCK_K``).
+BLOCK_K = 512
 
 
 def init_gqa(generator: torch.Generator, cfg: ArchConfig, nl=None,
@@ -80,24 +87,68 @@ def _sdpa_dense(q, k, v, *, causal, q_offset, kv_len, scale):
     return out.reshape(b, lq, h, dh)
 
 
+def _sdpa_blockwise(q, k, v, *, causal, q_offset, kv_len, scale):
+    """The JAX package's blockwise attention: an online softmax over key
+    blocks of ``BLOCK_K``, in float32 (a loop of plain PyTorch in place
+    of its ``lax.scan``).  ``q_offset`` and ``kv_len`` are scalars."""
+    b, lq, h, dh = q.shape
+    lk, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    qh = q.reshape(b, lq, hk, g, dh).float() * scale
+    q_pos = q_offset + torch.arange(lq, device=q.device)
+    m = torch.full((b, hk, g, lq), NEG_INF, device=q.device)
+    den = torch.zeros((b, hk, g, lq), device=q.device)
+    acc = torch.zeros((b, hk, g, lq, dh), device=q.device)
+    for start in range(0, lk, BLOCK_K):
+        kb = k[:, start:start + BLOCK_K].float()
+        vb = v[:, start:start + BLOCK_K].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qh, kb)
+        k_pos = start + torch.arange(kb.shape[1], device=q.device)
+        mask = torch.ones((lq, kb.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if kv_len is not None:
+            mask = mask & (k_pos[None, :] < kv_len)
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        den = den * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                    vb)
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lq, h, dh).to(q.dtype)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
           q_offset=0, kv_len=None, scale: float | None = None):
     """q (B,Lq,H,D), k/v (B,Lk,Hk,D) -> (B,Lq,H,D).
 
     GQA: query head h attends kv head h // (H/Hk); ``kv_len`` masks cache
-    positions >= len.  A full-sequence causal call runs the flash kernel
-    (heads-first copies in and out); the rest is dense."""
+    positions >= len.  A full-sequence causal call through which no
+    gradient flows runs the flash kernel (heads-first copies in and out);
+    the rest is dense, or blockwise past the key-length threshold."""
     if window is not None:
         raise NotImplementedError("local-window attention is not ported "
                                   "yet (ROADMAP A10)")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if (causal and kv_len is None and isinstance(q_offset, int)
-            and q_offset == 0 and q.shape[1] == k.shape[1]):
+            and q_offset == 0 and q.shape[1] == k.shape[1]
+            and not _needs_grad(q, k, v)):
         o = flash_attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(),
                             causal=True, scale=scale)
         return o.transpose(1, 2)
+    if k.shape[1] > config.blockwise_kv_threshold and q.shape[1] > 1:
+        return _sdpa_blockwise(q, k, v, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len, scale=scale)
     return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset,
                        kv_len=kv_len, scale=scale)
 

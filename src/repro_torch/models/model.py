@@ -39,6 +39,7 @@ class Model:
     decode_step: Callable[..., Any]
     prefill: Callable[..., Any]
     param_count: Callable[[Any], int]
+    active_param_count: Callable[[Any], int]
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, device=None):
@@ -113,4 +114,7 @@ def build_model(cfg: ArchConfig) -> Model:
         prefill=lambda params, tokens, max_len: prefill(
             params, tokens, cfg, max_len),
         param_count=count_params,
+        # A token activates every parameter of the dense family (the MoE
+        # share of the JAX package's count comes with ROADMAP A10).
+        active_param_count=count_params,
     )

@@ -3,20 +3,26 @@
 
 All layers share one stacked parameter tree (leading dim = #layers), the
 JAX package's layout, so JAX parameters carry across unchanged.  A Python
-loop over the layers takes the place of ``lax.scan``.  The JAX package's
-``constrain_batch`` (mesh sharding, ROADMAP A13) and rematerialisation
-(training only) are dropped.  The other families (MoE, hybrid, SSM, VLM,
-audio) come with ROADMAP A10 and raise.
+loop over the layers takes the place of ``lax.scan``; each stacked leaf is
+unbound once, so the backward stacks the layers' grads in one write.
+When a gradient flows, each block is rematerialized as the JAX package's
+``jax.checkpoint`` does it (``cfg.remat == "block"`` unless
+``config.remat`` overrides it): ``torch.utils.checkpoint`` keeps only the
+block's input and runs the block again in the backward.  The JAX package's
+``constrain_batch`` (mesh sharding, ROADMAP A13) is dropped.  The other
+families (MoE, hybrid, SSM, VLM, audio) come with ROADMAP A10 and raise.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.config import config
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def _dense(cfg: ArchConfig) -> None:
@@ -28,9 +34,17 @@ def _dense(cfg: ArchConfig) -> None:
 
 
 def _layers(stacked):
-    """The per-layer slices of a stacked parameter (or cache) tree."""
-    nl = tree_leaves(stacked)[0].shape[0]
-    return [tree_map(lambda a: a[i], stacked) for i in range(nl)]
+    """The per-layer slices of a stacked parameter (or cache) tree: views,
+    one ``unbind`` per leaf."""
+    per_leaf = [a.unbind(0) for a in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [layers[i] for layers in per_leaf])
+            for i in range(len(per_leaf[0]))]
+
+
+def remat_policy(cfg: ArchConfig) -> str:
+    """``config.remat`` overrides the per-arch policy (``none`` | ``block``),
+    as in the JAX package."""
+    return cfg.remat if config.remat is None else config.remat
 
 
 def init_attn_block(generator: torch.Generator, cfg: ArchConfig, nl: int,
@@ -58,12 +72,27 @@ def init_stacks(generator: torch.Generator, cfg: ArchConfig, device=None):
     return {"blocks": init_attn_block(generator, cfg, cfg.n_layers, device)}
 
 
+def _block_out(p, x, cfg: ArchConfig):
+    return attn_block(p, x, cfg)[0]
+
+
 def forward_stacks(params, x, cfg: ArchConfig, cache=None):
     """x (B, L, D) -> x through all blocks.  With ``cache`` (from
     :func:`init_cache`), each layer's keys and values are written into its
-    positions ``[0, L)``: the prefill of one causal pass."""
+    positions ``[0, L)``: the prefill of one causal pass.  Without it, and
+    with a gradient flowing, each block is rematerialized under
+    :func:`remat_policy` ``"block"``."""
     _dense(cfg)
-    for i, p in enumerate(_layers(params["blocks"])):
+    layers = _layers(params["blocks"])
+    remat = (cache is None and remat_policy(cfg) == "block"
+             and torch.is_grad_enabled()
+             and any(a.requires_grad for a in [x, *tree_leaves(layers)]))
+    for i, p in enumerate(layers):
+        if remat:
+            # The block has no random op, so no RNG state is kept.
+            x = checkpoint(_block_out, p, x, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
         x, (k, v) = attn_block(p, x, cfg)
         if cache is not None:
             cache["blocks"]["k"][i, :, :k.shape[1]] = k

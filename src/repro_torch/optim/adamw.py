@@ -3,7 +3,8 @@
 Counterpart of ``repro.optim.adamw``: functions over parameter trees
 (nested dicts and lists of tensors, ``repro_torch.tree``), returning new
 tensors as the JAX functions return new arrays.  Moments are float32; the
-clipping scale stays on the device, so a step needs no host round trip.
+clipping scale and the step count (a 0-d int32 tensor, as the JAX state
+keeps it) stay on the device, so a step needs no host round trip.
 """
 
 from __future__ import annotations
@@ -26,11 +27,13 @@ class AdamWConfig:
 
 
 def init_state(params) -> dict:
-    """``{"m", "v"}`` float32 zeros like ``params``, and ``step`` 0."""
+    """``{"m", "v"}`` float32 zeros like ``params``, and ``step`` an int32
+    0 on the parameters' device."""
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    dev = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
-            "step": 0}
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -48,9 +51,9 @@ def apply_updates(params, grads, state: dict, lr: float, cfg: AdamWConfig):
                             max=1.0)
         step = state["step"] + 1
         # The bias corrections in float32, as the JAX package computes them.
-        t = torch.tensor(float(step), dtype=torch.float32)
-        b1c = (1 - torch.tensor(cfg.b1, dtype=torch.float32) ** t).item()
-        b2c = (1 - torch.tensor(cfg.b2, dtype=torch.float32) ** t).item()
+        t = step.float()
+        b1c = 1 - torch.tensor(cfg.b1, dtype=t.dtype, device=t.device) ** t
+        b2c = 1 - torch.tensor(cfg.b2, dtype=t.dtype, device=t.device) ** t
         out_p, out_m, out_v = [], [], []
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state["m"]),

@@ -1,7 +1,8 @@
 """Learning-rate schedules: cosine, WSD (warmup-stable-decay) and constant.
 
 Counterpart of ``repro.optim.schedule``, on Python floats: a schedule is a
-host-side number per step.
+host-side number per step.  WSD (arXiv:2404.06395) is MiniCPM's default
+(:func:`default_schedule_for`).
 """
 
 from __future__ import annotations
@@ -41,3 +42,7 @@ def constant(step, *, peak_lr: float, **_) -> float:
 
 
 SCHEDULES = {"cosine": warmup_cosine, "wsd": wsd, "constant": constant}
+
+
+def default_schedule_for(arch_name: str) -> str:
+    return "wsd" if "minicpm" in arch_name else "cosine"

@@ -1,0 +1,54 @@
+"""Loss functions: token cross-entropy with z-loss, the MoE auxiliary
+weighting and the multi-token-prediction head (counterpart of
+``repro.train.losses``).
+
+``torch.gather`` takes int64 indices where ``jnp.take_along_axis`` takes
+the pipeline's int32 targets, so targets are widened first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MOE_LB_WEIGHT = 0.01
+MOE_Z_WEIGHT = 1e-4
+MTP_WEIGHT = 0.3
+Z_LOSS_WEIGHT = 1e-4
+
+
+def softmax_xent(logits, targets, mask=None):
+    """Mean CE over the (optionally masked) positions, plus the z-loss;
+    logits promoted to float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    per_tok = logz - gold + Z_LOSS_WEIGHT * logz ** 2
+    if mask is not None:
+        per_tok = per_tok * mask
+        return per_tok.sum() / torch.clamp(mask.sum(), min=1.0)
+    return per_tok.mean()
+
+
+def train_loss(logits, aux, batch):
+    """Total loss: CE + MoE aux + MTP (predicting t+2 where defined); the
+    MoE and MTP terms are driven by the keys of ``aux``, which the dense
+    family leaves empty.  Returns ``(loss, metrics)``."""
+    loss = softmax_xent(logits, batch["targets"], batch.get("loss_mask"))
+    metrics = {"ce": loss}
+    if "moe_lb" in aux:
+        loss = loss + MOE_LB_WEIGHT * aux["moe_lb"] \
+            + MOE_Z_WEIGHT * aux["moe_z"]
+        metrics["moe_lb"] = aux["moe_lb"]
+    if "mtp_logits" in aux:
+        # The MTP head at position t predicts token t+2 = targets shifted
+        # by one; the last position has no such target.
+        t2 = torch.roll(batch["targets"], -1, dims=1)
+        mask = torch.ones(t2.shape, dtype=torch.float32, device=t2.device)
+        mask[:, -1] = 0.0
+        if "loss_mask" in batch:
+            mask = mask * batch["loss_mask"]
+        mtp = softmax_xent(aux["mtp_logits"], t2, mask)
+        loss = loss + MTP_WEIGHT * mtp
+        metrics["mtp_ce"] = mtp
+    metrics["loss"] = loss
+    return loss, metrics

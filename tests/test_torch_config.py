@@ -13,7 +13,8 @@ from repro_torch.core import config as tcfg  # noqa: E402
 from repro_torch.core.config import config  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
 
-SHARED = ("autotune", "autotune_top_k", "autotune_reps", "plan_cache_dir")
+SHARED = ("autotune", "autotune_top_k", "autotune_reps", "plan_cache_dir",
+          "blockwise_kv_threshold", "remat")
 
 
 @pytest.fixture(autouse=True)
@@ -44,14 +45,18 @@ def test_fields_and_env_names_equal_jax():
     {"REPRO_PLAN_CACHE_DIR": ""},            # empty -> None
     {"REPRO_AUTOTUNE": "bogus"},             # env values are not checked
     {"REPRO_AUTOTUNE_TOP_K": "0"},
-], ids=["empty", "cached", "all", "empty_dir", "unchecked", "zero_k"])
+    {"REPRO_BLOCKWISE_THRESHOLD": "256", "REPRO_REMAT": "none"},
+    {"REPRO_REMAT": ""},                     # empty -> None
+], ids=["empty", "cached", "all", "empty_dir", "unchecked", "zero_k",
+        "attention", "empty_remat"])
 def test_env_parsing_equals_jax(env):
     assert _shared(tcfg.GlobalConfig(env=env)) == \
         _shared(jcfg.GlobalConfig(env=env))
 
 
 @pytest.mark.parametrize("env", [{"REPRO_AUTOTUNE_TOP_K": "x"},
-                                 {"REPRO_AUTOTUNE_REPS": "1.5"}])
+                                 {"REPRO_AUTOTUNE_REPS": "1.5"},
+                                 {"REPRO_BLOCKWISE_THRESHOLD": "big"}])
 def test_unparsable_env_raises_like_jax(env):
     with pytest.raises(ValueError):
         jcfg.GlobalConfig(env=env)
@@ -63,7 +68,8 @@ def test_unparsable_env_raises_like_jax(env):
     dict(autotune="fast"), dict(autotune=None), dict(autotune_top_k=0),
     dict(autotune_top_k=-2), dict(autotune_top_k=True),
     dict(autotune_top_k="3"), dict(autotune_reps=0), dict(autotune_reps=2.0),
-    dict(plan_cache_dir=3),
+    dict(plan_cache_dir=3), dict(blockwise_kv_threshold=0),
+    dict(blockwise_kv_threshold=512.0), dict(remat=1),
 ], ids=lambda kw: "-".join(f"{k}={v!r}" for k, v in kw.items()))
 def test_update_validation_errors_equal_jax(kw):
     mine, theirs = tcfg.GlobalConfig(env={}), jcfg.GlobalConfig(env={})
@@ -78,7 +84,8 @@ def test_update_validation_errors_equal_jax(kw):
 def test_valid_updates_equal_jax():
     mine, theirs = tcfg.GlobalConfig(env={}), jcfg.GlobalConfig(env={})
     kw = dict(autotune="cached", autotune_top_k=2, autotune_reps=5,
-              plan_cache_dir="/plans")
+              plan_cache_dir="/plans", blockwise_kv_threshold=2048,
+              remat="none")
     mine.update(**kw)
     theirs.update(**kw)
     assert _shared(mine) == _shared(theirs) == kw

@@ -170,3 +170,106 @@ def test_input_grad_skipped_when_input_needs_none():
         torch.from_numpy(dy))
     assert tconv.dispatch_events() == {"forward:pallas": 1,
                                        "weight_grad:pallas": 1}
+
+
+# ---------------------------------------------------------------------------
+# The call surfaces of conv2d and conv2d_transpose, against the JAX package's
+# ---------------------------------------------------------------------------
+
+def _both(call, x, w):
+    """``call(conv2d, x, w)`` through the JAX package and the port."""
+    want = np.asarray(call(jconv, jnp.asarray(x), jnp.asarray(w)))
+    got = call(tconv, torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+CALLS = {
+    "spec_policy": lambda m, x, w: m.conv2d(
+        x, w, (JSpec if m is jconv else ConvSpec).make(stride=2, padding=1),
+        "lax"),
+    "spec_kw": lambda m, x, w: m.conv2d(
+        x, w, spec=(JSpec if m is jconv else ConvSpec).make(stride=2),
+        policy="bp_phase"),
+    "geometry_kwargs": lambda m, x, w: m.conv2d(x, w, stride=2, padding=1,
+                                                groups=1, policy="lax"),
+    "policy_positional": lambda m, x, w: m.conv2d(x, w, "lax", stride=(2, 1),
+                                                  dilation=2),
+    "legacy_stride_padding": lambda m, x, w: m.conv2d(x, w, 2, 1),
+    "legacy_groups": lambda m, x, w: m.conv2d(x, w, 2, 1, None, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CALLS))
+def test_conv2d_call_surfaces_match_jax(name):
+    r = np.random.RandomState(5)
+    x = r.randn(2, 3, 9, 9).astype(np.float32)
+    w = r.randn(4, 3, 3, 3).astype(np.float32)
+    _both(CALLS[name], x, w)
+
+
+def test_conv2d_deprecated_mode_warns_like_jax():
+    r = np.random.RandomState(6)
+    x = r.randn(1, 2, 8, 8).astype(np.float32)
+    w = r.randn(3, 2, 3, 3).astype(np.float32)
+    for call in (lambda m, x, w: m.conv2d(x, w, 2, 1, "lax"),
+                 lambda m, x, w: m.conv2d(x, w, stride=2, mode="pallas")):
+        with pytest.warns(DeprecationWarning, match="mode=.* is deprecated"):
+            _both(call, x, w)
+
+
+@pytest.mark.parametrize("call", [
+    lambda m, S, x, w: m.conv2d(x, w, S(), spec=S()),
+    lambda m, S, x, w: m.conv2d(x, w, S(), "lax", policy="lax"),
+    lambda m, S, x, w: m.conv2d(x, w, S(), "lax", "lax"),
+    lambda m, S, x, w: m.conv2d(x, w, "lax", "bp_phase"),
+    lambda m, S, x, w: m.conv2d(x, w, 1, 0, "lax", 1, 9),
+    lambda m, S, x, w: m.conv2d(x, w, 2, stride=2),
+    lambda m, S, x, w: m.conv2d(x, w, 1, 0, "lax", mode="lax"),
+    lambda m, S, x, w: m.conv2d(x, w, mode="lax", policy="lax"),
+    lambda m, S, x, w: m.conv2d(x, w, S.make(stride=2), stride=2),
+    lambda m, S, x, w: m.conv2d(x, w, bogus=1),
+], ids=["spec_twice", "policy_twice", "after_spec", "after_policy",
+        "too_many", "stride_twice", "mode_twice", "mode_and_policy",
+        "geometry_twice", "unknown_kwarg"])
+def test_conv2d_call_errors_match_jax(call):
+    x, w = np.zeros((1, 2, 6, 6), np.float32), np.zeros((2, 2, 3, 3),
+                                                         np.float32)
+    with pytest.raises(TypeError) as want:
+        call(jconv, JSpec, jnp.asarray(x), jnp.asarray(w))
+    with pytest.raises(TypeError) as got:
+        call(tconv, ConvSpec, torch.from_numpy(x), torch.from_numpy(w))
+    assert str(got.value) == str(want.value)
+
+
+def test_conv2d_transpose_call_surfaces_match_jax():
+    from repro.core.convspec import ConvTransposeSpec as JTSpec
+    from repro_torch.core.convspec import ConvTransposeSpec
+    r = np.random.RandomState(7)
+    x = r.randn(2, 3, 5, 5).astype(np.float32)
+    w = r.randn(3, 4, 3, 3).astype(np.float32)
+    kw = dict(stride=2, padding=1, output_padding=1)
+    calls = [
+        lambda m, x, w: m.conv2d_transpose(
+            x, w, (JTSpec if m is jconv else ConvTransposeSpec).make(**kw),
+            "lax"),
+        lambda m, x, w: m.conv2d_transpose(x, w, policy="lax", **kw),
+        lambda m, x, w: m.conv2d_transpose(x, w, "lax", **kw),
+    ]
+    for call in calls:
+        _both(call, x, w)
+    errors = [
+        lambda m, S, x, w: m.conv2d_transpose(x, w, S(), spec=S()),
+        lambda m, S, x, w: m.conv2d_transpose(x, w, "lax", policy="lax"),
+        lambda m, S, x, w: m.conv2d_transpose(x, w, S(), 2),
+        lambda m, S, x, w: m.conv2d_transpose(x, w, S(), "lax", "lax"),
+        lambda m, S, x, w: m.conv2d_transpose(x, w, S.make(stride=2),
+                                              stride=2),
+        lambda m, S, x, w: m.conv2d_transpose(x, w, mode="lax"),
+    ]
+    for call in errors:
+        with pytest.raises(TypeError) as want:
+            call(jconv, JTSpec, jnp.asarray(x), jnp.asarray(w))
+        with pytest.raises(TypeError) as got:
+            call(tconv, ConvTransposeSpec, torch.from_numpy(x),
+                 torch.from_numpy(w))
+        assert str(got.value) == str(want.value)

@@ -3,9 +3,10 @@
 launch per layer against a lockstep scan of decode steps, ``conv2d`` under ``pallas``, ``traditional`` and
 ``bp_im2col`` against ``lax``, ``conv2d_transpose`` against its ``lax``
 materialization, determinism of the split-K sums, launch counting, 20
-training steps against ``lax``, and the measured autotuner: every candidate
+training steps against ``lax``, the measured autotuner (every candidate
 plan against the plain version, tuning from inside ``backward``, and a
-``cached`` process served only hits.
+``cached`` process served only hits), the flash wrapper's refusal of a
+tensor that requires grad, and one full-width LM train step.
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -455,6 +456,61 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
     wide = torch.zeros(1, 2, 8, 160, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(wide, wide, wide)
+
+
+def test_flash_attention_refuses_a_tensor_that_requires_grad(cuda):
+    """The kernel has no backward: a grad-carrying call raises before any
+    launch instead of returning an output without a grad_fn."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator().manual_seed(3)
+    q = _randn(gen, 1, 3, 16, 16, dev=cuda).requires_grad_(True)
+    kv = _randn(gen, 1, 1, 16, 16, dev=cuda)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, kv, kv)
+    assert launch_counts()["flash_attention"] == 0
+    with torch.no_grad():
+        flash_attention(q, kv, kv)
+    flash_attention(q.detach(), kv, kv)
+    assert launch_counts()["flash_attention"] == 2
+
+
+def test_full_width_train_step_shapes_and_dtypes(cuda):
+    """One guarded train step of SmolLM-360M at its published widths (bf16)
+    on a short batch: every parameter keeps its shape, bf16 type and
+    device, the moments stay float32, the step count and the streak are
+    int32 on the card, the loss is finite, and no kernel launches (the
+    attention under autograd is the dense plain version)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("smollm-360m")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    opt = adamw.init_state(params)
+    step = TS.make_train_step(cfg, adamw.AdamWConfig(peak_lr=3e-3),
+                              total_steps=10, warmup=1, guard=True)
+    dcfg = DataConfig(seed=0, seq_len=128, global_batch=2, vocab=cfg.vocab)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, dcfg, 0).items()}
+    reset_launch_counts()
+    new, new_opt, metrics = step(params, opt, batch, 0)
+    assert not any(launch_counts().values())
+    assert M.count_params(new) == 361_821_120
+    for p, q in zip(tree_leaves(params), tree_leaves(new)):
+        assert (q.shape, q.dtype, q.device) == (p.shape, torch.bfloat16,
+                                                p.device)
+    for key in ("m", "v"):
+        assert all(t.dtype == torch.float32
+                   for t in tree_leaves(new_opt[key]))
+    for key in ("step", "guard_streak"):
+        t = new_opt[key]
+        assert (t.shape, t.dtype, t.device.type) == ((), torch.int32, "cuda")
+    assert int(new_opt["step"]) == 1 and int(new_opt["guard_streak"]) == 0
+    assert bool(torch.isfinite(metrics["loss"])) \
+        and float(metrics["guard_bad"]) == 0.0
 
 
 def test_prefill_launches_the_kernel_once_per_layer(cuda):

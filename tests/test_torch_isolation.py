@@ -63,7 +63,10 @@ def test_module_list_covers_the_slice():
               "repro_torch.serve.cache", "repro_torch.serve.engine",
               "repro_torch.serve.continuous", "repro_torch.launch.serve",
               "repro_torch.core.config", "repro_torch.kernels.autotune",
-              "repro_torch.kernels.timing"):
+              "repro_torch.kernels.timing", "repro_torch.train.losses",
+              "repro_torch.optim.compression", "repro_torch.data.pipeline",
+              "repro_torch.ft.failures", "repro_torch.ckpt.checkpoint",
+              "repro_torch.launch.train"):
         assert m in mods
         importlib.import_module(m)
 
@@ -93,6 +96,12 @@ def test_entry_points_raise_without_a_card():
                                      autoencoder.AutoencoderConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         layers.init_conv2d_transpose(torch.Generator(), 4, 3, 3)
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "smollm-360m", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.restore(".")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

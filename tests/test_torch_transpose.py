@@ -31,7 +31,7 @@ from repro_torch.models import autoencoder as TM  # noqa: E402
 from repro_torch.optim import adamw, schedule  # noqa: E402
 from repro_torch.train import autoencoder_bp, cnn_bp  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
-from repro_torch.tree import params_from_numpy  # noqa: E402
+from repro_torch.tree import params_from_numpy, tree_leaves  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REL = 1e-4
@@ -215,16 +215,28 @@ def test_adamw_step_matches_jax():
 
 
 def test_make_train_step_raises_on_what_is_not_ported():
+    """Accumulation, compression and the guard run through the loss plugin
+    (ported with the LM training stack); only the conv mesh still raises
+    (ROADMAP A13).  Without ``loss=`` the step takes the default LM loss."""
     cfg = TM.AutoencoderConfig()
     opt = adamw.AdamWConfig()
     loss = TM.autoencoder_loss
-    for kw, item in ((dict(accum_steps=2), "A9"),
-                     (dict(compress_grads=True), "A9"),
-                     (dict(guard=True), "A12"), (dict(conv_mesh="tp"), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_train_step(cfg, opt, loss=loss, **kw)
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_train_step(cfg, opt)
+    with pytest.raises(NotImplementedError, match="A13"):
+        make_train_step(cfg, opt, loss=loss, conv_mesh="tp")
+    params = TM.init_autoencoder(torch.Generator().manual_seed(0), cfg,
+                                 "cpu")
+    batch = {"image": torch.randn(4, 3, 8, 8,
+                                  generator=torch.Generator().manual_seed(1))}
+    for kw in (dict(accum_steps=2), dict(compress_grads=True),
+               dict(guard=True)):
+        step = make_train_step(cfg, opt, loss=loss, conv_policy="lax", **kw)
+        new, state, metrics = step(params, adamw.init_state(params), batch,
+                                   0)
+        assert bool(torch.isfinite(metrics["loss"])), kw
+        assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(new))
+        assert ("ef" in state) == ("compress_grads" in kw)
+        assert ("guard_bad" in metrics) == ("guard" in kw)
+    assert make_train_step(cfg, opt) is not None
 
 
 def _jax_example():
