@@ -1,15 +1,16 @@
 """Architecture configuration of the port's LM path.
 
 PyTorch-package copy of ``repro.configs.base.ArchConfig`` with the fields
-the dense GQA family reads (the port imports nothing of the JAX package).
-``dtype``/``adtype`` are torch dtypes.  ``reduced()`` derives the
-CPU-scale smoke variant from the full config as the JAX package does.
+the dense and MoE families read (GQA or MLA attention; the port imports
+nothing of the JAX package).  ``dtype``/``adtype`` are torch dtypes.
+``reduced()`` derives the CPU-scale smoke variant from the full config as
+the JAX package does, MoE and MLA overrides included.
 
 The JAX config's ``attn_impl`` is left out: the port does not choose
 attention by a flag (every full-sequence causal call on the card runs the
-flash-attention kernel).  Fields of the other families (MoE, MLA ranks,
-SSM, RG-LRU, frontends) and the conv policy come with them (ROADMAP A10);
-``local_window`` and ``use_mla`` stay so that such a config is refused.
+flash-attention kernel).  Fields of the other families (SSM, RG-LRU,
+frontends) and the conv policy come with them (ROADMAP A10);
+``local_window`` stays so that such a config is refused.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense (the only family ported)
+    family: str                       # dense | moe (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -34,7 +35,21 @@ class ArchConfig:
     attn_kind: str = "causal"         # causal | bidir (encoder-only)
     local_window: Optional[int] = None
     rope_theta: float = 10000.0
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0       # deepseek-v3: first k layers stay dense
+    capacity_factor: float = 1.25
+    # MLA (deepseek-v3)
     use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    mtp_depth: int = 0                # multi-token-prediction extra blocks
     param_dtype: str = "float32"
     act_dtype: str = "float32"
     norm_eps: float = 1e-6
@@ -53,6 +68,9 @@ class ArchConfig:
     def is_encoder_only(self) -> bool:
         return self.attn_kind == "bidir"
 
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and i >= self.first_dense_layers
+
     def reduced(self, **overrides) -> "ArchConfig":
         """CPU-scale variant preserving family structure (the same widths
         as ``repro.configs.base.ArchConfig.reduced``)."""
@@ -66,7 +84,17 @@ class ArchConfig:
             d_ff=128,
             vocab=256,
         )
+        if self.n_experts:
+            base.update(n_experts=8, moe_top_k=min(2, self.moe_top_k),
+                        n_shared_experts=min(1, self.n_shared_experts),
+                        moe_d_ff=64,
+                        first_dense_layers=min(1, self.first_dense_layers))
+        if self.use_mla:
+            base.update(q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=16,
+                        qk_rope_head_dim=8, v_head_dim=16, head_dim=24)
         if self.local_window:
             base.update(local_window=32)
+        if self.mtp_depth:
+            base.update(mtp_depth=1)
         base.update(overrides)
         return dataclasses.replace(self, **base)

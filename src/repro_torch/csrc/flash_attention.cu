@@ -13,11 +13,13 @@
 // 128-row blocks; here ragged edges are masked, so nothing is padded.
 // Blocks own 64 query rows of one (batch, head), walk key tiles of 64
 // rows, and run the heaviest causal blocks first.  No atomics: results are
-// identical run to run.  D <= 128.
+// identical run to run.  D <= 192, in instances for D <= 64, 128 and 192.
 //
 // It runs the attention of every prefill of the LM server: one causal
 // pass over the prompt per layer, at SmolLM-360M's (1, 15, P, 64) queries
-// against (1, 5, P, 64) keys and values in bf16.  What bounds it on an
+// against (1, 5, P, 64) keys and values, moonshot-v1-16b-a3b's (1, 16, P,
+// 128) and DeepSeek-V3 MLA's (1, 128, P, 192) (qk_nope 128 + qk_rope 64,
+// v zero-padded from 128 to 192 by the caller), in bf16.  What bounds it on an
 // H100: at P = 1,024 a launch does 2.0 GFLOP (causal half of 4 P^2 D H)
 // against 4.5 MB, far above the bf16 ridge (989 TFLOP/s / 3.35 TB/s
 // = 295 FLOP/byte), so it is bound by operations, and those only run at
@@ -40,7 +42,10 @@
 // edge compute masks; a masked score becomes p = 0 exactly.  Rows that
 // are not 16-byte aligned (D % 8 != 0, or an unaligned base) take plain
 // loads into the same ring.  Shared memory: 45 KB for D <= 64, 85 KB for
-// D <= 128.
+// D <= 128, 128 KB for D <= 192.  At D = 192 the output accumulator alone
+// takes 96 registers a thread, so that instance does not hold Q's 48
+// fragment registers for the walk: it re-reads them from shared memory
+// (where Q stays) with ldmatrix in every tile.
 //
 // float32 (flash_kernel): SIMT float32 FMA (67 TFLOP/s peak).  256
 // threads; Q (scaled), K and V of the tile are staged in dynamic shared
@@ -49,9 +54,9 @@
 // scores (rows 4ty.., keys 4tx..); a row's max and sum are reduced over
 // the 16 threads of its half-warp with shuffles.  P goes back to shared
 // memory (transposed) for O += P V, where the thread owns rows 4ty.. and
-// columns 4tx.. (+64 for D > 64) of the output.  68.6 or 119.8 KB of
-// shared memory.  Its products stay full float32: TF32 or bf16 products
-// would break the float32 serving path's 1e-5 tolerance.
+// columns 4tx.. (+64, +128 for wider D) of the output.  68.6, 119.8 or
+// 171.0 KB of shared memory.  Its products stay full float32: TF32 or bf16
+// products would break the float32 serving path's 1e-5 tolerance.
 //
 // The entry returns cudaGetLastError() right after its launch.
 
@@ -185,7 +190,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 // grid = (cdiv(Lq, BQ), B * H).  q (B, H, Lq, D), k/v (B, Hk, Lk, D),
-// o (B, H, Lq, D), all contiguous bf16; DM = 64 or 128 >= D.
+// o (B, H, Lq, D), all contiguous bf16; DM = 64, 128 or 192 >= D.
 // scale_log2 = scale * log2(e).
 template <int DM, bool VEC>
 __global__ void __launch_bounds__(THREADS)
@@ -196,6 +201,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int P = pitch<DM>();
   constexpr int KD = DM / 16;  // k-steps of S = Q K^T; column pairs of O
   constexpr int NO = DM / 8;   // 8-column tiles of O
+  // Q held in registers for the whole walk, or (DM = 192) re-read from
+  // shared memory in every tile.
+  constexpr bool QREG = DM <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
   bf16* sk = sq + BQ * P;       // [2][BKV][P]
@@ -223,7 +231,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // ldmatrix lane addressing: lane l serves row (l % 8) of 8x8 matrix l / 8.
   const int lm_row = lane % 8, lm_mat = lane / 8;
-  uint32_t qf[KD][4];           // Q as A fragments, for the whole walk
+  uint32_t qf[QREG ? KD : 1][4];  // Q as A fragments, for the whole walk
   float acc[NO][4];             // O, rows grp and grp + 8
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 #pragma unroll
@@ -236,12 +244,14 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // stage the next load overwrites.
     cp_async_wait_all();
     __syncthreads();
-    if (t == 0) {
+    const bf16* q_frag = sq + (warp * 16 + (lm_mat % 2) * 8 + lm_row) * P
+                         + (lm_mat / 2) * 8;
+    if constexpr (QREG) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        ldsm_x4(smem_addr(sq + (warp * 16 + (lm_mat % 2) * 8 + lm_row) * P
-                          + kk * 16 + (lm_mat / 2) * 8),
-                qf[kk]);
+        for (int kk = 0; kk < KD; ++kk)
+          ldsm_x4(smem_addr(q_frag + kk * 16), qf[kk]);
+      }
     }
     if (t + 1 < n_tiles) {
       const int st = (t + 1) % 2;
@@ -259,16 +269,24 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldsm_x4(smem_addr(q_frag + kk * 16), qa);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bf[4];
         ldsm_x4(smem_addr(kt + (np * 16 + (lm_mat / 2) * 8 + lm_row) * P
                           + kk * 16 + (lm_mat % 2) * 8),
                 bf);
-        mma(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma(s[2 * np], qa, bf[0], bf[1]);
+        mma(s[2 * np + 1], qa, bf[2], bf[3]);
       }
+    }
 
     // Element e of s[n] is row grp + 8 * (e / 2), key 8n + 2 tig + e % 2.
     const int k0 = t * BKV;
@@ -397,9 +415,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
                                   scale, stream)
                : launch<64, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
                                    scale, stream);
-  return vec ? launch<128, true>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+  if (D <= 128)
+    return vec ? launch<128, true>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+                                   scale, stream)
+               : launch<128, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+                                    scale, stream);
+  return vec ? launch<192, true>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
                                  scale, stream)
-             : launch<128, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+             : launch<192, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
                                   scale, stream);
 }
 
@@ -435,7 +458,7 @@ struct Tiles {
 };
 
 // grid = (cdiv(Lq, BQ), B * H).  q (B, H, Lq, D), k/v (B, Hk, Lk, D),
-// o (B, H, Lq, D), all contiguous float32; DM = 64 or 128 >= D.
+// o (B, H, Lq, D), all contiguous float32; DM = 64, 128 or 192 >= D.
 template <int DM>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -577,7 +600,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q, o: (B, H, Lq, D); k, v: (B, Hk, Lk, D); contiguous row-major, all
-// bfloat16 (bf16 = 1) or all float32 (bf16 = 0).  H % Hk == 0, 1 <= D <= 128,
+// bfloat16 (bf16 = 1) or all float32 (bf16 = 0).  H % Hk == 0, 1 <= D <= 192,
 // Lq >= 1, Lk >= 1, and Lq <= Lk when causal (the wrapper checks).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int bf16, int B, int H, int Hk, int Lq, int Lk, int D,
@@ -588,7 +611,10 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   if (D <= 64)
     return launch_f32<64>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
                           stream);
-  return launch_f32<128>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
+  if (D <= 128)
+    return launch_f32<128>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
+                           stream);
+  return launch_f32<192>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
                          stream);
 }
 

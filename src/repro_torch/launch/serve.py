@@ -10,8 +10,11 @@
 (``repro_torch.serve.engine``); ``--engine continuous`` (default) the
 slotted-cache continuous-batching engine (``repro_torch.serve.continuous``),
 whose prefills run the flash-attention kernel.  The model is initialised
-from ``--seed`` (no weights are read).  ``--full`` serves the published
-widths (``FULL``) instead of the smoke config the JAX launcher serves;
+from ``--seed`` (no weights are read).  ``--arch`` names a registered
+config (``repro_torch.configs``: smollm-360m, moonshot-v1-16b-a3b,
+deepseek-v3-671b, whose 61 layers at ``--full`` no one card holds).
+``--full`` serves the published widths (``FULL``) instead of the smoke
+config the JAX launcher serves;
 the prompts are the JAX launcher's (``np.random.RandomState(seed)``).
 ``--device`` defaults to the card and never falls back.  The JAX
 launcher's ``--conv-policy`` comes back with the conv-bearing decoders

@@ -20,8 +20,8 @@ returns no losses.  The end's save is left out when the last step's
 checkpoint was just written (the JAX loop writes the same files again).
 
 ``--device`` (default: the card, never a fallback) is the port's own.  The
-model is initialised from ``--seed`` on the CPU (the port's init draws
-there, so the values do not depend on the device) and moved to the device.
+model is initialised from ``--seed`` on the device (on the card from a CUDA
+generator: ``repro_torch.models.layers._draw``).
 ``--autotune`` and ``--plan-cache-dir`` set ``repro_torch.core.config``.
 ``--conv-mesh`` raises (ROADMAP A13); ``--fault-spec``, ``--trace`` and
 ``--metrics`` raise (ROADMAP A12).

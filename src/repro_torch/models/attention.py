@@ -1,16 +1,20 @@
-"""Grouped-query attention (counterpart of the GQA part of
-``repro.models.attention``).
+"""Attention variants: grouped-query attention and DeepSeek-V3's MLA
+(counterpart of ``repro.models.attention``).
 
 Entry points, as in the JAX package:
-  * ``gqa_train``   -- full-sequence forward (and ``gqa_prefill``, which
-                       also returns the rope'd keys and values a prefill
-                       writes to the cache)
-  * ``gqa_decode``  -- single-token step against a KV cache, with a scalar
-                       position (one clock for the batch) or a per-lane
-                       ``(B,)`` position vector (continuous batching)
+  * ``gqa_train`` / ``mla_train`` -- full-sequence forward (and
+    ``gqa_prefill`` / ``mla_prefill``, which also return what a prefill
+    writes to the cache: the rope'd keys and values, or MLA's normed
+    latent ``c_kv`` and rope'd shared key ``k_rope``)
+  * ``gqa_decode`` / ``mla_decode`` -- single-token step against a cache,
+    with a scalar position (one clock for the batch) or a per-lane ``(B,)``
+    position vector (continuous batching).  ``mla_decode`` absorbs
+    ``wkv_b`` into the query and the output, so it attends in the latent
+    space and the cache holds only the latents.
 
 Layouts are the JAX package's: q (B, L, H, D), k/v (B, L, Hk, D), caches
-(n_layers, B, L_max, Hk, D).
+(n_layers, B, L_max, Hk, D); MLA caches (n_layers, B, L_max, kv_lora_rank)
+and (n_layers, B, L_max, qk_rope_head_dim).
 
 ``_sdpa`` sends a full-sequence causal call with no ``window`` and no
 ``kv_len`` to the flash-attention kernel wrapper
@@ -21,13 +25,17 @@ in the JAX package as here, and the JAX package trains through its XLA
 attention.  Every other call -- training, decode -- runs the JAX
 package's plain attention at that length: ``_sdpa_dense``, or
 ``_sdpa_blockwise`` (the online softmax over key blocks, in plain
-PyTorch) for more than ``config.blockwise_kv_threshold`` keys.  A local
-window and MLA come with their families (ROADMAP A10) and raise.
+PyTorch) for more than ``config.blockwise_kv_threshold`` keys.  MLA's
+full-sequence call takes the same route at head dim ``qk_nope +
+qk_rope`` (192 at DeepSeek-V3's widths), its ``v`` zero-padded to that
+dim and the output cropped, as in the JAX package.  A local window comes
+with its family (ROADMAP A10) and raises.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.config import config
@@ -211,3 +219,122 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *, window=None):
     o = _sdpa(q, cache_k, cache_v, causal=False, q_offset=pos,
               kv_len=pos + 1)
     return L.linear(p["wo"], o.reshape(b, 1, h * dh)), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(generator: torch.Generator, cfg: ArchConfig, nl=None,
+             device=None):
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lin = lambda d_in, d_out, **kw: L.init_linear(  # noqa: E731
+        generator, d_in, d_out, cfg.dtype, nl, device=device, **kw)
+    return {
+        "wq_a": lin(d, qr),
+        "q_norm": L.init_rmsnorm(qr, cfg.dtype, nl, device),
+        "wq_b": lin(qr, h * (dn + dr)),
+        "wkv_a": lin(d, kvr + dr),
+        "kv_norm": L.init_rmsnorm(kvr, cfg.dtype, nl, device),
+        "wkv_b": lin(kvr, h * (dn + dv)),
+        "wo": lin(h * dv, d, scale=(h * dv) ** -0.5),
+    }
+
+
+def _mla_qkv(p, x, cfg: ArchConfig, positions):
+    b, l, _ = x.shape
+    h, kvr = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    ang = L.rope_freqs(dr, cfg.rope_theta, positions)
+    q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"], L.linear(p["wq_a"], x)))
+    q = q.reshape(b, l, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], L.apply_rope(q[..., dn:], ang)
+    kv = L.linear(p["wkv_a"], x)
+    c_kv = L.rmsnorm(p["kv_norm"], kv[..., :kvr])
+    k_rope = L.apply_rope(kv[..., None, kvr:], ang)            # (B,L,1,dr)
+    kvu = L.linear(p["wkv_b"], c_kv).reshape(b, l, h, dn + dv)
+    k_nope, v = kvu[..., :dn], kvu[..., dn:]
+    return q_nope, q_rope, k_nope, k_rope, v, c_kv
+
+
+def mla_prefill(p, x, cfg: ArchConfig, *, positions=None):
+    """x (B, L, D) -> (out (B, L, D), c_kv (B, L, kv_lora_rank), k_rope
+    (B, L, qk_rope_head_dim)): full-sequence attention, and the normed
+    latent and rope'd shared key of every position -- what
+    :func:`mla_decode` writes to the cache."""
+    b, l, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(l, device=x.device)
+    q_nope, q_rope, k_nope, k_rope, v, c_kv = _mla_qkv(p, x, cfg, positions)
+    # Fold the shared rope key into per-head features so the common
+    # attention core applies at head dim dn + dr; pad v to it and crop.
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope.expand(b, l, h, dr)], dim=-1)
+    if dv < dn + dr:
+        v = F.pad(v, (0, dn + dr - dv))
+    o = _sdpa(q_cat, k_cat, v, causal=True, scale=(dn + dr) ** -0.5)
+    o = o[..., :dv].reshape(b, l, h * dv)
+    return L.linear(p["wo"], o), c_kv, k_rope[:, :, 0]
+
+
+def mla_train(p, x, cfg: ArchConfig, *, positions=None):
+    return mla_prefill(p, x, cfg, positions=positions)[0]
+
+
+def mla_init_cache(cfg: ArchConfig, batch: int, max_len: int, nl: int,
+                   device=None):
+    dev = resolve_device(device)
+    return {"c_kv": torch.zeros((nl, batch, max_len, cfg.kv_lora_rank),
+                                dtype=cfg.adtype, device=dev),
+            "k_rope": torch.zeros((nl, batch, max_len, cfg.qk_rope_head_dim),
+                                  dtype=cfg.adtype, device=dev)}
+
+
+def mla_decode(p, x, c_kv_cache, k_rope_cache, pos, cfg: ArchConfig):
+    """Absorbed-weight MLA decode: attention runs in the latent space.
+
+    x (B,1,D); c_kv_cache (B,Lmax,kvr); k_rope_cache (B,Lmax,dr); ``pos``
+    an int or a per-lane (B,) tensor (see :func:`gqa_decode`).  The caches
+    are updated in place and returned."""
+    b = x.shape[0]
+    h, kvr = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    per_lane = torch.is_tensor(pos)
+    if per_lane:
+        ang = L.rope_freqs(dr, cfg.rope_theta, pos)[:, None, :]
+    else:
+        ang = L.rope_freqs(dr, cfg.rope_theta,
+                           torch.full((1,), pos, device=x.device))
+    q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"], L.linear(p["wq_a"], x)))
+    q = q.reshape(b, 1, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], L.apply_rope(q[..., dn:], ang)
+    kv = L.linear(p["wkv_a"], x)
+    c_kv = L.rmsnorm(p["kv_norm"], kv[..., :kvr])                 # (B,1,kvr)
+    k_rope = L.apply_rope(kv[..., None, kvr:], ang)[:, :, 0]      # (B,1,dr)
+    if per_lane:
+        lanes = torch.arange(b, device=x.device)
+        c_kv_cache[lanes, pos] = c_kv[:, 0].to(c_kv_cache.dtype)
+        k_rope_cache[lanes, pos] = k_rope[:, 0].to(k_rope_cache.dtype)
+    else:
+        c_kv_cache[:, pos] = c_kv[:, 0].to(c_kv_cache.dtype)
+        k_rope_cache[:, pos] = k_rope[:, 0].to(k_rope_cache.dtype)
+    # Absorb wkv_b's key half into the query: q_lat (B,1,H,kvr).
+    wkv_b = p["wkv_b"]["w"].reshape(kvr, h, dn + dv).to(x.dtype)
+    w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_k)
+    ckv = c_kv_cache.to(x.dtype)
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope,
+                             k_rope_cache.to(x.dtype))) * (dn + dr) ** -0.5
+    k_pos = torch.arange(c_kv_cache.shape[1], device=x.device)
+    lim = pos[:, None, None, None] if per_lane else pos
+    logits = logits.float().masked_fill(k_pos > lim, NEG_INF)
+    pr = torch.softmax(logits, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv)
+    o = torch.einsum("bqhr,rhd->bqhd", o_lat, w_v)
+    out = L.linear(p["wo"], o.reshape(b, 1, h * dv))
+    return out, c_kv_cache, k_rope_cache

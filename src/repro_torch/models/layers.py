@@ -3,9 +3,9 @@
 
 ``init_*`` builds a parameter dict (optionally with a stacked leading
 layer dim ``L``, the layout the JAX package scans over), ``*_apply`` and
-the plain names consume it.  Init draws on the CPU from an explicit
-``torch.Generator`` (so the values do not depend on the device), then
-moves to ``device`` (default: the card).  ``rmsnorm`` and ``apply_rope``
+the plain names consume it.  Init draws from an explicit
+``torch.Generator`` onto ``device`` (default: the card; see :func:`_draw`
+for how the card draws).  ``rmsnorm`` and ``apply_rope``
 compute in float32 and cast back to the input's type, as the JAX layers do.
 
 Conv layers go through ``repro_torch.core.conv2d`` and
@@ -25,9 +25,8 @@ from repro_torch.device import resolve_device
 
 def init_conv2d(generator: torch.Generator, c_in: int, c_out: int, k,
                 dtype=torch.float32, groups: int = 1, device=None):
-    """OIHW conv kernel with fan-in scaling; ``k`` is an int or (kh, kw).
-    Drawn on the CPU from ``generator`` (so the values do not depend on the
-    device), then moved to ``device`` (default: the card)."""
+    """OIHW conv kernel with fan-in scaling; ``k`` is an int or (kh, kw),
+    drawn from ``generator`` onto ``device`` (default: the card)."""
     kh, kw = (k, k) if isinstance(k, int) else k
     if c_in % groups or c_out % groups:
         raise ValueError(f"channels {c_in}->{c_out} not divisible by "
@@ -98,11 +97,35 @@ def _stack(shape, L):
     return tuple(shape) if L is None else (L, *shape)
 
 
+#: elements a CUDA draw makes at a time (1 GiB of float32).
+DRAW_CHUNK = 1 << 28
+
+
 def _draw(generator, shape, scale, dtype, device):
-    """``scale`` x a standard normal drawn on the CPU from ``generator`` (so
-    the values do not depend on the device), then moved to ``device``."""
-    w = torch.randn(shape, generator=generator, dtype=torch.float32)
-    return (w * scale).to(device=resolve_device(device), dtype=dtype)
+    """``scale`` x a standard normal of ``shape`` in ``dtype`` on ``device``.
+
+    On the CPU, float32 draws from ``generator`` itself.  On the card, a
+    CUDA generator seeded from one draw of ``generator`` fills the tensor,
+    allocated in ``dtype``, ``DRAW_CHUNK`` float32 elements at a time: the
+    28.4 B parameters of moonshot-v1-16b-a3b take 0.2 s on an H100, where
+    one host generator would draw them one after another, and no float32
+    copy of a whole leaf (34.7 GB for its experts) is ever made.  So the
+    values follow from the seed on each device, but differ between the CPU
+    and the card (the tests carry the JAX package's parameters across
+    instead)."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        w = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (w * scale).to(dtype)
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), DRAW_CHUNK):
+        n = min(DRAW_CHUNK, flat.numel() - start)
+        flat[start:start + n] = torch.randn(n, generator=gen,
+                                            device=dev) * scale
+    return out
 
 
 def init_linear(generator: torch.Generator, d_in: int, d_out: int, dtype,

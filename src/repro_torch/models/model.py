@@ -1,5 +1,6 @@
-"""Top-level LM API used by the server and the tests (counterpart of
-``repro.models.model``, the token path of the dense family):
+"""Top-level LM API used by the server, the trainer and the tests
+(counterpart of ``repro.models.model``, the token path of the dense and
+MoE families):
 
     model = build_model(cfg)
     params = model.init(generator, device)
@@ -9,12 +10,14 @@
 
 The parameter tree is key for key the JAX package's, so
 ``repro_torch.tree.params_from_numpy(jax_params)`` plugs straight in.  The
-head is tied to the embedding (an untied head, frontends and multi-token
-prediction come with ROADMAP A10).
+head is tied to the embedding or an untied ``lm_head``; ``forward``
+returns the MoE aux terms and, for a config with ``mtp_depth``, the
+multi-token-prediction logits.  Frontends come with ROADMAP A10.
 
 ``prefill`` is ONE causal pass over the prompt, whose attention runs the
-flash-attention kernel on the card; the JAX package computes the same
-result as a ``lax.scan`` of ``P`` decode steps.
+flash-attention kernel on the card (MoE layers at a capacity that drops
+no token); the JAX package computes the same result as a ``lax.scan`` of
+``P`` decode steps.
 """
 
 from __future__ import annotations
@@ -43,15 +46,24 @@ class Model:
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, device=None):
-    if not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: an untied LM head is not "
-                                  f"ported yet (ROADMAP A10)")
+    d = cfg.d_model
     params = {
-        "embed": L.init_embedding(generator, cfg.vocab, cfg.d_model,
-                                  cfg.dtype, device),
-        "final_norm": L.init_rmsnorm(cfg.d_model, cfg.dtype, device=device),
+        "embed": L.init_embedding(generator, cfg.vocab, d, cfg.dtype, device),
+        "final_norm": L.init_rmsnorm(d, cfg.dtype, device=device),
     }
     params.update(T.init_stacks(generator, cfg, device))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_linear(generator, d, cfg.vocab, cfg.dtype,
+                                          device=device)
+    if cfg.mtp_depth:
+        params["mtp"] = {
+            "proj": L.init_linear(generator, 2 * d, d, cfg.dtype,
+                                  device=device),
+            "block": T.init_attn_block(generator, cfg, cfg.mtp_depth,
+                                       device=device),
+            "norm_h": L.init_rmsnorm(d, cfg.dtype, device=device),
+            "norm_e": L.init_rmsnorm(d, cfg.dtype, device=device),
+        }
     return params
 
 
@@ -59,12 +71,37 @@ def _device(params) -> torch.device:
     return params["embed"]["w"].device
 
 
+def _lm_head(params, cfg: ArchConfig, x):
+    if cfg.tie_embeddings:
+        return L.unembed(params["embed"], x)
+    return L.linear(params["lm_head"], x)
+
+
 def forward(params, batch, cfg: ArchConfig):
-    """``batch["tokens"]`` (B, L) -> (logits (B, L, V), aux {})."""
+    """``batch["tokens"]`` (B, L) -> (logits (B, L, V), aux): ``moe_lb`` and
+    ``moe_z`` summed over the MoE layers, and ``mtp_logits`` (B, L, V) for
+    a config with ``mtp_depth``; ``{}`` for the dense family."""
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.adtype)
-    x = T.forward_stacks(params, x, cfg)
+    x, aux = T.forward_stacks(params, x, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x), {}
+    logits = _lm_head(params, cfg, x)
+    if cfg.mtp_depth and "tokens" in batch:
+        aux = dict(aux, mtp_logits=_mtp_forward(params, batch, x, cfg))
+    return logits, aux
+
+
+def _mtp_forward(params, batch, h, cfg: ArchConfig):
+    """DeepSeek-V3 multi-token prediction (depth 1, the JAX package's
+    simplified structure): h'_t = W[norm(h_t); norm(E(t_{t+1}))] -> one
+    block without MoE -> the shared head, predicting token t+2."""
+    p = params["mtp"]
+    nxt = torch.roll(batch["tokens"], -1, dims=1)
+    e = L.embed(params["embed"], nxt).to(h.dtype)
+    hcat = torch.cat([L.rmsnorm(p["norm_h"], h, cfg.norm_eps),
+                      L.rmsnorm(p["norm_e"], e, cfg.norm_eps)], dim=-1)
+    hm = L.linear(p["proj"], hcat)
+    hm = T.attn_block(T._layers(p["block"])[0], hm, cfg)[0]
+    return _lm_head(params, cfg, hm)
 
 
 def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
@@ -76,29 +113,55 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     x = L.embed(params["embed"], tokens[:, None]).to(cfg.adtype)
     x, cache = T.decode_stacks(params, cache, x, pos, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x)[:, 0], cache
+    return _lm_head(params, cfg, x)[:, 0], cache
 
 
 def prefill(params, tokens, cfg: ArchConfig, max_len: int):
     """tokens (B, P) -> (logits of position P - 1 (B, V), cache).
 
     One causal pass over the prompt: each layer's rope'd keys and values
-    go to cache positions ``[0, P)`` and the rest of the ``max_len`` cache
-    stays zero -- what the JAX package's scan of ``P`` decode steps
-    returns.  The head runs on the last position only."""
+    (MLA: normed latents and rope'd shared keys) go to cache positions
+    ``[0, P)`` and the rest of the ``max_len`` cache stays zero -- what the
+    JAX package's scan of ``P`` decode steps returns.  MoE layers run at
+    capacity ``B * P``, which drops no token, as the scan's steps do.  The
+    head runs on the last position only."""
     b, plen = tokens.shape
     if not 1 <= plen <= max_len:
         raise ValueError(f"prefill: prompt of {plen} tokens for a cache of "
                          f"{max_len}")
     cache = T.init_cache(cfg, b, max_len, _device(params))
     x = L.embed(params["embed"], tokens).to(cfg.adtype)
-    x = T.forward_stacks(params, x, cfg, cache)
+    x, _ = T.forward_stacks(params, x, cfg, cache, capacity=b * plen)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params["embed"], x)[:, 0], cache
+    return _lm_head(params, cfg, x)[:, 0], cache
 
 
 def count_params(params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
+
+
+def count_active_params(params, cfg: ArchConfig) -> int:
+    """MoE: the routed experts' ``(..., E, ., .)`` weights count at
+    ``top_k / E`` of their size (the JAX package's rule)."""
+    if not cfg.n_experts:
+        return count_params(params)
+    total = 0
+
+    def walk(tree, path):
+        nonlocal total
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        if ("moe" in path and path[-2:] != ("router", "w")
+                and any(k in ("wi", "wg", "wo") for k in path)
+                and "shared" not in path and tree.dim() >= 3
+                and tree.shape[-3] == cfg.n_experts):
+            total += tree.numel() * cfg.moe_top_k // cfg.n_experts
+        else:
+            total += tree.numel()
+    walk(params, ())
+    return total
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -114,7 +177,5 @@ def build_model(cfg: ArchConfig) -> Model:
         prefill=lambda params, tokens, max_len: prefill(
             params, tokens, cfg, max_len),
         param_count=count_params,
-        # A token activates every parameter of the dense family (the MoE
-        # share of the JAX package's count comes with ROADMAP A10).
-        active_param_count=count_params,
+        active_param_count=lambda p: count_active_params(p, cfg),
     )

@@ -1,12 +1,14 @@
 """The CUDA kernels on the card: each tap-GEMM kernel, ``matmul`` and
-``flash_attention`` against its plain version, a prefill's one kernel
-launch per layer against a lockstep scan of decode steps, ``conv2d`` under ``pallas``, ``traditional`` and
-``bp_im2col`` against ``lax``, ``conv2d_transpose`` against its ``lax``
-materialization, determinism of the split-K sums, launch counting, 20
-training steps against ``lax``, the measured autotuner (every candidate
-plan against the plain version, tuning from inside ``backward``, and a
-``cached`` process served only hits), the flash wrapper's refusal of a
-tensor that requires grad, and one full-width LM train step.
+``flash_attention`` against its plain version (head dims up to 192), a
+prefill's one kernel launch per layer against a lockstep scan of decode
+steps (SmolLM-360M, and the MoE family with GQA and MLA), ``conv2d``
+under ``pallas``, ``traditional`` and ``bp_im2col`` against ``lax``,
+``conv2d_transpose`` against its ``lax`` materialization, determinism
+of the split-K sums, launch counting, 20 training steps against ``lax``,
+the measured autotuner (every candidate plan against the plain version,
+tuning from inside ``backward``, and a ``cached`` process served only
+hits), the flash wrapper's refusal of a tensor that requires grad, and
+one full-width LM train step.
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -419,6 +421,15 @@ FLASH_CASES = [
     (1, 3, 1, 77, 130, 100, False, torch.bfloat16),
     (1, 6, 2, 256, 1024, 64, True, torch.bfloat16),
     (1, 15, 5, 1, 1024, 64, True, torch.bfloat16),
+    # D up to 192 (DeepSeek-V3 MLA's qk_nope + qk_rope): causal and ragged,
+    # Lq < Lk, full with GQA, and rows of D = 180 that are not 16-byte
+    # aligned.
+    (1, 8, 8, 300, 300, 192, True, torch.bfloat16),
+    (1, 8, 8, 300, 300, 192, True, torch.float32),
+    (1, 4, 4, 64, 256, 192, True, torch.bfloat16),
+    (1, 4, 4, 64, 256, 192, True, torch.float32),
+    (1, 4, 2, 100, 130, 160, False, torch.float32),
+    (1, 4, 2, 77, 130, 180, True, torch.bfloat16),
 ]
 
 
@@ -453,9 +464,11 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention(q, q.bfloat16(), q.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3), q)
-    wide = torch.zeros(1, 2, 8, 160, device=cuda)
+    wide = torch.zeros(1, 2, 8, 200, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(wide.bfloat16(), wide.bfloat16(), wide.bfloat16())
 
 
 def test_flash_attention_refuses_a_tensor_that_requires_grad(cuda):
@@ -534,6 +547,32 @@ def test_prefill_launches_the_kernel_once_per_layer(cuda):
     _close(logits, want)
     for key in ("k", "v"):
         _close(cache["blocks"][key], scan["blocks"][key])
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_prefill_launches_the_kernel_once_per_layer(cuda, arch):
+    """The MoE family's one-pass prefill (GQA, or MLA at its smoke head dim
+    24) against the lockstep decode scan on the card, at the smoke config
+    in float32: one launch per layer, none in the scan, logits and every
+    layer's cache within the float32 tolerance."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config(arch)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 300),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    reset_launch_counts()
+    logits, cache = M.prefill(params, toks, cfg, 304)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    scan = T.init_cache(cfg, 2, 304, cuda)
+    for t in range(toks.shape[1]):
+        want, scan = M.decode_step(params, scan, toks[:, t], t, cfg)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    _close(logits, want)
+    for name in cache:
+        for key in cache[name]:
+            _close(cache[name][key], scan[name][key])
 
 
 #: input grads of each variant and copy width, as (x shape, w shape, conv

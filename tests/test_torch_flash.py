@@ -2,9 +2,9 @@
 version (``repro_torch.kernels.ref.flash_attention_ref``, which the wrapper
 returns for CPU tensors) against the Pallas ``flash_attention`` kernel in
 interpret mode and against ``repro.kernels.ref.flash_attention_ref`` --
-causal and full, ragged lengths, fewer queries than keys, and grouped
-key/value heads (against JAX on repeated K/V) -- all within 1e-5 in
-float32.  The CUDA kernel itself is held against the plain version on the
+causal and full, ragged lengths, fewer queries than keys, grouped
+key/value heads (against JAX on repeated K/V) and head dims up to 192 --
+all within 1e-5 in float32.  The CUDA kernel itself is held against the plain version on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import numpy as np
@@ -31,6 +31,9 @@ CASES = [
     (1, 2, 2, 1, 77, 32, True),          # one query row (decode-like)
     (1, 6, 2, 96, 96, 16, True),         # GQA: 3 query heads per KV head
     (2, 4, 1, 40, 72, 16, False),        # GQA (MQA), full attention
+    # MLA's head dim (qk_nope 128 + qk_rope 64), the card's widest instance
+    (1, 2, 2, 130, 130, 192, True),
+    (1, 4, 2, 48, 160, 192, True),       # Lq < Lk, GQA
 ]
 
 

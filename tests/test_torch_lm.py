@@ -17,13 +17,17 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import deepseek_v3_671b as jdeepseek  # noqa: E402
 from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.configs import moonshot_v1_16b_a3b as jmoonshot  # noqa: E402
 from repro.configs import smollm_360m as jsmol  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
 from repro.models import model as jM  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.configs import deepseek_v3_671b as tdeepseek  # noqa: E402
+from repro_torch.configs import moonshot_v1_16b_a3b as tmoonshot  # noqa: E402,E501
 from repro_torch.configs import smollm_360m as tsmol  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -55,22 +59,44 @@ def params(jparams):
     return params_from_numpy(jparams, device="cpu")
 
 
-@pytest.mark.parametrize("conf", ["FULL", "SMOKE"])
-def test_configs_match_the_jax_package(conf):
-    mine, theirs = getattr(tsmol, conf), getattr(jsmol, conf)
+#: (port module, JAX module, FULL or SMOKE); SmolLM's ids stay the bare
+#: config name.
+CONFIGS = [pytest.param(mine, theirs, conf,
+                        id=conf if mine is tsmol else f"{name}-{conf}")
+           for name, mine, theirs in (("smollm", tsmol, jsmol),
+                                      ("moonshot", tmoonshot, jmoonshot),
+                                      ("deepseek", tdeepseek, jdeepseek))
+           for conf in ("FULL", "SMOKE")]
+
+
+@pytest.mark.parametrize("mine,theirs,conf", CONFIGS)
+def test_configs_match_the_jax_package(mine, theirs, conf):
+    mine, theirs = getattr(mine, conf), getattr(theirs, conf)
     for f in dataclasses.fields(mine):
         assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
     assert str(mine.dtype).split(".")[-1] == str(theirs.dtype)
     assert str(mine.adtype).split(".")[-1] == str(theirs.adtype)
+    assert [mine.is_moe_layer(i) for i in range(mine.n_layers)] \
+        == [theirs.is_moe_layer(i) for i in range(theirs.n_layers)]
 
 
 def test_only_smollm_is_registered():
+    """The registry holds the dense SmolLM-360M and the MoE family, by
+    module name and dashed alias; a family still unported (SSM, hybrid)
+    raises, in the registry and in the model."""
     assert configs.get_config("smollm_360m") is tsmol.FULL
-    with pytest.raises(NotImplementedError, match="A10"):
-        configs.get_config("mamba2-370m")
-    with pytest.raises(NotImplementedError, match="A10"):
-        M.init_params(torch.Generator(), dataclasses.replace(
-            CFG, family="moe"), "cpu")
+    for mod in (tmoonshot, tdeepseek):
+        name = mod.__name__.rsplit(".", 1)[1]
+        assert configs.get_config(name) is mod.FULL \
+            is configs.get_config(name.replace("_", "-"))
+        assert configs.get_smoke_config(mod.FULL.name) is mod.SMOKE
+    for name in ("mamba2-370m", "recurrentgemma-9b"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            configs.get_config(name)
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            M.init_params(torch.Generator(), dataclasses.replace(
+                CFG, family=family), "cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         A._sdpa(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
                 torch.zeros(1, 4, 2, 8), causal=True, window=2)
