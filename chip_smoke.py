@@ -11,12 +11,13 @@ PATH):
   2. build      -- ``nvcc`` builds the three CUDA sources of
                    ``src/repro_torch/csrc`` (in parallel); the registers,
                    spills and shared memory of each entry of the
-                   redesigned kernels (the three tap GEMMs, the four
-                   ``matmul`` tiles, the bf16 flash attention at head dims
-                   64, 128 and 192); the blocks
-                   an SM holds of each input-grad, weight-grad and
+                   redesigned kernels (the three tap GEMMs, float32 and
+                   bf16 operands, the four ``matmul`` tiles, the bf16
+                   flash attention at head dims 64, 128 and 192); the
+                   blocks an SM holds of each input-grad, weight-grad and
                    ``matmul`` instance (the occupancy calculator) against
-                   the number their split plans assume.
+                   the number their split plans assume (float32; bf16
+                   reported).
   3. kernels    -- for each of the paper's Table II layers (batch 2, float32),
                    the three convs of the CNN's training run (batch 32), the
                    autoencoder's two encoder convs and the mirror convs of
@@ -35,7 +36,15 @@ PATH):
                    the same CUDA-graph replay), the weight grad's variant and
                    split count (``wgrad_plan``); all three are bit-equal run
                    to run.
-  4. matmul     -- the same for the ``matmul`` kernel at every lowered GEMM
+  4. kernels_bf16 -- the same for the tap kernels' bf16-operand instances
+                   at Mamba2-370M's depthwise causal conv (2,304 groups of
+                   one channel, 4 taps; its training shape, 8 x 512, and a
+                   1,024-token prefill) and Table II layer 4 cast to bf16:
+                   the forward and the input grad return bf16 (held to
+                   ``BF16_TOL``), the weight grad float32 (``REL_TOL``);
+                   library = cuDNN's grouped conv (causal pad ahead), with
+                   each call's plan and grid z.
+  5. matmul     -- the same for the ``matmul`` kernel at every lowered GEMM
                    of the ``traditional`` and ``bp_im2col`` engines at the
                    Table II and CNN shapes, at every GEMM the autoencoder
                    runs under ``traditional`` (the decoder's stride-1 GEMM
@@ -44,19 +53,19 @@ PATH):
                    (``matmul_plan``) and bit-equal run to run.  Its plain
                    version and its library call are one and the same:
                    ``torch.matmul`` with TF32 off.
-  5. layers     -- each Table II layer through ``conv2d(x, w, spec, p)`` and
+  6. layers     -- each Table II layer through ``conv2d(x, w, spec, p)`` and
                    ``.backward()`` for p in (pallas, traditional, bp_im2col),
                    against ``policy="lax"``; each kernel launches exactly
                    once per pass; two split-K weight grads are bit-equal;
                    the card memory the cached bp_im2col gather maps hold
                    after it, before they are released.
-  6. transposed -- the autoencoder's two decoder layers and the mirror of
+  7. transposed -- the autoencoder's two decoder layers and the mirror of
                    Table II layer 2 through ``conv2d_transpose`` under
                    pallas and traditional, against the ``lax``
                    materialization, for y, dx and dw; the pallas forward is
                    one ``tap_gemm_phased`` launch, the traditional one
                    ``matmul``.
-  7. train      -- ``python -m repro_torch.train.cnn_bp --policy pallas`` at
+  8. train      -- ``python -m repro_torch.train.cnn_bp --policy pallas`` at
                    its defaults (200 steps, batch 32) must reach eval
                    accuracy > 0.9 with all three tap kernels launched; its
                    first 20 losses agree with ``lax`` and with
@@ -65,7 +74,7 @@ PATH):
                    ``python -m repro_torch.train.autoencoder_bp --policy
                    pallas`` at its defaults (200 steps, batch 16) must reach
                    MSE < 0.05; 20 steps under traditional match pallas.
-  8. autotune   -- the measured autotuner, over fresh temporary plan caches:
+  9. autotune   -- the measured autotuner, over fresh temporary plan caches:
                    at each shape of the kernels phase, every candidate plan
                    of each tap kernel (``ops.plan_candidates``) against the
                    plain version (``REL_TOL``) with its device time, and
@@ -74,7 +83,7 @@ PATH):
                    --autotune measure`` and ``--autotune cached``: the
                    cached run is all hits, ``torch.equal`` losses, eval
                    accuracy > 0.9 and the ``off`` run's launches.
-  9. flash      -- the ``flash_attention`` kernel against its plain version
+ 10. flash      -- the ``flash_attention`` kernel against its plain version
                    (``max |kernel - plain| / max |plain|``, tolerance
                    ``FLASH_TOL`` in float32, ``BF16_TOL`` in bf16) at the
                    serving shapes, SmolLM-360M's 15 query and 5 KV heads of
@@ -87,32 +96,35 @@ PATH):
                    and float32); two runs are bit-equal; kernel, plain and
                    ``F.scaled_dot_product_attention`` device times (timed
                    only: the port never calls it), host time, bound.
- 10. serve      -- SmolLM-360M at full width, initialised from a seed: the
+ 11. serve      -- SmolLM-360M at full width, initialised from a seed: the
                    port's prefill (one causal pass, the kernel in every
                    layer) against a lockstep scan of ``decode_step`` (plain
                    dense attention) on one 1,024-token prompt, logits and
-                   every layer's cache, in bf16 (``SERVE_BF16_TOL``) and,
-                   at ``SERVE_F32_LAYERS`` layers, float32
-                   (``SERVE_F32_TOL``); the host wall time and the
-                   device time (``torch.profiler``) of one bf16 prefill and
-                   one decode step of 4 lanes; then
-                   ``python -m repro_torch.launch.serve --full`` for both
-                   engines (8 requests of 1,024 tokens, 32 new, batch 4):
-                   every request ``ok`` with 32 tokens, the continuous engine
-                   launches the kernel 32 x admitted times and the static
-                   engine none; prefill s per request, decode ms per step,
+                   every layer's cache, in bf16 at ``SERVE_BF16_LAYERS``
+                   layers (``SERVE_BF16_TOL``) and, at ``SERVE_F32_LAYERS``
+                   layers, float32 (``SERVE_F32_TOL``); the host wall time
+                   and the device time (``torch.profiler``) of one bf16
+                   prefill and one decode step of 4 lanes, all 32 layers;
+                   then ``python -m repro_torch.launch.serve --full`` for
+                   both engines (``SERVE_ARGV``: continuous, 8 requests of
+                   1,024 tokens, 32 new, batch 4; static, 8 of 128 tokens,
+                   8 new): every request ``ok`` with its tokens, the
+                   continuous engine launches the kernel 32 x admitted
+                   times and the static engine none; prefill s per
+                   request, decode ms per step,
                    tokens/s, p50 latency; in float32 (``SERVE_F32_LAYERS``
                    layers) both engines' greedy tokens agree on the same 8
                    requests (static in one wave of 8, continuous on 4
                    lanes; where one differs, the first differing step's
                    top-2 logit margin must be under ``MARGIN_TOL``).
- 11. serve_moe  -- the MoE family: moonshot-v1-16b-a3b at full width (48
+ 12. serve_moe  -- the MoE family: moonshot-v1-16b-a3b at full width (48
                    layers, 28.4 B parameters, bf16, drawn on the card from
                    seed 0, with its init seconds): prefill vs the decode
-                   scan on a ``MOE_PROMPT``-token prompt (largest error
-                   within ``MOE_BF16_TOL``, the layers up to the first
-                   MoE layer's cache within ``SERVE_BF16_TOL``; the median
-                   per-position error reported; 48 launches in the
+                   scan on a ``MOE_PROMPT``-token prompt at its first
+                   ``MOE_SCAN_LAYERS`` layers (largest error within
+                   ``MOE_BF16_TOL``, the layers up to the first MoE
+                   layer's cache within ``SERVE_BF16_TOL``; the median
+                   per-position error reported; one launch a layer in the
                    prefill, none in the scan); the device time of one
                    1,024-token prefill and one decode step of 4 lanes;
                    ``launch.serve --full --arch moonshot-v1-16b-a3b`` under
@@ -128,7 +140,25 @@ PATH):
                    (``MLA_BF16_TOL``; 4 launches, none in the scan), and
                    the continuous engine on 4 requests of 512 tokens, 16
                    new (4 launches a request).
- 12. lm_train   -- ``python -m repro_torch.launch.train --arch smollm-360m``
+ 13. serve_ssm  -- Mamba2-370M at full width (48 layers, 368,227,840
+                   parameters, bf16, drawn on the card from seed 0) under
+                   ``conv_policy="pallas"``: the one-pass prefill (chunked
+                   SSD with a ragged last chunk, the conv on ``tap_gemm``:
+                   48 bf16 launches) vs the decode scan (none) on a
+                   ``MAMBA2_PROMPT``-token prompt, logits and each layer's
+                   SSM state and conv inputs (largest error within
+                   ``SSM_BF16_TOL``, the first ``SSM_EARLY_LAYERS`` within
+                   ``SERVE_BF16_TOL``); the device time of a 1,024-token
+                   prefill and a 4-lane decode step (no launch); float32 at
+                   ``SSM_F32_LAYERS`` layers: prefill vs scan
+                   (``SERVE_F32_TOL``) and greedy tokens under ``pallas``
+                   and ``auto``; ``launch.serve --full --arch mamba2-370m``
+                   under ``--conv-policy pallas`` and ``auto``, both engines
+                   (continuous: 8 requests of 1,024 tokens, 32 new, batch
+                   4, 48 ``tap_gemm`` launches a request under ``pallas``;
+                   static: 8 of 128 tokens, 8 new, none), tokens/s, p50,
+                   peak memory.
+ 14. lm_train   -- ``python -m repro_torch.launch.train --arch smollm-360m``
                    at the published widths (bf16, seed 0, batch 8, seq 512,
                    ``--lr`` 3e-4, the guard on): (a) 30 steps with
                    checkpoints every 15; (b) the same stopped after 15 and
@@ -143,10 +173,22 @@ PATH):
                    falls; no kernel launched.  Median step time, tokens/s,
                    peak memory, and one profiled step's device-busy share
                    (last: the profiler slows later kernels).
- 13. summary    -- every kernel's launches on each path, each path run with
+ 15. lm_train_ssm -- ``python -m repro_torch.launch.train --arch
+                   mamba2-370m --conv-policy pallas`` at the published
+                   widths (bf16, seed 0, batch 8, seq 512, guard on, 6
+                   steps): each layer's conv on the three tap kernels'
+                   bf16 instances (``tap_gemm`` twice a layer a step, with
+                   remat; the other two once), no step dropped; the first
+                   loss and grad norm against the same run under ``auto``
+                   (``LM_SSM_BF16_TOL``, ``LM_SSM_GNORM_TOL``; no launch);
+                   float32 at ``SSM_F32_LAYERS`` layers, 5 steps of
+                   ``pallas`` against ``lax`` (``LOSS_TOL``); median step
+                   time, tokens/s, peak memory.
+ 16. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
-Then a ``{"kernels": [...]}`` line, and last
+Then a ``{"kernels": [...]}`` line (the five kernels, and the tap
+kernels' bf16 instances at Mamba2's training shape), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
 it also does so without a CUDA device or without the package beside it.
@@ -210,6 +252,28 @@ MOE_BF16_TOL = 0.5
 #: reaches the cache.  A prefill that caches the un-normed latent reads
 #: 0.088, one that skips rope on ``k_rope`` 1.9 (PERF.md, §6).
 MLA_BF16_TOL = 5e-2
+#: Mamba2-370M's bf16 prefill (chunked SSD, the conv on ``tap_gemm``) vs
+#: its decode scan (the O(1) recurrence in bf16, the conv as a 4-tap sum),
+#: as max |a - b| / max |b| over the last logits and each layer's SSM state
+#: and conv inputs: the same computation with bf16 roundings at other
+#: places, compounding layer after layer.  On the H100 layer 0 reads 0.008
+#: (its conv inputs 0.0: no rounding precedes them), the first
+#: ``SSM_EARLY_LAYERS`` at most 0.018, the worst layer 0.167 and the
+#: logits 0.095.  So the largest error is held to this, the first layers
+#: to ``SERVE_BF16_TOL``; float32 (``SSM_F32_LAYERS`` layers) holds
+#: ``SERVE_F32_TOL``.  A prefill whose ragged last chunk decays the state
+#: (its mask skipped) reads 1.0 on the SSM state, one whose conv state
+#: drops its last input 1.7 on the conv inputs (PERF.md, §6).
+SSM_BF16_TOL = 0.3
+SSM_EARLY_LAYERS = 4
+#: Mamba2-370M's first training loss and first gradient norm under
+#: ``pallas`` (the tap kernels' bf16 instances: float32 sums rounded once
+#: to bf16) vs ``auto`` (the library's bf16 grouped conv), relative.  On
+#: the H100 the losses are equal and the norms 6.3e-5 apart; a forward
+#: kernel that reads its taps reversed reads 4.8e-4 on the loss and
+#: 8.7e-3 on the norm (PERF.md, §6).
+LM_SSM_BF16_TOL = 1e-4
+LM_SSM_GNORM_TOL = 1e-3
 #: the float32 serve checks run a quarter of the published depth (every
 #: width kept): float32 GEMMs and 1,024 lockstep scan steps took ~100 s at
 #: 32 layers and ~51 s at 16, and the script keeps its time with the
@@ -321,13 +385,14 @@ def bound(flops: float, nbytes_: float,
 
 
 #: kernel -> pieces of the mangled names of the entries of its redesigned
-#: kernels (the three tap GEMMs, the four ``matmul`` tiles, the bf16
+#: kernels (the three tap GEMMs, float32 and bf16 instances,
+#: the four ``matmul`` tiles, the bf16
 #: tensor-core flash attention: head dims 64, 128 and 192, each with and
 #: without 16-byte rows), whose registers, spills and shared memory the
 #: build phase reports, and how many entries each has.
-REDESIGNED = {"tap_gemm": (("3fwd6kernel",), 4),
-              "tap_gemm_phased": (("6phased6kernel",), 12),
-              "tap_wgrad": (("5wgrad6kernel",), 8),
+REDESIGNED = {"tap_gemm": (("3fwd6kernel",), 8),
+              "tap_gemm_phased": (("6phased6kernel",), 24),
+              "tap_wgrad": (("5wgrad6kernel",), 16),
               "matmul": (("4gemm6kernel", "4tall6kernel", "6mirror6kernel"),
                          22),
               "flash_attention": (("flash_bf16_kernel",), 6)}
@@ -378,22 +443,27 @@ def plan_occupancy(tg, mm) -> list[dict]:
     instance, from the card's occupancy calculator, beside the ``per_sm``
     the plans assume for its variant."""
     rows = []
-    for variant, tile in tg.PHASED_TILES.items():
-        for vec_a in (False, True):
-            for vec_b in (False, True):
-                rows.append({"kernel": "tap_gemm_phased", "variant": variant,
-                             "in": "float32", "vec_a": vec_a, "vec_b": vec_b,
-                             "plan_per_sm": tile.per_sm,
-                             "blocks_per_sm": tg.phased_blocks_per_sm(
-                                 variant, vec_a, vec_b)})
-    for variant, tile in tg.WGRAD_TILES.items():
-        for vec_a in (False, True):
-            for vec_b in (False, True):
-                rows.append({"kernel": "tap_wgrad", "variant": variant,
-                             "in": "float32", "vec_a": vec_a, "vec_b": vec_b,
-                             "plan_per_sm": tile.per_sm,
-                             "blocks_per_sm": tg.wgrad_blocks_per_sm(
-                                 variant, vec_a, vec_b)})
+    for bf16 in (False, True):
+        for variant, tile in tg.PHASED_TILES.items():
+            for vec_a in (False, True):
+                for vec_b in (False, True):
+                    rows.append({
+                        "kernel": "tap_gemm_phased", "variant": variant,
+                        "in": "bfloat16" if bf16 else "float32",
+                        "vec_a": vec_a, "vec_b": vec_b,
+                        "plan_per_sm": tile.per_sm,
+                        "blocks_per_sm": tg.phased_blocks_per_sm(
+                            variant, vec_a, vec_b, bf16)})
+        for variant, tile in tg.WGRAD_TILES.items():
+            for vec_a in (False, True):
+                for vec_b in (False, True):
+                    rows.append({
+                        "kernel": "tap_wgrad", "variant": variant,
+                        "in": "bfloat16" if bf16 else "float32",
+                        "vec_a": vec_a, "vec_b": vec_b,
+                        "plan_per_sm": tile.per_sm,
+                        "blocks_per_sm": tg.wgrad_blocks_per_sm(
+                            variant, vec_a, vec_b, bf16)})
     for variant, tile in mm.VARIANTS.items():
         for in_bf16, vec_a, vec_b in ((False, False, False),
                                       (False, False, True),
@@ -411,7 +481,8 @@ def plan_occupancy(tg, mm) -> list[dict]:
 
 def check_occupancy(rows: list[dict]) -> None:
     """Each plan's ``per_sm`` is the least the card holds of the variant's
-    float32 instances."""
+    float32 instances (the bf16 ones, with half the shared memory, are
+    reported)."""
     for kernel, variant in {(r["kernel"], r["variant"]) for r in rows}:
         mine = [r for r in rows if (r["kernel"], r["variant"], r["in"])
                 == (kernel, variant, "float32")]
@@ -422,47 +493,66 @@ def check_occupancy(rows: list[dict]) -> None:
               f"{[r['blocks_per_sm'] for r in mine]}")
 
 
-def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
-    """Each kernel at each shape against its plain version.  ``shapes``
-    holds ``(label, per-group ConvDims, groups, summed)``; the rows with
-    ``summed`` make up the totals of the final ``kernels`` line."""
+def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev,
+                  dtype=None, phase: str = "kernels"):
+    """Each kernel at each shape against its plain version, on operands of
+    ``dtype`` (default float32; bf16 runs the bf16 instances, whose
+    forward and input grad are held to ``BF16_TOL``: their outputs are
+    rounded to bf16).  ``shapes`` holds ``(label, per-group ConvDims,
+    groups, summed)``; the rows with ``summed`` make up the totals of the
+    final ``kernels`` line."""
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
     agg = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0.0,
-               "bytes": 0.0, "max_abs_err": 0.0} for k in TAP_KERNELS}
+               "bytes": 0.0, "max_abs_err": 0.0, "peak": peak}
+           for k in TAP_KERNELS}
     for i, (layer, d, g, summed) in enumerate(shapes):
         gen = torch.Generator().manual_seed(i)
-        x = torch.randn(d.B, d.C * g, d.H_i, d.W_i, generator=gen).to(dev)
-        w = torch.randn(d.N * g, d.C, d.K_h, d.K_w, generator=gen).to(dev)
-        dy = torch.randn(d.B, d.N * g, d.H_o, d.W_o, generator=gen).to(dev)
+        x = torch.randn(d.B, d.C * g, d.H_i, d.W_i, generator=gen).to(dev,
+                                                                      dtype)
+        w = torch.randn(d.N * g, d.C, d.K_h, d.K_w, generator=gen).to(dev,
+                                                                      dtype)
+        dy = torch.randn(d.B, d.N * g, d.H_o, d.W_o, generator=gen).to(
+            dev, dtype)
         stride, pad = (d.s_h, d.s_w), (d.P_h, d.P_w)
+        xl = x                        # the library's input
+        if (d.p_h_hi, d.p_w_hi) != pad:
+            # asymmetric (Mamba2's causal) padding: padded ahead, as the
+            # library takes only symmetric pads
+            xl, pad = F.pad(x, (d.P_w, d.p_w_hi, d.P_h, d.p_h_hi)), (0, 0)
         macs = g * d.N * d.C          # per output pixel and tap
 
         src, wt, taps = ops.forward_operands(x, w, d, g)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fsplits = tg.forward_splits(d.B * d.H_o * d.W_o, d.N, len(taps), d.C,
+                                    sms, g)
         fwd = (lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
                lambda: ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o),
-               lambda: F.conv2d(x, w, stride=stride, padding=pad, groups=g),
+               lambda: F.conv2d(xl, w, stride=stride, padding=pad, groups=g),
                2.0 * d.B * d.H_o * d.W_o * macs * len(taps),
-               nbytes(src, wt), {"splits": tg.forward_splits(
-                   d.B * d.H_o * d.W_o, d.N, len(taps), d.C, sms, g)})
+               nbytes(src, wt), {"splits": fsplits,
+                                 "grid_z": fsplits * g})
         gsrc, ws, pp = ops.input_grad_operands(dy, w, d, g)
         counts = [len(t) for t in pp.phase_taps]
         n_taps = sum(counts)
         m_q = d.B * pp.n_qh * pp.n_qw
         dvariant, dsplits = tg.phased_plan(g, counts, d.N, d.C, m_q, sms)
-        slots = tg.phased_work(counts, d.N, dsplits,
-                               tg.PHASED_TILES[dvariant].step)[2]
+        work, _, slots = tg.phased_work(counts, d.N, dsplits,
+                                        tg.PHASED_TILES[dvariant].step)
         dgrad = (lambda: tg.tap_gemm_phased(gsrc, ws, pp.phase_taps, pp.n_qh,
                                             pp.n_qw),
                  lambda: ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps,
                                                  pp.n_qh, pp.n_qw),
-                 lambda: nn_grad.conv2d_input(x.shape, w, dy, stride=stride,
+                 lambda: nn_grad.conv2d_input(xl.shape, w, dy, stride=stride,
                                               padding=pad, groups=g),
                  2.0 * d.B * pp.n_qh * pp.n_qw * macs * n_taps,
                  # only the weight rows the taps read: the stacks of
                  # phases without taps are zeros the kernel never loads
-                 nbytes(gsrc) + 4 * n_taps * macs,
+                 nbytes(gsrc) + ws.element_size() * n_taps * macs,
                  {"active_phases": sum(1 for c in counts if c),
                   "variant": dvariant, "splits": dsplits,
+                  "grid_z": len(work) * g,
                   "partial_mbytes": 4 * slots * g * m_q * d.C / 1e6,
                   "operands_ms": time_ms(torch, lambda:
                                          ops.input_grad_operands(dy, w, d,
@@ -472,10 +562,11 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
                                         d.B * d.H_o * d.W_o, sms)
         wgrad = (lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
                  lambda: ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o),
-                 lambda: nn_grad.conv2d_weight(x, w.shape, dy, stride=stride,
+                 lambda: nn_grad.conv2d_weight(xl, w.shape, dy, stride=stride,
                                                padding=pad, groups=g),
                  2.0 * d.B * d.H_o * d.W_o * macs * len(wtaps),
-                 nbytes(wsrc, dyn), {"variant": variant, "splits": splits})
+                 nbytes(wsrc, dyn), {"variant": variant, "splits": splits,
+                                     "grid_z": splits * g})
 
         for name, (kern, plain, lib, flops, in_bytes, extra) in zip(
                 TAP_KERNELS, (fwd, dgrad, wgrad)):
@@ -488,10 +579,13 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
             check(bool(torch.equal(got, kern())),
                   f"{name} differs run to run at {layer}")
             by = in_bytes + nbytes(got)
-            b_s, b_by = bound(flops, by)
+            b_s, b_by = bound(flops, by, peak)
+            tol = BF16_TOL if bf16 and name != "tap_wgrad" else REL_TOL
             rec = {"kernel": name, "layer": layer, "groups": g,
+                   "dtype": str(dtype).split(".")[-1],
+                   "out_dtype": str(got.dtype).split(".")[-1],
                    "max_rel_err": err, "max_abs_err": abs_err,
-                   "tol": REL_TOL, "launches_per_call": launches,
+                   "tol": tol, "launches_per_call": launches,
                    "kernel_ms": time_ms(torch, kern),
                    "kernel_host_ms": host_ms(torch, kern),
                    "plain_ms": time_ms(torch, plain),
@@ -499,10 +593,13 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev):
                    "bound_us": b_s * 1e6, "bound_by": b_by,
                    "gflop": flops / 1e9, "mbytes": by / 1e6, **extra}
             rec["roofline_share"] = rec["bound_us"] / 1e3 / rec["kernel_ms"]
-            smoke.emit("kernels", **rec)
+            smoke.emit(phase, **rec)
             check(launches == 1, f"{name}: {launches} launches for one call")
-            check(err <= REL_TOL, f"{name} at {layer}: relative error {err} "
-                                  f"> {REL_TOL}")
+            check(got.dtype == (torch.float32 if name == "tap_wgrad"
+                                else dtype),
+                  f"{name}: a {got.dtype} output from {dtype} operands")
+            check(err <= tol, f"{name} at {layer} ({dtype}): relative error "
+                              f"{err} > {tol}")
             if not summed:
                 continue
             a = agg[name]
@@ -1041,8 +1138,19 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
     return first
 
 
-SERVE_ARGV = ["--full", "--requests", "8", "--prompt-len", "1024",
-              "--max-new", "32", "--max-batch", "4"]
+#: SmolLM-360M through the launcher: the continuous engine on 1,024-token
+#: prompts, the static engine (whose lockstep prefill is one decode step a
+#: token, 75 ms each on the H100's host) on 128-token prompts, as
+#: moonshot's; 1,024 took 158 s of the script's time (PERF.md, §6).
+SERVE_ARGV = {
+    "continuous": ["--full", "--requests", "8", "--prompt-len", "1024",
+                   "--max-new", "32", "--max-batch", "4"],
+    "static": ["--full", "--requests", "8", "--prompt-len", "128",
+               "--max-new", "8", "--max-batch", "4"]}
+#: the bf16 prefill-vs-scan check runs half of SmolLM's 32 layers, every
+#: width kept (its 1,024-step scan took 59 s at 32); the device times and
+#: the launcher run all 32.
+SERVE_BF16_LAYERS = 16
 
 
 def prefill_vs_scan(torch, M, T, cfg, params, prompt, dev):
@@ -1100,10 +1208,25 @@ def margin_at(torch, M, cfg, params, req, step, dev) -> float:
     return (top[0] - top[1]).item()
 
 
+def token_diffs(torch, M, cfg, params, runs_a, runs_b, dev) -> dict:
+    """Two runs of the same requests (each sorted by rid): how many got
+    identical greedy tokens, and for each that did not, the first
+    differing step's top-2 logit margin under ``cfg``."""
+    diffs = []
+    for a, b in zip(runs_a, runs_b):
+        if a.out != b.out:
+            step = next(i for i, (x, y) in enumerate(zip(a.out, b.out))
+                        if x != y)
+            diffs.append({"rid": a.rid, "step": step, "margin": margin_at(
+                torch, M, cfg, params, a, step, dev)})
+    return {"identical": sum(a.out == b.out for a, b in zip(runs_a, runs_b)),
+            "requests": len(runs_a), "differing": diffs,
+            "margin_tol": MARGIN_TOL}
+
+
 def engines_agree(torch, serve, M, cfg, params, prompt_len, max_new, dev):
     """8 requests through both engines (static in one wave of 8, continuous
-    on 4 lanes): how many got identical greedy tokens, and for each that
-    did not, the first differing step's top-2 logit margin."""
+    on 4 lanes): ``token_diffs`` of the two."""
     import numpy as np
     runs = {}
     for engine, cls in serve.ENGINES.items():
@@ -1116,17 +1239,8 @@ def engines_agree(torch, serve, M, cfg, params, prompt_len, max_new, dev):
                                             prompt_len).tolist(),
                 max_new=max_new))
         runs[engine] = sorted(eng.run(), key=lambda r: r.rid)
-    diffs = []
-    for a, b in zip(runs["static"], runs["continuous"]):
-        if a.out != b.out:
-            step = next(i for i, (x, y) in enumerate(zip(a.out, b.out))
-                        if x != y)
-            diffs.append({"rid": a.rid, "step": step, "margin": margin_at(
-                torch, M, cfg, params, a, step, dev)})
-    return {"identical": sum(a.out == b.out for a, b in
-                             zip(runs["static"], runs["continuous"])),
-            "requests": len(runs["static"]), "differing": diffs,
-            "margin_tol": MARGIN_TOL}
+    return token_diffs(torch, M, cfg, params, runs["static"],
+                       runs["continuous"], dev)
 
 
 def device_time(torch, fn, reps: int = 3) -> dict:
@@ -1171,29 +1285,31 @@ def phase_serve(smoke, torch, kernels, serve, M, T, dev):
                                 act_dtype="float32",
                                 n_layers=SERVE_F32_LAYERS)
     prompt = prompt_for(full, 1024)
-    for cfg, tol in ((full, SERVE_BF16_TOL), (cfg32, SERVE_F32_TOL)):
+    for cfg, tol in ((dataclasses.replace(full, n_layers=SERVE_BF16_LAYERS),
+                      SERVE_BF16_TOL), (cfg32, SERVE_F32_TOL)):
         params, info = init_timed(torch, serve, M, cfg, dev)
         prefill_check(smoke, "serve", torch, M, T, cfg, params, prompt, dev,
                       tol, check="prefill vs decode scan", **info)
-        if cfg is full:
-            # Where a request's time goes: one prefill of the prompt, and
-            # one decode step of a full batch of 4 lanes past it.
-            toks = torch.as_tensor([prompt], device=dev)
-            cache = T.init_cache(cfg, 4, len(prompt) + 34, dev)
-            nxt = toks[0, :4].clone()
-            pos = torch.full((4,), len(prompt), device=dev)
-            smoke.emit("serve", check="device time", dtype=cfg.param_dtype,
-                       prefill=device_time(torch, lambda: M.prefill(
-                           params, toks, cfg, len(prompt) + 34)),
-                       decode_step_batch4=device_time(
-                           torch, lambda: M.decode_step(params, cache, nxt,
-                                                        pos, cfg)))
         del params
         free_card(torch)
+    # Where a request's time goes: one prefill of the prompt, and one
+    # decode step of a full batch of 4 lanes past it.
+    params = serve.init_params(full, 0, dev)
+    toks = torch.as_tensor([prompt], device=dev)
+    cache = T.init_cache(full, 4, len(prompt) + 34, dev)
+    nxt = toks[0, :4].clone()
+    pos = torch.full((4,), len(prompt), device=dev)
+    smoke.emit("serve", check="device time", dtype=full.param_dtype,
+               prefill=device_time(torch, lambda: M.prefill(
+                   params, toks, full, len(prompt) + 34)),
+               decode_step_batch4=device_time(
+                   torch, lambda: M.decode_step(params, cache, nxt, pos,
+                                                full)))
+    del params, cache
+    free_card(torch)
 
     paths = serve_engines(smoke, "serve", torch, kernels, serve, full,
-                          {e: SERVE_ARGV for e in ("static", "continuous")},
-                          dev)
+                          SERVE_ARGV, dev)
     # The static engine serves the 8 requests in one wave of 8 (one
     # lockstep prefill, not two); the continuous one recycles 4 lanes.
     params = serve.init_params(cfg32, 0, dev)
@@ -1206,22 +1322,28 @@ def phase_serve(smoke, torch, kernels, serve, M, T, dev):
 
 
 def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
-                  dev) -> dict:
+                  dev, kernel: str = "flash_attention",
+                  per_request: int | None = None,
+                  label: str | None = None) -> dict:
     """``launch.serve.main(argv + ["--engine", engine])`` for each engine
     of ``argvs`` (8 requests each): every request ``ok`` with
     ``--max-new`` tokens; the continuous engine admits all 8 and launches
-    the kernel once a layer per request, the static engine (lockstep
-    prefill through the decode path) never; tokens/s, p50 latency, peak
-    memory.  Returns each engine's launches as ``"{phase} {engine}"``."""
+    ``kernel`` ``per_request`` times per request (default: once a layer,
+    in its one-pass prefill), the static engine (lockstep prefill through
+    the decode path) never; tokens/s, p50 latency, peak memory.  Returns
+    each engine's launches as ``"{label} {engine}"`` (label: the
+    phase)."""
     paths = {}
+    label = label or phase
+    per_request = cfg.n_layers if per_request is None else per_request
     for engine, argv in argvs.items():
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         res = serve.main(argv + ["--engine", engine])
-        counts = paths[f"{phase} {engine}"] = kernels.launch_counts()
+        counts = paths[f"{label} {engine}"] = kernels.launch_counts()
         s, reqs = res["summary"], res["requests"]
         max_new = int(argv[argv.index("--max-new") + 1])
-        smoke.emit(phase, engine=engine, config=cfg.name,
+        smoke.emit(phase, engine=engine, config=cfg.name, path=label,
                    dtype=cfg.param_dtype, requests=len(reqs),
                    prompt_len=int(argv[argv.index("--prompt-len") + 1]),
                    status=sorted({r.status for r in reqs}),
@@ -1240,11 +1362,12 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
                                      for r in reqs),
               f"{cfg.name} {engine}: "
               f"{[(r.status, len(r.out)) for r in reqs]}")
-        want = cfg.n_layers * s["admitted"] if engine == "continuous" else 0
-        check(counts["flash_attention"] == want
+        want = per_request * s["admitted"] if engine == "continuous" else 0
+        check(counts[kernel] == want
+              and sum(counts.values()) == counts[kernel]
               and (engine == "static" or s["admitted"] == 8),
-              f"{cfg.name} {engine}: {counts['flash_attention']} flash "
-              f"launches, {s['admitted']} admitted")
+              f"{cfg.name} {label} {engine}: {counts} launches, "
+              f"{s['admitted']} admitted")
         del res
         free_card(torch)
     return paths
@@ -1261,6 +1384,11 @@ SERVE_MOE_ARGV = {
 #: prompt of the MoE prefill-vs-scan checks (the scan reads every expert
 #: of every layer at each of its steps).
 MOE_PROMPT = 512
+#: moonshot's bf16 prefill-vs-scan check runs its first 16 of 48 layers
+#: (the dense one and 15 MoE layers), every width kept: the 512-step scan
+#: of all 48 took 152 s on the H100's host; the device times and the
+#: launcher run all 48.
+MOE_SCAN_LAYERS = 16
 #: the float32 moonshot checks run 4 of its 48 layers (the dense first
 #: layer and 3 MoE layers), every width kept.
 MOE_F32_LAYERS = 4
@@ -1323,13 +1451,19 @@ def serve_moonshot(smoke, torch, kernels, serve, M, T, dev) -> dict:
     """moonshot-v1-16b-a3b at full width in bf16: prefill vs the decode
     scan, device times of a prefill and a decode step, and both engines
     through the launcher.  Returns the engines' kernel launches."""
+    import dataclasses
     full = serve.get_config("moonshot-v1-16b-a3b")
+    cut = dataclasses.replace(full, n_layers=MOE_SCAN_LAYERS)
+    params, info = init_timed(torch, serve, M, cut, dev)
+    prefill_check(smoke, "serve_moe", torch, M, T, cut, params,
+                  prompt_for(cut, MOE_PROMPT), dev, MOE_BF16_TOL,
+                  SERVE_BF16_TOL, check="prefill vs decode scan", **info)
+    del params
+    free_card(torch)
     params, info = init_timed(torch, serve, M, full, dev)
-    prefill_check(smoke, "serve_moe", torch, M, T, full, params,
-                  prompt_for(full, MOE_PROMPT), dev, MOE_BF16_TOL,
-                  SERVE_BF16_TOL, check="prefill vs decode scan",
-                  memory_allocated_bytes=torch.cuda.memory_allocated(dev),
-                  **info)
+    smoke.emit("serve_moe", check="init", config=full.name,
+               memory_allocated_bytes=torch.cuda.memory_allocated(dev),
+               **info)
     # One 1,024-token prefill, and one decode step of 4 lanes past it.
     toks = torch.as_tensor([prompt_for(full, 1024, seed=1)], device=dev)
     cache = T.init_cache(full, 4, 1024 + 34, dev)
@@ -1422,6 +1556,180 @@ def phase_serve_moe(smoke, torch, kernels, serve, M, T, dev) -> dict:
     paths = serve_moonshot(smoke, torch, kernels, serve, M, T, dev)
     serve_moonshot_f32(smoke, torch, serve, M, T, dev)
     paths.update(serve_deepseek(smoke, torch, kernels, serve, M, T, dev))
+    return paths
+
+
+#: Mamba2-370M (``configs/mamba2_370m.py``): the prefill-vs-scan prompt (not
+#: a multiple of the SSD chunk, 128: its last chunk is ragged), and the
+#: float32 checks' depth (every width kept).
+MAMBA2_PROMPT = 500
+SSM_F32_LAYERS = 4
+#: the launcher under each conv policy: the continuous engine on 1,024-token
+#: prompts (one ``tap_gemm`` launch a layer in each prefill under
+#: ``pallas``), the static engine (lockstep prefill through the decode
+#: path, which has no conv launch) on 128-token prompts.
+SERVE_SSM_ARGV = {
+    "continuous": ["--full", "--arch", "mamba2-370m", "--requests", "8",
+                   "--prompt-len", "1024", "--max-new", "32",
+                   "--max-batch", "4"],
+    "static": ["--full", "--arch", "mamba2-370m", "--requests", "8",
+               "--prompt-len", "128", "--max-new", "8", "--max-batch", "4"]}
+
+
+def mamba2_conv_dims(ConvDims, batch: int, length: int):
+    """Per-group dims of Mamba2-370M's depthwise causal conv: one channel a
+    group, 4 taps on an H = 1 plane, left pad 3 (2,304 groups)."""
+    return ConvDims(B=batch, C=1, H_i=1, W_i=length, N=1, K_h=1, K_w=4, S=1,
+                    P_h=0, P_w=3, P_h_hi=0, P_w_hi=0)
+
+
+def kernel_bf16_shapes(ConvDims, paper_cnn):
+    """The bf16 instances' shapes: Mamba2-370M's conv at its training shape
+    (batch 8 x seq 512, 2,304 groups; the row the ``kernels`` line sums)
+    and at a 1,024-token prefill, and Table II layer 4 (C = N = 244, the
+    vector copies) cast to bf16."""
+    return [("mamba2 train 8x512 g2304", mamba2_conv_dims(ConvDims, 8, 512),
+             2304, True),
+            ("mamba2 prefill 1x1024 g2304",
+             mamba2_conv_dims(ConvDims, 1, 1024), 2304, False),
+            ("table2 28/244/244/3/2/1 bf16",
+             paper_cnn.dims(paper_cnn.TABLE2_LAYERS[3]), 1, False)]
+
+
+def ssm_prefill_vs_scan(torch, M, T, tg, cfg, params, prompt, dev) -> dict:
+    """Mamba2's one-pass prefill against a scan of decode steps on one
+    prompt: relative errors (max |a - b| / max |b|) of the last logits and
+    of each layer's cache (its SSM state and its last conv inputs), the tap
+    kernels' launches (by operand type) of each side, and their wall
+    times."""
+    toks = torch.as_tensor([prompt], device=dev)
+    tg.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, toks, cfg, len(prompt) + 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = tg.type_launch_counts()
+    tg.reset_launch_counts()
+    scan = T.init_cache(cfg, 1, len(prompt) + 1, dev)
+    t0 = time.perf_counter()
+    for t in range(len(prompt)):
+        want, scan = M.decode_step(params, scan, toks[:, t], t, cfg)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    by_layer = {key: [rel_err(torch, c[i], scan["blocks"][key][i])[0]
+                      for i in range(cfg.n_layers)]
+                for key, c in cache["blocks"].items()}
+    return {"rel_err_logits": rel_err(torch, logits, want)[0],
+            "rel_err_ssm_max": max(by_layer["ssm"]),
+            "rel_err_conv_max": max(by_layer["conv"]),
+            "rel_err_ssm_by_layer": by_layer["ssm"],
+            "rel_err_conv_by_layer": by_layer["conv"],
+            "prefill_launches": pre,
+            "scan_launches": tg.type_launch_counts(),
+            "prefill_seconds": prefill_s, "scan_seconds": scan_s}
+
+
+def ssm_prefill_check(smoke, torch, M, T, tg, cfg, params, prompt, dev, tol,
+                      early_tol=None, **fields) -> dict:
+    """``ssm_prefill_vs_scan``, emitted with ``fields``: under ``pallas``
+    one ``tap_gemm`` launch a layer in the prefill (of the operands'
+    type), none otherwise and none in the scan; errors within ``tol`` and,
+    where given, those of the first ``SSM_EARLY_LAYERS`` layers within
+    ``early_tol``."""
+    rec = ssm_prefill_vs_scan(torch, M, T, tg, cfg, params, prompt, dev)
+    early = max(rec["rel_err_ssm_by_layer"][:SSM_EARLY_LAYERS]
+                + rec["rel_err_conv_by_layer"][:SSM_EARLY_LAYERS])
+    rec.update(config=cfg.name, dtype=cfg.param_dtype, layers=cfg.n_layers,
+               conv_policy=cfg.conv_policy, prompt_len=len(prompt), tol=tol,
+               early_tol=early_tol, rel_err_early_max=early, **fields)
+    smoke.emit("serve_ssm", **rec)
+    kind = "bf16" if cfg.param_dtype == "bfloat16" else "f32"
+    want = ({f"tap_gemm:{kind}": cfg.n_layers}
+            if cfg.conv_policy == "pallas" else {})
+    check(rec["prefill_launches"] == want and not rec["scan_launches"],
+          f"{cfg.name} {cfg.conv_policy}: prefill launched "
+          f"{rec['prefill_launches']}, the scan {rec['scan_launches']}")
+    worst = max(rec["rel_err_logits"], rec["rel_err_ssm_max"],
+                rec["rel_err_conv_max"])
+    check(worst <= tol and (early_tol is None or early <= early_tol),
+          f"{cfg.name} {cfg.param_dtype} prefill vs decode scan: {worst} "
+          f"(tol {tol}), first layers {early} (tol {early_tol})")
+    return rec
+
+
+def ssm_policies_agree(torch, serve, M, cfg, params, prompt_len, max_new,
+                       dev) -> dict:
+    """8 requests through the continuous engine under ``pallas`` and under
+    ``auto``: ``token_diffs`` of the two."""
+    import dataclasses
+    runs = {}
+    for policy in ("pallas", "auto"):
+        eng = serve.ENGINES["continuous"](cfg, params, max_batch=4,
+                                          max_len=prompt_len + max_new + 2,
+                                          conv_policy=policy)
+        for rid in range(8):
+            eng.submit(serve.Request(rid=rid, prompt=prompt_for(
+                cfg, prompt_len, seed=20 + rid), max_new=max_new))
+        runs[policy] = sorted(eng.run(), key=lambda r: r.rid)
+    return token_diffs(torch, M, dataclasses.replace(cfg, conv_policy="auto"),
+                       params, runs["pallas"], runs["auto"], dev)
+
+
+def phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T, dev) -> dict:
+    """Mamba2-370M at full width: prefill vs the decode scan in bf16 (48
+    layers) and float32 (``SSM_F32_LAYERS``), device times of a prefill and
+    a decode step, greedy tokens under ``pallas`` and ``auto`` (float32),
+    and both engines through the launcher under both policies.  Returns
+    each engine's kernel launches."""
+    import dataclasses
+    full = dataclasses.replace(serve.get_config("mamba2-370m"),
+                               conv_policy="pallas")
+    params, info = init_timed(torch, serve, M, full, dev)
+    check(info["n_params"] == 368_227_840,
+          f"mamba2-370m: {info['n_params']} parameters")
+    ssm_prefill_check(smoke, torch, M, T, tg, full, params,
+                      prompt_for(full, MAMBA2_PROMPT), dev, SSM_BF16_TOL,
+                      SERVE_BF16_TOL, check="prefill vs decode scan", **info)
+    toks = torch.as_tensor([prompt_for(full, 1024, seed=1)], device=dev)
+    cache = T.init_cache(full, 4, 1024 + 34, dev)
+    nxt = toks[0, :4].clone()
+    pos = torch.full((4,), 1024, device=dev)
+    tg.reset_launch_counts()
+    step = device_time(torch, lambda: M.decode_step(params, cache, nxt, pos,
+                                                    full))
+    decode_launches = tg.type_launch_counts()
+    smoke.emit("serve_ssm", check="device time", config=full.name,
+               dtype=full.param_dtype, conv_policy=full.conv_policy,
+               prefill_1024=device_time(torch, lambda: M.prefill(
+                   params, toks, full, 1024 + 34)),
+               decode_step_batch4=step, decode_launches=decode_launches)
+    check(not decode_launches, f"decode launched {decode_launches}")
+    del params, cache
+    free_card(torch)
+
+    cfg32 = dataclasses.replace(full, param_dtype="float32",
+                                act_dtype="float32", n_layers=SSM_F32_LAYERS)
+    params, info = init_timed(torch, serve, M, cfg32, dev)
+    ssm_prefill_check(smoke, torch, M, T, tg, cfg32, params,
+                      prompt_for(cfg32, MAMBA2_PROMPT), dev, SERVE_F32_TOL,
+                      check="prefill vs decode scan", **info)
+    rec = ssm_policies_agree(torch, serve, M, cfg32, params, 256, 16, dev)
+    smoke.emit("serve_ssm", check="float32 greedy tokens, pallas vs auto",
+               config=cfg32.name, layers=cfg32.n_layers, **rec)
+    check(all(d["margin"] < MARGIN_TOL for d in rec["differing"]),
+          f"float32 mamba2 policies disagree beyond a near-tie: "
+          f"{rec['differing']}")
+    del params
+    free_card(torch)
+
+    paths = {}
+    for policy in ("pallas", "auto"):
+        paths.update(serve_engines(
+            smoke, "serve_ssm", torch, kernels, serve, full,
+            {e: a + ["--conv-policy", policy]
+             for e, a in SERVE_SSM_ARGV.items()}, dev, kernel="tap_gemm",
+            per_request=full.n_layers if policy == "pallas" else 0,
+            label=f"serve_ssm {policy}"))
     return paths
 
 
@@ -1535,6 +1843,109 @@ def phase_lm_train(smoke, torch, kernels, train, smi, dev):
     return {"lm_train": launches}
 
 
+#: Mamba2-370M trained at full width through the launcher (bf16, guard on).
+LM_TRAIN_SSM_ARGV = ["--arch", "mamba2-370m", "--batch", "8", "--seq",
+                     "512", "--lr", "3e-4", "--log-every", "1", "--steps",
+                     "6"]
+LM_TRAIN_SSM_STEPS = 6
+
+
+def phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi, dev) -> dict:
+    """Mamba2-370M trained at full width through the port's launcher under
+    ``--conv-policy pallas``: every layer's conv on the three tap kernels'
+    bf16 instances (the forward twice a step: remat), the first loss and
+    gradient norm against the same run under ``auto``
+    (``LM_SSM_BF16_TOL``, ``LM_SSM_GNORM_TOL``); in float32
+    at ``SSM_F32_LAYERS`` layers, 5 steps under ``pallas`` against ``lax``
+    (``LOSS_TOL``).  Returns the two launcher runs' kernel launches."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    t_phase = time.perf_counter()
+    paths, hist, losses, types = {}, {}, {}, {}
+    for policy in ("pallas", "auto"):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        hist[policy] = []
+        extra = ["--conv-policy", policy]
+        if policy == "auto":          # (a)'s schedule, its first step only
+            extra += ["--stop-after", "1"]
+        losses[policy] = train.main(LM_TRAIN_SSM_ARGV + extra,
+                                    history=hist[policy])
+        paths[f"lm_train_ssm {policy}"] = kernels.launch_counts()
+        types[policy] = tg.type_launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if policy == "pallas":
+            peak_pallas = peak
+    a = losses["pallas"]
+    secs = [h["seconds"] for h in hist["pallas"]]
+    step_s = statistics.median(secs[1:])
+    first_err = abs(a[0] - losses["auto"][0]) / abs(losses["auto"][0])
+    norms = [hist[p][0]["grad_norm"] for p in ("pallas", "auto")]
+    gnorm_err = abs(norms[0] - norms[1]) / abs(norms[1])
+
+    # float32, a quarter of the depth: pallas against lax, 5 steps.
+    cfg = dataclasses.replace(train.get_config("mamba2-370m"),
+                              param_dtype="float32", act_dtype="float32",
+                              n_layers=SSM_F32_LAYERS)
+    dcfg = DataConfig(seed=0, seq_len=512, global_batch=8, vocab=cfg.vocab)
+    f32 = {}
+    for policy in ("pallas", "lax"):
+        params = M.init_params(torch.Generator().manual_seed(0), cfg, dev)
+        opt = adamw.init_state(params)
+        step_fn = TS.make_train_step(cfg, adamw.AdamWConfig(peak_lr=3e-4),
+                                     total_steps=5, warmup=1, guard=True,
+                                     conv_policy=policy)
+        f32[policy] = []
+        for step in range(5):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in make_batch(cfg, dcfg, step).items()}
+            params, opt, metrics = step_fn(params, opt, batch, step)
+            f32[policy].append(float(metrics["loss"]))
+        del params, opt
+    f32_err = max(abs(x - y) / abs(y) for x, y in zip(f32["pallas"],
+                                                      f32["lax"]))
+    n = LM_TRAIN_SSM_STEPS * 48
+    want = {"tap_gemm:bf16": 2 * n, "tap_gemm_phased:bf16": n,
+            "tap_wgrad:bf16": n}
+    smoke.emit("lm_train_ssm", nvidia_smi=smi, config="mamba2-370m",
+               dtype="bfloat16", batch=8, seq=512, steps=len(a),
+               median_step_s=step_s, first_step_s=secs[0],
+               tokens_per_s=8 * 512 / step_s,
+               max_memory_allocated_bytes=peak_pallas, losses=losses,
+               grad_norms={k: [h["grad_norm"] for h in v]
+                           for k, v in hist.items()},
+               guard_bad={k: sum(h["guard_bad"] for h in v)
+                          for k, v in hist.items()},
+               first_loss_pallas_vs_auto=first_err, tol=LM_SSM_BF16_TOL,
+               first_grad_norm_pallas_vs_auto=gnorm_err,
+               grad_norm_tol=LM_SSM_GNORM_TOL,
+               f32_layers=SSM_F32_LAYERS, f32_losses=f32,
+               f32_max_rel_err=f32_err, f32_tol=LOSS_TOL,
+               launches=paths, launches_by_type=types,
+               want_launches=want, seconds=time.perf_counter() - t_phase)
+    every = a + losses["auto"] + f32["pallas"] + f32["lax"]
+    check(all(math.isfinite(x) for x in every), f"non-finite loss: {every}")
+    check(len(a) == LM_TRAIN_SSM_STEPS and len(losses["auto"]) == 1,
+          f"steps run: {len(a)}, {len(losses['auto'])}")
+    check(not any(h["guard_bad"] for v in hist.values() for h in v),
+          "the guard dropped a step")
+    check(types["pallas"] == want,
+          f"pallas training launched {types['pallas']}, want {want}")
+    check(not any(paths["lm_train_ssm auto"].values()),
+          f"auto training launched {paths['lm_train_ssm auto']}")
+    check(first_err <= LM_SSM_BF16_TOL and gnorm_err <= LM_SSM_GNORM_TOL,
+          f"first step pallas vs auto: loss {first_err} (tol "
+          f"{LM_SSM_BF16_TOL}), grad norm {gnorm_err} (tol "
+          f"{LM_SSM_GNORM_TOL})")
+    check(f32_err <= LOSS_TOL,
+          f"float32 losses pallas vs lax: {f32_err} > {LOSS_TOL}")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -1605,6 +2016,9 @@ def main(argv=None) -> int:
     ae = ae_shapes(ConvDims, conv, ConvTransposeSpec)
     agg = phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
                         shapes + [row[:4] for row in ae], dev)
+    agg_bf16 = phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
+                             kernel_bf16_shapes(ConvDims, paper_cnn), dev,
+                             torch.bfloat16, "kernels_bf16")
     agg["matmul"] = phase_matmul(smoke, torch, mm, ref, tg,
                                  matmul_cases(torch, conv, shapes, ae), dev)
     phase_layers(smoke, torch, conv, kernels, ConvSpec, table2, dev)
@@ -1622,7 +2036,11 @@ def main(argv=None) -> int:
     paths.update(phase_serve(smoke, torch, kernels, serve, M, T, dev))
     free_card(torch)
     paths.update(phase_serve_moe(smoke, torch, kernels, serve, M, T, dev))
+    paths.update(phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T,
+                                 dev))
     paths.update(phase_lm_train(smoke, torch, kernels, train, smi, dev))
+    paths.update(phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi,
+                                    dev))
     smoke.emit("summary", launches_by_path=paths)
 
     main_path = {k: "cnn_bp pallas" for k in TAP_KERNELS}
@@ -1634,19 +2052,30 @@ def main(argv=None) -> int:
               "flash_attention": "one prefill's attention: causal (1, 15, "
                                  "1024, 64) queries against (1, 5, 1024, 64) "
                                  "keys and values, bf16"}
+    for name in TAP_KERNELS:
+        agg[f"{name}_bf16"] = agg_bf16[name]
+        main_path[f"{name}_bf16"] = "lm_train_ssm pallas"
+        shapes[f"{name}_bf16"] = ("the bf16 instance at Mamba2-370M's "
+                                  "depthwise causal conv, training shape: "
+                                  "batch 8 x seq 512, 2,304 groups of one "
+                                  "channel, 4 taps")
+    # The tap kernels' bf16-operand instances (the TPU kernels take the
+    # operands' dtype and sum in float32) have rows of their own.
+    rows = {**KERNELS, **{f"{k}_bf16": KERNELS[k] for k in TAP_KERNELS}}
     out = []
-    for name, (replaces, source) in KERNELS.items():
+    for name, (replaces, source) in rows.items():
         a = agg[name]
         b_s, b_by = bound(a["flops"], a["bytes"],
                           a.get("peak", PEAK_F32_FLOPS))
+        kernel = name.removesuffix("_bf16")
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": paths[main_path[name]][name],
+            "replaces": replaces, "launches": paths[main_path[name]][kernel],
             "max_abs_err": a["max_abs_err"], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": b_s * 1e3,
             "bound_by": b_by, "library_ms": a["library_ms"],
             "launches_path": main_path[name],
-            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "launches_by_path": {p: c[kernel] for p, c in paths.items()},
             "shapes": shapes.get(name, "sum over the 5 Table II layers, "
                                        "batch 2, float32")})
     print(smi)

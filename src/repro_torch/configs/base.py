@@ -1,21 +1,24 @@
 """Architecture configuration of the port's LM path.
 
 PyTorch-package copy of ``repro.configs.base.ArchConfig`` with the fields
-the dense and MoE families read (GQA or MLA attention; the port imports
-nothing of the JAX package).  ``dtype``/``adtype`` are torch dtypes.
-``reduced()`` derives the CPU-scale smoke variant from the full config as
-the JAX package does, MoE and MLA overrides included.
+the dense, MoE and SSM families read (GQA or MLA attention, Mamba2's SSD
+block; the port imports nothing of the JAX package), and the per-pass conv
+engine policy of the model's convs (``conv_policy``, with the deprecated
+``conv_mode``).  ``dtype``/``adtype`` are torch dtypes.  ``reduced()``
+derives the CPU-scale smoke variant from the full config as the JAX
+package does, MoE, MLA and SSM overrides included.
 
 The JAX config's ``attn_impl`` is left out: the port does not choose
 attention by a flag (every full-sequence causal call on the card runs the
-flash-attention kernel).  Fields of the other families (SSM, RG-LRU,
-frontends) and the conv policy come with them (ROADMAP A10);
-``local_window`` stays so that such a config is refused.
+flash-attention kernel).  Fields of the other families (RG-LRU, hybrid
+patterns, frontends) come with them (ROADMAP A10); ``local_window``
+stays so that such a config is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -24,7 +27,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense | moe (the families ported)
+    family: str                       # dense | moe | ssm (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,11 +53,36 @@ class ArchConfig:
     qk_rope_head_dim: int = 0
     v_head_dim: int = 0
     mtp_depth: int = 0                # multi-token-prediction extra blocks
+    # SSM (mamba2 SSD)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
     param_dtype: str = "float32"
     act_dtype: str = "float32"
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # Per-pass conv backprop engine selection (the paper): an EnginePolicy
+    # string -- "auto", a uniform engine name, or
+    # "fwd=...,dgrad=...,wgrad=..." (repro_torch.core.EnginePolicy.parse).
+    conv_policy: str = "auto"
+    # DEPRECATED: the old uniform engine knob.  When set it wins over
+    # conv_policy (mapped to a uniform EnginePolicy) with a warning.
+    conv_mode: Optional[str] = None
     remat: str = "block"              # none | block (training only)
+
+    @property
+    def conv_engine_policy(self) -> str:
+        """The effective conv EnginePolicy string: ``conv_mode`` (deprecated,
+        uniform) when set, else ``conv_policy``.  Model code reads this."""
+        if self.conv_mode is not None:
+            warnings.warn(
+                "ArchConfig.conv_mode is deprecated; set conv_policy "
+                "(e.g. conv_policy=\"fwd=pallas,dgrad=auto,wgrad=bp_phase\" "
+                "or a uniform engine name) instead",
+                DeprecationWarning, stacklevel=2)
+            return self.conv_mode
+        return self.conv_policy
 
     @property
     def dtype(self) -> torch.dtype:
@@ -67,6 +95,20 @@ class ArchConfig:
     @property
     def is_encoder_only(self) -> bool:
         return self.attn_kind == "bidir"
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic archs only: SSM + hybrid (local attention window)."""
+        return self.family in ("ssm", "hybrid")
+
+    def layer_kind(self, i: int) -> str:
+        """'ssm' or 'attn' for block i (the hybrid family's pattern comes
+        with it, ROADMAP A10)."""
+        return "ssm" if self.family == "ssm" else "attn"
 
     def is_moe_layer(self, i: int) -> bool:
         return self.n_experts > 0 and i >= self.first_dense_layers
@@ -92,6 +134,8 @@ class ArchConfig:
         if self.use_mla:
             base.update(q_lora_rank=32, kv_lora_rank=32, qk_nope_head_dim=16,
                         qk_rope_head_dim=8, v_head_dim=16, head_dim=24)
+        if self.ssm_state:
+            base.update(ssm_state=16, ssm_head_dim=16)
         if self.local_window:
             base.update(local_window=32)
         if self.mtp_depth:

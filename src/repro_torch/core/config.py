@@ -1,8 +1,9 @@
 """Global runtime configuration of the port: ``repro_torch.core.config``.
 
 Counterpart of ``repro.core.config`` for the fields the port reads: the
-measured autotuning of the tap kernels' plans, the key length at which
-training attention goes blockwise, and the rematerialization override:
+measured autotuning of the tap kernels' plans, Mamba2's SSD chunk length,
+the key length at which training attention goes blockwise, and the
+rematerialization override:
 
     from repro_torch.core.config import config
 
@@ -13,11 +14,11 @@ training attention goes blockwise, and the rematerialization override:
 
 Fields initialize once from the environment (``REPRO_AUTOTUNE``,
 ``REPRO_AUTOTUNE_TOP_K``, ``REPRO_AUTOTUNE_REPS``, ``REPRO_PLAN_CACHE_DIR``,
-``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_REMAT``, parsed as the JAX package
-parses them), and direct attribute assignment raises: mutation goes
-through :meth:`GlobalConfig.update` / :meth:`GlobalConfig.override`, which
-validate values and drop the tuner's in-process memo when a plan-affecting
-field changes.
+``REPRO_SSD_CHUNK``, ``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_REMAT``,
+parsed as the JAX package parses them), and direct attribute assignment
+raises: mutation goes through :meth:`GlobalConfig.update` /
+:meth:`GlobalConfig.override`, which validate values and drop the tuner's
+in-process memo when a plan-affecting field changes.
 """
 
 from __future__ import annotations
@@ -86,6 +87,10 @@ FIELDS: dict[str, _Field] = {
     "plan_cache_dir": _Field("REPRO_PLAN_CACHE_DIR", None,
                              _parse_optional_str, _check_optional_str,
                              plan_affecting=True),
+    # Mamba2 SSD chunk length (intra-chunk quadratic vs inter-chunk linear;
+    # models/mamba2.py).
+    "ssd_chunk": _Field("REPRO_SSD_CHUNK", 128, int,
+                        _check_positive_int("ssd_chunk")),
     # Key length above which attention under autograd switches from the
     # dense scores to the blockwise online-softmax loop
     # (models/attention.py).

@@ -323,15 +323,17 @@ _TRANSPOSE_ROLE = {"forward": "input_grad", "input_grad": "forward",
 
 
 def _kernel_gap(pass_name: str, d: ConvDims, transposed: bool = False,
-                groups: int = 1, device=None) -> str | None:
+                groups: int = 1, device=None,
+                dtype=torch.float32) -> str | None:
     """Why the kernel of this pass cannot launch, or None.  On a CUDA
-    ``device`` the pass is judged by the plan that will launch
-    (``ops.pass_plan``: the tuned plan when ``config.autotune`` is on); a
-    transposed pass plans under its mirror role."""
+    ``device`` the pass is judged by the plan that will launch for
+    operands of ``dtype`` (``ops.pass_plan``: the tuned plan when
+    ``config.autotune`` is on); a transposed pass plans under its mirror
+    role."""
     from repro_torch.kernels import ops
     role = _TRANSPOSE_ROLE[pass_name] if transposed else pass_name
     plan = None if device is None else ops.pass_plan(role, d, groups,
-                                                     device)
+                                                     device, dtype)
     return ops.launch_gap(role, d, groups, plan)
 
 
@@ -347,7 +349,7 @@ def _first_capable(d: ConvDims, reason: str) -> tuple[str, str]:
 
 def resolve_engine(requested: str, pass_name: str, d: ConvDims,
                    transposed: bool = False, groups: int = 1,
-                   device=None) -> tuple[str, str]:
+                   device=None, dtype=torch.float32) -> tuple[str, str]:
     """One pass's selection: ``(engine actually used, reason)``.
 
     ``transposed=True`` resolves a pass of a TRANSPOSED conv over its
@@ -355,7 +357,8 @@ def resolve_engine(requested: str, pass_name: str, d: ConvDims,
     are those of the role-swapped pass (the transposed forward runs the
     mirror input grad's ``tap_gemm_phased``).  With a CUDA ``device`` they
     are those of the plan the kernel of ``groups`` groups launches with
-    there (:func:`_kernel_gap`); without one, those every plan shares."""
+    there for operands of ``dtype`` (:func:`_kernel_gap`); without one,
+    those every plan shares."""
     if requested == AUTO:
         if d.s_h == 1 and d.s_w == 1 and not d.has_dilation:
             if _capability_gap(ENGINES["bp_phase"], d) is None:
@@ -365,7 +368,7 @@ def resolve_engine(requested: str, pass_name: str, d: ConvDims,
             return _first_capable(
                 d, "auto: stride 1, geometry outside implicit constraints")
         gap = _capability_gap(ENGINES["pallas"], d) or \
-            _kernel_gap(pass_name, d, transposed, groups, device)
+            _kernel_gap(pass_name, d, transposed, groups, device, dtype)
         if gap is None:
             if transposed:
                 return "pallas", ("auto: transposed conv is the tap-GEMM "
@@ -381,7 +384,7 @@ def resolve_engine(requested: str, pass_name: str, d: ConvDims,
     if gap is not None:
         return _first_capable(d, f"{requested} requested but {gap}")
     if requested == "pallas":
-        gap = _kernel_gap(pass_name, d, transposed, groups, device)
+        gap = _kernel_gap(pass_name, d, transposed, groups, device, dtype)
         if gap is not None:
             return _first_capable(d, f"pallas requested but {gap}")
     return requested, "requested"
@@ -392,12 +395,12 @@ def _dims_key(d: ConvDims) -> tuple:
 
 
 def _dispatch(pass_name: str, requested: str, d: ConvDims,
-              transposed: bool, groups: int, device) -> Engine:
-    """Resolve one pass on ``device``, record the event and the decision.
-    A transposed conv's passes count under their own keys
-    (``"forward_T:pallas"``)."""
+              transposed: bool, groups: int, device, dtype) -> Engine:
+    """Resolve one pass on ``device`` for operands of ``dtype``, record the
+    event and the decision.  A transposed conv's passes count under their
+    own keys (``"forward_T:pallas"``)."""
     name, reason = resolve_engine(requested, pass_name, d, transposed,
-                                  groups, device)
+                                  groups, device, dtype)
     key = f"{pass_name}{'_T' if transposed else ''}:{name}"
     DISPATCH_EVENTS[key] = DISPATCH_EVENTS.get(key, 0) + 1
     if len(POLICY_DECISIONS) < _MAX_DECISIONS:
@@ -473,7 +476,7 @@ class _Conv2d(torch.autograd.Function):
     def forward(ctx, x, w, spec: ConvSpec, policy: EnginePolicy):
         d = spec_dims(x.shape, w.shape, spec)
         eng = _dispatch("forward", policy.forward, d, False, spec.groups,
-                        x.device)
+                        x.device, x.dtype)
         ctx.save_for_backward(x, w)
         ctx.spec, ctx.policy = spec, policy
         return eng.forward(x, _weight_for(eng, w, spec), d, spec.groups)
@@ -487,12 +490,12 @@ class _Conv2d(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             eng = _dispatch("input_grad", policy.input_grad, d, False,
-                            spec.groups, dy.device)
+                            spec.groups, dy.device, dy.dtype)
             dx = eng.input_grad(dy, _weight_for(eng, w, spec), d,
                                 spec.groups).to(x.dtype)
         if ctx.needs_input_grad[1]:
             eng = _dispatch("weight_grad", policy.weight_grad, d, False,
-                            spec.groups, dy.device)
+                            spec.groups, dy.device, dy.dtype)
             dw = _run_wgrad(x, dy, d, eng, spec).to(w.dtype)
         return dx, dw, None, None
 
@@ -657,7 +660,7 @@ class _Conv2dTranspose(torch.autograd.Function):
     def forward(ctx, x, w, spec: ConvTransposeSpec, policy: EnginePolicy):
         d = transpose_dims(x.shape, w.shape, spec)
         eng = _dispatch("forward", policy.forward, d, True, spec.groups,
-                        x.device)
+                        x.device, x.dtype)
         ctx.save_for_backward(x, w)
         ctx.spec, ctx.policy = spec, policy
         if not eng.native_transpose:
@@ -675,12 +678,12 @@ class _Conv2dTranspose(torch.autograd.Function):
         # with the input and output roles swapped.
         if ctx.needs_input_grad[0]:
             eng = _dispatch("input_grad", policy.input_grad, d, True,
-                            spec.groups, dy.device)
+                            spec.groups, dy.device, dy.dtype)
             dx = eng.forward(dy, _weight_for(eng, w, spec), d,
                              spec.groups).to(x.dtype)
         if ctx.needs_input_grad[1]:
             eng = _dispatch("weight_grad", policy.weight_grad, d, True,
-                            spec.groups, dy.device)
+                            spec.groups, dy.device, dy.dtype)
             dw = _run_wgrad(dy, x, d, eng, spec).to(w.dtype)
         return dx, dw, None, None
 
@@ -745,6 +748,65 @@ def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *args,
                                    spec.with_layout("NCHW"), policy)
         return y.permute(0, 2, 3, 1)
     return _Conv2dTranspose.apply(x, w, spec, policy)
+
+
+# ---------------------------------------------------------------------------
+# 1-D and depthwise wrappers (Mamba2's temporal conv)
+# ---------------------------------------------------------------------------
+
+def _merge_policy(policy, mode):
+    if mode is not None:
+        if policy is not None:
+            raise TypeError("pass either policy= or the deprecated mode=, "
+                            "not both")
+        return _deprecated_mode(mode)
+    return policy
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding=0,
+           policy=None, groups: int = 1, dilation: int = 1, *,
+           mode=None) -> torch.Tensor:
+    """(B, C, L) x (N, C/g, K) -> (B, N, L_o) through the 2-D engines.
+
+    padding: int (symmetric) or (lo, hi) along the temporal dim.  The
+    stride and dilation apply on the degenerate (H = 1) axis too, where one
+    row has no stride phases or dilation gaps."""
+    policy = _merge_policy(policy, mode)
+    if isinstance(padding, int):
+        padding = (padding, padding)
+    spec = ConvSpec.make(stride=stride, padding=((0, 0), tuple(padding)),
+                         dilation=dilation, groups=groups)
+    y = conv2d(x[:, :, None, :], w[:, :, None, :], spec, policy)
+    return y[:, :, 0, :]
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor, policy=None,
+                  groups: int = 1, *, mode=None) -> torch.Tensor:
+    """Causal (left pad K - 1) stride-1 conv1d: (B, C, L) -> (B, N, L)."""
+    k = w.shape[-1]
+    return conv1d(x, w, 1, (k - 1, 0), _merge_policy(policy, mode), groups)
+
+
+def depthwise_causal_conv1d(x: torch.Tensor, w: torch.Tensor, policy=None,
+                            *, mode=None) -> torch.Tensor:
+    """Causal depthwise conv of Mamba2: x (B, L, C), w (K, C) -> (B, L, C).
+
+    Lowered as a grouped (groups == C) causal conv1d through
+    :func:`conv2d`, so under ``pallas`` each pass is one launch of its tap
+    kernel (C groups of one channel, K taps on an H = 1 plane).  When
+    every pass of the effective policy resolves inside {lax, bp_phase,
+    auto}, the layer is one library grouped conv (``F.conv1d(groups=C)``)
+    as in the JAX package, whose stride-1 phase decomposition and auto rule
+    degenerate to exactly that conv."""
+    c = x.shape[-1]
+    k = w.shape[0]
+    p = effective_policy(_merge_policy(policy, mode))
+    if {p.forward, p.input_grad, p.weight_grad} <= {"lax", "bp_phase", AUTO}:
+        y = F.conv1d(F.pad(x.transpose(1, 2), (k - 1, 0)),
+                     w.T[:, None, :], groups=c)
+        return y.transpose(1, 2)
+    y = conv1d_causal(x.transpose(1, 2), w.T[:, None, :], p, groups=c)
+    return y.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

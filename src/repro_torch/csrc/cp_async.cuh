@@ -21,6 +21,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
 }
+// 8 bytes: src and dst 8-byte aligned (four bfloat16).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 8 : 0));
+}
 // 4 bytes: src and dst 4-byte aligned.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool ok) {

@@ -1,11 +1,19 @@
-// Tap-GEMM kernels of BP-im2col for Hopper (sm_90a), float32.
+// Tap-GEMM kernels of BP-im2col for Hopper (sm_90a), float32 or bfloat16
+// operands, float32 products, sums and outputs.
 //
 // Replaces the three Pallas TPU kernels of src/repro/kernels/tap_gemm.py:
-//   tap_gemm_f32         <- tap_gemm        (_tap_gemm_kernel)         forward conv
-//   tap_gemm_phased_f32  <- tap_gemm_phased (_tap_gemm_phased_kernel)  input grad,
-//                           transposed mode (Algorithm 1), all stride phases
-//   tap_wgrad_f32        <- tap_wgrad       (_tap_wgrad_kernel)        weight grad,
-//                           dilated mode (Algorithm 2)
+//   tap_gemm_{f32,bf16}         <- tap_gemm        (_tap_gemm_kernel)         forward conv
+//   tap_gemm_phased_{f32,bf16}  <- tap_gemm_phased (_tap_gemm_phased_kernel)  input grad,
+//                                  transposed mode (Algorithm 1), all stride phases
+//   tap_wgrad_{f32,bf16}        <- tap_wgrad       (_tap_wgrad_kernel)        weight grad,
+//                                  dilated mode (Algorithm 2)
+// As the TPU kernels do, a bfloat16 entry reads its operands as bfloat16
+// and sums their products in float32 (the TPU kernels'
+// preferred_element_type); every entry writes float32 (the wrappers cast
+// the forward's and the input grad's output back to the operands' type).
+// A bfloat16 operand stays bfloat16 in global and shared memory and is
+// converted to float32 as a register fragment loads (elem::load4), so the
+// tile walks, their thread maps and the float32 instances are unchanged.
 //
 // All three compute a multi-tap GEMM over COMPACT, channels-last tensors:
 // tap t reads the source at a static (plane, du, dv) offset, so the
@@ -39,10 +47,14 @@
 //     64 x 16 tile (4 x 4 per thread, COUT <= 16) and, for the input grad,
 //     a 128 x 8 tile (2 x 8 per thread, COUT <= 8) that streams the source
 //     once at full width and reads the few weight columns as broadcasts;
-//   * a 2-stage shared-memory ring filled by cp.async (16-byte copies of
-//     4 channels where CIN % 4 == 0, so a copy never straddles a tap, and
-//     of 4 output channels where COUT % 4 == 0; 4-byte copies otherwise),
-//     so step k+1 loads while step k computes, with one barrier a step.
+//   * a 2-stage shared-memory ring filled by cp.async (copies of 4
+//     channels where CIN % 4 == 0, so a copy never straddles a tap, and of
+//     4 output channels where COUT % 4 == 0: 16 bytes of float32, 8 of
+//     bfloat16; one element a copy otherwise: a 4-byte cp.async of
+//     float32, a plain load and store of bfloat16, which has no 2-byte
+//     cp.async), so step k+1 loads while step k computes, with one barrier
+//     a step.  Shared memory of a bfloat16 instance is half the float32
+//     one's.
 // The forward and the input grad run one tile walk (tile::run): the
 // forward's 64 x 64 instance, 18,432 B of shared memory; the input grad's
 // 64 x 64, 64 x 16 (12,288 B) and 128 x 8 (21,504 B) instances.  The
@@ -63,6 +75,7 @@
 //
 // Every entry returns cudaGetLastError() right after its launches.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,6 +85,47 @@
 namespace {
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ---------------------------------------------------------------------------
+// Operand elements: float32, or bfloat16 kept as bfloat16 in global and
+// shared memory and converted to float32 as a register fragment loads
+// ---------------------------------------------------------------------------
+
+namespace elem {
+
+// Four consecutive elements global -> shared: 16 bytes of float32 (src and
+// dst 16-byte aligned), 8 of bfloat16 (8-byte aligned); zero when !ok.
+__device__ __forceinline__ void copy4(float* dst, const float* src, bool ok) {
+  cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void copy4(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, bool ok) {
+  cp_async8(dst, src, ok);
+}
+// One element: a 4-byte cp.async for float32; bfloat16 has no 2-byte
+// cp.async, so a plain load and store (ordered by the ring's barrier).
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool ok) {
+  cp_async4(dst, src, ok);
+}
+__device__ __forceinline__ void copy1(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, bool ok) {
+  *dst = ok ? *src : __float2bfloat16(0.f);
+}
+// Four consecutive shared elements as float32 (p 16-byte aligned for
+// float32, 8-byte for bfloat16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+}  // namespace elem
 
 // ---------------------------------------------------------------------------
 // The tile walk of the forward and the input grad: packed taps, 8 x 8 (or
@@ -84,10 +138,10 @@ constexpr int BK = 16;       // contraction rows per step
 constexpr int THREADS = 64;
 constexpr int LDA = BK + 4;  // A row pitch: conflict-free float4 reads
 
-template <int BM, int BN>
+template <int BM, int BN, typename E>
 struct Tiles {
-  float a[2][BM][LDA];  // [stage][pixel][kk]
-  float b[2][BK][BN];   // [stage][kk][cout]
+  E a[2][BM][LDA];  // [stage][pixel][kk]
+  E b[2][BK][BN];   // [stage][kk][cout]
 };
 
 // Contraction row k = t * CIN + c as (t, c), moved forward without a
@@ -109,14 +163,16 @@ __device__ __forceinline__ void advance(Row& r, int d, int CIN) {
 // (b, oh + du_t, ow + dv_t), c] (zero past the Hs x Ws plane).  W's row kk
 // is w_g's row kk, or with TAP_ROWS its row taps[3t] * CIN + c (the input
 // grad's weight slot j of tap t).  Rows of the tap table below T may be
-// read.  TM x TN outputs a thread.  VEC_A: CIN % 4 == 0 and src 16-byte
-// aligned, so a channel quad never straddles a tap; VEC_B: COUT % 4 == 0
-// and w, out 16-byte aligned.
+// read.  TM x TN outputs a thread.  E is the operands' element (float or
+// __nv_bfloat16); products and sums are float32 and out_z is float32.
+// VEC_A: CIN % 4 == 0 and src aligned to four elements, so a channel quad
+// never straddles a tap; VEC_B: COUT % 4 == 0, w aligned to four elements
+// and out 16-byte aligned.
 template <int BM, int BN, int TM, int TN, bool VEC_A, bool VEC_B,
-          bool TAP_ROWS>
+          bool TAP_ROWS, typename E>
 __device__ __forceinline__ void run(
-    Tiles<BM, BN>& sm, const float* __restrict__ src_g, size_t plane,
-    const float* __restrict__ w_g, const int* __restrict__ taps, int T,
+    Tiles<BM, BN, E>& sm, const E* __restrict__ src_g, size_t plane,
+    const E* __restrict__ w_g, const int* __restrict__ taps, int T,
     int B, int Hs, int Ws, int CIN, int COUT, int OH, int OW, int m0, int n0,
     int k_begin, int k_end, float* __restrict__ out_z) {
   static_assert((BM / TM) * (BN / TN) == THREADS, "TM x TN per thread");
@@ -126,9 +182,9 @@ __device__ __forceinline__ void run(
   const int M = B * OH * OW;
 
   // The A rows this thread fills, fixed for the whole walk: with VEC_A
-  // pixels tid / 4 + 16 j and channel quad tid % 4 of every step (16-byte
-  // copies); otherwise pixels tid + 64 j and all BK columns (4-byte
-  // copies).
+  // pixels tid / 4 + 16 j and channel quad tid % 4 of every step (copies
+  // of four elements); otherwise pixels tid + 64 j and all BK columns (one
+  // element a copy).
   constexpr int AR = VEC_A ? BM / 16 : BM / THREADS;
   int a_oh[AR], a_ow[AR];
   size_t a_off[AR];
@@ -181,8 +237,8 @@ __device__ __forceinline__ void run(
       for (int j = 0; j < AR; ++j) {
         const bool ok = k_ok && a_ok[j] && a_oh[j] + du < Hs &&
                         a_ow[j] + dv < Ws;
-        cp_async16(&sm.a[st][tid / 4 + 16 * j][(tid % 4) * 4],
-                   ok ? src_g + off + a_off[j] : src_g, ok);
+        elem::copy4(&sm.a[st][tid / 4 + 16 * j][(tid % 4) * 4],
+                    ok ? src_g + off + a_off[j] : src_g, ok);
       }
     } else {
       // Step (t, c) along the flattened contraction, one tap per CIN.
@@ -203,8 +259,8 @@ __device__ __forceinline__ void run(
         for (int j = 0; j < AR; ++j) {
           const bool ok = k0 + e < k_end && a_ok[j] && a_oh[j] + du < Hs &&
                           a_ow[j] + dv < Ws;
-          cp_async4(&sm.a[st][tid + THREADS * j][e],
-                    ok ? src_g + off + a_off[j] + c : src_g, ok);
+          elem::copy1(&sm.a[st][tid + THREADS * j][e],
+                      ok ? src_g + off + a_off[j] + c : src_g, ok);
         }
         if (++c == CIN) {
           c = 0;
@@ -233,11 +289,11 @@ __device__ __forceinline__ void run(
         advance(r, kr, CIN);
         row = (size_t)taps[3 * r.t] * CIN + r.c;
       }
-      const float* s = ok ? w_g + row * COUT + b_n : w_g;
+      const E* s = ok ? w_g + row * COUT + b_n : w_g;
       if constexpr (VEC_B)
-        cp_async16(&sm.b[st][kr][b_n - n0], s, ok);
+        elem::copy4(&sm.b[st][kr][b_n - n0], s, ok);
       else
-        cp_async4(&sm.b[st][kr][b_n - n0], s, ok);
+        elem::copy1(&sm.b[st][kr][b_n - n0], s, ok);
     }
     if constexpr (TAP_ROWS) advance(step_row, BK, CIN);
   };
@@ -272,8 +328,7 @@ __device__ __forceinline__ void run(
       float a[TM][4];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&sm.a[st][ty + RS * i][kq]);
+        const float4 v = elem::load4(&sm.a[st][ty + RS * i][kq]);
         a[i][0] = v.x;
         a[i][1] = v.y;
         a[i][2] = v.z;
@@ -284,8 +339,7 @@ __device__ __forceinline__ void run(
         float bv[TN];
 #pragma unroll
         for (int h = 0; h < TN / 4; ++h) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              &sm.b[st][kq + kk][h * CS + tx * 4]);
+          const float4 v = elem::load4(&sm.b[st][kq + kk][h * CS + tx * 4]);
           bv[4 * h] = v.x;
           bv[4 * h + 1] = v.y;
           bv[4 * h + 2] = v.z;
@@ -337,13 +391,13 @@ constexpr int BM = 64, BN = 64;  // output tile
 // A[m, kk] = src[g, sel_t, b, oh + du_t, ow + dv_t, c] (zero past the
 // plane).  out holds (splits, G, M, COUT) partials, or the output when
 // there is one split.  grid = (cdiv(M, BM), cdiv(COUT, BN), splits * G).
-template <bool VEC_A, bool VEC_B>
+template <typename E, bool VEC_A, bool VEC_B>
 __global__ void __launch_bounds__(tile::THREADS)
-kernel(const float* __restrict__ src, const float* __restrict__ w,
+kernel(const E* __restrict__ src, const E* __restrict__ w,
        const int* __restrict__ taps, float* __restrict__ out, int G, int P,
        int B, int Hs, int Ws, int CIN, int T, int COUT, int OH, int OW,
        int chunk) {
-  __shared__ __align__(16) tile::Tiles<BM, BN> sm;
+  __shared__ __align__(16) tile::Tiles<BM, BN, E> sm;
   const int g = blockIdx.z % G, split = blockIdx.z / G;
   const int M = B * OH * OW, K = T * CIN;
   const int k_begin = split * chunk;
@@ -355,13 +409,13 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
       out + (size_t)blockIdx.z * M * COUT);
 }
 
-template <bool VEC_A, bool VEC_B>
-cudaError_t launch(const float* src, const float* w, const int* taps,
-                   float* out, int G, int P, int B, int Hs, int Ws, int CIN,
-                   int T, int COUT, int OH, int OW, int splits, int chunk,
+template <typename E, bool VEC_A, bool VEC_B>
+cudaError_t launch(const E* src, const E* w, const int* taps, float* out,
+                   int G, int P, int B, int Hs, int Ws, int CIN, int T,
+                   int COUT, int OH, int OW, int splits, int chunk,
                    cudaStream_t stream) {
   const dim3 grid(cdiv(B * OH * OW, BM), cdiv(COUT, BN), splits * G);
-  kernel<VEC_A, VEC_B><<<grid, tile::THREADS, 0, stream>>>(
+  kernel<E, VEC_A, VEC_B><<<grid, tile::THREADS, 0, stream>>>(
       src, w, taps, out, G, P, B, Hs, Ws, CIN, T, COUT, OH, OW, chunk);
   return cudaGetLastError();
 }
@@ -382,13 +436,14 @@ namespace phased {
 // out[g, p] (G, PH, M, COUT); else part[slot, g] (slots, G, M, COUT).
 // src: (G, B, Hs, Ws, CIN) padded compact dY; w: (G, PH, T, CIN, COUT).
 // grid = (cdiv(M, BM), cdiv(COUT, BN), entries * G).
-template <int BM, int BN, int TM, int TN, bool VEC_A, bool VEC_B>
+template <typename E, int BM, int BN, int TM, int TN, bool VEC_A,
+          bool VEC_B>
 __global__ void __launch_bounds__(tile::THREADS)
-kernel(const float* __restrict__ src, const float* __restrict__ w,
+kernel(const E* __restrict__ src, const E* __restrict__ w,
        const int* __restrict__ taps, const int* __restrict__ work,
        float* __restrict__ part, float* __restrict__ out, int G, int PH,
        int B, int Hs, int Ws, int CIN, int T, int COUT, int QH, int QW) {
-  __shared__ __align__(16) tile::Tiles<BM, BN> sm;
+  __shared__ __align__(16) tile::Tiles<BM, BN, E> sm;
   const int g = blockIdx.z % G;
   const int* e = work + 4 * (blockIdx.z / G);
   const int p = e[0], slot = e[3];
@@ -402,9 +457,10 @@ kernel(const float* __restrict__ src, const float* __restrict__ w,
       dst);
 }
 
-using KernelFn = void (*)(const float*, const float*, const int*, const int*,
-                          float*, float*, int, int, int, int, int, int, int,
-                          int, int, int);
+template <typename E>
+using KernelFn = void (*)(const E*, const E*, const int*, const int*, float*,
+                          float*, int, int, int, int, int, int, int, int, int,
+                          int);
 
 // The plan's variants (kernels/tap_gemm.py: PHASED_TILES): 64 x 64 with
 // 8 x 8 a thread; 64 x 16 with 4 x 4 (COUT <= 16); 128 x 8 with 2 x 8
@@ -413,24 +469,25 @@ enum Variant { WIDE = 0, NARROW = 1, TALL = 2 };
 constexpr int rows(int v) { return v == TALL ? 128 : 64; }
 constexpr int cols(int v) { return v == WIDE ? 64 : v == NARROW ? 16 : 8; }
 
-template <bool VEC_A, bool VEC_B>
-KernelFn pick(int variant) {
+template <typename E, bool VEC_A, bool VEC_B>
+KernelFn<E> pick(int variant) {
   switch (variant) {
     case WIDE:
-      return &kernel<64, 64, 8, 8, VEC_A, VEC_B>;
+      return &kernel<E, 64, 64, 8, 8, VEC_A, VEC_B>;
     case NARROW:
-      return &kernel<64, 16, 4, 4, VEC_A, VEC_B>;
+      return &kernel<E, 64, 16, 4, 4, VEC_A, VEC_B>;
     case TALL:
-      return &kernel<128, 8, 2, 8, VEC_A, VEC_B>;
+      return &kernel<E, 128, 8, 2, 8, VEC_A, VEC_B>;
   }
   return nullptr;
 }
 // nullptr for an unknown variant.
-inline KernelFn pick(int variant, bool vec_a, bool vec_b) {
-  return vec_a ? (vec_b ? pick<true, true>(variant)
-                        : pick<true, false>(variant))
-               : (vec_b ? pick<false, true>(variant)
-                        : pick<false, false>(variant));
+template <typename E>
+KernelFn<E> pick(int variant, bool vec_a, bool vec_b) {
+  return vec_a ? (vec_b ? pick<E, true, true>(variant)
+                        : pick<E, true, false>(variant))
+               : (vec_b ? pick<E, false, true>(variant)
+                        : pick<E, false, false>(variant));
 }
 
 }  // namespace phased
@@ -465,29 +522,31 @@ __device__ __forceinline__ void advance(Pix& p, int d, int OH, int OW) {
   }
 }
 
-template <int BN>
+template <int BN, typename E>
 struct Tiles {
-  float a[2][BK][BM];  // [stage][pixel][row]
-  float b[2][BK][BN];  // [stage][pixel][cout]
+  E a[2][BK][BM];  // [stage][pixel][row]
+  E b[2][BK][BN];  // [stage][pixel][cout]
 };
 
 // part[z, r, n] = sum over the pixels l of split s of
 //   src[g, p_t, b, oh + du_t, ow + dv_t, c] * dy[g, l, n],
 // r = t * CIN + c, z = s * G + g (zero past the plane).  part holds
 // (splits, G, T*CIN, COUT) partials, or the output when there is one
-// split.  A BM x BN tile, TM x TN outputs per thread.  VEC_A: CIN % 4 == 0
-// and src 16-byte aligned, so a channel quad never straddles a tap; VEC_B:
-// COUT % 4 == 0 and dy, part 16-byte aligned.
+// split.  A BM x BN tile, TM x TN outputs per thread.  E is the operands'
+// element (float or __nv_bfloat16); products and sums are float32.  VEC_A:
+// CIN % 4 == 0 and src aligned to four elements, so a channel quad never
+// straddles a tap; VEC_B: COUT % 4 == 0, dy aligned to four elements and
+// part 16-byte aligned.
 // grid = (cdiv(T*CIN, BM) * cdiv(COUT, BN), 1, splits * G).
-template <int BN, int TM, int TN, bool VEC_A, bool VEC_B>
+template <typename E, int BN, int TM, int TN, bool VEC_A, bool VEC_B>
 __global__ void __launch_bounds__(THREADS)
-kernel(const float* __restrict__ src, const float* __restrict__ dy,
+kernel(const E* __restrict__ src, const E* __restrict__ dy,
        const int* __restrict__ taps, float* __restrict__ part, int G, int P,
        int B, int Hs, int Ws, int CIN, int T, int COUT, int OH, int OW,
        int chunk) {
   static_assert((BM / TM) * (BN / TN) == THREADS, "TM x TN per thread");
   static_assert(TM % 4 == 0 && TN % 4 == 0, "float4 fragments");
-  __shared__ __align__(16) Tiles<BN> sm;
+  __shared__ __align__(16) Tiles<BN, E> sm;
   const int tid = threadIdx.x;
   const int col_tiles = cdiv(COUT, BN);
   const int r0 = (blockIdx.x / col_tiles) * BM;
@@ -496,14 +555,14 @@ kernel(const float* __restrict__ src, const float* __restrict__ dy,
   const int R = T * CIN, L = B * OH * OW;
   const int l_begin = split * chunk, l_end = min(L, l_begin + chunk);
   const size_t plane = (size_t)B * Hs * Ws * CIN;
-  const float* src_g = src + (size_t)g * P * plane;
-  const float* dy_g = dy + (size_t)g * L * COUT;
+  const E* src_g = src + (size_t)g * P * plane;
+  const E* dy_g = dy + (size_t)g * L * COUT;
 
   // The A rows this thread fills, fixed for the whole walk: the quad
   // r0 + 4 (tid % 16) + [0, 4) of pixels 4 (tid / 16) + [0, 4) of each
   // step.  Their taps are decoded once: with VEC_A the quad lies in one
-  // tap (one 16-byte copy a pixel); otherwise each row has its own (four
-  // 4-byte copies a pixel).
+  // tap (one copy of four elements a pixel); otherwise each row has its own
+  // (four one-element copies a pixel).
   constexpr int AQ = VEC_A ? 1 : 4;
   int du[AQ], dv[AQ];
   size_t a_tap[AQ];
@@ -530,16 +589,16 @@ kernel(const float* __restrict__ src, const float* __restrict__ dy,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const size_t pix = (((size_t)p.b * Hs + p.oh) * Ws + p.ow) * CIN;
-      float* d = &sm.a[st][(tid / 16) * 4 + j][(tid % 16) * 4];
+      E* d = &sm.a[st][(tid / 16) * 4 + j][(tid % 16) * 4];
 #pragma unroll
       for (int q = 0; q < AQ; ++q) {
         const bool ok = a_ok[q] && p.l < l_end && p.oh + du[q] < Hs &&
                         p.ow + dv[q] < Ws;
-        const float* s = ok ? src_g + a_tap[q] + pix : src_g;
+        const E* s = ok ? src_g + a_tap[q] + pix : src_g;
         if constexpr (VEC_A)
-          cp_async16(d, s, ok);
+          elem::copy4(d, s, ok);
         else
-          cp_async4(d + q, s, ok);
+          elem::copy1(d + q, s, ok);
       }
       if (j < 3) advance(p, 1, OH, OW);
     }
@@ -552,8 +611,8 @@ kernel(const float* __restrict__ src, const float* __restrict__ dy,
       for (int j = 0; j < BK * QB / THREADS; ++j) {
         const int e = tid / QB + (THREADS / QB) * j, l = l0 + e;
         const bool ok = l < l_end && n < COUT;
-        cp_async16(&sm.b[st][e][(tid % QB) * 4],
-                   ok ? dy_g + (size_t)l * COUT + n : dy_g, ok);
+        elem::copy4(&sm.b[st][e][(tid % QB) * 4],
+                    ok ? dy_g + (size_t)l * COUT + n : dy_g, ok);
       }
     } else {
       const int n = n0 + tid % BN;
@@ -561,8 +620,8 @@ kernel(const float* __restrict__ src, const float* __restrict__ dy,
       for (int j = 0; j < BK * BN / THREADS; ++j) {
         const int e = tid / BN + (THREADS / BN) * j, l = l0 + e;
         const bool ok = l < l_end && n < COUT;
-        cp_async4(&sm.b[st][e][tid % BN],
-                  ok ? dy_g + (size_t)l * COUT + n : dy_g, ok);
+        elem::copy1(&sm.b[st][e][tid % BN],
+                    ok ? dy_g + (size_t)l * COUT + n : dy_g, ok);
       }
     }
   };
@@ -596,8 +655,7 @@ kernel(const float* __restrict__ src, const float* __restrict__ dy,
       float a[TM], b[TN];
 #pragma unroll
       for (int h = 0; h < TM / 4; ++h) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&sm.a[st][e][h * RS + ty * 4]);
+        const float4 v = elem::load4(&sm.a[st][e][h * RS + ty * 4]);
         a[4 * h] = v.x;
         a[4 * h + 1] = v.y;
         a[4 * h + 2] = v.z;
@@ -605,8 +663,7 @@ kernel(const float* __restrict__ src, const float* __restrict__ dy,
       }
 #pragma unroll
       for (int h = 0; h < TN / 4; ++h) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&sm.b[st][e][h * CS + tx * 4]);
+        const float4 v = elem::load4(&sm.b[st][e][h * CS + tx * 4]);
         b[4 * h] = v.x;
         b[4 * h + 1] = v.y;
         b[4 * h + 2] = v.z;
@@ -642,28 +699,109 @@ kernel(const float* __restrict__ src, const float* __restrict__ dy,
   }
 }
 
-using KernelFn = void (*)(const float*, const float*, const int*, float*, int,
-                          int, int, int, int, int, int, int, int, int, int);
+template <typename E>
+using KernelFn = void (*)(const E*, const E*, const int*, float*, int, int,
+                          int, int, int, int, int, int, int, int, int);
 
 // The two tiles: 64 x 64 with 8 x 8 per thread and, for COUT <= 16,
 // 64 x 16 with 4 x 4 per thread.
 constexpr int BN_WIDE = 64, BN_NARROW = 16;
 
-template <bool VEC_A, bool VEC_B>
-KernelFn pick(bool narrow) {
-  return narrow ? &kernel<BN_NARROW, 4, 4, VEC_A, VEC_B>
-                : &kernel<BN_WIDE, 8, 8, VEC_A, VEC_B>;
+template <typename E, bool VEC_A, bool VEC_B>
+KernelFn<E> pick(bool narrow) {
+  return narrow ? &kernel<E, BN_NARROW, 4, 4, VEC_A, VEC_B>
+                : &kernel<E, BN_WIDE, 8, 8, VEC_A, VEC_B>;
 }
-inline KernelFn pick(bool narrow, bool vec_a, bool vec_b) {
-  return vec_a ? (vec_b ? pick<true, true>(narrow) : pick<true, false>(narrow))
-               : (vec_b ? pick<false, true>(narrow)
-                        : pick<false, false>(narrow));
+template <typename E>
+KernelFn<E> pick(bool narrow, bool vec_a, bool vec_b) {
+  return vec_a ? (vec_b ? pick<E, true, true>(narrow)
+                        : pick<E, true, false>(narrow))
+               : (vec_b ? pick<E, false, true>(narrow)
+                        : pick<E, false, false>(narrow));
 }
 
 }  // namespace wgrad
 
+// ---------------------------------------------------------------------------
+// The entries' bodies, for either operand element
+// ---------------------------------------------------------------------------
+
+// True when p is aligned to four elements of E (a copy4 source).
+template <typename E>
+bool quad_aligned(const void* p) {
+  return (uintptr_t)p % (4 * sizeof(E)) == 0;
+}
+
+template <typename E>
+cudaError_t forward(const E* src, const E* w, const int* taps, float* part,
+                    float* out, int G, int P, int B, int Hs, int Ws, int CIN,
+                    int T, int COUT, int OH, int OW, int splits,
+                    cudaStream_t stream) {
+  const int chunk = cdiv(cdiv(T * CIN, splits), tile::BK) * tile::BK;
+  const bool vec_a = CIN % 4 == 0 && quad_aligned<E>(src);
+  const bool vec_b =
+      COUT % 4 == 0 && quad_aligned<E>(w) && (uintptr_t)part % 16 == 0;
+  auto run = vec_a ? (vec_b ? &fwd::launch<E, true, true>
+                            : &fwd::launch<E, true, false>)
+                   : (vec_b ? &fwd::launch<E, false, true>
+                            : &fwd::launch<E, false, false>);
+  cudaError_t err = run(src, w, taps, part, G, P, B, Hs, Ws, CIN, T, COUT,
+                        OH, OW, splits, chunk, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  return splitk::reduce(part, out, (size_t)G * B * OH * OW * COUT, splits,
+                        stream);
+}
+
+template <typename E>
+cudaError_t input_grad(const E* src, const E* w, const int* taps,
+                       const int* work, int n_work, const int* sums,
+                       int n_sums, float* part, float* out, int G, int PH,
+                       int B, int Hs, int Ws, int CIN, int T, int COUT,
+                       int QH, int QW, int variant, cudaStream_t stream) {
+  const bool vec_a = CIN % 4 == 0 && quad_aligned<E>(src);
+  const bool vec_b = COUT % 4 == 0 && quad_aligned<E>(w) &&
+                     ((uintptr_t)part | (uintptr_t)out) % 16 == 0;
+  const phased::KernelFn<E> kernel = phased::pick<E>(variant, vec_a, vec_b);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  const int M = B * QH * QW;
+  const dim3 grid(cdiv(M, phased::rows(variant)),
+                  cdiv(COUT, phased::cols(variant)), n_work * G);
+  kernel<<<grid, tile::THREADS, 0, stream>>>(src, w, taps, work, part, out, G,
+                                             PH, B, Hs, Ws, CIN, T, COUT, QH,
+                                             QW);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_sums == 0) return err;
+  return splitk::reduce_planes(part, out, sums, n_sums, (size_t)M * COUT, G,
+                               PH, stream);
+}
+
+template <typename E>
+cudaError_t weight_grad(const E* src, const E* dy, const int* taps,
+                        float* part, float* out, int G, int P, int B, int Hs,
+                        int Ws, int CIN, int T, int COUT, int OH, int OW,
+                        int narrow, int splits, cudaStream_t stream) {
+  const int L = B * OH * OW;
+  const int chunk = cdiv(cdiv(L, splits), wgrad::BK) * wgrad::BK;
+  const bool vec_a = CIN % 4 == 0 && quad_aligned<E>(src);
+  const bool vec_b =
+      COUT % 4 == 0 && quad_aligned<E>(dy) && (uintptr_t)part % 16 == 0;
+  const int cols = narrow ? wgrad::BN_NARROW : wgrad::BN_WIDE;
+  const dim3 grid(cdiv(T * CIN, wgrad::BM) * cdiv(COUT, cols), 1,
+                  splits * G);
+  const wgrad::KernelFn<E> kernel = wgrad::pick<E>(narrow, vec_a, vec_b);
+  kernel<<<grid, wgrad::THREADS, 0, stream>>>(src, dy, taps, part, G, P, B,
+                                              Hs, Ws, CIN, T, COUT, OH, OW,
+                                              chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return splitk::reduce(part, out, (size_t)G * T * CIN * COUT, splits,
+                        stream);
+}
+
 }  // namespace
 
+// Each kernel has a float32 entry and a bfloat16 one (`_bf16`: src, w and
+// dy read as bfloat16); both write float32.
 extern "C" {
 
 // `part` holds splits * G*M*COUT floats (M = B*OH*OW); with splits == 1 it
@@ -672,19 +810,15 @@ int tap_gemm_f32(const float* src, const float* w, const int* taps,
                  float* part, float* out, int G, int P, int B, int Hs,
                  int Ws, int CIN, int T, int COUT, int OH, int OW,
                  int splits, cudaStream_t stream) {
-  const int chunk = cdiv(cdiv(T * CIN, splits), tile::BK) * tile::BK;
-  const bool vec_a = CIN % 4 == 0 && (uintptr_t)src % 16 == 0;
-  const bool vec_b =
-      COUT % 4 == 0 && ((uintptr_t)w | (uintptr_t)part) % 16 == 0;
-  auto run = vec_a ? (vec_b ? &fwd::launch<true, true>
-                            : &fwd::launch<true, false>)
-                   : (vec_b ? &fwd::launch<false, true>
-                            : &fwd::launch<false, false>);
-  cudaError_t err = run(src, w, taps, part, G, P, B, Hs, Ws, CIN, T, COUT,
-                        OH, OW, splits, chunk, stream);
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)splitk::reduce(part, out, (size_t)G * B * OH * OW * COUT,
-                             splits, stream);
+  return (int)forward(src, w, taps, part, out, G, P, B, Hs, Ws, CIN, T, COUT,
+                      OH, OW, splits, stream);
+}
+int tap_gemm_bf16(const __nv_bfloat16* src, const __nv_bfloat16* w,
+                  const int* taps, float* part, float* out, int G, int P,
+                  int B, int Hs, int Ws, int CIN, int T, int COUT, int OH,
+                  int OW, int splits, cudaStream_t stream) {
+  return (int)forward(src, w, taps, part, out, G, P, B, Hs, Ws, CIN, T, COUT,
+                      OH, OW, splits, stream);
 }
 
 // taps: (PH, T, 3) rows (j, du, dv); work: n_work rows (phase, k_begin,
@@ -698,29 +832,33 @@ int tap_gemm_phased_f32(const float* src, const float* w, const int* taps,
                         int n_sums, float* part, float* out, int G, int PH,
                         int B, int Hs, int Ws, int CIN, int T, int COUT,
                         int QH, int QW, int variant, cudaStream_t stream) {
-  const bool vec_a = CIN % 4 == 0 && (uintptr_t)src % 16 == 0;
-  const bool vec_b = COUT % 4 == 0 &&
-                     ((uintptr_t)w | (uintptr_t)part | (uintptr_t)out) % 16 ==
-                         0;
-  const phased::KernelFn kernel = phased::pick(variant, vec_a, vec_b);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  const int M = B * QH * QW;
-  const dim3 grid(cdiv(M, phased::rows(variant)),
-                  cdiv(COUT, phased::cols(variant)), n_work * G);
-  kernel<<<grid, tile::THREADS, 0, stream>>>(src, w, taps, work, part, out, G,
-                                             PH, B, Hs, Ws, CIN, T, COUT, QH,
-                                             QW);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_sums == 0) return (int)err;
-  return (int)splitk::reduce_planes(part, out, sums, n_sums,
-                                    (size_t)M * COUT, G, PH, stream);
+  return (int)input_grad(src, w, taps, work, n_work, sums, n_sums, part, out,
+                         G, PH, B, Hs, Ws, CIN, T, COUT, QH, QW, variant,
+                         stream);
+}
+int tap_gemm_phased_bf16(const __nv_bfloat16* src, const __nv_bfloat16* w,
+                         const int* taps, const int* work, int n_work,
+                         const int* sums, int n_sums, float* part, float* out,
+                         int G, int PH, int B, int Hs, int Ws, int CIN, int T,
+                         int COUT, int QH, int QW, int variant,
+                         cudaStream_t stream) {
+  return (int)input_grad(src, w, taps, work, n_work, sums, n_sums, part, out,
+                         G, PH, B, Hs, Ws, CIN, T, COUT, QH, QW, variant,
+                         stream);
 }
 
 // Blocks of one input-grad instance an SM holds (registers and shared
-// memory), which the plan in kernels/tap_gemm.py assumes.
-int tap_gemm_phased_blocks_per_sm(int variant, int vec_a, int vec_b,
+// memory), which the plan in kernels/tap_gemm.py assumes; bf16 != 0 for
+// the bfloat16 instance.
+int tap_gemm_phased_blocks_per_sm(int variant, int bf16, int vec_a, int vec_b,
                                   int* blocks) {
-  const phased::KernelFn kernel = phased::pick(variant, vec_a, vec_b);
+  if (bf16) {
+    const auto kernel = phased::pick<__nv_bfloat16>(variant, vec_a, vec_b);
+    if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, tile::THREADS, 0);
+  }
+  const auto kernel = phased::pick<float>(variant, vec_a, vec_b);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, tile::THREADS, 0);
@@ -733,29 +871,28 @@ int tap_wgrad_f32(const float* src, const float* dy, const int* taps,
                   float* part, float* out, int G, int P, int B, int Hs,
                   int Ws, int CIN, int T, int COUT, int OH, int OW,
                   int narrow, int splits, cudaStream_t stream) {
-  const int L = B * OH * OW;
-  const int chunk = cdiv(cdiv(L, splits), wgrad::BK) * wgrad::BK;
-  const bool vec_a = CIN % 4 == 0 && (uintptr_t)src % 16 == 0;
-  const bool vec_b =
-      COUT % 4 == 0 && ((uintptr_t)dy | (uintptr_t)part) % 16 == 0;
-  const int cols = narrow ? wgrad::BN_NARROW : wgrad::BN_WIDE;
-  const dim3 grid(cdiv(T * CIN, wgrad::BM) * cdiv(COUT, cols), 1,
-                  splits * G);
-  const wgrad::KernelFn kernel = wgrad::pick(narrow, vec_a, vec_b);
-  kernel<<<grid, wgrad::THREADS, 0, stream>>>(src, dy, taps, part, G, P, B,
-                                              Hs, Ws, CIN, T, COUT, OH, OW,
-                                              chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return (int)splitk::reduce(part, out, (size_t)G * T * CIN * COUT, splits,
-                             stream);
+  return (int)weight_grad(src, dy, taps, part, out, G, P, B, Hs, Ws, CIN, T,
+                          COUT, OH, OW, narrow, splits, stream);
+}
+int tap_wgrad_bf16(const __nv_bfloat16* src, const __nv_bfloat16* dy,
+                   const int* taps, float* part, float* out, int G, int P,
+                   int B, int Hs, int Ws, int CIN, int T, int COUT, int OH,
+                   int OW, int narrow, int splits, cudaStream_t stream) {
+  return (int)weight_grad(src, dy, taps, part, out, G, P, B, Hs, Ws, CIN, T,
+                          COUT, OH, OW, narrow, splits, stream);
 }
 
 // Blocks of one weight-grad instance an SM holds (registers and shared
-// memory), which the plan in kernels/tap_gemm.py assumes.
-int tap_wgrad_blocks_per_sm(int narrow, int vec_a, int vec_b, int* blocks) {
+// memory), which the plan in kernels/tap_gemm.py assumes; bf16 != 0 for
+// the bfloat16 instance.
+int tap_wgrad_blocks_per_sm(int narrow, int bf16, int vec_a, int vec_b,
+                            int* blocks) {
+  if (bf16)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, wgrad::pick<__nv_bfloat16>(narrow, vec_a, vec_b),
+        wgrad::THREADS, 0);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, wgrad::pick(narrow, vec_a, vec_b), wgrad::THREADS, 0);
+      blocks, wgrad::pick<float>(narrow, vec_a, vec_b), wgrad::THREADS, 0);
 }
 
 }  // extern "C"

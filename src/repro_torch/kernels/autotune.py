@@ -12,8 +12,9 @@ routes through :func:`tuned_plan`:
       -> in-process memo
       -> persistent JSON plan cache (key: schema | role | the card's name
          | compute capability | SM count | build of the kernels | ConvDims
-         | groups) -> revalidate via ``ops.plan_from_entry`` (a plan that
-         no longer launches => "stale")
+         | groups | operand type) -> revalidate via
+         ``ops.plan_from_entry`` (a plan that no longer launches =>
+         "stale")
       -> mode "measure": time the top-k candidates (``ops.plan_candidates``)
          on the card, persist the winner atomically;
          mode "cached": never time -- persisted winners when present, the
@@ -58,7 +59,7 @@ from repro_torch.kernels import tap_gemm as tg
 
 #: bump when the key layout or entry payload changes; older files are
 #: ignored wholesale (equivalent to a cold cache).
-CACHE_SCHEMA = 1
+CACHE_SCHEMA = 2
 
 _CACHE_FILE = "plan_cache.json"
 
@@ -142,16 +143,19 @@ def build_id() -> str:
     return build.source_hash()
 
 
-def plan_key(role: str, d: ConvDims, groups: int, card_: Card) -> str:
+def plan_key(role: str, d: ConvDims, groups: int, card_: Card,
+             dtype=torch.float32) -> str:
     """Stable identity of one planning problem.  The card (name, compute
-    capability, SM count) and the build of the kernels are part of it: a
-    plan timed on one card or one build is never served to another."""
+    capability, SM count), the build of the kernels and the operands' type
+    (another kernel instance) are part of it: a plan timed on one card,
+    one build or one type is never served to another."""
     d = ops._canonical(d)
     dims = ",".join(f"{f.name}={getattr(d, f.name)}"
                     for f in dataclasses.fields(d))
     major, minor = card_.capability
     return (f"v{CACHE_SCHEMA}|{role}|{card_.name}|sm_{major}{minor}"
-            f"|sms={card_.sms}|build={build_id()}|{dims}|groups={groups}")
+            f"|sms={card_.sms}|build={build_id()}|{dims}|groups={groups}"
+            f"|dtype={ops._dtype_key(dtype)}")
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +163,16 @@ def plan_key(role: str, d: ConvDims, groups: int, card_: Card) -> str:
 # ---------------------------------------------------------------------------
 
 def _run_fn(role: str, d: ConvDims, groups: int, plan: tg.Plan,
-            device: torch.device):
-    """A zero-arg call of ``role``'s kernel under ``plan`` on operands
-    built once from ``d``.  Dummy operands: timing is data-independent."""
-    x = torch.ones(d.B, d.C * groups, d.H_i, d.W_i, device=device)
-    w = torch.ones(d.N * groups, d.C, d.k_taps_h, d.k_taps_w, device=device)
-    dy = torch.ones(d.B, d.N * groups, d.H_o, d.W_o, device=device)
+            device: torch.device, dtype=torch.float32):
+    """A zero-arg call of ``role``'s kernel under ``plan`` on operands of
+    ``dtype`` built once from ``d``.  Dummy operands: timing is
+    data-independent."""
+    x = torch.ones(d.B, d.C * groups, d.H_i, d.W_i, device=device,
+                   dtype=dtype)
+    w = torch.ones(d.N * groups, d.C, d.k_taps_h, d.k_taps_w, device=device,
+                   dtype=dtype)
+    dy = torch.ones(d.B, d.N * groups, d.H_o, d.W_o, device=device,
+                    dtype=dtype)
     if role == "forward":
         src, wt, taps = ops.forward_operands(x, w, d, groups)
         return lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o, plan)
@@ -180,12 +188,14 @@ def _run_fn(role: str, d: ConvDims, groups: int, plan: tg.Plan,
 
 
 def measure_plan(role: str, d: ConvDims, groups: int, plan: tg.Plan,
-                 device, reps: int | None = None) -> float:
-    """Device time of one call of ``role``'s kernel under ``plan``, in
-    MICROSECONDS: the best of ``reps`` (``config.autotune_reps``) CUDA-graph
-    replays of :data:`CALLS` back-to-back calls (``timing.replay_ms``)."""
+                 device, reps: int | None = None,
+                 dtype=torch.float32) -> float:
+    """Device time of one call of ``role``'s kernel under ``plan`` on
+    operands of ``dtype``, in MICROSECONDS: the best of ``reps``
+    (``config.autotune_reps``) CUDA-graph replays of :data:`CALLS`
+    back-to-back calls (``timing.replay_ms``)."""
     reps = config.autotune_reps if reps is None else reps
-    fn = _run_fn(role, d, groups, plan, torch.device(device))
+    fn = _run_fn(role, d, groups, plan, torch.device(device), dtype)
     return min(timing.replay_ms(fn, max(1, reps), CALLS, warm=1)) * 1e3
 
 
@@ -194,11 +204,12 @@ def measure_plan(role: str, d: ConvDims, groups: int, plan: tg.Plan,
 # ---------------------------------------------------------------------------
 
 def tuned_plan(role: str, d: ConvDims, groups: int, device,
-               analytic: tg.Plan) -> tg.Plan:
+               analytic: tg.Plan, dtype=torch.float32) -> tg.Plan:
     """The tuned (or cache-served, or annotated-analytic) plan for one
-    planning problem on ``device``.  ``analytic`` is the analytic plan and
-    launches (``ops.pass_plan`` never routes one that cannot)."""
-    key = plan_key(role, d, groups, card(torch.device(device)))
+    planning problem on ``device`` with operands of ``dtype``.
+    ``analytic`` is the analytic plan and launches (``ops.pass_plan`` never
+    routes one that cannot)."""
+    key = plan_key(role, d, groups, card(torch.device(device)), dtype)
     hit = _MEMO.get(key)
     if hit is not None:
         return hit
@@ -243,11 +254,11 @@ def tuned_plan(role: str, d: ConvDims, groups: int, device,
         return plan
 
     cands = ops.plan_candidates(role, d, groups, config.autotune_top_k,
-                                device) or [analytic]
+                                device, dtype) or [analytic]
     best, best_us, timed = None, float("inf"), 0
     for cand in cands:
         try:
-            us = measure_plan(role, d, groups, cand, device)
+            us = measure_plan(role, d, groups, cand, device, dtype=dtype)
         except Exception:
             # A candidate that fails to launch or to be captured must not
             # kill tuning for the whole problem: counted, skipped.
@@ -270,12 +281,13 @@ def tuned_plan(role: str, d: ConvDims, groups: int, device,
     return best
 
 
-def poison_plan(role: str, d: ConvDims, groups: int, device) -> str:
+def poison_plan(role: str, d: ConvDims, groups: int, device,
+                dtype=torch.float32) -> str:
     """Poison-mark the persisted plan-cache entry of one planning problem:
     whatever plan it holds is not served again -- ``autotune="cached"``
     takes the analytic plan for the key, ``autotune="measure"`` re-tunes
     (a fresh measurement overwrites the mark).  Returns the key."""
-    key = plan_key(role, d, groups, card(torch.device(device)))
+    key = plan_key(role, d, groups, card(torch.device(device)), dtype)
     _MEMO.pop(key, None)
     store = _load_store()
     entry = store["entries"].get(key) or {}

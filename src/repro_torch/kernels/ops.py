@@ -242,60 +242,74 @@ def _check_role(role: str) -> None:
         raise ValueError(f"unknown plan role {role!r}; roles: {PLAN_ROLES}")
 
 
+def _dtype_key(dtype) -> str:
+    """The operand type's key in a :class:`~repro_torch.kernels.tap_gemm.
+    Problem` (``"f32"`` or ``"bf16"``); raises on a type no kernel takes."""
+    if dtype not in tg.DTYPES:
+        raise TypeError(f"no tap kernel takes {dtype}; they take "
+                        f"{' or '.join(map(str, tg.DTYPES))}")
+    return tg.DTYPES[dtype]
+
+
 @functools.lru_cache(maxsize=4096)
-def _problem(role: str, d: ConvDims, groups: int) -> tg.Problem:
+def _problem(role: str, d: ConvDims, groups: int,
+             dtype: str = "f32") -> tg.Problem:
     if role == "input_grad":
         pp = input_grad_plan(d)
         return tg.Problem(role, groups,
                           tuple(len(t) for t in pp.phase_taps), d.N, d.C,
-                          d.B * pp.n_qh * pp.n_qw)
+                          d.B * pp.n_qh * pp.n_qw, dtype)
     return tg.Problem(role, groups, (len(_forward_taps(d)),), d.C, d.N,
-                      d.B * d.H_o * d.W_o)
+                      d.B * d.H_o * d.W_o, dtype)
 
 
-def problem(role: str, d: ConvDims, groups: int = 1) -> tg.Problem:
+def problem(role: str, d: ConvDims, groups: int = 1,
+            dtype=torch.float32) -> tg.Problem:
     """What the plan of pass ``role`` depends on, for ``groups`` groups of
-    the per-group geometry ``d`` (the input grad's ``cin`` is dY's N
-    channels, its ``cout`` dX's C)."""
+    the per-group geometry ``d`` with operands of ``dtype`` (the input
+    grad's ``cin`` is dY's N channels, its ``cout`` dX's C)."""
     _check_role(role)
-    return _problem(role, _canonical(d), groups)
+    return _problem(role, _canonical(d), groups, _dtype_key(dtype))
 
 
 @functools.lru_cache(maxsize=4096)
-def _analytic(role: str, d: ConvDims, groups: int, sms: int):
-    prob = _problem(role, d, groups)
+def _analytic(role: str, d: ConvDims, groups: int, sms: int, dtype: str):
+    prob = _problem(role, d, groups, dtype)
     plan = tg.analytic_plan(prob, sms)
     return plan, tg.plan_gap(prob, plan)
 
 
-def pass_plan(role: str, d: ConvDims, groups: int,
-              device) -> tg.Plan | None:
-    """The plan the kernel of pass ``role`` launches with on ``device``:
-    the analytic plan, or with ``config.autotune`` on, the tuner's
-    (``kernels/autotune.py``: measured, served from the plan cache, or the
-    analytic plan annotated).  A plan that cannot launch is never tuned.
-    None on a CPU device: the plain versions have no plan."""
+def pass_plan(role: str, d: ConvDims, groups: int, device,
+              dtype=torch.float32) -> tg.Plan | None:
+    """The plan the kernel of pass ``role`` launches with on ``device`` for
+    operands of ``dtype``: the analytic plan, or with ``config.autotune``
+    on, the tuner's (``kernels/autotune.py``: measured, served from the
+    plan cache, or the analytic plan annotated; keyed by ``dtype`` too).
+    A plan that cannot launch is never tuned.  None on a CPU device: the
+    plain versions have no plan."""
     _check_role(role)
     device = torch.device(device)
     if device.type != "cuda":
         return None
     d = _canonical(d)
-    plan, gap = _analytic(role, d, groups, tg._sms(device))
+    plan, gap = _analytic(role, d, groups, tg._sms(device),
+                          _dtype_key(dtype))
     if config.autotune == "off" or gap is not None:
         return plan
     from repro_torch.kernels import autotune
-    return autotune.tuned_plan(role, d, groups, device, plan)
+    return autotune.tuned_plan(role, d, groups, device, plan, dtype)
 
 
 def plan_candidates(role: str, d: ConvDims, groups: int = 1,
-                    k: int | None = None,
-                    device="cuda") -> list[tg.Plan]:
-    """The tuner's shortlist on ``device``'s card: up to ``k``
-    (``config.autotune_top_k``) valid plans, the analytic plan first
+                    k: int | None = None, device="cuda",
+                    dtype=torch.float32) -> list[tg.Plan]:
+    """The tuner's shortlist on ``device``'s card for operands of
+    ``dtype``: up to ``k`` (``config.autotune_top_k``) valid plans, the
+    analytic plan first
     (:func:`repro_torch.kernels.tap_gemm.candidate_plans`)."""
     _check_role(role)
     k = config.autotune_top_k if k is None else k
-    prob = _problem(role, _canonical(d), groups)
+    prob = _problem(role, _canonical(d), groups, _dtype_key(dtype))
     return tg.candidate_plans(prob, tg._sms(torch.device(device)))[:k]
 
 
@@ -443,7 +457,7 @@ def conv2d_forward(x, w, d: ConvDims, groups: int = 1,
     (``k_taps_h x k_taps_w``); a dilation's zero taps are skipped by the
     tap table.  ``plan`` defaults to :func:`pass_plan`'s."""
     if plan is None:
-        plan = pass_plan("forward", d, groups, x.device)
+        plan = pass_plan("forward", d, groups, x.device, x.dtype)
     src, wt, taps = forward_operands(x, w, d, groups)
     y = tg.tap_gemm(src, wt, taps, d.H_o, d.W_o, plan)  # (G, B, Ho, Wo, N)
     return _ungroup_nchw(y).to(x.dtype)
@@ -454,7 +468,7 @@ def conv2d_input_grad(dy, w, d: ConvDims, groups: int = 1,
     """Input grad through ONE ``tap_gemm_phased`` launch over all phases;
     ``plan`` defaults to :func:`pass_plan`'s."""
     if plan is None:
-        plan = pass_plan("input_grad", d, groups, dy.device)
+        plan = pass_plan("input_grad", d, groups, dy.device, dy.dtype)
     src, w_stack, pp = input_grad_operands(dy, w, d, groups)
     out = tg.tap_gemm_phased(src, w_stack, pp.phase_taps, pp.n_qh, pp.n_qw,
                              plan)
@@ -467,7 +481,7 @@ def conv2d_weight_grad(x, dy, d: ConvDims, groups: int = 1,
     """Weight grad through ``tap_wgrad``, at the compact kernel extent;
     ``plan`` defaults to :func:`pass_plan`'s."""
     if plan is None:
-        plan = pass_plan("weight_grad", d, groups, x.device)
+        plan = pass_plan("weight_grad", d, groups, x.device, x.dtype)
     src, dyn, taps = weight_grad_operands(x, dy, d, groups)
     dw = tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o, plan)  # (G, T, C, N)
     dw = dw.reshape(groups, d.k_taps_h, d.k_taps_w, d.C, d.N)

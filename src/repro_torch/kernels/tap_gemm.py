@@ -10,13 +10,17 @@ over phase-split, channels-last compact operands,
   * ``tap_wgrad``       weight grad (dilated mode), float32 output
 
 with an optional leading group dim on every operand, so a grouped or
-depthwise conv is one launch per pass.  On a CUDA tensor a wrapper checks
+depthwise conv is one launch per pass.  Operands are float32 or bfloat16,
+every operand of a call in one type (:data:`DTYPES`); as in the JAX
+kernels, products are summed in float32, and the forward and the input
+grad return the operands' type.  On a CUDA tensor a wrapper checks
 its operands and its :class:`Plan` (the tile variant and split-K count:
 :func:`analytic_plan` unless the caller passes one), launches its kernel
 (built at first use by ``repro_torch.kernels.build``) or raises; it never
 falls back.  On a CPU tensor it returns the plain version from
 ``repro_torch.kernels.ref``, which has no plan.  ``LAUNCHES`` counts kernel
-launches per wrapper (CUDA only).
+launches per wrapper (CUDA only), ``TYPE_LAUNCHES`` the same by operand
+type.
 """
 
 from __future__ import annotations
@@ -41,14 +45,26 @@ TILE_M, TILE_N = 64, 64
 GRID_YZ_MAX = 65_535
 INT32_MAX = 2**31 - 1
 
+#: operand type -> the suffix of its kernel entries in csrc/tap_gemm.cu.
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+#: the same launches by operand type, ``"tap_gemm:bf16"`` -> count.
+TYPE_LAUNCHES: dict[str, int] = {}
+
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
 
 
+def type_launch_counts() -> dict[str, int]:
+    return dict(TYPE_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    TYPE_LAUNCHES.clear()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -85,17 +101,23 @@ def _lib() -> ctypes.CDLL:
     """The built library, with every entry's C signature declared (each
     pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     lib = build.load("tap_gemm")
-    lib.tap_gemm_f32.argtypes = [_P] * 5 + [_I] * 11 + [_P]
-    lib.tap_gemm_phased_f32.argtypes = ([_P] * 4 + [_I, _P, _I, _P, _P]
-                                        + [_I] * 11 + [_P])
-    lib.tap_gemm_phased_blocks_per_sm.argtypes = [_I] * 3 + [_P]
-    lib.tap_wgrad_f32.argtypes = [_P] * 5 + [_I] * 12 + [_P]
-    lib.tap_wgrad_blocks_per_sm.argtypes = [_I] * 3 + [_P]
-    for fn in (lib.tap_gemm_f32, lib.tap_gemm_phased_f32,
-               lib.tap_gemm_phased_blocks_per_sm, lib.tap_wgrad_f32,
+    for suffix in DTYPES.values():
+        getattr(lib, f"tap_gemm_{suffix}").argtypes = ([_P] * 5 + [_I] * 11
+                                                       + [_P])
+        getattr(lib, f"tap_gemm_phased_{suffix}").argtypes = (
+            [_P] * 4 + [_I, _P, _I, _P, _P] + [_I] * 11 + [_P])
+        getattr(lib, f"tap_wgrad_{suffix}").argtypes = ([_P] * 5 + [_I] * 12
+                                                        + [_P])
+    lib.tap_gemm_phased_blocks_per_sm.argtypes = [_I] * 4 + [_P]
+    lib.tap_wgrad_blocks_per_sm.argtypes = [_I] * 4 + [_P]
+    for name in ("tap_gemm", "tap_gemm_phased", "tap_wgrad"):
+        for suffix in DTYPES.values():
+            getattr(lib, f"{name}_{suffix}").restype = ctypes.c_int
+    for fn in (lib.tap_gemm_phased_blocks_per_sm,
                lib.tap_wgrad_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
+
 
 
 @functools.lru_cache(maxsize=1024)
@@ -105,23 +127,36 @@ def _table(rows: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1)
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.dtype:
+    """Checks a CUDA call's operands and returns their one type, float32
+    or bfloat16 (the kernel instance it launches); raises on any other
+    type, on a mix of types, devices, or on a non-contiguous operand."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: operands on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1:
+        raise TypeError(f"{name}: operands of one type, got "
+                        f"{sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    if dtype not in DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes "
+                        f"{' or '.join(map(str, DTYPES))}, got {dtype}")
+    return dtype
 
 
-def _run(name: str, fn, *args) -> None:
-    err = fn(*args)
+def _run(name: str, dtype: torch.dtype, *args) -> None:
+    """Launch the entry of kernel ``name`` for operands of ``dtype`` and
+    count it."""
+    err = getattr(_lib(), f"{name}_{DTYPES[dtype]}")(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
+    key = f"{name}:{DTYPES[dtype]}"
+    TYPE_LAUNCHES[key] = TYPE_LAUNCHES.get(key, 0) + 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -150,7 +185,8 @@ def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int, ow: int,
 
     src : ([G,] P, B, Hs, Ws, CIN)   phase-split compact source
     w   : ([G,] T, CIN, COUT)        per-tap weight slices, T == len(taps)
-    out : ([G,] B, oh, ow, COUT)
+    out : ([G,] B, oh, ow, COUT)     in the operands' type (summed in
+                                     float32)
 
     ``plan``: a ``"forward"`` :class:`Plan` (only its split count varies:
     the kernel has one tile), or None for :func:`analytic_plan`.
@@ -165,20 +201,21 @@ def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int, ow: int,
                          f"{tuple(w.shape)} / {len(taps)} taps disagree")
     _check_taps("tap_gemm", taps, p)
     cuda = _on_cuda("tap_gemm", src)
-    plan = _checked("tap_gemm", Problem("forward", g, (t,), cin, cout,
-                                        b * oh * ow), plan, src.device, cuda)
+    dtype = _check_cuda("tap_gemm", s6, w4) if cuda else src.dtype
+    prob = Problem("forward", g, (t,), cin, cout, b * oh * ow,
+                   DTYPES.get(dtype, "f32"))
+    plan = _checked("tap_gemm", prob, plan, src.device, cuda)
     if not cuda:
         return ref.tap_gemm_ref(src, w, taps, oh, ow)
-    _check_cuda("tap_gemm", s6, w4)
     splits = plan.splits
     out = torch.empty((g, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
     part = out if splits == 1 else torch.empty(
         (splits, g, b, oh, ow, cout), dtype=torch.float32, device=src.device)
-    _run("tap_gemm", _lib().tap_gemm_f32, s6.data_ptr(), w4.data_ptr(),
-         _table(taps, src.device).data_ptr(), part.data_ptr(),
-         out.data_ptr(), g, p, b, hs, ws, cin, t, cout, oh, ow, splits,
-         _stream(src))
+    _run("tap_gemm", dtype, s6.data_ptr(), w4.data_ptr(),
+         _table(taps, src.device).data_ptr(), part.data_ptr(), out.data_ptr(),
+         g, p, b, hs, ws, cin, t, cout, oh, ow, splits, _stream(src))
+    out = out.to(dtype)
     return out if grouped else out[0]
 
 
@@ -189,8 +226,9 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
     src : ([G,] B, Hs, Ws, CIN)       globally padded compact dY, shared by
                                       every phase
     w   : ([G,] PH, T, CIN, COUT)     per-phase tap weights, zero-padded to T
-    out : ([G,] PH, B, oh, ow, COUT)  phase-major planes; a phase without
-                                      taps is all zeros
+    out : ([G,] PH, B, oh, ow, COUT)  phase-major planes in the operands'
+                                      type (summed in float32); a phase
+                                      without taps is all zeros
 
     ``phase_taps[p]`` is a tuple of ``(j, du, dv)``: tap j of phase p reads
     the source window at offset (du, dv).  The kernel's tile and split count
@@ -215,16 +253,17 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
     m = b * oh * ow
     counts = tuple(len(taps) for taps in phase_taps)
     cuda = _on_cuda("tap_gemm_phased", src)
-    plan = _checked("tap_gemm_phased", Problem("input_grad", g, counts, cin,
-                                               cout, m), plan, src.device,
-                    cuda)
+    dtype = _check_cuda("tap_gemm_phased", s5, w5) if cuda else src.dtype
+    prob = Problem("input_grad", g, counts, cin, cout, m,
+                   DTYPES.get(dtype, "f32"))
+    plan = _checked("tap_gemm_phased", prob, plan, src.device, cuda)
     if not cuda:
         return ref.tap_gemm_phased_ref(src, w, phase_taps, oh, ow)
-    _check_cuda("tap_gemm_phased", s5, w5)
     variant, splits = plan.variant, plan.splits
     out = torch.empty((g, ph, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
     if out.numel() == 0:
+        out = out.to(dtype)
         return out if grouped else out[0]
     work, sums, slots = phased_work(counts, cin, splits,
                                     PHASED_TILES[variant].step)
@@ -232,12 +271,13 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
                  for r in (*taps, *((0, 0, 0),) * (t - len(taps))) for v in r)
     part = out if slots == 0 else torch.empty(
         (slots, g, m, cout), dtype=torch.float32, device=src.device)
-    _run("tap_gemm_phased", _lib().tap_gemm_phased_f32, s5.data_ptr(),
-         w5.data_ptr(), _table(rows, src.device).data_ptr(),
+    _run("tap_gemm_phased", dtype, s5.data_ptr(), w5.data_ptr(),
+         _table(rows, src.device).data_ptr(),
          _table(sum(work, ()), src.device).data_ptr(), len(work),
          _table(sum(sums, ()), src.device).data_ptr(), len(sums),
          part.data_ptr(), out.data_ptr(), g, ph, b, hs, ws, cin, t, cout, oh,
          ow, PHASED_VARIANTS.index(variant), _stream(src))
+    out = out.to(dtype)
     return out if grouped else out[0]
 
 
@@ -439,13 +479,16 @@ class Problem(NamedTuple):
     """What a tap kernel's plan depends on: ``groups``, the taps of each
     phase (``counts``: one entry for the forward and the weight grad), the
     contraction's channels ``cin``, the output's ``cout`` and ``m``, the
-    output pixels (the weight grad: its contraction pixels)."""
+    output pixels (the weight grad: its contraction pixels), and the
+    operands' type (``dtype``, a value of :data:`DTYPES`: another kernel
+    instance, so a plan timed in one type is never served to the other)."""
     role: str
     groups: int
     counts: tuple
     cin: int
     cout: int
     m: int
+    dtype: str = "f32"
 
     @property
     def rows(self) -> int:
@@ -459,7 +502,7 @@ class Problem(NamedTuple):
 def analytic_plan(prob: Problem, sms: int) -> Plan:
     """The rule's plan on a card of ``sms`` SMs: :func:`forward_splits`,
     :func:`phased_plan` or :func:`wgrad_plan`."""
-    g, counts, cin, cout, m = prob[1:]
+    g, counts, cin, cout, m = prob[1:6]
     if prob.role == "forward":
         return Plan("forward", "64x64",
                     forward_splits(m, cout, counts[0], cin, sms, g))
@@ -511,7 +554,7 @@ def _rule_splits(prob: Problem, sms: int, variant: str,
                  min_rows: int) -> int:
     """The occupancy rule's split count for ``variant`` with a split floor
     of ``min_rows``."""
-    g, counts, cin, cout, m = prob[1:]
+    g, counts, cin, cout, m = prob[1:6]
     if prob.role == "input_grad":
         return phased_plan(g, counts, cin, cout, m, sms, variant,
                            min_rows)[1]
@@ -548,24 +591,29 @@ def candidate_plans(prob: Problem, sms: int) -> list[Plan]:
     return out
 
 
-def phased_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool) -> int:
-    """Blocks of one input-grad instance an SM of the current card holds
+def phased_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool,
+                         bf16: bool = False) -> int:
+    """Blocks of one input-grad instance (float32, or with ``bf16`` the
+    bfloat16 one) an SM of the current card holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     blocks = ctypes.c_int(0)
     err = _lib().tap_gemm_phased_blocks_per_sm(
-        PHASED_VARIANTS.index(variant), int(vec_a), int(vec_b),
+        PHASED_VARIANTS.index(variant), int(bf16), int(vec_a), int(vec_b),
         ctypes.addressof(blocks))
     if err != 0:
         raise RuntimeError(f"tap_gemm_phased_blocks_per_sm: CUDA error {err}")
     return blocks.value
 
 
-def wgrad_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool) -> int:
-    """Blocks of one weight-grad instance an SM of the current card holds
+def wgrad_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool,
+                        bf16: bool = False) -> int:
+    """Blocks of one weight-grad instance (float32, or with ``bf16`` the
+    bfloat16 one) an SM of the current card holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     blocks = ctypes.c_int(0)
-    err = _lib().tap_wgrad_blocks_per_sm(int(variant == "64x16"), int(vec_a),
-                                         int(vec_b), ctypes.addressof(blocks))
+    err = _lib().tap_wgrad_blocks_per_sm(int(variant == "64x16"), int(bf16),
+                                         int(vec_a), int(vec_b),
+                                         ctypes.addressof(blocks))
     if err != 0:
         raise RuntimeError(f"tap_wgrad_blocks_per_sm: CUDA error {err}")
     return blocks.value
@@ -579,7 +627,7 @@ def _sms(device: torch.device) -> int:
 def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int, ow: int,
               plan: Plan | None = None) -> torch.Tensor:
     """Weight gradient: float32 ``([G,] T, CIN, COUT)`` summed over batch and
-    space.
+    space (float32 whatever the operands' type, as in the JAX kernel).
 
     src : ([G,] P, B, Hs, Ws, CIN)   phase-split padded input
     dy  : ([G,] B, oh, ow, COUT)     compact output loss
@@ -598,11 +646,12 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int, ow: int,
     _check_taps("tap_wgrad", taps, p)
     t = len(taps)
     cuda = _on_cuda("tap_wgrad", src)
-    plan = _checked("tap_wgrad", Problem("weight_grad", g, (t,), cin, cout,
-                                         b * oh * ow), plan, src.device, cuda)
+    dtype = _check_cuda("tap_wgrad", s6, d5) if cuda else src.dtype
+    prob = Problem("weight_grad", g, (t,), cin, cout, b * oh * ow,
+                   DTYPES.get(dtype, "f32"))
+    plan = _checked("tap_wgrad", prob, plan, src.device, cuda)
     if not cuda:
         return ref.tap_wgrad_ref(src, dy, taps, oh, ow)
-    _check_cuda("tap_wgrad", s6, d5)
     variant, splits = plan.variant, plan.splits
     out = torch.empty((g, t, cin, cout), dtype=torch.float32,
                       device=src.device)
@@ -610,7 +659,7 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int, ow: int,
         return out if grouped else out[0]
     part = out if splits == 1 else torch.empty(
         (splits, g, t, cin, cout), dtype=torch.float32, device=src.device)
-    _run("tap_wgrad", _lib().tap_wgrad_f32, s6.data_ptr(), d5.data_ptr(),
+    _run("tap_wgrad", dtype, s6.data_ptr(), d5.data_ptr(),
          _table(taps, src.device).data_ptr(), part.data_ptr(),
          out.data_ptr(), g, p, b, hs, ws, cin, t, cout, oh, ow,
          int(variant == "64x16"), splits, _stream(src))

@@ -12,13 +12,16 @@ slotted-cache continuous-batching engine (``repro_torch.serve.continuous``),
 whose prefills run the flash-attention kernel.  The model is initialised
 from ``--seed`` (no weights are read).  ``--arch`` names a registered
 config (``repro_torch.configs``: smollm-360m, moonshot-v1-16b-a3b,
-deepseek-v3-671b, whose 61 layers at ``--full`` no one card holds).
-``--full`` serves the published widths (``FULL``) instead of the smoke
-config the JAX launcher serves;
-the prompts are the JAX launcher's (``np.random.RandomState(seed)``).
-``--device`` defaults to the card and never falls back.  The JAX
-launcher's ``--conv-policy`` comes back with the conv-bearing decoders
-(ROADMAP A10).
+deepseek-v3-671b, whose 61 layers at ``--full`` no one card holds, and
+mamba2-370m).  ``--full`` serves the published widths (``FULL``) instead
+of the smoke config the JAX launcher serves; the prompts are the JAX
+launcher's (``np.random.RandomState(seed)``).  ``--conv-policy`` pins the
+model's per-pass conv engines, as in the JAX launcher (Mamba2's depthwise
+conv: ``pallas`` runs its prefill's conv on the ``tap_gemm`` kernel).
+``--device`` defaults to the card and never falls back.
+
+    python -m repro_torch.launch.serve --full --arch mamba2-370m \
+        --conv-policy pallas --requests 8 --prompt-len 1024 --max-new 32
 """
 
 from __future__ import annotations
@@ -65,6 +68,10 @@ def main(argv=None) -> dict:
                     help="per-request wall-clock budget in seconds; "
                          "overdue requests finalize with partial output "
                          "and status='timed_out'")
+    ap.add_argument("--conv-policy", default=None,
+                    help="per-pass conv engine policy of the served model "
+                         "(e.g. 'auto', 'pallas', or "
+                         "'fwd=...,dgrad=...,wgrad=...')")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; never falls back)")
     args = ap.parse_args(argv)
@@ -75,7 +82,8 @@ def main(argv=None) -> dict:
     eng = ENGINES[args.engine](
         cfg, params, max_batch=args.max_batch,
         max_len=args.prompt_len + args.max_new + 2,
-        temperature=args.temperature, seed=args.seed)
+        temperature=args.temperature, seed=args.seed,
+        conv_policy=args.conv_policy)
     rng = np.random.RandomState(args.seed)
     for rid in range(args.requests):
         eng.submit(Request(

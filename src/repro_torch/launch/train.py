@@ -19,6 +19,9 @@ whatever it holds; a run resumed with no steps left trains nothing and
 returns no losses.  The end's save is left out when the last step's
 checkpoint was just written (the JAX loop writes the same files again).
 
+``--conv-policy`` (or the deprecated ``--conv-mode``) sets the model's conv
+engines: ``--arch mamba2-370m --conv-policy pallas`` runs every pass of
+each layer's depthwise conv on the tap kernels (bf16 at full width).
 ``--device`` (default: the card, never a fallback) is the port's own.  The
 model is initialised from ``--seed`` on the device (on the card from a CUDA
 generator: ``repro_torch.models.layers._draw``).

@@ -1,6 +1,6 @@
 """Top-level LM API used by the server, the trainer and the tests
-(counterpart of ``repro.models.model``, the token path of the dense and
-MoE families):
+(counterpart of ``repro.models.model``, the token path of the dense, MoE
+and SSM families):
 
     model = build_model(cfg)
     params = model.init(generator, device)
@@ -16,8 +16,10 @@ multi-token-prediction logits.  Frontends come with ROADMAP A10.
 
 ``prefill`` is ONE causal pass over the prompt, whose attention runs the
 flash-attention kernel on the card (MoE layers at a capacity that drops
-no token); the JAX package computes the same result as a ``lax.scan`` of
-``P`` decode steps.
+no token; a Mamba2 layer runs its chunked SSD, its depthwise conv on the
+``tap_gemm`` kernel under ``pallas``, and caches its final state and last
+conv inputs); the JAX package computes the same result as a ``lax.scan``
+of ``P`` decode steps.
 """
 
 from __future__ import annotations
@@ -122,7 +124,10 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int):
     One causal pass over the prompt: each layer's rope'd keys and values
     (MLA: normed latents and rope'd shared keys) go to cache positions
     ``[0, P)`` and the rest of the ``max_len`` cache stays zero -- what the
-    JAX package's scan of ``P`` decode steps returns.  MoE layers run at
+    JAX package's scan of ``P`` decode steps returns.  A Mamba2 layer
+    caches its SSM state after position ``P - 1`` and its last ``ssm_conv
+    - 1`` conv inputs (a ragged last SSD chunk is padded with steps that
+    change nothing), the state that scan leaves.  MoE layers run at
     capacity ``B * P``, which drops no token, as the scan's steps do.  The
     head runs on the last position only."""
     b, plen = tokens.shape

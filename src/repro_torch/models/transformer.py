@@ -1,4 +1,4 @@
-"""Block assembly of the dense and MoE families (counterpart of
+"""Block assembly of the dense, MoE and SSM families (counterpart of
 ``repro.models.transformer``).
 
 All layers of a stack share one stacked parameter tree (leading dim =
@@ -16,8 +16,9 @@ Families:
   dense : one stack of attention blocks, ``blocks``
   moe   : ``blocks_dense`` (the first ``first_dense_layers``, SwiGLU) and
           ``blocks_moe`` (routed experts, ``models/moe.py``)
-Either family's attention is GQA or MLA (``cfg.use_mla``).  The hybrid,
-SSM, VLM and audio families come with ROADMAP A10 and raise.
+  ssm   : one stack of Mamba2 blocks, ``blocks`` (``models/mamba2.py``)
+The dense and MoE families' attention is GQA or MLA (``cfg.use_mla``).
+The hybrid, VLM and audio families come with ROADMAP A10 and raise.
 """
 
 from __future__ import annotations
@@ -29,17 +30,18 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.config import config
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 def _stacks(cfg: ArchConfig) -> list[tuple[str, int, bool]]:
     """``(name, layers, use_moe)`` of each stack, in the order they run."""
-    if cfg.family not in ("dense", "moe") or cfg.local_window:
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.local_window:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families are ported; "
+            f"{cfg.name}: only the dense, MoE and SSM families are ported; "
             f"{cfg.family} blocks and local windows come with ROADMAP A10")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "ssm"):
         return [("blocks", cfg.n_layers, False)]
     nd = cfg.first_dense_layers
     return ([("blocks_dense", nd, False)] if nd else []) + [
@@ -48,7 +50,10 @@ def _stacks(cfg: ArchConfig) -> list[tuple[str, int, bool]]:
 
 def cache_keys(cfg: ArchConfig) -> tuple[str, str]:
     """The two leaves of a layer's cache, in the order a prefill returns
-    them: MLA's latent and rope key, or GQA's keys and values."""
+    them: Mamba2's SSM state and conv inputs, MLA's latent and rope key,
+    or GQA's keys and values."""
+    if cfg.family == "ssm":
+        return ("ssm", "conv")
     return ("c_kv", "k_rope") if cfg.use_mla else ("k", "v")
 
 
@@ -98,24 +103,48 @@ def attn_block(p, x, cfg: ArchConfig, capacity: int | None = None):
     return x + y, aux, cached
 
 
+def init_ssm_block(generator: torch.Generator, cfg: ArchConfig, nl: int,
+                   device=None):
+    return {"ln": L.init_rmsnorm(cfg.d_model, cfg.dtype, nl, device),
+            "ssm": M2.init_mamba2(generator, cfg, nl, device)}
+
+
+def ssm_block(p, x, cfg: ArchConfig, capacity: int | None = None):
+    """One pre-norm Mamba2 layer (parameters already sliced): ``(x, {},
+    cached)`` with the layer's final SSM state and last conv inputs
+    (:func:`cache_keys`).  ``capacity`` is unused (no experts)."""
+    h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    y, *cached = M2.mamba2_block(p["ssm"], h, cfg, return_cache=True)
+    return x + y, {}, cached
+
+
 def init_stacks(generator: torch.Generator, cfg: ArchConfig, device=None):
+    if cfg.family == "ssm":
+        return {name: init_ssm_block(generator, cfg, nl, device)
+                for name, nl, _ in _stacks(cfg)}
     return {name: init_attn_block(generator, cfg, nl, use_moe, device)
             for name, nl, use_moe in _stacks(cfg)}
 
 
+def _block(cfg: ArchConfig):
+    return ssm_block if cfg.family == "ssm" else attn_block
+
+
 def _block_out(p, x, cfg: ArchConfig, capacity):
-    return attn_block(p, x, cfg, capacity)[:2]
+    return _block(cfg)(p, x, cfg, capacity)[:2]
 
 
 def forward_stacks(params, x, cfg: ArchConfig, cache=None,
                    capacity: int | None = None):
     """x (B, L, D) -> (x, aux) through all blocks; aux holds the MoE terms
-    summed over the layers (``{}`` for the dense family).  With ``cache``
-    (from :func:`init_cache`), each layer's cached tensors are written into
-    its positions ``[0, L)``: the prefill of one causal pass.  Without it,
-    and with a gradient flowing, each block is rematerialized under
+    summed over the layers (``{}`` for the dense and SSM families).  With
+    ``cache`` (from :func:`init_cache`), each layer's cached tensors are
+    written into its positions ``[0, L)`` (an SSM layer's state and conv
+    inputs whole): the prefill of one causal pass.  Without it, and with a
+    gradient flowing, each block is rematerialized under
     :func:`remat_policy` ``"block"``."""
     aux: dict = {}
+    block = _block(cfg)
     for name, _, _ in _stacks(cfg):
         layers = _layers(params[name])
         remat = (cache is None and remat_policy(cfg) == "block"
@@ -129,7 +158,7 @@ def forward_stacks(params, x, cfg: ArchConfig, cache=None,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
-                x, a, cached = attn_block(p, x, cfg, capacity)
+                x, a, cached = block(p, x, cfg, capacity)
                 if cache is not None:
                     for key, t in zip(cache_keys(cfg), cached):
                         cache[name][key][i, :, :t.shape[1]] = t
@@ -140,7 +169,12 @@ def forward_stacks(params, x, cfg: ArchConfig, cache=None,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     """Per stack, GQA's ``k``/``v`` or MLA's ``c_kv``/``k_rope``, each laid
-    out ``(n_layers, batch, max_len, ...)``."""
+    out ``(n_layers, batch, max_len, ...)``; for the SSM family Mamba2's
+    ``ssm`` (n_layers, batch, H, P, S) and ``conv`` (n_layers, batch,
+    ssm_conv - 1, channels) state, whatever ``max_len``."""
+    if cfg.family == "ssm":
+        return {name: M2.mamba2_init_state(cfg, batch, nl, device)
+                for name, nl, _ in _stacks(cfg)}
     make = A.mla_init_cache if cfg.use_mla else A.gqa_init_cache
     return {name: make(cfg, batch, max_len, nl, device)
             for name, nl, _ in _stacks(cfg)}
@@ -149,9 +183,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
 def decode_stacks(params, cache, x, pos, cfg: ArchConfig):
     """x (B,1,D), ``pos`` an int or a per-lane (B,) tensor -> (x, cache);
     the cache is updated in place.  MoE layers run with capacity = the
-    step's token count, so no token is dropped."""
+    step's token count, so no token is dropped.  An SSM layer reads no
+    position: its state is the whole past."""
     for name, _, _ in _stacks(cfg):
         for p, c in zip(_layers(params[name]), _layers(cache[name])):
+            if cfg.family == "ssm":
+                hn = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+                o, ssm, conv = M2.mamba2_decode(p["ssm"], hn, c["ssm"],
+                                                c["conv"], cfg)
+                c["ssm"].copy_(ssm)
+                c["conv"].copy_(conv)
+                x = x + o
+                continue
             hn = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
             if cfg.use_mla:
                 o, _, _ = A.mla_decode(p["attn"], hn, c["c_kv"], c["k_rope"],

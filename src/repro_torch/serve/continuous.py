@@ -13,6 +13,12 @@ The engine keeps a slotted KV cache with per-lane position clocks:
   cache writes and masking per lane), so lanes at different depths share
   one step.
 
+For the SSM family (Mamba2) the "cache" is each layer's SSM state and its
+last conv inputs: the prefill's one pass runs the depthwise conv on the
+``tap_gemm`` kernel under ``conv_policy="pallas"`` (one launch a layer),
+and decode steps read no position.  ``conv_policy`` pins the model's conv
+engines, as in the JAX engine.
+
 The JAX engine's observability spans and its ``serve.prefill`` /
 ``serve.decode`` fault sites, with the ``except Exception`` that finalizes
 a crashing prefill as ``status="failed"``, are left out (ROADMAP A12): a
@@ -31,7 +37,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.serve import cache as C
-from repro_torch.serve.engine import merged_summary, params_device, sync
+from repro_torch.serve.engine import (merged_summary, params_device, sync,
+                                      with_conv_policy)
 from repro_torch.serve.request import Request
 from repro_torch.serve.sampling import make_sampler
 
@@ -43,10 +50,13 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ArchConfig, params, max_batch: int = 4,
                  max_len: int = 256, temperature: float = 0.0,
-                 pad_id: int = 0, seed: int = 0, clock=time.monotonic):
-        """Same surface as the static :class:`repro_torch.serve.engine.Engine`."""
+                 pad_id: int = 0, seed: int = 0, conv_policy=None,
+                 clock=time.monotonic):
+        """Same surface as the static :class:`repro_torch.serve.engine.Engine`
+        (``conv_policy`` pins the model's per-pass conv engines)."""
         if cfg.is_encoder_only:
             raise ValueError("encoder-only archs do not decode")
+        cfg = with_conv_policy(cfg, conv_policy)
         self.cfg = cfg
         self.params = params
         self.device = params_device(params)

@@ -8,13 +8,15 @@ decoded greedily or sampled until every request finishes.  New waves are
 admitted as the queue refills.  It is the lockstep baseline the continuous
 engine (:mod:`repro_torch.serve.continuous`) is compared against.
 
-The JAX engine's observability spans, events and metrics and its
-``conv_policy`` override are left out (ROADMAP A12 and A10).
+``conv_policy`` pins the per-pass conv engines of the served model (a
+Mamba2 layer's depthwise conv), as in the JAX engine.  The JAX engine's
+observability spans, events and metrics are left out (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 
 import numpy as np
@@ -49,6 +51,16 @@ def merged_summary(engine_kind: str, counters: dict, stats: dict) -> dict:
     return out
 
 
+def with_conv_policy(cfg: ArchConfig, conv_policy) -> ArchConfig:
+    """``cfg`` with its conv policy pinned to ``conv_policy`` (the
+    deprecated ``conv_mode`` cleared, so the override wins); ``cfg`` itself
+    when ``conv_policy`` is None."""
+    if conv_policy is None:
+        return cfg
+    return dataclasses.replace(cfg, conv_policy=str(conv_policy),
+                               conv_mode=None)
+
+
 def params_device(params) -> torch.device:
     return params["embed"]["w"].device
 
@@ -64,11 +76,16 @@ class Engine:
 
     def __init__(self, cfg: ArchConfig, params, max_batch: int = 4,
                  max_len: int = 256, temperature: float = 0.0,
-                 pad_id: int = 0, seed: int = 0, clock=time.monotonic):
-        """``params`` live on the device the engine serves on.  ``clock``:
-        zero-arg wall clock (seconds) for request deadlines."""
+                 pad_id: int = 0, seed: int = 0, conv_policy=None,
+                 clock=time.monotonic):
+        """``params`` live on the device the engine serves on.
+        ``conv_policy``: per-pass conv engine override for the model's
+        convs (an EnginePolicy, a policy string or an engine name; None
+        keeps ``cfg.conv_policy``).  ``clock``: zero-arg wall clock
+        (seconds) for request deadlines."""
         if cfg.is_encoder_only:
             raise ValueError("encoder-only archs do not decode")
+        cfg = with_conv_policy(cfg, conv_policy)
         self.cfg = cfg
         self.params = params
         self.device = params_device(params)

@@ -132,7 +132,11 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                                   "(ROADMAP A13)")
     if conv_policy is not None and any(
             f.name == "conv_policy" for f in dataclasses.fields(cfg)):
-        cfg = dataclasses.replace(cfg, conv_policy=str(conv_policy))
+        # conv_mode=None (where the config has it): the override must win
+        # even over a config that still sets the deprecated field.
+        extra = {"conv_mode": None} if hasattr(cfg, "conv_mode") else {}
+        cfg = dataclasses.replace(cfg, conv_policy=str(conv_policy),
+                                  **extra)
     sched = schedule.SCHEDULES[schedule_name
                                or schedule.default_schedule_for(cfg.name)]
 

@@ -232,7 +232,7 @@ def test_measure_picks_the_fastest_candidate(role, monkeypatch):
 def test_a_candidate_that_raises_is_counted_and_skipped(fails, monkeypatch):
     timer = FakeTimer()
 
-    def flaky(role, d, g, plan, device, reps=None):
+    def flaky(role, d, g, plan, device, reps=None, dtype=None):
         if len(timer.timed) < fails:
             timer.timed.append(None)
             raise RuntimeError("capture failed")
@@ -464,7 +464,7 @@ def test_auto_judges_a_pass_by_the_tuned_plans_launch_gap(monkeypatch):
     d = ConvDims(B=1, C=64, H_i=8, W_i=8, N=1, K_h=3, K_w=3, S=2, P_h=1,
                  P_w=1)
     monkeypatch.setattr(autotune, "tuned_plan",
-                        lambda role, d, g, device, analytic:
+                        lambda role, d, g, device, analytic, dtype=None:
                         tg.Plan(role, analytic.variant, 2))
     engine, reason = tconv.resolve_engine("auto", "forward", d, False,
                                           40_000, DEV)

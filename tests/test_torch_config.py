@@ -14,7 +14,7 @@ from repro_torch.core.config import config  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
 
 SHARED = ("autotune", "autotune_top_k", "autotune_reps", "plan_cache_dir",
-          "blockwise_kv_threshold", "remat")
+          "ssd_chunk", "blockwise_kv_threshold", "remat")
 
 
 @pytest.fixture(autouse=True)
@@ -47,8 +47,9 @@ def test_fields_and_env_names_equal_jax():
     {"REPRO_AUTOTUNE_TOP_K": "0"},
     {"REPRO_BLOCKWISE_THRESHOLD": "256", "REPRO_REMAT": "none"},
     {"REPRO_REMAT": ""},                     # empty -> None
+    {"REPRO_SSD_CHUNK": "64"},
 ], ids=["empty", "cached", "all", "empty_dir", "unchecked", "zero_k",
-        "attention", "empty_remat"])
+        "attention", "empty_remat", "ssd_chunk"])
 def test_env_parsing_equals_jax(env):
     assert _shared(tcfg.GlobalConfig(env=env)) == \
         _shared(jcfg.GlobalConfig(env=env))
@@ -56,7 +57,8 @@ def test_env_parsing_equals_jax(env):
 
 @pytest.mark.parametrize("env", [{"REPRO_AUTOTUNE_TOP_K": "x"},
                                  {"REPRO_AUTOTUNE_REPS": "1.5"},
-                                 {"REPRO_BLOCKWISE_THRESHOLD": "big"}])
+                                 {"REPRO_BLOCKWISE_THRESHOLD": "big"},
+                                 {"REPRO_SSD_CHUNK": "q"}])
 def test_unparsable_env_raises_like_jax(env):
     with pytest.raises(ValueError):
         jcfg.GlobalConfig(env=env)
@@ -69,7 +71,8 @@ def test_unparsable_env_raises_like_jax(env):
     dict(autotune_top_k=-2), dict(autotune_top_k=True),
     dict(autotune_top_k="3"), dict(autotune_reps=0), dict(autotune_reps=2.0),
     dict(plan_cache_dir=3), dict(blockwise_kv_threshold=0),
-    dict(blockwise_kv_threshold=512.0), dict(remat=1),
+    dict(blockwise_kv_threshold=512.0), dict(remat=1), dict(ssd_chunk=0),
+    dict(ssd_chunk=16.0),
 ], ids=lambda kw: "-".join(f"{k}={v!r}" for k, v in kw.items()))
 def test_update_validation_errors_equal_jax(kw):
     mine, theirs = tcfg.GlobalConfig(env={}), jcfg.GlobalConfig(env={})
@@ -84,8 +87,8 @@ def test_update_validation_errors_equal_jax(kw):
 def test_valid_updates_equal_jax():
     mine, theirs = tcfg.GlobalConfig(env={}), jcfg.GlobalConfig(env={})
     kw = dict(autotune="cached", autotune_top_k=2, autotune_reps=5,
-              plan_cache_dir="/plans", blockwise_kv_threshold=2048,
-              remat="none")
+              plan_cache_dir="/plans", ssd_chunk=64,
+              blockwise_kv_threshold=2048, remat="none")
     mine.update(**kw)
     theirs.update(**kw)
     assert _shared(mine) == _shared(theirs) == kw

@@ -7,8 +7,12 @@ under ``pallas``, ``traditional`` and ``bp_im2col`` against ``lax``,
 of the split-K sums, launch counting, 20 training steps against ``lax``,
 the measured autotuner (every candidate plan against the plain version,
 tuning from inside ``backward``, and a ``cached`` process served only
-hits), the flash wrapper's refusal of a tensor that requires grad, and
-one full-width LM train step.
+hits), the flash wrapper's refusal of a tensor that requires grad, one
+full-width LM train step, and the tap kernels' bf16 instances (Mamba2's
+depthwise conv at its 2,304 groups and a grouped strided layer against
+their plain versions, ``depthwise_causal_conv1d`` under ``pallas``
+against ``lax`` in bf16, mixed operand types refused, a plan past the
+grid's z limit refused, float32 and bf16 plans tuned apart).
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -808,3 +812,136 @@ def test_a_cached_process_is_served_only_hits(tuned):
     a = torch.load(tuned / "measure.pt")
     b = torch.load(tuned / "cached.pt")
     assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+#: bf16 operands: the kernel and its plain version read the same bf16
+#: values and sum their (exact) float32 products in other orders; the
+#: forward's and the input grad's outputs are then rounded to bf16 on both
+#: sides (2^-8 relative), so an element may land one bf16 step apart.
+#: The weight grad's output is float32 and keeps REL_TOL.
+BF16_REL_TOL = 1e-2
+
+#: Mamba2-370M's depthwise causal conv (d_inner + 2 ssm_state = 2,304
+#: groups of one channel, 4 taps, left pad 3) at a short sequence, and
+#: Table II layer 3's geometry cast to bf16 in 2 groups.
+BF16_GEOMS = [
+    (ConvDims(B=2, C=1, H_i=1, W_i=100, N=1, K_h=1, K_w=4, S=1, P_h=0,
+              P_w=3, P_h_hi=0, P_w_hi=0), 2304),
+    (ConvDims(B=2, C=32, H_i=56, W_i=56, N=64, K_h=3, K_w=3, S=2, P_h=1,
+              P_w=1), 2),
+]
+
+
+def _close_rel(got, want, tol):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(want.float().abs().max().item(), 1e-6), err
+
+
+@pytest.mark.parametrize("d,g", BF16_GEOMS, ids=["mamba2_dw", "g2s2"])
+def test_tap_kernels_bf16_instances_match_plain_versions(cuda, d, g):
+    """The bf16 instances of all three kernels at the depthwise geometry
+    and a grouped strided layer: the forward and the input grad return
+    bf16, the weight grad float32; one launch a call, bit-equal runs."""
+    gen = torch.Generator().manual_seed(31)
+    x = _randn(gen, d.B, d.C * g, d.H_i, d.W_i, dev=cuda).bfloat16()
+    w = _randn(gen, d.N * g, d.C, d.K_h, d.K_w, dev=cuda).bfloat16()
+    dy = _randn(gen, d.B, d.N * g, d.H_o, d.W_o, dev=cuda).bfloat16()
+    src, wt, taps = ops.forward_operands(x, w, d, g)
+    gsrc, ws, pp = ops.input_grad_operands(dy, w, d, g)
+    wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
+    calls = [
+        ("tap_gemm", lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
+         ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o), torch.bfloat16,
+         BF16_REL_TOL),
+        ("tap_gemm_phased", lambda: tg.tap_gemm_phased(
+            gsrc, ws, pp.phase_taps, pp.n_qh, pp.n_qw),
+         ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps, pp.n_qh, pp.n_qw),
+         torch.bfloat16, BF16_REL_TOL),
+        ("tap_wgrad", lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
+         ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o), torch.float32,
+         REL_TOL)]
+    for name, kern, want, dtype, tol in calls:
+        reset_launch_counts()
+        got = kern()
+        assert launch_counts()[name] == 1 and got.dtype == dtype, name
+        _close_rel(got, want, tol)
+        assert torch.equal(got, kern()), name
+
+
+def test_depthwise_causal_conv1d_bf16_pallas_matches_lax(cuda):
+    """Mamba2's conv through ``depthwise_causal_conv1d`` under ``pallas``
+    in bf16: one launch of each tap kernel, y and both grads within bf16
+    rounding of the library conv (``lax``) on the same bf16 inputs."""
+    from repro_torch.core.conv import depthwise_causal_conv1d
+    gen = torch.Generator().manual_seed(32)
+    x0 = _randn(gen, 2, 64, 2304, dev=cuda).bfloat16()
+    w0 = (0.2 * _randn(gen, 4, 2304, dev=cuda)).bfloat16()
+    dy = _randn(gen, 2, 64, 2304, dev=cuda).bfloat16()
+    out = {}
+    for policy in ("pallas", "lax"):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+        reset_launch_counts()
+        y = depthwise_causal_conv1d(x, w, policy)
+        y.backward(dy)
+        out[policy] = (y.detach(), x.grad, w.grad, launch_counts())
+    for a, b in zip(out["pallas"][:3], out["lax"][:3]):
+        _close_rel(a, b, 2e-2)
+    assert {k: out["pallas"][3][k] for k in tg.LAUNCHES} == {
+        "tap_gemm": 1, "tap_gemm_phased": 1, "tap_wgrad": 1}
+    assert not any(out["lax"][3].values())
+
+
+def test_tap_wrappers_raise_on_mixed_operand_types(cuda):
+    src = torch.zeros(1, 1, 4, 4, 8, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(1, 8, 8, device=cuda)
+    with pytest.raises(TypeError, match="one type"):
+        tg.tap_gemm(src, w, [(0, 0, 0)], 3, 3)
+    with pytest.raises(TypeError, match="one type"):
+        tg.tap_wgrad(src, torch.zeros(1, 3, 3, 8, device=cuda),
+                     [(0, 0, 0)], 3, 3)
+    with pytest.raises(TypeError, match="one type"):
+        tg.tap_gemm_phased(src[0], w[None], [((0, 0, 0),)], 3, 3)
+
+
+def test_a_plan_past_the_grid_z_limit_is_refused(cuda):
+    """At Mamba2's 2,304 groups, 32 weight-grad splits would put 73,728
+    blocks on the grid's z: the wrapper refuses that plan, and no
+    candidate the tuner offers breaches the limit."""
+    d = ConvDims(B=8, C=1, H_i=1, W_i=512, N=1, K_h=1, K_w=4, S=1, P_h=0,
+                 P_w=3, P_h_hi=0, P_w_hi=0)
+    g = 2304
+    gen = torch.Generator().manual_seed(33)
+    x = _randn(gen, d.B, g, 1, d.W_i, dev=cuda).bfloat16()
+    dy = _randn(gen, d.B, g, 1, d.W_o, dev=cuda).bfloat16()
+    src, dyn, taps = ops.weight_grad_operands(x, dy, d, g)
+    with pytest.raises(ValueError, match="grid z"):
+        tg.tap_wgrad(src, dyn, taps, d.H_o, d.W_o,
+                     tg.Plan("weight_grad", "64x16", 32))
+    for role in ops.PLAN_ROLES:
+        for plan in ops.plan_candidates(role, d, g, k=100, device=cuda,
+                                        dtype=torch.bfloat16):
+            prob = ops.problem(role, d, g, torch.bfloat16)
+            z = plan.splits if role != "input_grad" else len(tg.phased_work(
+                prob.counts, prob.cin, plan.splits,
+                tg.PHASED_TILES[plan.variant].step)[0])
+            assert z * g <= tg.GRID_YZ_MAX, (role, plan)
+
+
+def test_float32_and_bf16_plans_are_tuned_apart(tuned):
+    """One geometry planned for float32 and for bf16 operands: two plan
+    cache entries, each timed on its own instance."""
+    import json
+    from repro_torch.kernels import autotune
+    d = BF16_GEOMS[1][0]
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = ops.pass_plan("forward", d, 2, "cuda", dtype)
+        assert plan.autotuned and plan.cache == "miss"
+    store = json.loads(open(autotune.cache_path()).read())
+    keys = sorted(store["entries"])
+    assert len(keys) == 2
+    assert [k.rsplit("|", 1)[1] for k in keys] == ["dtype=bf16",
+                                                   "dtype=f32"]
+    assert ops.plan_events() == {"forward_autotune_miss": 2}

@@ -66,7 +66,8 @@ def test_module_list_covers_the_slice():
               "repro_torch.kernels.timing", "repro_torch.train.losses",
               "repro_torch.optim.compression", "repro_torch.data.pipeline",
               "repro_torch.ft.failures", "repro_torch.ckpt.checkpoint",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.models.mamba2",
+              "repro_torch.configs.mamba2_370m"):
         assert m in mods
         importlib.import_module(m)
 
@@ -100,6 +101,12 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.launch import train
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "smollm-360m", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "mamba2-370m", "--smoke", "--steps", "1",
+                    "--conv-policy", "pallas"])
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-370m", "--conv-policy", "pallas"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         checkpoint.restore(".")
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import deepseek_v3_671b as jdeepseek  # noqa: E402
 from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.configs import mamba2_370m as jmamba2  # noqa: E402
 from repro.configs import moonshot_v1_16b_a3b as jmoonshot  # noqa: E402
 from repro.configs import smollm_360m as jsmol  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
@@ -27,6 +28,7 @@ from repro.models import model as jM  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import deepseek_v3_671b as tdeepseek  # noqa: E402
+from repro_torch.configs import mamba2_370m as tmamba2  # noqa: E402
 from repro_torch.configs import moonshot_v1_16b_a3b as tmoonshot  # noqa: E402,E501
 from repro_torch.configs import smollm_360m as tsmol  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
@@ -65,7 +67,8 @@ CONFIGS = [pytest.param(mine, theirs, conf,
                         id=conf if mine is tsmol else f"{name}-{conf}")
            for name, mine, theirs in (("smollm", tsmol, jsmol),
                                       ("moonshot", tmoonshot, jmoonshot),
-                                      ("deepseek", tdeepseek, jdeepseek))
+                                      ("deepseek", tdeepseek, jdeepseek),
+                                      ("mamba2", tmamba2, jmamba2))
            for conf in ("FULL", "SMOKE")]
 
 
@@ -81,22 +84,22 @@ def test_configs_match_the_jax_package(mine, theirs, conf):
 
 
 def test_only_smollm_is_registered():
-    """The registry holds the dense SmolLM-360M and the MoE family, by
-    module name and dashed alias; a family still unported (SSM, hybrid)
-    raises, in the registry and in the model."""
+    """The registry holds the dense SmolLM-360M, the MoE family and the SSM
+    family (Mamba2), by module name and dashed alias; a family still
+    unported (hybrid) raises, in the registry and in the model."""
     assert configs.get_config("smollm_360m") is tsmol.FULL
-    for mod in (tmoonshot, tdeepseek):
+    for mod in (tmoonshot, tdeepseek, tmamba2):
         name = mod.__name__.rsplit(".", 1)[1]
         assert configs.get_config(name) is mod.FULL \
             is configs.get_config(name.replace("_", "-"))
         assert configs.get_smoke_config(mod.FULL.name) is mod.SMOKE
-    for name in ("mamba2-370m", "recurrentgemma-9b"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            configs.get_config(name)
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            M.init_params(torch.Generator(), dataclasses.replace(
-                CFG, family=family), "cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        configs.get_config("recurrentgemma-9b")
+    assert sorted(M.init_params(torch.Generator(), tmamba2.SMOKE, "cpu")
+                  ["blocks"]) == ["ln", "ssm"]
+    with pytest.raises(NotImplementedError, match="A10"):
+        M.init_params(torch.Generator(), dataclasses.replace(
+            CFG, family="hybrid"), "cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         A._sdpa(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
                 torch.zeros(1, 4, 2, 8), causal=True, window=2)
