@@ -12,10 +12,12 @@ PATH):
                    ``src/repro_torch/csrc`` (in parallel); the registers,
                    spills and shared memory of each entry of the
                    redesigned kernels (the three tap GEMMs, float32 and
-                   bf16 operands, the four ``matmul`` tiles, the bf16
+                   bf16 operands, the depthwise variant at 16 and 49 taps,
+                   the four ``matmul`` tiles, the bf16
                    flash attention at head dims 64, 128 and 192); the
-                   blocks an SM holds of each input-grad, weight-grad and
-                   ``matmul`` instance (the occupancy calculator) against
+                   blocks an SM holds of each input-grad, weight-grad,
+                   depthwise and ``matmul`` instance (the occupancy
+                   calculator) against
                    the number their split plans assume (float32; bf16
                    reported).
   3. kernels    -- for each of the paper's Table II layers (batch 2, float32),
@@ -29,13 +31,15 @@ PATH):
                    call for the same pass (a CUDA graph of 10 back-to-back
                    calls replayed between CUDA events, median of 10), the
                    host time per kernel call, and the least time the card
-                   could take (``bound_us``); the forward's split count,
-                   the input grad's variant, split count and partial bytes
-                   (``phased_plan``, ``phased_work``) and the device time of
-                   its operands (``operands_ms``: ``input_grad_operands``,
-                   the same CUDA-graph replay), the weight grad's variant and
-                   split count (``wgrad_plan``); all three are bit-equal run
-                   to run.
+                   could take (``bound_us``); each call's plan (the
+                   analytic plan it launched with: variant and split
+                   count, held to the variant it launched; the depthwise
+                   variant ``dw`` for the forward and the weight grad at
+                   one channel a group), the input grad's partial bytes
+                   (``phased_work``) and the device time of its operands
+                   (``operands_ms``: ``input_grad_operands``, the same
+                   CUDA-graph replay); all three are bit-equal run to
+                   run.
   4. kernels_bf16 -- the same for the tap kernels' bf16-operand instances
                    at Mamba2-370M's depthwise causal conv (2,304 groups of
                    one channel, 4 taps; its training shape, 8 x 512, and a
@@ -43,7 +47,11 @@ PATH):
                    the forward and the input grad return bf16 (held to
                    ``BF16_TOL``), the weight grad float32 (``REL_TOL``);
                    library = cuDNN's grouped conv (causal pad ahead), with
-                   each call's plan and grid z.
+                   each call's plan and grid z (the forward and the weight
+                   grad of the conv on ``dw``); then
+                   ``depthwise_causal_conv1d`` forward + backward at 8 x
+                   512 under ``pallas`` and ``lax``: device time by kernel
+                   (the lowering's copies beside the kernels).
   5. matmul     -- the same for the ``matmul`` kernel at every lowered GEMM
                    of the ``traditional`` and ``bp_im2col`` engines at the
                    Table II and CNN shapes, at every GEMM the autoencoder
@@ -67,7 +75,8 @@ PATH):
                    ``matmul``.
   8. train      -- ``python -m repro_torch.train.cnn_bp --policy pallas`` at
                    its defaults (200 steps, batch 32) must reach eval
-                   accuracy > 0.9 with all three tap kernels launched; its
+                   accuracy > 0.9 with all three tap kernels launched (its
+                   depthwise layer on the ``dw`` variant); its
                    first 20 losses agree with ``lax`` and with
                    ``traditional`` (``matmul`` launched) from the same
                    initialization; a shorter run under ``auto``.
@@ -144,8 +153,8 @@ PATH):
                    parameters, bf16, drawn on the card from seed 0) under
                    ``conv_policy="pallas"``: the one-pass prefill (chunked
                    SSD with a ragged last chunk, the conv on ``tap_gemm``:
-                   48 bf16 launches) vs the decode scan (none) on a
-                   ``MAMBA2_PROMPT``-token prompt, logits and each layer's
+                   48 bf16 launches of ``dw``) vs the decode scan (none) on
+                   a ``MAMBA2_PROMPT``-token prompt, logits and each layer's
                    SSM state and conv inputs (largest error within
                    ``SSM_BF16_TOL``, the first ``SSM_EARLY_LAYERS`` within
                    ``SERVE_BF16_TOL``); the device time of a 1,024-token
@@ -178,7 +187,8 @@ PATH):
                    widths (bf16, seed 0, batch 8, seq 512, guard on, 6
                    steps): each layer's conv on the three tap kernels'
                    bf16 instances (``tap_gemm`` twice a layer a step, with
-                   remat; the other two once), no step dropped; the first
+                   remat; the other two once; the forward and the weight
+                   grad on ``dw``), no step dropped; the first
                    loss and grad norm against the same run under ``auto``
                    (``LM_SSM_BF16_TOL``, ``LM_SSM_GNORM_TOL``; no launch);
                    float32 at ``SSM_F32_LAYERS`` layers, 5 steps of
@@ -385,14 +395,15 @@ def bound(flops: float, nbytes_: float,
 
 
 #: kernel -> pieces of the mangled names of the entries of its redesigned
-#: kernels (the three tap GEMMs, float32 and bf16 instances,
+#: kernels (the three tap GEMMs, float32 and bf16 instances, the
+#: depthwise forward and weight grad at 16 and 49 taps,
 #: the four ``matmul`` tiles, the bf16
 #: tensor-core flash attention: head dims 64, 128 and 192, each with and
 #: without 16-byte rows), whose registers, spills and shared memory the
 #: build phase reports, and how many entries each has.
-REDESIGNED = {"tap_gemm": (("3fwd6kernel",), 8),
+REDESIGNED = {"tap_gemm": (("3fwd6kernel", "2dw10fwd_kernel"), 12),
               "tap_gemm_phased": (("6phased6kernel",), 24),
-              "tap_wgrad": (("5wgrad6kernel",), 16),
+              "tap_wgrad": (("5wgrad6kernel", "2dw12wgrad_kernel"), 20),
               "matmul": (("4gemm6kernel", "4tall6kernel", "6mirror6kernel"),
                          22),
               "flash_attention": (("flash_bf16_kernel",), 6)}
@@ -439,11 +450,20 @@ def kernel_resources(log_dir: pathlib.Path) -> list[dict]:
 
 
 def plan_occupancy(tg, mm) -> list[dict]:
-    """Blocks an SM holds of every input-grad, weight-grad and ``matmul``
-    instance, from the card's occupancy calculator, beside the ``per_sm``
-    the plans assume for its variant."""
+    """Blocks an SM holds of every input-grad, weight-grad, depthwise and
+    ``matmul`` instance, from the card's occupancy calculator, beside the
+    ``per_sm`` the plans assume for its variant."""
     rows = []
     for bf16 in (False, True):
+        for kernel, role, tiles in (("tap_gemm", "forward", tg.FORWARD_TILES),
+                                    ("tap_wgrad", "weight_grad",
+                                     tg.WGRAD_TILES)):
+            for wide in (False, True):
+                rows.append({
+                    "kernel": kernel, "variant": tg.DW,
+                    "in": "bfloat16" if bf16 else "float32",
+                    "wide_taps": wide, "plan_per_sm": tiles[tg.DW].per_sm,
+                    "blocks_per_sm": tg.dw_blocks_per_sm(role, wide, bf16)})
         for variant, tile in tg.PHASED_TILES.items():
             for vec_a in (False, True):
                 for vec_b in (False, True):
@@ -455,6 +475,8 @@ def plan_occupancy(tg, mm) -> list[dict]:
                         "blocks_per_sm": tg.phased_blocks_per_sm(
                             variant, vec_a, vec_b, bf16)})
         for variant, tile in tg.WGRAD_TILES.items():
+            if variant == tg.DW:
+                continue
             for vec_a in (False, True):
                 for vec_b in (False, True):
                     rows.append({
@@ -523,21 +545,27 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev,
             xl, pad = F.pad(x, (d.P_w, d.p_w_hi, d.P_h, d.p_h_hi)), (0, 0)
         macs = g * d.N * d.C          # per output pixel and tap
 
+        # The plans the calls below launch with (the wrappers' analytic
+        # plans: config.autotune is off here).
+        plans = {role: ops.pass_plan(role, d, g, dev, dtype)
+                 for role in ops.PLAN_ROLES}
+
+        def grid_z(plan):                 # groups x splits, or 1 for dw
+            return 1 if plan.variant == tg.DW else plan.splits * g
+
         src, wt, taps = ops.forward_operands(x, w, d, g)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        fsplits = tg.forward_splits(d.B * d.H_o * d.W_o, d.N, len(taps), d.C,
-                                    sms, g)
         fwd = (lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
                lambda: ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o),
                lambda: F.conv2d(xl, w, stride=stride, padding=pad, groups=g),
                2.0 * d.B * d.H_o * d.W_o * macs * len(taps),
-               nbytes(src, wt), {"splits": fsplits,
-                                 "grid_z": fsplits * g})
+               nbytes(src, wt), {"variant": plans["forward"].variant,
+                                 "splits": plans["forward"].splits,
+                                 "grid_z": grid_z(plans["forward"])})
         gsrc, ws, pp = ops.input_grad_operands(dy, w, d, g)
         counts = [len(t) for t in pp.phase_taps]
         n_taps = sum(counts)
         m_q = d.B * pp.n_qh * pp.n_qw
-        dvariant, dsplits = tg.phased_plan(g, counts, d.N, d.C, m_q, sms)
+        dvariant, dsplits = plans["input_grad"].key
         work, _, slots = tg.phased_work(counts, d.N, dsplits,
                                         tg.PHASED_TILES[dvariant].step)
         dgrad = (lambda: tg.tap_gemm_phased(gsrc, ws, pp.phase_taps, pp.n_qh,
@@ -558,21 +586,23 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev,
                                          ops.input_grad_operands(dy, w, d,
                                                                  g))})
         wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
-        variant, splits = tg.wgrad_plan(g, len(wtaps), d.C, d.N,
-                                        d.B * d.H_o * d.W_o, sms)
+        wplan = plans["weight_grad"]
         wgrad = (lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
                  lambda: ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o),
                  lambda: nn_grad.conv2d_weight(xl, w.shape, dy, stride=stride,
                                                padding=pad, groups=g),
                  2.0 * d.B * d.H_o * d.W_o * macs * len(wtaps),
-                 nbytes(wsrc, dyn), {"variant": variant, "splits": splits,
-                                     "grid_z": splits * g})
+                 nbytes(wsrc, dyn), {"variant": wplan.variant,
+                                     "splits": wplan.splits,
+                                     "grid_z": grid_z(wplan)})
 
-        for name, (kern, plain, lib, flops, in_bytes, extra) in zip(
-                TAP_KERNELS, (fwd, dgrad, wgrad)):
-            before = tg.launch_counts()[name]
+        for name, role, (kern, plain, lib, flops, in_bytes, extra) in zip(
+                TAP_KERNELS, ("forward", "input_grad", "weight_grad"),
+                (fwd, dgrad, wgrad)):
+            tg.reset_launch_counts()
             got = kern()
-            launches = tg.launch_counts()[name] - before
+            launches = tg.launch_counts()[name]
+            variants = tg.variant_launch_counts()
             want = plain()
             torch.cuda.synchronize()
             err, abs_err = rel_err(torch, got, want)
@@ -595,6 +625,9 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev,
             rec["roofline_share"] = rec["bound_us"] / 1e3 / rec["kernel_ms"]
             smoke.emit(phase, **rec)
             check(launches == 1, f"{name}: {launches} launches for one call")
+            check(variants == {f"{name}:{plans[role].variant}": 1},
+                  f"{name} at {layer}: launched {variants}, planned "
+                  f"{plans[role]}")
             check(got.dtype == (torch.float32 if name == "tap_wgrad"
                                 else dtype),
                   f"{name}: a {got.dtype} output from {dtype} operands")
@@ -603,6 +636,7 @@ def phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref, shapes, dev,
             if not summed:
                 continue
             a = agg[name]
+            a["variant"] = rec["variant"]
             for k in ("ms", "plain_ms", "library_ms"):
                 a[k] += rec["kernel_ms" if k == "ms" else k]
             a["flops"] += flops
@@ -849,6 +883,7 @@ def phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp, dev):
     """The trainers' CLIs at their defaults under pallas, then lax,
     traditional and auto.  Returns each path's kernel launches, every path
     run with the counts set to 0 just before it and read just after."""
+    from repro_torch.kernels import tap_gemm as tg
     paths = {}
 
     def run(path, fn):
@@ -860,13 +895,19 @@ def phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp, dev):
 
     res, counts, events = run("cnn_bp pallas", lambda: cnn_bp.main(
         ["--policy", "pallas", "--device", str(dev)]))      # accuracy floor
+    variants = tg.variant_launch_counts()
     smoke.emit("train", model="cnn", policy="pallas",
                steps=len(res["losses"]), eval_acc=res["eval_acc"],
                seconds=res["seconds"], first_loss=res["losses"][0],
-               last_loss=res["losses"][-1], launches=counts, dispatch=events)
+               last_loss=res["losses"][-1], launches=counts,
+               variant_launches=variants, dispatch=events)
     check(res["eval_acc"] > 0.9, f"eval accuracy {res['eval_acc']} <= 0.9")
     check(all(counts[k] > 0 for k in TAP_KERNELS),
           f"a tap kernel was never launched on the main path: {counts}")
+    # cnn.dw (16 groups of one channel) runs the depthwise variant.
+    check(variants.get("tap_gemm:dw", 0) > 0
+          and variants.get("tap_wgrad:dw", 0) > 0,
+          f"cnn.dw did not run the dw variant: {variants}")
     check(set(events) == {"forward:pallas", "input_grad:pallas",
                           "weight_grad:pallas"}, f"dispatch {events}")
 
@@ -1243,11 +1284,12 @@ def engines_agree(torch, serve, M, cfg, params, prompt_len, max_new, dev):
                        runs["continuous"], dev)
 
 
-def device_time(torch, fn, reps: int = 3) -> dict:
+def device_time(torch, fn, reps: int = 3, top: int = 6) -> dict:
     """Host wall time of ``fn`` (median of ``reps`` runs, each ended by a
     synchronize) against the device time its kernels take, from one run
-    under ``torch.profiler`` (kernels summed by name; the busy share is
-    device time over the unprofiled wall time)."""
+    under ``torch.profiler`` (kernels summed by name, the ``top`` longest
+    listed; the busy share is device time over the unprofiled wall
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1267,7 +1309,7 @@ def device_time(torch, fn, reps: int = 3) -> dict:
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     wall_ms = statistics.median(walls) * 1e3
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: -e.device_time_total)[:6]
+    top = sorted(dev, key=lambda e: -e.device_time_total)[:top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "busy_share": busy_ms / wall_ms,
             "device_events": sum(e.count for e in dev),
@@ -1324,15 +1366,17 @@ def phase_serve(smoke, torch, kernels, serve, M, T, dev):
 def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
                   dev, kernel: str = "flash_attention",
                   per_request: int | None = None,
-                  label: str | None = None) -> dict:
+                  label: str | None = None,
+                  variant: str | None = None) -> dict:
     """``launch.serve.main(argv + ["--engine", engine])`` for each engine
     of ``argvs`` (8 requests each): every request ``ok`` with
     ``--max-new`` tokens; the continuous engine admits all 8 and launches
     ``kernel`` ``per_request`` times per request (default: once a layer,
-    in its one-pass prefill), the static engine (lockstep prefill through
-    the decode path) never; tokens/s, p50 latency, peak memory.  Returns
-    each engine's launches as ``"{label} {engine}"`` (label: the
-    phase)."""
+    in its one-pass prefill; a tap kernel on its ``variant``), the static
+    engine (lockstep prefill through the decode path) never; tokens/s, p50
+    latency, peak memory.  Returns each engine's launches as ``"{label}
+    {engine}"`` (label: the phase)."""
+    from repro_torch.kernels import tap_gemm as tg
     paths = {}
     label = label or phase
     per_request = cfg.n_layers if per_request is None else per_request
@@ -1341,6 +1385,7 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
         torch.cuda.reset_peak_memory_stats(dev)
         res = serve.main(argv + ["--engine", engine])
         counts = paths[f"{label} {engine}"] = kernels.launch_counts()
+        variants = tg.variant_launch_counts()
         s, reqs = res["summary"], res["requests"]
         max_new = int(argv[argv.index("--max-new") + 1])
         smoke.emit(phase, engine=engine, config=cfg.name, path=label,
@@ -1356,7 +1401,8 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
                    tok_s=res["tok_s"], p50_latency_s=res["p50_latency_s"],
                    seconds=res["seconds"],
                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
-                       dev), launches=counts, summary=s)
+                       dev), launches=counts, variant_launches=variants,
+                   summary=s)
         check(len(reqs) == 8 and all(r.status == "ok"
                                      and len(r.out) == max_new
                                      for r in reqs),
@@ -1365,9 +1411,11 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
         want = per_request * s["admitted"] if engine == "continuous" else 0
         check(counts[kernel] == want
               and sum(counts.values()) == counts[kernel]
-              and (engine == "static" or s["admitted"] == 8),
-              f"{cfg.name} {label} {engine}: {counts} launches, "
-              f"{s['admitted']} admitted")
+              and (engine == "static" or s["admitted"] == 8)
+              and (variant is None or variants == (
+                  {f"{kernel}:{variant}": want} if want else {})),
+              f"{cfg.name} {label} {engine}: {counts} launches "
+              f"({variants}), {s['admitted']} admitted")
         del res
         free_card(torch)
     return paths
@@ -1596,6 +1644,38 @@ def kernel_bf16_shapes(ConvDims, paper_cnn):
              paper_cnn.dims(paper_cnn.TABLE2_LAYERS[3]), 1, False)]
 
 
+def dw_conv_times(smoke, torch, conv, tg, dev) -> None:
+    """Mamba2-370M's conv as its layers call it at the training shape:
+    ``depthwise_causal_conv1d`` on a (8, 512, 2,304) bf16 input, forward
+    and backward, under ``pallas`` (the dw forward and weight grad, the
+    input grad's 128 x 8 tile, beside the lowering's transposes, pads and
+    channels-last copies) and under ``lax`` (the library's grouped conv):
+    device time by kernel (``device_time``) and the variants launched."""
+    gen = torch.Generator().manual_seed(500)
+    x0 = torch.randn(8, 512, 2304, generator=gen).to(dev, torch.bfloat16)
+    w0 = (0.2 * torch.randn(4, 2304, generator=gen)).to(dev, torch.bfloat16)
+    dy = torch.randn(8, 512, 2304, generator=gen).to(dev, torch.bfloat16)
+    want = {"pallas": {"tap_gemm:dw": 1, "tap_gemm_phased:128x8": 1,
+                       "tap_wgrad:dw": 1}, "lax": {}}
+    for policy in ("pallas", "lax"):
+        x = x0.clone().requires_grad_(True)
+        w = w0.clone().requires_grad_(True)
+
+        def step():
+            x.grad = w.grad = None
+            conv.depthwise_causal_conv1d(x, w, policy).backward(dy)
+
+        tg.reset_launch_counts()
+        step()
+        variants = tg.variant_launch_counts()
+        smoke.emit("kernels_bf16", check="depthwise_causal_conv1d forward "
+                   "+ backward", shape=[8, 512, 2304], policy=policy,
+                   variant_launches=variants,
+                   **device_time(torch, step, top=12))
+        check(variants == want[policy],
+              f"depthwise_causal_conv1d under {policy} launched {variants}")
+
+
 def ssm_prefill_vs_scan(torch, M, T, tg, cfg, params, prompt, dev) -> dict:
     """Mamba2's one-pass prefill against a scan of decode steps on one
     prompt: relative errors (max |a - b| / max |b|) of the last logits and
@@ -1609,6 +1689,7 @@ def ssm_prefill_vs_scan(torch, M, T, tg, cfg, params, prompt, dev) -> dict:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     pre = tg.type_launch_counts()
+    pre_variants = tg.variant_launch_counts()
     tg.reset_launch_counts()
     scan = T.init_cache(cfg, 1, len(prompt) + 1, dev)
     t0 = time.perf_counter()
@@ -1625,6 +1706,7 @@ def ssm_prefill_vs_scan(torch, M, T, tg, cfg, params, prompt, dev) -> dict:
             "rel_err_ssm_by_layer": by_layer["ssm"],
             "rel_err_conv_by_layer": by_layer["conv"],
             "prefill_launches": pre,
+            "prefill_variant_launches": pre_variants,
             "scan_launches": tg.type_launch_counts(),
             "prefill_seconds": prefill_s, "scan_seconds": scan_s}
 
@@ -1632,10 +1714,10 @@ def ssm_prefill_vs_scan(torch, M, T, tg, cfg, params, prompt, dev) -> dict:
 def ssm_prefill_check(smoke, torch, M, T, tg, cfg, params, prompt, dev, tol,
                       early_tol=None, **fields) -> dict:
     """``ssm_prefill_vs_scan``, emitted with ``fields``: under ``pallas``
-    one ``tap_gemm`` launch a layer in the prefill (of the operands'
-    type), none otherwise and none in the scan; errors within ``tol`` and,
-    where given, those of the first ``SSM_EARLY_LAYERS`` layers within
-    ``early_tol``."""
+    one ``tap_gemm`` launch a layer in the prefill (of the operands' type,
+    on the depthwise variant), none otherwise and none in the scan; errors
+    within ``tol`` and, where given, those of the first
+    ``SSM_EARLY_LAYERS`` layers within ``early_tol``."""
     rec = ssm_prefill_vs_scan(torch, M, T, tg, cfg, params, prompt, dev)
     early = max(rec["rel_err_ssm_by_layer"][:SSM_EARLY_LAYERS]
                 + rec["rel_err_conv_by_layer"][:SSM_EARLY_LAYERS])
@@ -1644,11 +1726,14 @@ def ssm_prefill_check(smoke, torch, M, T, tg, cfg, params, prompt, dev, tol,
                early_tol=early_tol, rel_err_early_max=early, **fields)
     smoke.emit("serve_ssm", **rec)
     kind = "bf16" if cfg.param_dtype == "bfloat16" else "f32"
-    want = ({f"tap_gemm:{kind}": cfg.n_layers}
-            if cfg.conv_policy == "pallas" else {})
-    check(rec["prefill_launches"] == want and not rec["scan_launches"],
+    pallas = cfg.conv_policy == "pallas"
+    want = {f"tap_gemm:{kind}": cfg.n_layers} if pallas else {}
+    want_variants = {"tap_gemm:dw": cfg.n_layers} if pallas else {}
+    check(rec["prefill_launches"] == want and not rec["scan_launches"]
+          and rec["prefill_variant_launches"] == want_variants,
           f"{cfg.name} {cfg.conv_policy}: prefill launched "
-          f"{rec['prefill_launches']}, the scan {rec['scan_launches']}")
+          f"{rec['prefill_launches']} ({rec['prefill_variant_launches']}), "
+          f"the scan {rec['scan_launches']}")
     worst = max(rec["rel_err_logits"], rec["rel_err_ssm_max"],
                 rec["rel_err_conv_max"])
     check(worst <= tol and (early_tol is None or early <= early_tol),
@@ -1729,7 +1814,7 @@ def phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T, dev) -> dict:
             {e: a + ["--conv-policy", policy]
              for e, a in SERVE_SSM_ARGV.items()}, dev, kernel="tap_gemm",
             per_request=full.n_layers if policy == "pallas" else 0,
-            label=f"serve_ssm {policy}"))
+            label=f"serve_ssm {policy}", variant=tg.DW))
     return paths
 
 
@@ -1865,7 +1950,7 @@ def phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi, dev) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as TS
     t_phase = time.perf_counter()
-    paths, hist, losses, types = {}, {}, {}, {}
+    paths, hist, losses, types, variants = {}, {}, {}, {}, {}
     for policy in ("pallas", "auto"):
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1877,6 +1962,7 @@ def phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi, dev) -> dict:
                                     history=hist[policy])
         paths[f"lm_train_ssm {policy}"] = kernels.launch_counts()
         types[policy] = tg.type_launch_counts()
+        variants[policy] = tg.variant_launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
         if policy == "pallas":
             peak_pallas = peak
@@ -1911,6 +1997,10 @@ def phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi, dev) -> dict:
     n = LM_TRAIN_SSM_STEPS * 48
     want = {"tap_gemm:bf16": 2 * n, "tap_gemm_phased:bf16": n,
             "tap_wgrad:bf16": n}
+    # the forward and the weight grad on the depthwise variant, the input
+    # grad on its 128 x 8 tile
+    want_variants = {"tap_gemm:dw": 2 * n, "tap_gemm_phased:128x8": n,
+                     "tap_wgrad:dw": n}
     smoke.emit("lm_train_ssm", nvidia_smi=smi, config="mamba2-370m",
                dtype="bfloat16", batch=8, seq=512, steps=len(a),
                median_step_s=step_s, first_step_s=secs[0],
@@ -1926,15 +2016,18 @@ def phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi, dev) -> dict:
                f32_layers=SSM_F32_LAYERS, f32_losses=f32,
                f32_max_rel_err=f32_err, f32_tol=LOSS_TOL,
                launches=paths, launches_by_type=types,
-               want_launches=want, seconds=time.perf_counter() - t_phase)
+               launches_by_variant=variants, want_launches=want,
+               want_variant_launches=want_variants,
+               seconds=time.perf_counter() - t_phase)
     every = a + losses["auto"] + f32["pallas"] + f32["lax"]
     check(all(math.isfinite(x) for x in every), f"non-finite loss: {every}")
     check(len(a) == LM_TRAIN_SSM_STEPS and len(losses["auto"]) == 1,
           f"steps run: {len(a)}, {len(losses['auto'])}")
     check(not any(h["guard_bad"] for v in hist.values() for h in v),
           "the guard dropped a step")
-    check(types["pallas"] == want,
-          f"pallas training launched {types['pallas']}, want {want}")
+    check(types["pallas"] == want and variants["pallas"] == want_variants,
+          f"pallas training launched {types['pallas']} "
+          f"({variants['pallas']}), want {want} ({want_variants})")
     check(not any(paths["lm_train_ssm auto"].values()),
           f"auto training launched {paths['lm_train_ssm auto']}")
     check(first_err <= LM_SSM_BF16_TOL and gnorm_err <= LM_SSM_GNORM_TOL,
@@ -2019,6 +2112,7 @@ def main(argv=None) -> int:
     agg_bf16 = phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
                              kernel_bf16_shapes(ConvDims, paper_cnn), dev,
                              torch.bfloat16, "kernels_bf16")
+    dw_conv_times(smoke, torch, conv, tg, dev)
     agg["matmul"] = phase_matmul(smoke, torch, mm, ref, tg,
                                  matmul_cases(torch, conv, shapes, ae), dev)
     phase_layers(smoke, torch, conv, kernels, ConvSpec, table2, dev)
@@ -2058,7 +2152,8 @@ def main(argv=None) -> int:
         shapes[f"{name}_bf16"] = ("the bf16 instance at Mamba2-370M's "
                                   "depthwise causal conv, training shape: "
                                   "batch 8 x seq 512, 2,304 groups of one "
-                                  "channel, 4 taps")
+                                  "channel, 4 taps; variant "
+                                  + agg_bf16[name]["variant"])
     # The tap kernels' bf16-operand instances (the TPU kernels take the
     # operands' dtype and sum in float32) have rows of their own.
     rows = {**KERNELS, **{f"{k}_bf16": KERNELS[k] for k in TAP_KERNELS}}

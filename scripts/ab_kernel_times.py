@@ -7,7 +7,9 @@
 Runs, in the order parent, child, child, parent, each checkout's own
 ``chip_smoke.py`` phases ``kernels`` (the three tap-GEMM kernels at the
 five Table II layers and at the example CNN's and autoencoder's training
-shapes, ``cnn_shapes`` and ``ae_shapes``), ``matmul`` (every lowered GEMM
+shapes, ``cnn_shapes`` and ``ae_shapes``), ``kernels_bf16`` where the
+checkout has it (their bf16 instances at Mamba2-370M's depthwise conv and
+a Table II layer, ``kernel_bf16_shapes``), ``matmul`` (every lowered GEMM
 of those layers and shapes, and the bf16 case) and ``flash``
 (``FLASH_CASES``), one process per turn, so
 both sides build their own kernels from their own sources and run on the
@@ -62,6 +64,10 @@ shapes = ([("/".join(map(str, layer)), paper_cnn.dims(layer), 1, True)
 ae = cs.ae_shapes(ConvDims, conv, ConvTransposeSpec)
 cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
                  shapes + [row[:4] for row in ae], dev)
+if hasattr(cs, "kernel_bf16_shapes"):
+    cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
+                     cs.kernel_bf16_shapes(ConvDims, paper_cnn), dev,
+                     torch.bfloat16, "kernels_bf16")
 cs.phase_matmul(smoke, torch, mm, ref, tg,
                 cs.matmul_cases(torch, conv, shapes, ae), dev)
 cs.phase_flash(smoke, torch, F, fa, ref, dev)

@@ -334,7 +334,7 @@ def _kernel_gap(pass_name: str, d: ConvDims, transposed: bool = False,
     role = _TRANSPOSE_ROLE[pass_name] if transposed else pass_name
     plan = None if device is None else ops.pass_plan(role, d, groups,
                                                      device, dtype)
-    return ops.launch_gap(role, d, groups, plan)
+    return ops.launch_gap(role, d, groups, plan, dtype)
 
 
 _FALLBACK_CHAIN = ("bp_phase", "lax")

@@ -7,10 +7,13 @@
 //                                  transposed mode (Algorithm 1), all stride phases
 //   tap_wgrad_{f32,bf16}        <- tap_wgrad       (_tap_wgrad_kernel)        weight grad,
 //                                  dilated mode (Algorithm 2)
+//   tap_gemm_dw_{f32,bf16},     <- tap_gemm, tap_wgrad at one channel a group
+//   tap_wgrad_dw_{f32,bf16}        (depthwise: the dw namespace below)
 // As the TPU kernels do, a bfloat16 entry reads its operands as bfloat16
 // and sums their products in float32 (the TPU kernels'
-// preferred_element_type); every entry writes float32 (the wrappers cast
-// the forward's and the input grad's output back to the operands' type).
+// preferred_element_type); every tiled entry writes float32 (the wrappers
+// cast the forward's and the input grad's output back to the operands'
+// type), the depthwise forward the operands' type.
 // A bfloat16 operand stays bfloat16 in global and shared memory and is
 // converted to float32 as a register fragment loads (elem::load4), so the
 // tile walks, their thread maps and the float32 instances are unchanged.
@@ -723,6 +726,318 @@ KernelFn<E> pick(bool narrow, bool vec_a, bool vec_b) {
 }  // namespace wgrad
 
 // ---------------------------------------------------------------------------
+// Depthwise (one channel a group): the forward and the weight grad without
+// tiles, one thread a 16-byte vector of outputs or pixels
+// ---------------------------------------------------------------------------
+//
+// At CIN = COUT = 1 the packed tiles above keep one column of 64 (the
+// forward) or 16 (the weight grad) and run a contraction of T rows (the
+// forward) or walk every pixel for a 4 x 1 corner (the weight grad), and
+// the bfloat16 rows move by plain 2-byte loads.  Both passes are bound by
+// bytes there (Mamba2's conv: ~1 FLOP a byte), so these kernels read each
+// operand in 16-byte vectors and do the T taps' arithmetic in registers:
+//   * dw::fwd_kernel: thread n computes V = 16 bytes of outputs (4 float32,
+//     8 bfloat16) along ow of one (group, b, oh) row; grid x is the flat
+//     (group, b, oh, vector) index, so no grid limit binds the group count.
+//     The group's T tap weights sit in registers, loaded once; taps are
+//     summed in tap order in float32 (fmaf) and the sum is rounded once to
+//     the operands' type and stored: no float32 plane, no cast pass.
+//   * dw::wgrad_kernel: block (split, group); its threads stride over the
+//     split's vectors of pixels, read dY's V values and each tap's source
+//     window, and keep T float32 sums in registers; a fixed-order block
+//     reduction (warp shuffles in a fixed tree, then the warps in index
+//     order) writes one partial a split, summed by splitk::reduce.
+// A window of V source elements at any column is read as the one or two
+// aligned 16-byte vectors that hold it, shifted into place in registers
+// (funnel shifts), so rows of any width and sources at any offset take
+// vector loads; a window that runs past either end of its row is read
+// element by element, masked.  The tap table is a kernel parameter (the
+// constant bank), so no tap costs a dependent load.  Taps are general (plane, du, dv) rows, so
+// strided and 2-D depthwise convs run too.  TCAP is the instance's tap
+// capacity (SMALL_TAPS or MAX_TAPS registers of weights or sums).
+
+namespace dw {
+
+constexpr int THREADS = 128;
+constexpr int SMALL_TAPS = 16;  // 1-D convs up to 16 taps, 3 x 3, 4 x 4
+constexpr int MAX_TAPS = 49;    // 7 x 7 (kernels/tap_gemm.py: DW_MAX_TAPS)
+
+// Elements of E in a 16-byte vector.
+template <typename E>
+__host__ __device__ constexpr int vec() {
+  return 16 / (int)sizeof(E);
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void from_float(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_float(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The tap table, (p, du, dv) rows, passed by value: the kernels read it
+// from the constant bank, with no load on their critical path.
+struct Taps {
+  int v[3 * MAX_TAPS];
+};
+
+// The four words of V elements of E that start OFF elements into the two
+// 16-byte vectors w[0..3], w[4..7].
+template <int OFF, typename E>
+__device__ __forceinline__ void extract(const uint32_t (&w)[8],
+                                        uint32_t (&v)[4]) {
+  constexpr int EPW = 4 / (int)sizeof(E);  // elements a 32-bit word
+  constexpr int K = OFF / EPW, SH = (OFF % EPW) * 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = SH ? __funnelshift_r(w[K + i], w[K + i + 1], SH) : w[K + i];
+}
+
+// extract<off> for a runtime off in [0, V): the threads of a warp that read
+// one row share it, so the branch does not diverge there.
+template <typename E>
+__device__ __forceinline__ void shift(const uint32_t (&w)[8], int off,
+                                      uint32_t (&v)[4]) {
+  switch (off) {
+    case 0: extract<0, E>(w, v); break;
+    case 1: extract<1, E>(w, v); break;
+    case 2: extract<2, E>(w, v); break;
+    case 3: extract<3, E>(w, v); break;
+    default:
+      if constexpr (vec<E>() == 8) {
+        switch (off) {
+          case 4: extract<4, E>(w, v); break;
+          case 5: extract<5, E>(w, v); break;
+          case 6: extract<6, E>(w, v); break;
+          default: extract<7, E>(w, v); break;
+        }
+      }
+  }
+}
+
+// Four words of packed elements as float32 (a bfloat16 is the high half of
+// its float32).
+__device__ __forceinline__ void unpack(const uint32_t (&v)[4],
+                                       float (&x)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = __uint_as_float(v[i]);
+}
+__device__ __forceinline__ void unpack(const uint32_t (&v)[4],
+                                       float (&x)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(v[i] << 16);
+    x[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
+  }
+}
+
+// x[j] = row[col + j] as float32 for j < V, zero at and past column ws (the
+// row's end).  A window inside the row is read as the one or two aligned
+// 16-byte vectors that hold it (aligned on the address, not on the row),
+// shifted into place in registers; one that runs past either end of the
+// row is read element by element, masked.
+template <typename E>
+__device__ __forceinline__ void window(const E* __restrict__ row, int ws,
+                                       int col, float (&x)[vec<E>()]) {
+  constexpr int V = vec<E>();
+  const uintptr_t a = (uintptr_t)row + (uintptr_t)col * sizeof(E);
+  const uintptr_t lo = a & ~(uintptr_t)15;
+  const int off = (int)(a - lo) / (int)sizeof(E);
+  const uintptr_t end = (uintptr_t)row + (uintptr_t)ws * sizeof(E);
+  if (col < ws && lo >= (uintptr_t)row && lo + (off ? 32 : 16) <= end) {
+    uint32_t w[8];
+    const uint4 c0 = __ldg(reinterpret_cast<const uint4*>(lo));
+    const uint4 c1 = off ? __ldg(reinterpret_cast<const uint4*>(lo + 16))
+                         : make_uint4(0, 0, 0, 0);
+    w[0] = c0.x, w[1] = c0.y, w[2] = c0.z, w[3] = c0.w;
+    w[4] = c1.x, w[5] = c1.y, w[6] = c1.z, w[7] = c1.w;
+    uint32_t v[4];
+    shift<E>(w, off, v);
+    unpack(v, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      x[j] = col + j < ws ? to_float(row[col + j]) : 0.f;
+  }
+}
+
+// V float32 values as the 16 bytes of their E (bfloat16: rounded to
+// nearest even, the lower address's element in the low half).
+__device__ __forceinline__ uint4 pack(const float (&y)[4]) {
+  return make_uint4(__float_as_uint(y[0]), __float_as_uint(y[1]),
+                    __float_as_uint(y[2]), __float_as_uint(y[3]));
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ uint4 pack(const float (&y)[8]) {
+  return make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]), pack2(y[4], y[5]),
+                    pack2(y[6], y[7]));
+}
+
+// row[col + j] = y[j] rounded to E for col + j < ow: one 16-byte store when
+// the vector is aligned and inside the row, else element by element.
+template <typename E>
+__device__ __forceinline__ void store(E* __restrict__ row, int ow, int col,
+                                      const float (&y)[vec<E>()]) {
+  constexpr int V = vec<E>();
+  E* a = row + col;
+  if ((uintptr_t)a % 16 == 0 && col + V <= ow) {
+    *reinterpret_cast<uint4*>(a) = pack(y);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (col + j < ow) from_float(a + j, y[j]);
+  }
+}
+
+// out[g, b, oh, ow] = sum over t < T of w[g, t] *
+//   src[g, p_t, b, oh + du_t, ow + dv_t] (zero past the Hs x Ws plane), in
+// the operands' type.  src (G, P, B, Hs, Ws), w (G, T), out (G, B, OH, OW),
+// taps T rows (p, du, dv).  Thread n of `total` = G * B * OH * NV (NV =
+// cdiv(OW, V)) computes outputs [V v, V v + V) of its row (32-bit index
+// arithmetic where `total` fits it).
+template <typename E, int TCAP>
+__global__ void __launch_bounds__(THREADS)
+fwd_kernel(const E* __restrict__ src, const E* __restrict__ w,
+           const Taps taps, E* __restrict__ out, int P, int B, int Hs,
+           int Ws, int T, int OH, int OW, long long total) {
+  constexpr int V = vec<E>();
+  const long long n = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (n >= total) return;
+  const int NV = cdiv(OW, V);
+  int v, oh, b;
+  long long gb;  // g * B + b
+  if (total <= 0xffffffffLL) {
+    const unsigned n32 = (unsigned)n, q = n32 / NV, gb32 = q / OH;
+    v = (int)(n32 - q * NV);
+    oh = (int)(q - gb32 * OH);
+    b = (int)(gb32 % B);
+    gb = gb32;
+  } else {
+    const long long q = n / NV;
+    v = (int)(n - q * NV);
+    oh = (int)(q % OH);
+    gb = q / OH;
+    b = (int)(gb % B);
+  }
+  const long long g = gb / B;
+  float wt[TCAP];
+#pragma unroll
+  for (int t = 0; t < TCAP; ++t)
+    wt[t] = t < T ? to_float(w[g * T + t]) : 0.f;
+  const size_t plane = (size_t)B * Hs * Ws;
+  const E* src_g = src + (size_t)g * P * plane;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+#pragma unroll
+  for (int t = 0; t < TCAP; ++t) {
+    if (t >= T) break;
+    const int p = taps.v[3 * t], du = taps.v[3 * t + 1],
+              dv = taps.v[3 * t + 2];
+    if (oh + du >= Hs) continue;
+    float x[V];
+    window(src_g + p * plane + ((size_t)b * Hs + oh + du) * Ws, Ws,
+           v * V + dv, x);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = fmaf(x[j], wt[t], acc[j]);
+  }
+  store(out + ((size_t)gb * OH + oh) * OW, OW, v * V, acc);
+}
+
+// part[s, g, t] = sum over the vectors u of split s (u in [s chunk,
+// min(U, s chunk + chunk)), U = B * OH * NV) of
+//   sum over j < V of src[g, p_t, b, oh + du_t, ow + dv_t] * dy[g, b, oh, ow]
+// with ow = V v + j < OW (zero past the plane).  src (G, P, B, Hs, Ws), dy
+// (G, B, OH, OW); part (splits, G, T) float32, the output when there is one
+// split.  grid = splits * G blocks, block z = s * G + g.
+template <typename E, int TCAP>
+__global__ void __launch_bounds__(THREADS)
+wgrad_kernel(const E* __restrict__ src, const E* __restrict__ dy,
+             const Taps taps, float* __restrict__ part, int G, int P, int B,
+             int Hs, int Ws, int T, int OH, int OW, int chunk) {
+  constexpr int V = vec<E>();
+  constexpr int WARPS = THREADS / 32;
+  __shared__ float red[TCAP][WARPS];
+  const int g = (int)(blockIdx.x % G), split = (int)(blockIdx.x / G);
+  const int NV = cdiv(OW, V);
+  const long long U = (long long)B * OH * NV;
+  const long long u0 = (long long)split * chunk;
+  const long long u1 = min(U, u0 + chunk);
+  const size_t plane = (size_t)B * Hs * Ws;
+  const E* src_g = src + (size_t)g * P * plane;
+  const E* dy_g = dy + (size_t)g * B * OH * OW;
+  float acc[TCAP];
+#pragma unroll
+  for (int t = 0; t < TCAP; ++t) acc[t] = 0.f;
+  for (long long u = u0 + threadIdx.x; u < u1; u += THREADS) {
+    const int v = (int)(u % NV), q = (int)(u / NV);
+    const int oh = q % OH, b = q / OH;
+    float y[V];
+    window(dy_g + (size_t)q * OW, OW, v * V, y);
+#pragma unroll
+    for (int t = 0; t < TCAP; ++t) {
+      if (t >= T) break;
+      const int p = taps.v[3 * t], du = taps.v[3 * t + 1],
+                dv = taps.v[3 * t + 2];
+      if (oh + du >= Hs) continue;
+      float x[V];
+      window(src_g + p * plane + ((size_t)b * Hs + oh + du) * Ws, Ws,
+             v * V + dv, x);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[t] = fmaf(x[j], y[j], acc[t]);
+    }
+  }
+  // Fixed order: a shuffle tree in each warp, then the warps in order.
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int t = 0; t < TCAP; ++t) {
+    if (t >= T) break;
+    float s = acc[t];
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) s += __shfl_down_sync(0xffffffffu, s, o);
+    if (lane == 0) red[t][warp] = s;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < T) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) s += red[threadIdx.x][k];
+    part[(size_t)blockIdx.x * T + threadIdx.x] = s;
+  }
+}
+
+template <typename E>
+using FwdFn = void (*)(const E*, const E*, const Taps, E*, int, int, int,
+                       int, int, int, int, long long);
+template <typename E>
+using WgradFn = void (*)(const E*, const E*, const Taps, float*, int, int,
+                         int, int, int, int, int, int, int);
+
+// The host's T rows (p, du, dv) as a kernel parameter.
+inline Taps taps_of(const int* rows, int T) {
+  Taps t = {};
+  for (int i = 0; i < 3 * T; ++i) t.v[i] = rows[i];
+  return t;
+}
+
+// The instance for T taps: SMALL_TAPS or MAX_TAPS registers.
+template <typename E>
+FwdFn<E> fwd(bool wide) {
+  return wide ? &fwd_kernel<E, MAX_TAPS> : &fwd_kernel<E, SMALL_TAPS>;
+}
+template <typename E>
+WgradFn<E> wgrad(bool wide) {
+  return wide ? &wgrad_kernel<E, MAX_TAPS> : &wgrad_kernel<E, SMALL_TAPS>;
+}
+
+}  // namespace dw
+
+// ---------------------------------------------------------------------------
 // The entries' bodies, for either operand element
 // ---------------------------------------------------------------------------
 
@@ -798,10 +1113,45 @@ cudaError_t weight_grad(const E* src, const E* dy, const int* taps,
                         stream);
 }
 
+template <typename E>
+cudaError_t dw_forward(const E* src, const E* w, const int* taps, E* out,
+                       int G, int P, int B, int Hs, int Ws, int T, int OH,
+                       int OW, cudaStream_t stream) {
+  if (T < 1 || T > dw::MAX_TAPS) return cudaErrorInvalidValue;
+  const long long total = (long long)G * B * OH * cdiv(OW, dw::vec<E>());
+  const long long blocks = (total + dw::THREADS - 1) / dw::THREADS;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  if (blocks == 0) return cudaSuccess;
+  const dw::FwdFn<E> kernel = dw::fwd<E>(T > dw::SMALL_TAPS);
+  kernel<<<(unsigned)blocks, dw::THREADS, 0, stream>>>(
+      src, w, dw::taps_of(taps, T), out, P, B, Hs, Ws, T, OH, OW, total);
+  return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t dw_weight_grad(const E* src, const E* dy, const int* taps,
+                           float* part, float* out, int G, int P, int B,
+                           int Hs, int Ws, int T, int OH, int OW, int splits,
+                           cudaStream_t stream) {
+  if (T < 1 || T > dw::MAX_TAPS || splits < 1) return cudaErrorInvalidValue;
+  const long long units = (long long)B * OH * cdiv(OW, dw::vec<E>());
+  const long long chunk = (units + splits - 1) / splits;
+  const long long blocks = (long long)G * splits;
+  if (blocks > INT32_MAX || chunk > INT32_MAX) return cudaErrorInvalidValue;
+  if (blocks == 0) return cudaSuccess;
+  const dw::WgradFn<E> kernel = dw::wgrad<E>(T > dw::SMALL_TAPS);
+  kernel<<<(unsigned)blocks, dw::THREADS, 0, stream>>>(
+      src, dy, dw::taps_of(taps, T), part, G, P, B, Hs, Ws, T, OH, OW,
+      (int)chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return splitk::reduce(part, out, (size_t)G * T, splits, stream);
+}
+
 }  // namespace
 
 // Each kernel has a float32 entry and a bfloat16 one (`_bf16`: src, w and
-// dy read as bfloat16); both write float32.
+// dy read as bfloat16); both write float32, but for the depthwise forward.
 extern "C" {
 
 // `part` holds splits * G*M*COUT floats (M = B*OH*OW); with splits == 1 it
@@ -893,6 +1243,54 @@ int tap_wgrad_blocks_per_sm(int narrow, int bf16, int vec_a, int vec_b,
         wgrad::THREADS, 0);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, wgrad::pick<float>(narrow, vec_a, vec_b), wgrad::THREADS, 0);
+}
+
+// The depthwise variant (CIN = COUT = 1 a group, 1 <= T <= 49 taps):
+// src (G, P, B, Hs, Ws), w (G, T); out (G, B, OH, OW) in the operands'
+// type (bfloat16 rounded once from the float32 sum).  `taps` is HOST
+// memory here: T rows (p, du, dv), passed to the kernel by value.
+int tap_gemm_dw_f32(const float* src, const float* w, const int* taps,
+                    float* out, int G, int P, int B, int Hs, int Ws, int T,
+                    int OH, int OW, cudaStream_t stream) {
+  return (int)dw_forward(src, w, taps, out, G, P, B, Hs, Ws, T, OH, OW,
+                         stream);
+}
+int tap_gemm_dw_bf16(const __nv_bfloat16* src, const __nv_bfloat16* w,
+                     const int* taps, __nv_bfloat16* out, int G, int P,
+                     int B, int Hs, int Ws, int T, int OH, int OW,
+                     cudaStream_t stream) {
+  return (int)dw_forward(src, w, taps, out, G, P, B, Hs, Ws, T, OH, OW,
+                         stream);
+}
+
+// dy (G, B, OH, OW); out (G, T) float32.  `part` holds splits * G*T
+// floats (splits of the B*OH*cdiv(OW, V) pixel vectors, V = 4 float32 or
+// 8 bfloat16); with splits == 1 it may alias `out`.
+int tap_wgrad_dw_f32(const float* src, const float* dy, const int* taps,
+                     float* part, float* out, int G, int P, int B, int Hs,
+                     int Ws, int T, int OH, int OW, int splits,
+                     cudaStream_t stream) {
+  return (int)dw_weight_grad(src, dy, taps, part, out, G, P, B, Hs, Ws, T,
+                             OH, OW, splits, stream);
+}
+int tap_wgrad_dw_bf16(const __nv_bfloat16* src, const __nv_bfloat16* dy,
+                      const int* taps, float* part, float* out, int G, int P,
+                      int B, int Hs, int Ws, int T, int OH, int OW,
+                      int splits, cudaStream_t stream) {
+  return (int)dw_weight_grad(src, dy, taps, part, out, G, P, B, Hs, Ws, T,
+                             OH, OW, splits, stream);
+}
+
+// Blocks of one depthwise instance an SM holds: the forward (wgrad == 0)
+// or the weight grad, float32 or bfloat16, for up to 16 taps or (wide) 49.
+int tap_dw_blocks_per_sm(int wgrad, int bf16, int wide, int* blocks) {
+  const void* kernel =
+      wgrad ? (bf16 ? (const void*)dw::wgrad<__nv_bfloat16>(wide)
+                    : (const void*)dw::wgrad<float>(wide))
+            : (bf16 ? (const void*)dw::fwd<__nv_bfloat16>(wide)
+                    : (const void*)dw::fwd<float>(wide));
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, dw::THREADS, 0);
 }
 
 }  // extern "C"

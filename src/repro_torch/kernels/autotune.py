@@ -231,7 +231,8 @@ def tuned_plan(role: str, d: ConvDims, groups: int, device,
         entry = None
         state = "poisoned"
     if entry is not None:
-        plan = ops.plan_from_entry(role, d, groups, entry.get("plan"))
+        plan = ops.plan_from_entry(role, d, groups, entry.get("plan"),
+                                   dtype)
         try:
             plan = plan and dataclasses.replace(
                 plan, autotuned=True,

@@ -219,14 +219,16 @@ def input_grad_plan(d: ConvDims) -> PhasePlan:
 
 
 def launch_gap(pass_name: str, d: ConvDims, groups: int = 1,
-               plan: tg.Plan | None = None) -> str | None:
+               plan: tg.Plan | None = None,
+               dtype=torch.float32) -> str | None:
     """None when the kernel of ``pass_name`` can launch for the per-group
     geometry ``d``, else the reason (recorded by the engine resolver).
     With a ``plan`` (:func:`pass_plan`), whether that plan can launch for
-    ``groups`` groups (:func:`repro_torch.kernels.tap_gemm.plan_gap`);
-    without one, the limits every plan shares."""
+    ``groups`` groups on operands of ``dtype``
+    (:func:`repro_torch.kernels.tap_gemm.plan_gap`); without one, the
+    limits every plan shares."""
     if plan is not None:
-        return tg.plan_gap(problem(pass_name, d, groups), plan)
+        return tg.plan_gap(problem(pass_name, d, groups, dtype), plan)
     if pass_name == "input_grad":
         m = d.B * _cdiv(d.H_i, d.s_h) * _cdiv(d.W_i, d.s_w)
         return tg.launch_gap(m, d.C, d.s_h * d.s_w)
@@ -258,9 +260,9 @@ def _problem(role: str, d: ConvDims, groups: int,
         pp = input_grad_plan(d)
         return tg.Problem(role, groups,
                           tuple(len(t) for t in pp.phase_taps), d.N, d.C,
-                          d.B * pp.n_qh * pp.n_qw, dtype)
+                          d.B * pp.n_qh * pp.n_qw, pp.n_qw, dtype)
     return tg.Problem(role, groups, (len(_forward_taps(d)),), d.C, d.N,
-                      d.B * d.H_o * d.W_o, dtype)
+                      d.B * d.H_o * d.W_o, d.W_o, dtype)
 
 
 def problem(role: str, d: ConvDims, groups: int = 1,
@@ -313,11 +315,12 @@ def plan_candidates(role: str, d: ConvDims, groups: int = 1,
     return tg.candidate_plans(prob, tg._sms(torch.device(device)))[:k]
 
 
-def plan_from_entry(role: str, d: ConvDims, groups: int,
-                    entry) -> tg.Plan | None:
+def plan_from_entry(role: str, d: ConvDims, groups: int, entry,
+                    dtype=torch.float32) -> tg.Plan | None:
     """The plan of a PERSISTED ``[variant, splits]`` entry, revalidated
-    against the current geometry and kernels; None when it is garbage or
-    no longer launches (a stale plan-cache entry: the caller re-tunes)."""
+    against the current geometry, operand type and kernels; None when it
+    is garbage or no longer launches (a stale plan-cache entry: the caller
+    re-tunes)."""
     _check_role(role)
     try:
         variant, splits = entry
@@ -327,7 +330,8 @@ def plan_from_entry(role: str, d: ConvDims, groups: int,
             or isinstance(splits, bool):
         return None
     plan = tg.Plan(role, variant, splits)
-    gap = tg.plan_gap(_problem(role, _canonical(d), groups), plan)
+    gap = tg.plan_gap(_problem(role, _canonical(d), groups,
+                               _dtype_key(dtype)), plan)
     return plan if gap is None else None
 
 

@@ -10,17 +10,20 @@ over phase-split, channels-last compact operands,
   * ``tap_wgrad``       weight grad (dilated mode), float32 output
 
 with an optional leading group dim on every operand, so a grouped or
-depthwise conv is one launch per pass.  Operands are float32 or bfloat16,
-every operand of a call in one type (:data:`DTYPES`); as in the JAX
-kernels, products are summed in float32, and the forward and the input
+depthwise conv is one launch per pass.  The forward and the weight grad
+have a depthwise variant, ``"dw"`` (:data:`DW_MAX_TAPS`), for one channel
+a group: no tile, a thread a 16-byte vector of outputs or pixels; the
+analytic plan takes it wherever CIN = COUT = 1.  Operands are float32 or
+bfloat16, every operand of a call in one type (:data:`DTYPES`); as in the
+JAX kernels, products are summed in float32, and the forward and the input
 grad return the operands' type.  On a CUDA tensor a wrapper checks
-its operands and its :class:`Plan` (the tile variant and split-K count:
+its operands and its :class:`Plan` (the variant and split-K count:
 :func:`analytic_plan` unless the caller passes one), launches its kernel
 (built at first use by ``repro_torch.kernels.build``) or raises; it never
 falls back.  On a CPU tensor it returns the plain version from
 ``repro_torch.kernels.ref``, which has no plan.  ``LAUNCHES`` counts kernel
 launches per wrapper (CUDA only), ``TYPE_LAUNCHES`` the same by operand
-type.
+type and ``VARIANT_LAUNCHES`` by plan variant.
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: the same launches by operand type, ``"tap_gemm:bf16"`` -> count.
 TYPE_LAUNCHES: dict[str, int] = {}
 
+#: the same launches by plan variant, ``"tap_gemm:dw"`` -> count.
+VARIANT_LAUNCHES: dict[str, int] = {}
+
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
@@ -61,10 +67,15 @@ def type_launch_counts() -> dict[str, int]:
     return dict(TYPE_LAUNCHES)
 
 
+def variant_launch_counts() -> dict[str, int]:
+    return dict(VARIANT_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     TYPE_LAUNCHES.clear()
+    VARIANT_LAUNCHES.clear()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -108,13 +119,19 @@ def _lib() -> ctypes.CDLL:
             [_P] * 4 + [_I, _P, _I, _P, _P] + [_I] * 11 + [_P])
         getattr(lib, f"tap_wgrad_{suffix}").argtypes = ([_P] * 5 + [_I] * 12
                                                         + [_P])
+        getattr(lib, f"tap_gemm_dw_{suffix}").argtypes = ([_P] * 4 + [_I] * 8
+                                                          + [_P])
+        getattr(lib, f"tap_wgrad_dw_{suffix}").argtypes = ([_P] * 5
+                                                           + [_I] * 9 + [_P])
     lib.tap_gemm_phased_blocks_per_sm.argtypes = [_I] * 4 + [_P]
     lib.tap_wgrad_blocks_per_sm.argtypes = [_I] * 4 + [_P]
-    for name in ("tap_gemm", "tap_gemm_phased", "tap_wgrad"):
+    lib.tap_dw_blocks_per_sm.argtypes = [_I] * 3 + [_P]
+    for name in ("tap_gemm", "tap_gemm_phased", "tap_wgrad", "tap_gemm_dw",
+                 "tap_wgrad_dw"):
         for suffix in DTYPES.values():
             getattr(lib, f"{name}_{suffix}").restype = ctypes.c_int
     for fn in (lib.tap_gemm_phased_blocks_per_sm,
-               lib.tap_wgrad_blocks_per_sm):
+               lib.tap_wgrad_blocks_per_sm, lib.tap_dw_blocks_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -125,6 +142,14 @@ def _table(rows: tuple, device: torch.device) -> torch.Tensor:
     """A tap table as a small int32 tensor on ``device`` (cached: tables
     depend only on the static geometry)."""
     return torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1)
+
+
+@functools.lru_cache(maxsize=1024)
+def _host_table(rows: tuple) -> ctypes.Array:
+    """A tap table as host ints: the depthwise entries pass it to their
+    kernels by value (cached, so the array outlives every call)."""
+    flat = [int(v) for r in rows for v in r]
+    return (ctypes.c_int * max(len(flat), 1))(*flat)
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.dtype:
@@ -148,15 +173,18 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.dtype:
     return dtype
 
 
-def _run(name: str, dtype: torch.dtype, *args) -> None:
-    """Launch the entry of kernel ``name`` for operands of ``dtype`` and
-    count it."""
-    err = getattr(_lib(), f"{name}_{DTYPES[dtype]}")(*args)
+def _run(name: str, dtype: torch.dtype, variant: str, *args) -> None:
+    """Launch the entry of kernel ``name`` for operands of ``dtype`` under
+    a plan of ``variant`` (the depthwise variant has entries of its own)
+    and count it."""
+    entry = f"{name}_dw" if variant == DW else name
+    err = getattr(_lib(), f"{entry}_{DTYPES[dtype]}")(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
-    key = f"{name}:{DTYPES[dtype]}"
-    TYPE_LAUNCHES[key] = TYPE_LAUNCHES.get(key, 0) + 1
+    for counts, key in ((TYPE_LAUNCHES, f"{name}:{DTYPES[dtype]}"),
+                        (VARIANT_LAUNCHES, f"{name}:{variant}")):
+        counts[key] = counts.get(key, 0) + 1
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -188,8 +216,9 @@ def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int, ow: int,
     out : ([G,] B, oh, ow, COUT)     in the operands' type (summed in
                                      float32)
 
-    ``plan``: a ``"forward"`` :class:`Plan` (only its split count varies:
-    the kernel has one tile), or None for :func:`analytic_plan`.
+    ``plan``: a ``"forward"`` :class:`Plan` (the 64 x 64 tile and its
+    split count, or the depthwise variant ``"dw"``, which writes the
+    operands' type directly), or None for :func:`analytic_plan`.
     """
     taps = tuple(tuple(int(v) for v in t) for t in taps)
     grouped = src.dim() == 6
@@ -202,19 +231,28 @@ def tap_gemm(src: torch.Tensor, w: torch.Tensor, taps, oh: int, ow: int,
     _check_taps("tap_gemm", taps, p)
     cuda = _on_cuda("tap_gemm", src)
     dtype = _check_cuda("tap_gemm", s6, w4) if cuda else src.dtype
-    prob = Problem("forward", g, (t,), cin, cout, b * oh * ow,
+    prob = Problem("forward", g, (t,), cin, cout, b * oh * ow, ow,
                    DTYPES.get(dtype, "f32"))
     plan = _checked("tap_gemm", prob, plan, src.device, cuda)
     if not cuda:
         return ref.tap_gemm_ref(src, w, taps, oh, ow)
+    if plan.variant == DW:
+        out = torch.empty((g, b, oh, ow, cout), dtype=dtype,
+                          device=src.device)
+        if out.numel():
+            _run("tap_gemm", dtype, DW, s6.data_ptr(), w4.data_ptr(),
+                 ctypes.addressof(_host_table(taps)), out.data_ptr(), g, p,
+                 b, hs, ws, t, oh, ow, _stream(src))
+        return out if grouped else out[0]
+    table = _table(taps, src.device).data_ptr()
     splits = plan.splits
     out = torch.empty((g, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
     part = out if splits == 1 else torch.empty(
         (splits, g, b, oh, ow, cout), dtype=torch.float32, device=src.device)
-    _run("tap_gemm", dtype, s6.data_ptr(), w4.data_ptr(),
-         _table(taps, src.device).data_ptr(), part.data_ptr(), out.data_ptr(),
-         g, p, b, hs, ws, cin, t, cout, oh, ow, splits, _stream(src))
+    _run("tap_gemm", dtype, plan.variant, s6.data_ptr(), w4.data_ptr(),
+         table, part.data_ptr(), out.data_ptr(), g, p, b, hs, ws, cin, t,
+         cout, oh, ow, splits, _stream(src))
     out = out.to(dtype)
     return out if grouped else out[0]
 
@@ -254,7 +292,7 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
     counts = tuple(len(taps) for taps in phase_taps)
     cuda = _on_cuda("tap_gemm_phased", src)
     dtype = _check_cuda("tap_gemm_phased", s5, w5) if cuda else src.dtype
-    prob = Problem("input_grad", g, counts, cin, cout, m,
+    prob = Problem("input_grad", g, counts, cin, cout, m, ow,
                    DTYPES.get(dtype, "f32"))
     plan = _checked("tap_gemm_phased", prob, plan, src.device, cuda)
     if not cuda:
@@ -271,7 +309,7 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
                  for r in (*taps, *((0, 0, 0),) * (t - len(taps))) for v in r)
     part = out if slots == 0 else torch.empty(
         (slots, g, m, cout), dtype=torch.float32, device=src.device)
-    _run("tap_gemm_phased", dtype, s5.data_ptr(), w5.data_ptr(),
+    _run("tap_gemm_phased", dtype, variant, s5.data_ptr(), w5.data_ptr(),
          _table(rows, src.device).data_ptr(),
          _table(sum(work, ()), src.device).data_ptr(), len(work),
          _table(sum(sums, ()), src.device).data_ptr(), len(sums),
@@ -323,7 +361,25 @@ class Tile(NamedTuple):
 #: 55-71 registers).  ``per_sm`` is the least over each variant's instances
 #: that the card's occupancy calculator gives; ``chip_smoke.py`` holds it
 #: to the card.
-WGRAD_TILES = {"64x64": Tile(64, 64, 16, 6), "64x16": Tile(64, 16, 16, 14)}
+WGRAD_TILES = {"64x64": Tile(64, 64, 16, 6), "64x16": Tile(64, 16, 16, 14),
+               "dw": Tile(1, 1, 1, 5)}
+
+#: the depthwise variant ``"dw"`` of the forward and the weight grad
+#: (csrc/tap_gemm.cu, ``dw::fwd_kernel``, ``dw::wgrad_kernel``), for one
+#: channel a group (CIN = COUT = 1) and 1 to :data:`DW_MAX_TAPS` taps (7 x
+#: 7; an instance of 16 tap registers below 17 taps).  It has no tile: each
+#: of :data:`DW_THREADS` threads a block takes a vector of 16 bytes,
+#: :data:`DW_VEC` elements of the operand type, of outputs (the forward) or
+#: pixels (the weight grad), so its :class:`Tile` is ``(1, 1, 1, per_sm)``:
+#: a split is cut in whole vectors (:func:`dw_units`).  The forward never
+#: splits; the weight grad splits each group's vectors (:func:`dw_splits`).
+#: Registers (the build log): the forward 50-51 at 16 taps, 84-88 at 49;
+#: the weight grad 56-62 and 92-95; ``per_sm`` is the 49-tap instances' 5
+#: (the 16-tap ones hold 8-9), held to the card by ``chip_smoke.py``.
+DW = "dw"
+DW_MAX_TAPS = 49
+DW_THREADS = 128
+DW_VEC = {"f32": 4, "bf16": 8}
 
 
 def split_chunk(rows: int, splits: int, step: int) -> int:
@@ -440,12 +496,13 @@ def _phased_work(counts: tuple, cin: int, splits: int, step: int):
     return tuple(work + zeros), tuple(sums), slots
 
 
-#: the forward's one tile (csrc/tap_gemm.cu, fwd::kernel on tile::run):
+#: the forward's tile (csrc/tap_gemm.cu, fwd::kernel on tile::run):
 #: 64 x 64 with 8 x 8 outputs a thread, 18,432 B of shared memory, 168
-#: registers, 6 blocks an SM (its build log).  Its analytic split rule is
+#: registers, 6 blocks an SM (its build log); and the depthwise variant
+#: (:data:`DW`), which does not split.  The tile's analytic split rule is
 #: :func:`forward_splits`; the tuner's candidates also try
 #: :func:`split_count` over this tile.
-FORWARD_TILES = {"64x64": Tile(64, 64, 16, 6)}
+FORWARD_TILES = {"64x64": Tile(64, 64, 16, 6), "dw": Tile(1, 1, 1, 5)}
 
 #: plan role -> the variants its kernel has: the forward (``tap_gemm``),
 #: the input grad (``tap_gemm_phased``), the weight grad (``tap_wgrad``).
@@ -479,15 +536,17 @@ class Problem(NamedTuple):
     """What a tap kernel's plan depends on: ``groups``, the taps of each
     phase (``counts``: one entry for the forward and the weight grad), the
     contraction's channels ``cin``, the output's ``cout`` and ``m``, the
-    output pixels (the weight grad: its contraction pixels), and the
-    operands' type (``dtype``, a value of :data:`DTYPES`: another kernel
-    instance, so a plan timed in one type is never served to the other)."""
+    output pixels (the weight grad: its contraction pixels) in rows of
+    ``width`` (ow), and the operands' type (``dtype``, a value of
+    :data:`DTYPES`: another kernel instance, so a plan timed in one type
+    is never served to the other)."""
     role: str
     groups: int
     counts: tuple
     cin: int
     cout: int
     m: int
+    width: int
     dtype: str = "f32"
 
     @property
@@ -499,10 +558,38 @@ class Problem(NamedTuple):
         return max(self.counts, default=0) * self.cin
 
 
+def dw_units(prob: Problem) -> int:
+    """The vectors of one group under the depthwise variant: B*OH rows of
+    ``cdiv(OW, V)``, V = :data:`DW_VEC` of the operand type (what the
+    forward's threads take and the weight grad's splits cut)."""
+    if prob.width <= 0:
+        return 0
+    return prob.m // prob.width * _cdiv(prob.width, DW_VEC[prob.dtype])
+
+
+def dw_splits(prob: Problem, sms: int) -> int:
+    """Split count of the depthwise weight grad on a card of ``sms`` SMs:
+    enough (split, group) blocks to fill about two waves
+    (``WGRAD_TILES["dw"].per_sm`` blocks on each SM), but no split of fewer
+    vectors than :data:`DW_THREADS` (one a thread), at most
+    :data:`MAX_SPLITS`, and none empty.  The CNN's 16 groups split;
+    Mamba2's 2,304 do not."""
+    units = dw_units(prob)
+    waves = _cdiv(2 * WGRAD_TILES[DW].per_sm * sms, max(prob.groups, 1))
+    return _whole_splits(units, max(1, min(waves, units // DW_THREADS,
+                                           MAX_SPLITS)), 1)
+
+
 def analytic_plan(prob: Problem, sms: int) -> Plan:
-    """The rule's plan on a card of ``sms`` SMs: :func:`forward_splits`,
-    :func:`phased_plan` or :func:`wgrad_plan`."""
+    """The rule's plan on a card of ``sms`` SMs: the depthwise variant for
+    a forward or weight grad of one channel a group where it can launch
+    (:func:`dw_splits`), else :func:`forward_splits`, :func:`phased_plan`
+    or :func:`wgrad_plan`."""
     g, counts, cin, cout, m = prob[1:6]
+    if prob.role != "input_grad" and cin == cout == 1:
+        plan = Plan(prob.role, DW, _dw_rule(prob, sms))
+        if plan_gap(prob, plan) is None:
+            return plan
     if prob.role == "forward":
         return Plan("forward", "64x64",
                     forward_splits(m, cout, counts[0], cin, sms, g))
@@ -516,7 +603,8 @@ def plan_gap(prob: Problem, plan: Plan) -> str | None:
     role and variant must be the kernel's, ``1 <= splits <=``
     :data:`MAX_SPLITS`, no split empty once cut by :func:`split_chunk`,
     and the grid within the card's limits (:func:`launch_gap`; the input
-    grad's z is its :func:`phased_work` rows x groups)."""
+    grad's z is its :func:`phased_work` rows x groups).  The depthwise
+    variant has rules of its own (:func:`_dw_gap`)."""
     if plan.role != prob.role:
         return f"a {plan.role} plan for the {prob.role} kernel"
     tiles = ROLE_TILES[prob.role]
@@ -527,6 +615,8 @@ def plan_gap(prob: Problem, plan: Plan) -> str | None:
     if not isinstance(s, int) or isinstance(s, bool) \
             or not 1 <= s <= MAX_SPLITS:
         return f"splits {s!r} outside 1..{MAX_SPLITS}"
+    if plan.variant == DW:
+        return _dw_gap(prob, s)
     tile, rows = tiles[plan.variant], prob.rows
     if s > 1 and (rows == 0
                   or _cdiv(rows, split_chunk(rows, s, tile.step)) != s):
@@ -535,6 +625,42 @@ def plan_gap(prob: Problem, plan: Plan) -> str | None:
     if prob.role == "input_grad":
         z = len(phased_work(prob.counts, prob.cin, s, tile.step)[0])
     return launch_gap(prob.m, prob.cout, z * prob.groups, tile.cols)
+
+
+def _dw_rule(prob: Problem, sms: int) -> int:
+    """The depthwise variant's split count: 1 for the forward, which does
+    not split; :func:`dw_splits` for the weight grad."""
+    return 1 if prob.role == "forward" else dw_splits(prob, sms)
+
+
+def _dw_gap(prob: Problem, splits: int) -> str | None:
+    """None when the depthwise variant can run ``prob`` in ``splits``
+    splits, else why not: one channel a group, 1 to :data:`DW_MAX_TAPS`
+    taps, a forward unsplit, no weight-grad split empty, and the grid's x
+    (the forward's threads over :data:`DW_THREADS`, the weight grad's
+    splits x groups) within 2^31 - 1."""
+    if (prob.cin, prob.cout) != (1, 1):
+        return (f"the dw variant takes one channel a group, not CIN "
+                f"{prob.cin} x COUT {prob.cout}")
+    t = prob.counts[0]
+    if not 1 <= t <= DW_MAX_TAPS:
+        return f"{t} taps outside the dw kernels' 1..{DW_MAX_TAPS}"
+    if prob.m > INT32_MAX:
+        return f"{prob.m} pixels exceed the kernels' 32-bit pixel index"
+    units = dw_units(prob)
+    if prob.role == "forward":
+        if splits != 1:
+            return f"the dw forward does not split (splits {splits})"
+        blocks = _cdiv(prob.groups * units, DW_THREADS)
+    else:
+        if splits > 1 and (units == 0 or _cdiv(
+                units, split_chunk(units, splits, 1)) != splits):
+            return (f"{splits} splits of {units} pixel vectors leave a "
+                    "split empty")
+        blocks = prob.groups * splits
+    if blocks > INT32_MAX:
+        return f"{blocks} blocks exceed the grid's x limit"
+    return None
 
 
 def _checked(name: str, prob: Problem, plan: Plan | None,
@@ -553,8 +679,10 @@ def _checked(name: str, prob: Problem, plan: Plan | None,
 def _rule_splits(prob: Problem, sms: int, variant: str,
                  min_rows: int) -> int:
     """The occupancy rule's split count for ``variant`` with a split floor
-    of ``min_rows``."""
+    of ``min_rows`` (the depthwise variant keeps its own floor)."""
     g, counts, cin, cout, m = prob[1:6]
+    if variant == DW:
+        return _dw_rule(prob, sms)
     if prob.role == "input_grad":
         return phased_plan(g, counts, cin, cout, m, sms, variant,
                            min_rows)[1]
@@ -571,15 +699,16 @@ def candidate_plans(prob: Problem, sms: int) -> list[Plan]:
     occupancy rule (:func:`split_count`) with its split floor at 32 and at
     16 rows instead of :data:`MIN_SPLIT_ROWS`, half and double the
     analytic split count (rounded to leave no split empty), then the
-    role's other variants under the rule.  Deduplicated, each valid
+    role's other variants under the rule: a depthwise problem's plans
+    include the tiles beside ``"dw"``.  Deduplicated, each valid
     (:func:`plan_gap`)."""
     head = analytic_plan(prob, sms)
     step = ROLE_TILES[prob.role][head.variant].step
+    rows = dw_units(prob) if head.variant == DW else prob.rows
     splits = [_rule_splits(prob, sms, head.variant, 32),
               _rule_splits(prob, sms, head.variant, 16),
-              _whole_splits(prob.rows, max(1, head.splits // 2), step),
-              _whole_splits(prob.rows, min(MAX_SPLITS, 2 * head.splits),
-                            step)]
+              _whole_splits(rows, max(1, head.splits // 2), step),
+              _whole_splits(rows, min(MAX_SPLITS, 2 * head.splits), step)]
     plans = [head] + [Plan(prob.role, head.variant, s) for s in splits] + [
         Plan(prob.role, v, _rule_splits(prob, sms, v, MIN_SPLIT_ROWS))
         for v in ROLE_TILES[prob.role] if v != head.variant]
@@ -619,6 +748,19 @@ def wgrad_blocks_per_sm(variant: str, vec_a: bool, vec_b: bool,
     return blocks.value
 
 
+def dw_blocks_per_sm(role: str, wide: bool, bf16: bool = False) -> int:
+    """Blocks of one depthwise instance (the ``role``'s kernel, float32 or
+    with ``bf16`` the bfloat16 one; ``wide``: the instance of 49 tap
+    registers) an SM of the current card holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    blocks = ctypes.c_int(0)
+    err = _lib().tap_dw_blocks_per_sm(int(role == "weight_grad"), int(bf16),
+                                      int(wide), ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"tap_dw_blocks_per_sm: CUDA error {err}")
+    return blocks.value
+
+
 @functools.cache
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -632,8 +774,9 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int, ow: int,
     src : ([G,] P, B, Hs, Ws, CIN)   phase-split padded input
     dy  : ([G,] B, oh, ow, COUT)     compact output loss
 
-    ``plan``: a ``"weight_grad"`` :class:`Plan`, or None for
-    :func:`wgrad_plan`.
+    ``plan``: a ``"weight_grad"`` :class:`Plan` (a tile and its split
+    count, or the depthwise variant ``"dw"`` and its: :func:`dw_splits`),
+    or None for :func:`analytic_plan`.
     """
     taps = tuple(tuple(int(v) for v in t) for t in taps)
     grouped = src.dim() == 6
@@ -647,7 +790,7 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int, ow: int,
     t = len(taps)
     cuda = _on_cuda("tap_wgrad", src)
     dtype = _check_cuda("tap_wgrad", s6, d5) if cuda else src.dtype
-    prob = Problem("weight_grad", g, (t,), cin, cout, b * oh * ow,
+    prob = Problem("weight_grad", g, (t,), cin, cout, b * oh * ow, ow,
                    DTYPES.get(dtype, "f32"))
     plan = _checked("tap_wgrad", prob, plan, src.device, cuda)
     if not cuda:
@@ -659,8 +802,14 @@ def tap_wgrad(src: torch.Tensor, dy: torch.Tensor, taps, oh: int, ow: int,
         return out if grouped else out[0]
     part = out if splits == 1 else torch.empty(
         (splits, g, t, cin, cout), dtype=torch.float32, device=src.device)
-    _run("tap_wgrad", dtype, s6.data_ptr(), d5.data_ptr(),
-         _table(taps, src.device).data_ptr(), part.data_ptr(),
-         out.data_ptr(), g, p, b, hs, ws, cin, t, cout, oh, ow,
-         int(variant == "64x16"), splits, _stream(src))
+    if variant == DW:
+        _run("tap_wgrad", dtype, DW, s6.data_ptr(), d5.data_ptr(),
+             ctypes.addressof(_host_table(taps)), part.data_ptr(),
+             out.data_ptr(), g, p, b, hs, ws, t, oh, ow, splits,
+             _stream(src))
+    else:
+        _run("tap_wgrad", dtype, variant, s6.data_ptr(), d5.data_ptr(),
+             _table(taps, src.device).data_ptr(), part.data_ptr(),
+             out.data_ptr(), g, p, b, hs, ws, cin, t, cout, oh, ow,
+             int(variant == "64x16"), splits, _stream(src))
     return out if grouped else out[0]

@@ -12,7 +12,11 @@ full-width LM train step, and the tap kernels' bf16 instances (Mamba2's
 depthwise conv at its 2,304 groups and a grouped strided layer against
 their plain versions, ``depthwise_causal_conv1d`` under ``pallas``
 against ``lax`` in bf16, mixed operand types refused, a plan past the
-grid's z limit refused, float32 and bf16 plans tuned apart).
+grid's z limit refused, float32 and bf16 plans tuned apart), and the
+depthwise variant ``dw`` of the forward and the weight grad (Mamba2's
+geometry, ragged lengths, operands off a 16-byte boundary, the CNN's 3 x 3
+in float32, a stride-2 3 x 3, a 7 x 7, 4,096 and 70,000 groups; the tiles
+it replaces still right at its geometry).
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -924,9 +928,11 @@ def test_a_plan_past_the_grid_z_limit_is_refused(cuda):
         for plan in ops.plan_candidates(role, d, g, k=100, device=cuda,
                                         dtype=torch.bfloat16):
             prob = ops.problem(role, d, g, torch.bfloat16)
-            z = plan.splits if role != "input_grad" else len(tg.phased_work(
-                prob.counts, prob.cin, plan.splits,
-                tg.PHASED_TILES[plan.variant].step)[0])
+            # the depthwise variant keeps the groups on the grid's x
+            z = (0 if plan.variant == "dw" else plan.splits
+                 if role != "input_grad" else len(tg.phased_work(
+                     prob.counts, prob.cin, plan.splits,
+                     tg.PHASED_TILES[plan.variant].step)[0]))
             assert z * g <= tg.GRID_YZ_MAX, (role, plan)
 
 
@@ -945,3 +951,143 @@ def test_float32_and_bf16_plans_are_tuned_apart(tuned):
     assert [k.rsplit("|", 1)[1] for k in keys] == ["dtype=bf16",
                                                    "dtype=f32"]
     assert ops.plan_events() == {"forward_autotune_miss": 2}
+
+
+# ---------------------------------------------------------------------------
+# The depthwise variant "dw" of the forward and the weight grad
+# ---------------------------------------------------------------------------
+
+def _mamba2_dims(b: int, length: int) -> ConvDims:
+    """Mamba2's depthwise causal conv: one channel a group, 4 taps on an
+    H = 1 plane, left pad 3."""
+    return ConvDims(B=b, C=1, H_i=1, W_i=length, N=1, K_h=1, K_w=4, S=1,
+                    P_h=0, P_w=3, P_h_hi=0, P_w_hi=0)
+
+
+_S2 = ConvDims(B=2, C=1, H_i=17, W_i=17, N=1, K_h=3, K_w=3, S=2, P_h=1,
+               P_w=1)
+
+#: (label, per-group dims, groups, operand type): Mamba2's geometry
+#: (BF16_GEOMS) and its training shape, ragged lengths (rows of 103 and
+#: 1,004 elements: most windows and stores off a 16-byte boundary), the
+#: CNN's 3 x 3 in 16 groups (float32), a stride-2 3 x 3 (taps on 4 phase
+#: planes) in both types, a 7 x 7 (the 49-tap instance), and 4,096 and
+#: 70,000 groups (past the tiles' grid z).
+DW_CASES = [
+    ("mamba2 W100 bf16", BF16_GEOMS[0][0], 2304, torch.bfloat16),
+    ("mamba2 8x512 bf16", _mamba2_dims(8, 512), 2304, torch.bfloat16),
+    ("ragged W1001 bf16", _mamba2_dims(2, 1001), 256, torch.bfloat16),
+    ("cnn 3x3 g16 f32", ConvDims(B=32, C=1, H_i=8, W_i=8, N=1, K_h=3, K_w=3,
+                                 S=1, P_h=1, P_w=1), 16, torch.float32),
+    ("s2 3x3 bf16", _S2, 24, torch.bfloat16),
+    ("s2 3x3 f32", _S2, 24, torch.float32),
+    ("7x7 f32", ConvDims(B=2, C=1, H_i=14, W_i=14, N=1, K_h=7, K_w=7, S=1,
+                         P_h=3, P_w=3), 8, torch.float32),
+    ("g4096 bf16", _mamba2_dims(2, 64), 4096, torch.bfloat16),
+    ("g70000 bf16", _mamba2_dims(1, 40), 70_000, torch.bfloat16),
+]
+
+
+def _dw_operands(d, g, dtype, dev, seed=41):
+    gen = torch.Generator().manual_seed(seed)
+    x = _randn(gen, d.B, g, d.H_i, d.W_i, dev=dev).to(dtype)
+    w = _randn(gen, g, 1, d.K_h, d.K_w, dev=dev).to(dtype)
+    dy = _randn(gen, d.B, g, d.H_o, d.W_o, dev=dev).to(dtype)
+    src, wt, taps = ops.forward_operands(x, w, d, g)
+    wsrc, dyn, wtaps = ops.weight_grad_operands(x, dy, d, g)
+    return src, wt, taps, wsrc, dyn, wtaps
+
+
+@pytest.mark.parametrize("label,d,g,dtype", DW_CASES,
+                         ids=[c[0] for c in DW_CASES])
+def test_dw_variant_matches_plain_versions(cuda, label, d, g, dtype):
+    """The analytic plans of a depthwise forward and weight grad are the dw
+    variant; each call is one dw launch, within bf16 rounding (the
+    forward's bf16 output) or REL_TOL of the plain version, and bit-equal
+    run to run."""
+    src, wt, taps, wsrc, dyn, wtaps = _dw_operands(d, g, dtype, cuda)
+    bf16 = dtype == torch.bfloat16
+    calls = [
+        ("tap_gemm", "forward",
+         lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
+         ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o),
+         BF16_REL_TOL if bf16 else REL_TOL),
+        ("tap_wgrad", "weight_grad",
+         lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
+         ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o), REL_TOL)]
+    for name, role, kern, want, tol in calls:
+        assert ops.pass_plan(role, d, g, cuda, dtype).variant == "dw"
+        reset_launch_counts()
+        got = kern()
+        assert launch_counts()[name] == 1, name
+        assert tg.variant_launch_counts() == {f"{name}:dw": 1}
+        _close_rel(got, want, tol)
+        assert torch.equal(got, kern()), name
+
+
+def test_dw_variant_takes_operands_off_a_16_byte_boundary(cuda):
+    """Mamba2's geometry in bf16 with every operand a contiguous view 2
+    bytes past a 16-byte boundary: the windows take the address-aligned
+    vector path or the masked one, and both passes equal the aligned
+    operands' results bit for bit."""
+    d, g = BF16_GEOMS[0]
+    src, wt, taps, wsrc, dyn, wtaps = _dw_operands(d, g, torch.bfloat16,
+                                                   cuda, seed=42)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 2
+        return view
+
+    y = tg.tap_gemm(src, wt, taps, d.H_o, d.W_o)
+    dw = tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o)
+    reset_launch_counts()
+    assert torch.equal(tg.tap_gemm(shifted(src), shifted(wt), taps, d.H_o,
+                                   d.W_o), y)
+    assert torch.equal(tg.tap_wgrad(shifted(wsrc), shifted(dyn), wtaps,
+                                    d.H_o, d.W_o), dw)
+    assert tg.variant_launch_counts() == {"tap_gemm:dw": 1,
+                                          "tap_wgrad:dw": 1}
+    _close_rel(y, ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o),
+               BF16_REL_TOL)
+
+
+def test_tiles_still_match_plain_versions_at_the_depthwise_geometry(cuda):
+    """The tiles the depthwise variant replaces, given as explicit plans,
+    still run Mamba2's geometry in bf16 and match the plain versions."""
+    d, g = BF16_GEOMS[0]
+    src, wt, taps, wsrc, dyn, wtaps = _dw_operands(d, g, torch.bfloat16,
+                                                   cuda, seed=43)
+    rows = d.B * d.H_o * d.W_o
+    y_want = ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o)
+    dw_want = ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o)
+    for variant in ("64x16", "64x64"):
+        plan = tg.Plan("weight_grad", *tg.wgrad_plan(g, len(wtaps), 1, 1,
+                                                     rows, 132, variant))
+        reset_launch_counts()
+        _close_rel(tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o, plan),
+                   dw_want, REL_TOL)
+        assert tg.variant_launch_counts() == {f"tap_wgrad:{variant}": 1}
+    reset_launch_counts()
+    _close_rel(tg.tap_gemm(src, wt, taps, d.H_o, d.W_o,
+                           tg.Plan("forward", "64x64", 1)), y_want,
+               BF16_REL_TOL)
+    assert tg.variant_launch_counts() == {"tap_gemm:64x64": 1}
+
+
+def test_depthwise_causal_conv1d_runs_dw_for_forward_and_weight_grad(cuda):
+    """Mamba2's conv under ``pallas`` in bf16: the forward and the weight
+    grad launch the dw variant once each, the input grad its 128 x 8
+    tile."""
+    from repro_torch.core.conv import depthwise_causal_conv1d
+    gen = torch.Generator().manual_seed(44)
+    x = _randn(gen, 2, 64, 2304, dev=cuda).bfloat16().requires_grad_(True)
+    w = (0.2 * _randn(gen, 4, 2304, dev=cuda)).bfloat16().requires_grad_(True)
+    reset_launch_counts()
+    depthwise_causal_conv1d(x, w, "pallas").backward(
+        _randn(gen, 2, 64, 2304, dev=cuda).bfloat16())
+    assert tg.variant_launch_counts() == {"tap_gemm:dw": 1,
+                                          "tap_gemm_phased:128x8": 1,
+                                          "tap_wgrad:dw": 1}

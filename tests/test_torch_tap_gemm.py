@@ -402,3 +402,194 @@ def test_input_grad_operands_equal_the_stacked_construction(layer, d, g):
         dy.reshape(d.B, g, d.N, d.H_o, d.W_o).permute(1, 0, 3, 4, 2),
         (0, 0, pp.g_lo_w, 0, pp.g_lo_h, 0))
     assert torch.equal(src, want)
+
+
+# ---------------------------------------------------------------------------
+# The depthwise variant "dw" (one channel a group): its plan rules, and the
+# wrappers under a dw plan against the JAX package's oracles
+# ---------------------------------------------------------------------------
+
+def _dw_problem(role, groups=2304, taps=4, cin=1, cout=1, b=8, oh=1, ow=512,
+                dtype="bf16"):
+    """A tap kernel's problem; the defaults are Mamba2-370M's conv at its
+    training shape (2,304 groups of one channel, 4 taps, 8 x 512)."""
+    return tg.Problem(role, groups, (taps,), cin, cout, b * oh * ow, ow,
+                      dtype)
+
+
+@pytest.mark.parametrize("role", ["forward", "weight_grad", "input_grad"])
+@pytest.mark.parametrize("cin,cout", [(1, 1), (1, 2), (2, 1), (4, 4)])
+def test_analytic_plan_takes_dw_exactly_at_one_channel_a_group(role, cin,
+                                                               cout):
+    """The forward and the weight grad plan the depthwise variant exactly
+    where CIN = COUT = 1; the input grad, which has no such variant, and
+    every other problem keep their tiles.  Every analytic plan launches."""
+    prob = _dw_problem(role, groups=64, cin=cin, cout=cout)
+    plan = tg.analytic_plan(prob, H100_SMS)
+    assert (plan.variant == "dw") == (role != "input_grad"
+                                      and cin == cout == 1)
+    assert tg.plan_gap(prob, plan) is None
+
+
+@pytest.mark.parametrize("taps", [1, 4, 9, 16, 17, 49, 50])
+def test_dw_holds_to_its_tap_limit(taps):
+    """Up to ``DW_MAX_TAPS`` (49: a 7 x 7 kernel) taps plan the depthwise
+    variant; past it ``plan_gap`` refuses the variant and the analytic plan
+    keeps the tiles (planning, not a fallback at run time)."""
+    for role, tile in (("forward", "64x64"), ("weight_grad", "64x16")):
+        prob = _dw_problem(role, groups=16, taps=taps, b=32, oh=8, ow=8,
+                           dtype="f32")
+        gap = tg.plan_gap(prob, tg.Plan(role, "dw", 1))
+        fits = taps <= tg.DW_MAX_TAPS
+        assert (gap is None) == fits, gap
+        assert fits or "taps outside" in gap
+        assert tg.analytic_plan(prob, H100_SMS).variant == ("dw" if fits
+                                                            else tile)
+
+
+@pytest.mark.parametrize("name,plan,shape,match", [
+    ("tap_gemm", tg.Plan("forward", "dw", 1), (2, 1), "one channel a group"),
+    ("tap_gemm", tg.Plan("forward", "dw", 1), (1, 3), "one channel a group"),
+    ("tap_gemm", tg.Plan("forward", "dw", 2), (1, 1), "does not split"),
+    ("tap_wgrad", tg.Plan("weight_grad", "dw", 1), (2, 2),
+     "one channel a group"),
+    ("tap_wgrad", tg.Plan("weight_grad", "dw", 3), (1, 1), "empty"),
+    ("tap_gemm_phased", tg.Plan("input_grad", "dw", 1), (1, 1),
+     "no variant"),
+], ids=["fwd_cin2", "fwd_cout3", "fwd_split", "wgrad_2x2", "wgrad_empty",
+        "phased"])
+def test_a_dw_plan_it_cannot_run_raises(name, plan, shape, match):
+    """A dw plan on a problem it cannot run raises ``ValueError`` from
+    ``plan_gap`` before any launch, on CPU tensors too: two or more
+    channels, a split forward, a weight-grad split left empty (4 groups
+    of 2 x 9 pixels: 2 float32 vectors a row, 4 vectors in all, cannot
+    take 3 splits), the input grad."""
+    cin, cout = shape
+    src = torch.zeros(4, 1, 2, 9, 9, cin)
+    taps = [(0, 0, 0), (0, 0, 1)]
+    call = {"tap_gemm": lambda: tg.tap_gemm(
+                src, torch.zeros(4, 2, cin, cout), taps, 1, 8, plan),
+            "tap_wgrad": lambda: tg.tap_wgrad(
+                src, torch.zeros(4, 2, 1, 8, cout), taps, 1, 8, plan),
+            "tap_gemm_phased": lambda: tg.tap_gemm_phased(
+                src[:, 0], torch.zeros(4, 1, 2, cin, cout), (tuple(taps),),
+                1, 8, plan)}[name]
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def test_dw_has_no_grid_limit_at_100000_groups():
+    """The depthwise variant puts the groups on the grid's x: 100,000 groups
+    plan and launch unsplit (the forward) or split (the weight grad), where
+    the tiles, whose groups share the grid's z (65,535), are refused."""
+    for role, tile in (("forward", "64x64"), ("weight_grad", "64x16")):
+        for groups in (4096, 70_000, 100_000):
+            prob = _dw_problem(role, groups=groups, b=2, ow=64)
+            plan = tg.analytic_plan(prob, H100_SMS)
+            assert plan.variant == "dw" and tg.plan_gap(prob, plan) is None
+            assert tg.plan_gap(prob, tg.Plan(role, "dw", 1)) is None
+            gap = tg.plan_gap(prob, tg.Plan(role, tile, 1))
+            assert (gap is None) == (groups <= tg.GRID_YZ_MAX)
+            assert gap is None or "grid z" in gap
+
+
+#: (label, groups, B, OH, OW, dtype, splits on a 132-SM H100): Mamba2-370M's
+#: conv (training and prefill), the CNN's 3 x 3 layer, ragged widths.
+DW_SPLIT_CASES = [
+    ("mamba2 8x512", 2304, 8, 1, 512, "bf16", 1),
+    ("mamba2 1x1024", 2304, 1, 1, 1024, "bf16", 1),
+    ("cnn.dw", 16, 32, 8, 8, "f32", 4),
+    ("ragged 1001", 64, 2, 1, 1001, "bf16", None),
+    ("ragged 100", 3, 2, 1, 100, "f32", None),
+    ("one row", 1, 1, 1, 3, "f32", 1),
+    ("4096 groups", 4096, 8, 1, 512, "bf16", 1),
+]
+
+
+@pytest.mark.parametrize("case", DW_SPLIT_CASES,
+                         ids=[c[0] for c in DW_SPLIT_CASES])
+def test_dw_weight_grad_splits_cover_every_pixel_once(case):
+    """The depthwise weight grad's split chunks, cut as the kernel cuts
+    them (``split_chunk`` of the vectors, one vector a step), cover every
+    vector of every row once and leave no split empty; a split is at
+    least one vector a thread; every pixel (b, oh, ow) lies in exactly
+    one vector.  The CNN's 16 groups split, Mamba2's 2,304 do not."""
+    label, g, b, oh, ow, dtype, want = case
+    prob = _dw_problem("weight_grad", groups=g, taps=9, b=b, oh=oh, ow=ow,
+                       dtype=dtype)
+    splits = tg.dw_splits(prob, H100_SMS)
+    assert want is None or splits == want
+    assert tg.plan_gap(prob, tg.Plan("weight_grad", "dw", splits)) is None
+    v = tg.DW_VEC[dtype]
+    units = tg.dw_units(prob)
+    assert units == b * oh * tg._cdiv(ow, v)
+    chunk = tg.split_chunk(units, splits, 1)
+    spans = [(s * chunk, min(units, (s + 1) * chunk)) for s in range(splits)]
+    assert all(lo < hi for lo, hi in spans)
+    assert [u for lo, hi in spans for u in range(lo, hi)] == list(
+        range(units))
+    assert splits == 1 or chunk >= tg.DW_THREADS
+    pixels = [(u // tg._cdiv(ow, v), (u % tg._cdiv(ow, v)) * v + j)
+              for u in range(units) for j in range(v)
+              if (u % tg._cdiv(ow, v)) * v + j < ow]
+    assert sorted(pixels) == [(q, x) for q in range(b * oh)
+                              for x in range(ow)]
+
+
+def test_candidates_time_dw_beside_the_tiles():
+    """A depthwise problem's shortlist starts with the dw plan and keeps the
+    role's tiles beside it (the tuner times both); a problem of more
+    channels never sees dw."""
+    for role, variants in (("forward", {"dw", "64x64"}),
+                           ("weight_grad", {"dw", "64x64", "64x16"})):
+        for groups, dtype in ((2304, "bf16"), (16, "f32")):
+            prob = _dw_problem(role, groups=groups, taps=9, b=32, oh=8, ow=8,
+                               dtype=dtype)
+            cands = tg.candidate_plans(prob, H100_SMS)
+            assert cands[0] == tg.analytic_plan(prob, H100_SMS)
+            assert cands[0].variant == "dw"
+            assert {c.variant for c in cands} == variants
+            assert all(tg.plan_gap(prob, c) is None for c in cands)
+        wide = _dw_problem(role, cin=4, cout=4)
+        assert "dw" not in {c.variant
+                            for c in tg.candidate_plans(wide, H100_SMS)}
+
+
+#: depthwise geometries for the wrappers under a dw plan: (label, P, B, Hs,
+#: Ws, oh, ow, taps) -- Mamba2's 4-tap causal conv on an H = 1 plane, a
+#: stride-2 3 x 3 (taps on 4 phase planes), a 3 x 3 on odd widths.
+DW_JAX_CASES = [
+    ("mamba2", 1, 2, 1, 35, 1, 32, [(0, 0, dv) for dv in range(4)]),
+    ("s2 3x3", 4, 2, 5, 5, 4, 4, [((kh % 2) * 2 + kw % 2, kh // 2, kw // 2)
+                                  for kh in range(3) for kw in range(3)]),
+    ("3x3 odd", 1, 1, 8, 9, 6, 7, [(0, du, dv) for du in range(3)
+                                   for dv in range(3)]),
+]
+
+
+@pytest.mark.parametrize("case", DW_JAX_CASES,
+                         ids=[c[0] for c in DW_JAX_CASES])
+def test_dw_plans_on_cpu_match_the_jax_kernels(case):
+    """Three groups of one channel through the wrappers under a dw plan on
+    CPU tensors (the plain versions: a CPU tensor takes no kernel) against
+    the JAX package's oracles of its ``tap_gemm`` and ``tap_wgrad``
+    kernels, group by group (f32, 1e-5); no launch is counted."""
+    label, p, b, hs, ws, oh, ow, taps = case
+    rng = np.random.RandomState(11)
+    g = 3
+    src, w = _rand(rng, g, p, b, hs, ws, 1), _rand(rng, g, len(taps), 1, 1)
+    dy = _rand(rng, g, b, oh, ow, 1)
+    tg.reset_launch_counts()
+    y = tg.tap_gemm(torch.from_numpy(src), torch.from_numpy(w), taps, oh, ow,
+                    tg.Plan("forward", "dw", 1))
+    dw = tg.tap_wgrad(torch.from_numpy(src), torch.from_numpy(dy), taps, oh,
+                      ow, tg.Plan("weight_grad", "dw", 1))
+    for k in range(g):
+        want_y = jref.tap_gemm_ref(jnp.asarray(src[k]), jnp.asarray(w[k]),
+                                   taps, oh, ow)
+        want_dw = jref.tap_wgrad_ref(jnp.asarray(src[k]),
+                                     jnp.asarray(dy[k]), taps, oh, ow)
+        np.testing.assert_allclose(y[k].numpy(), np.asarray(want_y), **TOL)
+        np.testing.assert_allclose(dw[k].numpy(), np.asarray(want_dw), **TOL)
+    assert not any(tg.launch_counts().values())
+    assert tg.variant_launch_counts() == {}
