@@ -7,13 +7,14 @@
 //                                  transposed mode (Algorithm 1), all stride phases
 //   tap_wgrad_{f32,bf16}        <- tap_wgrad       (_tap_wgrad_kernel)        weight grad,
 //                                  dilated mode (Algorithm 2)
-//   tap_gemm_dw_{f32,bf16},     <- tap_gemm, tap_wgrad at one channel a group
-//   tap_wgrad_dw_{f32,bf16}        (depthwise: the dw namespace below)
+//   tap_gemm_dw_{f32,bf16},        <- tap_gemm, tap_gemm_phased, tap_wgrad
+//   tap_gemm_phased_dw_{f32,bf16},    at one channel a group (depthwise:
+//   tap_wgrad_dw_{f32,bf16}           the dw namespace below)
 // As the TPU kernels do, a bfloat16 entry reads its operands as bfloat16
 // and sums their products in float32 (the TPU kernels'
 // preferred_element_type); every tiled entry writes float32 (the wrappers
 // cast the forward's and the input grad's output back to the operands'
-// type), the depthwise forward the operands' type.
+// type), the depthwise forward and input grad the operands' type.
 // A bfloat16 operand stays bfloat16 in global and shared memory and is
 // converted to float32 as a register fragment loads (elem::load4), so the
 // tile walks, their thread maps and the float32 instances are unchanged.
@@ -726,22 +727,31 @@ KernelFn<E> pick(bool narrow, bool vec_a, bool vec_b) {
 }  // namespace wgrad
 
 // ---------------------------------------------------------------------------
-// Depthwise (one channel a group): the forward and the weight grad without
-// tiles, one thread a 16-byte vector of outputs or pixels
+// Depthwise (one channel a group): the forward, the input grad and the
+// weight grad without tiles, one thread a 16-byte vector of outputs or
+// pixels
 // ---------------------------------------------------------------------------
 //
 // At CIN = COUT = 1 the packed tiles above keep one column of 64 (the
-// forward) or 16 (the weight grad) and run a contraction of T rows (the
-// forward) or walk every pixel for a 4 x 1 corner (the weight grad), and
-// the bfloat16 rows move by plain 2-byte loads.  Both passes are bound by
-// bytes there (Mamba2's conv: ~1 FLOP a byte), so these kernels read each
-// operand in 16-byte vectors and do the T taps' arithmetic in registers:
+// forward), 8 (the input grad) or 16 (the weight grad) and run a
+// contraction of T rows (the forward, the input grad) or walk every pixel
+// for a 4 x 1 corner (the weight grad), and the bfloat16 rows move by
+// plain 2-byte loads.  The passes are bound by bytes there (Mamba2's
+// conv: ~1 FLOP a byte), so these kernels read each operand in 16-byte
+// vectors and do the T taps' arithmetic in registers:
 //   * dw::fwd_kernel: thread n computes V = 16 bytes of outputs (4 float32,
 //     8 bfloat16) along ow of one (group, b, oh) row; grid x is the flat
 //     (group, b, oh, vector) index, so no grid limit binds the group count.
 //     The group's T tap weights sit in registers, loaded once; taps are
 //     summed in tap order in float32 (fmaf) and the sum is rounded once to
 //     the operands' type and stored: no float32 plane, no cast pass.
+//   * dw::phased_kernel: the input grad, still the transposed mode
+//     (Algorithm 1): stride phase p of dX is a depthwise conv over the
+//     padded compact dY with phase p's rotated taps, so each thread is the
+//     forward's, over the flat (group, phase, b, oh, vector) index, and
+//     sums the taps of its own phase (every phase's rows, concatenated,
+//     are one table; a phase without taps stores zeros).  All phases run
+//     in one launch and no phase splits.
 //   * dw::wgrad_kernel: block (split, group); its threads stride over the
 //     split's vectors of pixels, read dY's V values and each tap's source
 //     window, and keep T float32 sums in registers; a fixed-order block
@@ -761,6 +771,9 @@ namespace dw {
 constexpr int THREADS = 128;
 constexpr int SMALL_TAPS = 16;  // 1-D convs up to 16 taps, 3 x 3, 4 x 4
 constexpr int MAX_TAPS = 49;    // 7 x 7 (kernels/tap_gemm.py: DW_MAX_TAPS)
+// The input grad's phases (strides up to 8 x 8; kernels/tap_gemm.py:
+// DW_MAX_PHASES): with the table's rows, an 848-byte kernel parameter.
+constexpr int MAX_PHASES = 64;
 
 // Elements of E in a 16-byte vector.
 template <typename E>
@@ -781,6 +794,13 @@ __device__ __forceinline__ void from_float(__nv_bfloat16* p, float v) {
 // from the constant bank, with no load on their critical path.
 struct Taps {
   int v[3 * MAX_TAPS];
+};
+
+// The input grad's table: every phase's (j, du, dv) rows, phase after
+// phase; phase p's are rows [start[p], start[p + 1]).
+struct PhasedTaps {
+  Taps rows;
+  int start[MAX_PHASES + 1];
 };
 
 // The four words of V elements of E that start OFF elements into the two
@@ -894,6 +914,34 @@ __device__ __forceinline__ void store(E* __restrict__ row, int ow, int col,
   }
 }
 
+// acc[j] += wt[t] * src_b[p_t * plane + (oh + du_t) * Ws + col + dv_t + j]
+// for the rows t in [t0, t1) of `taps`, (p, du, dv), in row order, with
+// fmaf; a source row at or past Hs, or a column at or past Ws, reads zero.
+// src_b is one (group, b) image of Hs x Ws; the forward's planes lie
+// `plane` elements apart, the input grad reads its one source (plane 0,
+// so the rows' first column, there a weight slot, moves nothing).
+template <typename E, int TCAP>
+__device__ __forceinline__ void sum_taps(const E* __restrict__ src_b,
+                                         size_t plane, const Taps& taps,
+                                         int t0, int t1,
+                                         const float (&wt)[TCAP], int oh,
+                                         int Hs, int Ws, int col,
+                                         float (&acc)[vec<E>()]) {
+  constexpr int V = vec<E>();
+#pragma unroll
+  for (int t = 0; t < TCAP; ++t) {
+    if (t >= t1) break;
+    if (t < t0) continue;
+    const int p = taps.v[3 * t], du = taps.v[3 * t + 1],
+              dv = taps.v[3 * t + 2];
+    if (oh + du >= Hs) continue;
+    float x[V];
+    window(src_b + p * plane + (size_t)(oh + du) * Ws, Ws, col + dv, x);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] = fmaf(x[j], wt[t], acc[j]);
+  }
+}
+
 // out[g, b, oh, ow] = sum over t < T of w[g, t] *
 //   src[g, p_t, b, oh + du_t, ow + dv_t] (zero past the Hs x Ws plane), in
 // the operands' type.  src (G, P, B, Hs, Ws), w (G, T), out (G, B, OH, OW),
@@ -903,8 +951,8 @@ __device__ __forceinline__ void store(E* __restrict__ row, int ow, int col,
 template <typename E, int TCAP>
 __global__ void __launch_bounds__(THREADS)
 fwd_kernel(const E* __restrict__ src, const E* __restrict__ w,
-           const Taps taps, E* __restrict__ out, int P, int B, int Hs,
-           int Ws, int T, int OH, int OW, long long total) {
+           const __grid_constant__ Taps taps, E* __restrict__ out, int P,
+           int B, int Hs, int Ws, int T, int OH, int OW, long long total) {
   constexpr int V = vec<E>();
   const long long n = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (n >= total) return;
@@ -930,23 +978,64 @@ fwd_kernel(const E* __restrict__ src, const E* __restrict__ w,
   for (int t = 0; t < TCAP; ++t)
     wt[t] = t < T ? to_float(w[g * T + t]) : 0.f;
   const size_t plane = (size_t)B * Hs * Ws;
-  const E* src_g = src + (size_t)g * P * plane;
   float acc[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int t = 0; t < TCAP; ++t) {
-    if (t >= T) break;
-    const int p = taps.v[3 * t], du = taps.v[3 * t + 1],
-              dv = taps.v[3 * t + 2];
-    if (oh + du >= Hs) continue;
-    float x[V];
-    window(src_g + p * plane + ((size_t)b * Hs + oh + du) * Ws, Ws,
-           v * V + dv, x);
-#pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = fmaf(x[j], wt[t], acc[j]);
-  }
+  sum_taps(src + (size_t)g * P * plane + (size_t)b * Hs * Ws, plane, taps,
+           0, T, wt, oh, Hs, Ws, v * V, acc);
   store(out + ((size_t)gb * OH + oh) * OW, OW, v * V, acc);
+}
+
+// out[g, p, b, oh, ow] = sum over the rows t of phase p, [start[p],
+// start[p + 1]) of taps.rows, (j, du, dv), of w[g, p, j] *
+//   src[g, b, oh + du, ow + dv] (zero past the Hs x Ws plane), in the
+// operands' type; a phase without rows stores zeros.  src (G, B, Hs, Ws)
+// is the padded compact dY, w (G, PH, T) the per-phase tap weights, out
+// (G, PH, B, OH, OW).  Thread n of `total` = G * PH * B * OH * NV (NV =
+// cdiv(OW, V)) computes outputs [V v, V v + V) of its row, walking the
+// whole table (TCAP rows, unrolled, so each row is a constant-bank read)
+// and summing its phase's rows; the threads of a warp share a phase but
+// at a phase's end.
+template <typename E, int TCAP>
+__global__ void __launch_bounds__(THREADS)
+phased_kernel(const E* __restrict__ src, const E* __restrict__ w,
+              const __grid_constant__ PhasedTaps taps, E* __restrict__ out,
+              int PH, int B, int Hs, int Ws, int T, int OH, int OW,
+              long long total) {
+  constexpr int V = vec<E>();
+  const long long n = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (n >= total) return;
+  const int NV = cdiv(OW, V);
+  int v, oh, b, p;
+  long long gpb;  // (g * PH + p) * B + b
+  if (total <= 0xffffffffLL) {
+    const unsigned n32 = (unsigned)n, q = n32 / NV, gpb32 = q / OH;
+    v = (int)(n32 - q * NV);
+    oh = (int)(q - gpb32 * OH);
+    b = (int)(gpb32 % B);
+    p = (int)(gpb32 / B % PH);
+    gpb = gpb32;
+  } else {
+    const long long q = n / NV;
+    v = (int)(n - q * NV);
+    oh = (int)(q % OH);
+    gpb = q / OH;
+    b = (int)(gpb % B);
+    p = (int)(gpb / B % PH);
+  }
+  const long long gp = gpb / B, g = gp / PH;
+  const int t0 = taps.start[p], t1 = taps.start[p + 1];
+  const E* w_gp = w + gp * T;
+  float wt[TCAP];
+#pragma unroll
+  for (int t = 0; t < TCAP; ++t)
+    wt[t] = t >= t0 && t < t1 ? to_float(w_gp[taps.rows.v[3 * t]]) : 0.f;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  sum_taps(src + ((size_t)g * B + b) * Hs * Ws, 0, taps.rows, t0, t1, wt,
+           oh, Hs, Ws, v * V, acc);
+  store(out + ((size_t)gpb * OH + oh) * OW, OW, v * V, acc);
 }
 
 // part[s, g, t] = sum over the vectors u of split s (u in [s chunk,
@@ -1015,6 +1104,9 @@ template <typename E>
 using FwdFn = void (*)(const E*, const E*, const Taps, E*, int, int, int,
                        int, int, int, int, long long);
 template <typename E>
+using PhasedFn = void (*)(const E*, const E*, const PhasedTaps, E*, int, int,
+                          int, int, int, int, int, long long);
+template <typename E>
 using WgradFn = void (*)(const E*, const E*, const Taps, float*, int, int,
                          int, int, int, int, int, int, int);
 
@@ -1025,10 +1117,23 @@ inline Taps taps_of(const int* rows, int T) {
   return t;
 }
 
+// The host's table of PH phases, phase p's rows [start[p], start[p + 1])
+// of `rows`, as a kernel parameter.
+inline PhasedTaps phased_taps_of(const int* rows, const int* start, int PH) {
+  PhasedTaps t = {};
+  t.rows = taps_of(rows, start[PH]);
+  for (int p = 0; p <= PH; ++p) t.start[p] = start[p];
+  return t;
+}
+
 // The instance for T taps: SMALL_TAPS or MAX_TAPS registers.
 template <typename E>
 FwdFn<E> fwd(bool wide) {
   return wide ? &fwd_kernel<E, MAX_TAPS> : &fwd_kernel<E, SMALL_TAPS>;
+}
+template <typename E>
+PhasedFn<E> phased(bool wide) {
+  return wide ? &phased_kernel<E, MAX_TAPS> : &phased_kernel<E, SMALL_TAPS>;
 }
 template <typename E>
 WgradFn<E> wgrad(bool wide) {
@@ -1128,6 +1233,35 @@ cudaError_t dw_forward(const E* src, const E* w, const int* taps, E* out,
   return cudaGetLastError();
 }
 
+// `rows` and `start` are host memory: the table the wrapper built, checked
+// here (phase starts from 0, not decreasing, at most MAX_TAPS rows in all,
+// weight slots j in [0, T)) before it becomes the kernel's parameter.
+template <typename E>
+cudaError_t dw_input_grad(const E* src, const E* w, const int* rows,
+                          const int* start, E* out, int G, int PH, int B,
+                          int Hs, int Ws, int T, int OH, int OW,
+                          cudaStream_t stream) {
+  if (PH < 1 || PH > dw::MAX_PHASES || start[0] != 0 ||
+      start[PH] > dw::MAX_TAPS)
+    return cudaErrorInvalidValue;
+  for (int p = 0; p < PH; ++p)
+    if (start[p + 1] < start[p]) return cudaErrorInvalidValue;
+  for (int t = 0; t < start[PH]; ++t)
+    if (rows[3 * t] < 0 || rows[3 * t] >= T || rows[3 * t + 1] < 0 ||
+        rows[3 * t + 2] < 0)
+      return cudaErrorInvalidValue;
+  const long long total =
+      (long long)G * PH * B * OH * cdiv(OW, dw::vec<E>());
+  const long long blocks = (total + dw::THREADS - 1) / dw::THREADS;
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  if (blocks == 0) return cudaSuccess;
+  const dw::PhasedFn<E> kernel = dw::phased<E>(start[PH] > dw::SMALL_TAPS);
+  kernel<<<(unsigned)blocks, dw::THREADS, 0, stream>>>(
+      src, w, dw::phased_taps_of(rows, start, PH), out, PH, B, Hs, Ws, T, OH,
+      OW, total);
+  return cudaGetLastError();
+}
+
 template <typename E>
 cudaError_t dw_weight_grad(const E* src, const E* dy, const int* taps,
                            float* part, float* out, int G, int P, int B,
@@ -1151,7 +1285,8 @@ cudaError_t dw_weight_grad(const E* src, const E* dy, const int* taps,
 }  // namespace
 
 // Each kernel has a float32 entry and a bfloat16 one (`_bf16`: src, w and
-// dy read as bfloat16); both write float32, but for the depthwise forward.
+// dy read as bfloat16); both write float32, but for the depthwise forward
+// and input grad.
 extern "C" {
 
 // `part` holds splits * G*M*COUT floats (M = B*OH*OW); with splits == 1 it
@@ -1263,6 +1398,28 @@ int tap_gemm_dw_bf16(const __nv_bfloat16* src, const __nv_bfloat16* w,
                          stream);
 }
 
+// The depthwise input grad (CIN = COUT = 1 a group): src (G, B, Hs, Ws)
+// padded compact dY, w (G, PH, T) per-phase tap weights; out (G, PH, B, OH,
+// OW) in the operands' type, every phase written (zeros for a phase
+// without taps).  `taps` and `start` are HOST memory: rows (j, du, dv) of
+// every phase, concatenated (at most 49), and PH + 1 (PH <= 64) offsets,
+// phase p's rows [start[p], start[p + 1]); passed to the kernel by value.
+int tap_gemm_phased_dw_f32(const float* src, const float* w, const int* taps,
+                           const int* start, float* out, int G, int PH,
+                           int B, int Hs, int Ws, int T, int OH, int OW,
+                           cudaStream_t stream) {
+  return (int)dw_input_grad(src, w, taps, start, out, G, PH, B, Hs, Ws, T,
+                            OH, OW, stream);
+}
+int tap_gemm_phased_dw_bf16(const __nv_bfloat16* src, const __nv_bfloat16* w,
+                            const int* taps, const int* start,
+                            __nv_bfloat16* out, int G, int PH, int B, int Hs,
+                            int Ws, int T, int OH, int OW,
+                            cudaStream_t stream) {
+  return (int)dw_input_grad(src, w, taps, start, out, G, PH, B, Hs, Ws, T,
+                            OH, OW, stream);
+}
+
 // dy (G, B, OH, OW); out (G, T) float32.  `part` holds splits * G*T
 // floats (splits of the B*OH*cdiv(OW, V) pixel vectors, V = 4 float32 or
 // 8 bfloat16); with splits == 1 it may alias `out`.
@@ -1281,14 +1438,27 @@ int tap_wgrad_dw_bf16(const __nv_bfloat16* src, const __nv_bfloat16* dy,
                              OH, OW, splits, stream);
 }
 
-// Blocks of one depthwise instance an SM holds: the forward (wgrad == 0)
-// or the weight grad, float32 or bfloat16, for up to 16 taps or (wide) 49.
-int tap_dw_blocks_per_sm(int wgrad, int bf16, int wide, int* blocks) {
-  const void* kernel =
-      wgrad ? (bf16 ? (const void*)dw::wgrad<__nv_bfloat16>(wide)
-                    : (const void*)dw::wgrad<float>(wide))
-            : (bf16 ? (const void*)dw::fwd<__nv_bfloat16>(wide)
-                    : (const void*)dw::fwd<float>(wide));
+// Blocks of one depthwise instance an SM holds: the forward (role 0), the
+// weight grad (1) or the input grad (2), float32 or bfloat16, for up to 16
+// taps or (wide) 49.
+int tap_dw_blocks_per_sm(int role, int bf16, int wide, int* blocks) {
+  const void* kernel;
+  switch (role) {
+    case 0:
+      kernel = bf16 ? (const void*)dw::fwd<__nv_bfloat16>(wide)
+                    : (const void*)dw::fwd<float>(wide);
+      break;
+    case 1:
+      kernel = bf16 ? (const void*)dw::wgrad<__nv_bfloat16>(wide)
+                    : (const void*)dw::wgrad<float>(wide);
+      break;
+    case 2:
+      kernel = bf16 ? (const void*)dw::phased<__nv_bfloat16>(wide)
+                    : (const void*)dw::phased<float>(wide);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, dw::THREADS, 0);
 }

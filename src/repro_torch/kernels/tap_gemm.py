@@ -10,13 +10,14 @@ over phase-split, channels-last compact operands,
   * ``tap_wgrad``       weight grad (dilated mode), float32 output
 
 with an optional leading group dim on every operand, so a grouped or
-depthwise conv is one launch per pass.  The forward and the weight grad
-have a depthwise variant, ``"dw"`` (:data:`DW_MAX_TAPS`), for one channel
-a group: no tile, a thread a 16-byte vector of outputs or pixels; the
-analytic plan takes it wherever CIN = COUT = 1.  Operands are float32 or
-bfloat16, every operand of a call in one type (:data:`DTYPES`); as in the
-JAX kernels, products are summed in float32, and the forward and the input
-grad return the operands' type.  On a CUDA tensor a wrapper checks
+depthwise conv is one launch per pass.  Each of the three has a depthwise
+variant, ``"dw"`` (:data:`DW_MAX_TAPS`), for one channel a group: no
+tile, a thread a 16-byte vector of outputs or pixels; the analytic plan
+takes it wherever CIN = COUT = 1 and the variant's limits hold.
+Operands are float32 or bfloat16, every operand of a call in one type
+(:data:`DTYPES`); as in the JAX kernels, products are summed in float32,
+and the forward and the input grad return the operands' type.  On a CUDA
+tensor a wrapper checks
 its operands and its :class:`Plan` (the variant and split-K count:
 :func:`analytic_plan` unless the caller passes one), launches its kernel
 (built at first use by ``repro_torch.kernels.build``) or raises; it never
@@ -123,11 +124,13 @@ def _lib() -> ctypes.CDLL:
                                                           + [_P])
         getattr(lib, f"tap_wgrad_dw_{suffix}").argtypes = ([_P] * 5
                                                            + [_I] * 9 + [_P])
+        getattr(lib, f"tap_gemm_phased_dw_{suffix}").argtypes = (
+            [_P] * 5 + [_I] * 8 + [_P])
     lib.tap_gemm_phased_blocks_per_sm.argtypes = [_I] * 4 + [_P]
     lib.tap_wgrad_blocks_per_sm.argtypes = [_I] * 4 + [_P]
     lib.tap_dw_blocks_per_sm.argtypes = [_I] * 3 + [_P]
     for name in ("tap_gemm", "tap_gemm_phased", "tap_wgrad", "tap_gemm_dw",
-                 "tap_wgrad_dw"):
+                 "tap_gemm_phased_dw", "tap_wgrad_dw"):
         for suffix in DTYPES.values():
             getattr(lib, f"{name}_{suffix}").restype = ctypes.c_int
     for fn in (lib.tap_gemm_phased_blocks_per_sm,
@@ -150,6 +153,22 @@ def _host_table(rows: tuple) -> ctypes.Array:
     kernels by value (cached, so the array outlives every call)."""
     flat = [int(v) for r in rows for v in r]
     return (ctypes.c_int * max(len(flat), 1))(*flat)
+
+
+@functools.lru_cache(maxsize=1024)
+def dw_phase_table(phase_taps: tuple) -> tuple[ctypes.Array, ctypes.Array]:
+    """The depthwise input grad's tap table as the host ints its entry
+    receives and passes to its kernel by value: ``(rows, starts)``, every
+    phase's ``(j, du, dv)`` rows, phase after phase, and the ``PH + 1``
+    offsets where each phase's rows start (phase p's are rows
+    ``starts[p]`` to ``starts[p + 1]``; a phase without taps has none).
+    Cached, so the arrays outlive every call."""
+    flat = [v for taps in phase_taps for r in taps for v in r]
+    starts = [0]
+    for taps in phase_taps:
+        starts.append(starts[-1] + len(taps))
+    return ((ctypes.c_int * max(len(flat), 1))(*flat),
+            (ctypes.c_int * len(starts))(*starts))
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.dtype:
@@ -271,7 +290,9 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
     ``phase_taps[p]`` is a tuple of ``(j, du, dv)``: tap j of phase p reads
     the source window at offset (du, dv).  The kernel's tile and split count
     come from ``plan`` (an ``"input_grad"`` :class:`Plan`), or None for
-    :func:`phased_plan`; its blocks from :func:`phased_work`.
+    :func:`analytic_plan`; a tile's blocks from :func:`phased_work`.  The
+    depthwise variant ``"dw"`` writes the operands' type directly, every
+    phase in one launch, from the table of :func:`dw_phase_table`.
     """
     phase_taps = tuple(tuple(tuple(int(v) for v in r) for r in taps)
                        for taps in phase_taps)
@@ -298,6 +319,15 @@ def tap_gemm_phased(src: torch.Tensor, w: torch.Tensor, phase_taps, oh: int,
     if not cuda:
         return ref.tap_gemm_phased_ref(src, w, phase_taps, oh, ow)
     variant, splits = plan.variant, plan.splits
+    if variant == DW:
+        out = torch.empty((g, ph, b, oh, ow, cout), dtype=dtype,
+                          device=src.device)
+        if out.numel():
+            rows, starts = dw_phase_table(phase_taps)
+            _run("tap_gemm_phased", dtype, DW, s5.data_ptr(), w5.data_ptr(),
+                 ctypes.addressof(rows), ctypes.addressof(starts),
+                 out.data_ptr(), g, ph, b, hs, ws, t, oh, ow, _stream(src))
+        return out if grouped else out[0]
     out = torch.empty((g, ph, b, oh, ow, cout), dtype=torch.float32,
                       device=src.device)
     if out.numel() == 0:
@@ -364,22 +394,33 @@ class Tile(NamedTuple):
 WGRAD_TILES = {"64x64": Tile(64, 64, 16, 6), "64x16": Tile(64, 16, 16, 14),
                "dw": Tile(1, 1, 1, 5)}
 
-#: the depthwise variant ``"dw"`` of the forward and the weight grad
-#: (csrc/tap_gemm.cu, ``dw::fwd_kernel``, ``dw::wgrad_kernel``), for one
-#: channel a group (CIN = COUT = 1) and 1 to :data:`DW_MAX_TAPS` taps (7 x
-#: 7; an instance of 16 tap registers below 17 taps).  It has no tile: each
-#: of :data:`DW_THREADS` threads a block takes a vector of 16 bytes,
-#: :data:`DW_VEC` elements of the operand type, of outputs (the forward) or
-#: pixels (the weight grad), so its :class:`Tile` is ``(1, 1, 1, per_sm)``:
-#: a split is cut in whole vectors (:func:`dw_units`).  The forward never
-#: splits; the weight grad splits each group's vectors (:func:`dw_splits`).
-#: Registers (the build log): the forward 50-51 at 16 taps, 84-88 at 49;
-#: the weight grad 56-62 and 92-95; ``per_sm`` is the 49-tap instances' 5
-#: (the 16-tap ones hold 8-9), held to the card by ``chip_smoke.py``.
+#: the depthwise variant ``"dw"`` of the forward, the input grad and the
+#: weight grad (csrc/tap_gemm.cu, ``dw::fwd_kernel``, ``dw::phased_kernel``,
+#: ``dw::wgrad_kernel``), for one channel a group (CIN = COUT = 1) and 1 to
+#: :data:`DW_MAX_TAPS` taps (7 x 7; an instance of 16 tap registers below
+#: 17 taps).  It has no tile: each of :data:`DW_THREADS` threads a block
+#: takes a vector of 16 bytes, :data:`DW_VEC` elements of the operand type,
+#: of outputs (the forward, the input grad) or pixels (the weight grad), so
+#: its :class:`Tile` is ``(1, 1, 1, per_sm)``: a split is cut in whole
+#: vectors (:func:`dw_units`).  The forward and the input grad never split;
+#: the weight grad splits each group's vectors (:func:`dw_splits`).  The
+#: input grad's thread is the forward's over (group, phase, b, oh, vector),
+#: and its tap table holds every phase's taps, at most :data:`DW_MAX_TAPS`
+#: in all, over at most :data:`DW_MAX_PHASES` phases.  Registers (the build
+#: log): the forward 50-51 at 16 taps, 80-86 at 49; the input grad 51 and
+#: 84-85; the weight grad 56-62 and 92-95; ``per_sm`` is the least the
+#: float32 instances hold, the 49-tap one's (the forward 6, the others 5;
+#: the 16-tap ones hold 9), held to the card by ``chip_smoke.py``.
 DW = "dw"
 DW_MAX_TAPS = 49
 DW_THREADS = 128
 DW_VEC = {"f32": 4, "bf16": 8}
+#: the depthwise input grad's phases (strides up to 8 x 8): its PH + 1
+#: phase starts beside the table's 3 x 49 ints make an 848-byte kernel
+#: parameter, well inside the 4 KB a launch's parameters may take.
+DW_MAX_PHASES = 64
+#: the depthwise kernels' roles, in the order of ``tap_dw_blocks_per_sm``.
+DW_ROLES = ("forward", "weight_grad", "input_grad")
 
 
 def split_chunk(rows: int, splits: int, step: int) -> int:
@@ -426,10 +467,11 @@ def wgrad_plan(g: int, t: int, cin: int, cout: int, rows: int, sms: int,
 #: threads a block: 64 x 64 with 8 x 8 outputs a thread (18,432 B of shared
 #: memory), 64 x 16 with 4 x 4 for COUT <= 16 (12,288 B) and 128 x 8 with
 #: 2 x 8 for COUT <= 8 (21,504 B).  ``per_sm`` as in :data:`WGRAD_TILES`,
-#: held to the card by ``chip_smoke.py``.  The C entry's ``variant`` is the
-#: index in :data:`PHASED_VARIANTS`.
+#: held to the card by ``chip_smoke.py``.  The tile entry's ``variant`` is
+#: the index in :data:`PHASED_VARIANTS`; the depthwise variant ``"dw"`` (one
+#: channel a group) has entries of its own.
 PHASED_TILES = {"64x64": Tile(64, 64, 16, 4), "64x16": Tile(64, 16, 16, 8),
-                "128x8": Tile(128, 8, 16, 6)}
+                "128x8": Tile(128, 8, 16, 6), "dw": Tile(1, 1, 1, 5)}
 PHASED_VARIANTS = ("64x64", "64x16", "128x8")
 
 
@@ -502,7 +544,7 @@ def _phased_work(counts: tuple, cin: int, splits: int, step: int):
 #: (:data:`DW`), which does not split.  The tile's analytic split rule is
 #: :func:`forward_splits`; the tuner's candidates also try
 #: :func:`split_count` over this tile.
-FORWARD_TILES = {"64x64": Tile(64, 64, 16, 6), "dw": Tile(1, 1, 1, 5)}
+FORWARD_TILES = {"64x64": Tile(64, 64, 16, 6), "dw": Tile(1, 1, 1, 6)}
 
 #: plan role -> the variants its kernel has: the forward (``tap_gemm``),
 #: the input grad (``tap_gemm_phased``), the weight grad (``tap_wgrad``).
@@ -582,11 +624,11 @@ def dw_splits(prob: Problem, sms: int) -> int:
 
 def analytic_plan(prob: Problem, sms: int) -> Plan:
     """The rule's plan on a card of ``sms`` SMs: the depthwise variant for
-    a forward or weight grad of one channel a group where it can launch
-    (:func:`dw_splits`), else :func:`forward_splits`, :func:`phased_plan`
-    or :func:`wgrad_plan`."""
+    a pass of one channel a group where it can launch (:func:`_dw_gap`;
+    split by :func:`dw_splits` for the weight grad), else
+    :func:`forward_splits`, :func:`phased_plan` or :func:`wgrad_plan`."""
     g, counts, cin, cout, m = prob[1:6]
-    if prob.role != "input_grad" and cin == cout == 1:
+    if cin == cout == 1:
         plan = Plan(prob.role, DW, _dw_rule(prob, sms))
         if plan_gap(prob, plan) is None:
             return plan
@@ -628,30 +670,43 @@ def plan_gap(prob: Problem, plan: Plan) -> str | None:
 
 
 def _dw_rule(prob: Problem, sms: int) -> int:
-    """The depthwise variant's split count: 1 for the forward, which does
-    not split; :func:`dw_splits` for the weight grad."""
-    return 1 if prob.role == "forward" else dw_splits(prob, sms)
+    """The depthwise variant's split count: 1 for the forward and the input
+    grad, which do not split; :func:`dw_splits` for the weight grad."""
+    return dw_splits(prob, sms) if prob.role == "weight_grad" else 1
 
 
 def _dw_gap(prob: Problem, splits: int) -> str | None:
     """None when the depthwise variant can run ``prob`` in ``splits``
-    splits, else why not: one channel a group, 1 to :data:`DW_MAX_TAPS`
-    taps, a forward unsplit, no weight-grad split empty, and the grid's x
-    (the forward's threads over :data:`DW_THREADS`, the weight grad's
-    splits x groups) within 2^31 - 1."""
+    splits, else why not: one channel a group; 1 to :data:`DW_MAX_TAPS`
+    taps (the input grad: at most :data:`DW_MAX_PHASES` phases whose taps
+    together, the kernel's one table, are at most :data:`DW_MAX_TAPS`, so
+    each phase's are too); a forward or input grad unsplit, no weight-grad
+    split empty; and the grid's x (the forward's and the input grad's
+    threads over :data:`DW_THREADS`, the weight grad's splits x groups)
+    within 2^31 - 1."""
     if (prob.cin, prob.cout) != (1, 1):
         return (f"the dw variant takes one channel a group, not CIN "
                 f"{prob.cin} x COUT {prob.cout}")
-    t = prob.counts[0]
-    if not 1 <= t <= DW_MAX_TAPS:
-        return f"{t} taps outside the dw kernels' 1..{DW_MAX_TAPS}"
+    if prob.role == "input_grad":
+        ph, t = len(prob.counts), sum(prob.counts)
+        if not 1 <= ph <= DW_MAX_PHASES:
+            return (f"{ph} phases outside the dw input grad's "
+                    f"1..{DW_MAX_PHASES}")
+        if t > DW_MAX_TAPS:
+            return (f"{t} taps over all phases exceed the dw input grad's "
+                    f"table of {DW_MAX_TAPS}")
+    else:
+        ph, t = 1, prob.counts[0]
+        if not 1 <= t <= DW_MAX_TAPS:
+            return f"{t} taps outside the dw kernels' 1..{DW_MAX_TAPS}"
     if prob.m > INT32_MAX:
         return f"{prob.m} pixels exceed the kernels' 32-bit pixel index"
     units = dw_units(prob)
-    if prob.role == "forward":
+    if prob.role != "weight_grad":
         if splits != 1:
-            return f"the dw forward does not split (splits {splits})"
-        blocks = _cdiv(prob.groups * units, DW_THREADS)
+            return (f"the dw {prob.role.replace('_', ' ')} does not split "
+                    f"(splits {splits})")
+        blocks = _cdiv(prob.groups * ph * units, DW_THREADS)
     else:
         if splits > 1 and (units == 0 or _cdiv(
                 units, split_chunk(units, splits, 1)) != splits):
@@ -754,7 +809,7 @@ def dw_blocks_per_sm(role: str, wide: bool, bf16: bool = False) -> int:
     registers) an SM of the current card holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     blocks = ctypes.c_int(0)
-    err = _lib().tap_dw_blocks_per_sm(int(role == "weight_grad"), int(bf16),
+    err = _lib().tap_dw_blocks_per_sm(DW_ROLES.index(role), int(bf16),
                                       int(wide), ctypes.addressof(blocks))
     if err != 0:
         raise RuntimeError(f"tap_dw_blocks_per_sm: CUDA error {err}")

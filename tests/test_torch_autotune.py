@@ -100,12 +100,14 @@ def _write(store: dict) -> None:
 
 
 def _rules(role, d, g):
-    """The analytic plan: the depthwise variant for a forward or weight
-    grad of one channel a group (dw_splits), else forward_splits /
-    phased_plan / wgrad_plan called as the wrappers call them."""
+    """The analytic plan: the depthwise variant for a pass of one channel
+    a group (unsplit, but the weight grad's dw_splits), else
+    forward_splits / phased_plan / wgrad_plan called as the wrappers call
+    them."""
     prob = ops.problem(role, d, g)
-    if role != "input_grad" and d.C == d.N == 1:
-        return "dw", 1 if role == "forward" else tg.dw_splits(prob, H100.sms)
+    if d.C == d.N == 1:
+        return "dw", (tg.dw_splits(prob, H100.sms) if role == "weight_grad"
+                      else 1)
     if role == "forward":
         return "64x64", tg.forward_splits(prob.m, prob.cout, prob.counts[0],
                                           prob.cin, H100.sms, g)

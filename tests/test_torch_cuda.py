@@ -13,10 +13,12 @@ depthwise conv at its 2,304 groups and a grouped strided layer against
 their plain versions, ``depthwise_causal_conv1d`` under ``pallas``
 against ``lax`` in bf16, mixed operand types refused, a plan past the
 grid's z limit refused, float32 and bf16 plans tuned apart), and the
-depthwise variant ``dw`` of the forward and the weight grad (Mamba2's
-geometry, ragged lengths, operands off a 16-byte boundary, the CNN's 3 x 3
-in float32, a stride-2 3 x 3, a 7 x 7, 4,096 and 70,000 groups; the tiles
-it replaces still right at its geometry).
+depthwise variant ``dw`` of the forward, the input grad and the weight
+grad (Mamba2's geometry, ragged lengths, operands off a 16-byte boundary,
+the CNN's 3 x 3 in float32, a stride-2 3 x 3, a 7 x 7, 4,096 and 70,000
+groups; the input grad also at a 7 x 7 at stride 2, phases without taps,
+and rows misaligned by 1-7 elements; the tiles it replaces still right at
+its geometry).
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -614,10 +616,10 @@ def _phased_operands(cuda, case, seed=13):
     return src, ws, pp, counts, plan
 
 
-def _phased_matches(src, ws, phase_taps, oh, ow):
+def _phased_matches(src, ws, phase_taps, oh, ow, plan=None):
     reset_launch_counts()
-    got = tg.tap_gemm_phased(src, ws, phase_taps, oh, ow)
-    again = tg.tap_gemm_phased(src, ws, phase_taps, oh, ow)
+    got = tg.tap_gemm_phased(src, ws, phase_taps, oh, ow, plan)
+    again = tg.tap_gemm_phased(src, ws, phase_taps, oh, ow, plan)
     assert launch_counts()["tap_gemm_phased"] == 2
     assert torch.equal(got, again)
     _close(got, ref.tap_gemm_phased_ref(src, ws, phase_taps, oh, ow))
@@ -628,11 +630,15 @@ def _phased_matches(src, ws, phase_taps, oh, ow):
                          ids=["cout3", "dw_g16", "cin5", "1x1s2split",
                               "s2x3", "s3empty"])
 def test_tap_gemm_phased_variants_match_plain_version(cuda, case):
+    """Each tile at the geometries above, given as its plan (the depthwise
+    case's analytic plan is ``dw``; its tile still runs when asked)."""
     src, ws, pp, counts, (variant, splits) = _phased_operands(cuda, case)
     cout = ws.shape[-1]
     assert variant == ("128x8" if cout <= 8 else
                        "64x16" if cout <= 16 else "64x64")
-    got = _phased_matches(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    got = _phased_matches(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw,
+                          tg.Plan("input_grad", variant, splits))
+    assert tg.variant_launch_counts() == {f"tap_gemm_phased:{variant}": 2}
     for p, n in enumerate(counts):
         if n == 0:
             assert not got[:, p].any()
@@ -998,20 +1004,35 @@ def _dw_operands(d, g, dtype, dev, seed=41):
     return src, wt, taps, wsrc, dyn, wtaps
 
 
+#: the dw input grad in float32 against its plain version: fmaf rounds
+#: each tap's product and sum once, the plain version twice.
+DW_F32_TOL = 1e-6
+
+
 @pytest.mark.parametrize("label,d,g,dtype", DW_CASES,
                          ids=[c[0] for c in DW_CASES])
 def test_dw_variant_matches_plain_versions(cuda, label, d, g, dtype):
-    """The analytic plans of a depthwise forward and weight grad are the dw
-    variant; each call is one dw launch, within bf16 rounding (the
-    forward's bf16 output) or REL_TOL of the plain version, and bit-equal
-    run to run."""
+    """The analytic plans of a depthwise forward, input grad and weight
+    grad are the dw variant; each call is one dw launch, within bf16
+    rounding (the forward's and the input grad's bf16 output), REL_TOL (the
+    input grad in float32: ``DW_F32_TOL``) of the plain version, and
+    bit-equal run to run."""
     src, wt, taps, wsrc, dyn, wtaps = _dw_operands(d, g, dtype, cuda)
+    gen = torch.Generator().manual_seed(45)
+    gsrc, ws, pp = ops.input_grad_operands(
+        _randn(gen, d.B, g, d.H_o, d.W_o, dev=cuda).to(dtype),
+        _randn(gen, g, 1, d.K_h, d.K_w, dev=cuda).to(dtype), d, g)
     bf16 = dtype == torch.bfloat16
     calls = [
         ("tap_gemm", "forward",
          lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
          ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o),
          BF16_REL_TOL if bf16 else REL_TOL),
+        ("tap_gemm_phased", "input_grad",
+         lambda: tg.tap_gemm_phased(gsrc, ws, pp.phase_taps, pp.n_qh,
+                                    pp.n_qw),
+         ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps, pp.n_qh, pp.n_qw),
+         BF16_REL_TOL if bf16 else DW_F32_TOL),
         ("tap_wgrad", "weight_grad",
          lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
          ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o), REL_TOL)]
@@ -1060,6 +1081,20 @@ def test_tiles_still_match_plain_versions_at_the_depthwise_geometry(cuda):
     d, g = BF16_GEOMS[0]
     src, wt, taps, wsrc, dyn, wtaps = _dw_operands(d, g, torch.bfloat16,
                                                    cuda, seed=43)
+    gen = torch.Generator().manual_seed(48)
+    gsrc, ws, pp = ops.input_grad_operands(
+        _randn(gen, d.B, g, d.H_o, d.W_o, dev=cuda).bfloat16(),
+        _randn(gen, g, 1, d.K_h, d.K_w, dev=cuda).bfloat16(), d, g)
+    counts = [len(t) for t in pp.phase_taps]
+    want = ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    for variant in ("128x8", "64x16", "64x64"):
+        plan = tg.Plan("input_grad", *tg.phased_plan(
+            g, counts, 1, 1, d.B * pp.n_qh * pp.n_qw, 132, variant))
+        reset_launch_counts()
+        _close_rel(tg.tap_gemm_phased(gsrc, ws, pp.phase_taps, pp.n_qh,
+                                      pp.n_qw, plan), want, BF16_REL_TOL)
+        assert tg.variant_launch_counts() == {
+            f"tap_gemm_phased:{variant}": 1}
     rows = d.B * d.H_o * d.W_o
     y_want = ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o)
     dw_want = ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o, d.W_o)
@@ -1078,9 +1113,8 @@ def test_tiles_still_match_plain_versions_at_the_depthwise_geometry(cuda):
 
 
 def test_depthwise_causal_conv1d_runs_dw_for_forward_and_weight_grad(cuda):
-    """Mamba2's conv under ``pallas`` in bf16: the forward and the weight
-    grad launch the dw variant once each, the input grad its 128 x 8
-    tile."""
+    """Mamba2's conv under ``pallas`` in bf16: the forward, the input grad
+    and the weight grad launch the dw variant once each."""
     from repro_torch.core.conv import depthwise_causal_conv1d
     gen = torch.Generator().manual_seed(44)
     x = _randn(gen, 2, 64, 2304, dev=cuda).bfloat16().requires_grad_(True)
@@ -1089,5 +1123,86 @@ def test_depthwise_causal_conv1d_runs_dw_for_forward_and_weight_grad(cuda):
     depthwise_causal_conv1d(x, w, "pallas").backward(
         _randn(gen, 2, 64, 2304, dev=cuda).bfloat16())
     assert tg.variant_launch_counts() == {"tap_gemm:dw": 1,
-                                          "tap_gemm_phased:128x8": 1,
+                                          "tap_gemm_phased:dw": 1,
                                           "tap_wgrad:dw": 1}
+
+
+#: depthwise input grads whose phases differ, as (label, per-group dims,
+#: groups): a 3 x 3 at stride 2 (phases of 1, 2, 2 and 4 taps), a 7 x 7 at
+#: stride 2 (49 taps over 4 phases: the 49-row table), a (2, 3) stride with
+#: dilation 2 (four of six phases without taps), and K = 2 at stride 3
+#: (five of nine).
+DW_GRAD_CASES = [
+    ("3x3 s2", _S2, 24),
+    ("7x7 s2", ConvDims(B=2, C=1, H_i=28, W_i=28, N=1, K_h=7, K_w=7, S=2,
+                        P_h=3, P_w=3), 8),
+    ("s2x3 d2", ConvDims(B=2, C=1, H_i=13, W_i=14, N=1, K_h=3, K_w=3, S=2,
+                         S_w=3, P_h=2, P_w=2, D_h=2, D_w=2), 12),
+    ("k2 s3", ConvDims(B=2, C=1, H_i=10, W_i=10, N=1, K_h=2, K_w=2, S=3),
+     12),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("label,d,g", DW_GRAD_CASES,
+                         ids=[c[0] for c in DW_GRAD_CASES])
+def test_dw_input_grad_matches_plain_version_at_every_phase_shape(
+        cuda, label, d, g, dtype):
+    """The dw input grad where its phases run different tap counts or
+    none: one launch, within ``DW_F32_TOL`` (float32) or bf16 rounding of
+    the plain version, bit-equal run to run, and every phase without taps
+    written to zeros over an output buffer the allocator last held as
+    NaNs (the kernel stores them: the output is ``torch.empty``)."""
+    gen = torch.Generator().manual_seed(46)
+    dy = _randn(gen, d.B, g, d.H_o, d.W_o, dev=cuda).to(dtype)
+    w = _randn(gen, g, 1, d.k_taps_h, d.k_taps_w, dev=cuda).to(dtype)
+    src, ws, pp = ops.input_grad_operands(dy, w, d, g)
+    counts = [len(t) for t in pp.phase_taps]
+    assert ops.pass_plan("input_grad", d, g, cuda, dtype) == tg.Plan(
+        "input_grad", "dw", 1)
+    want = ref.tap_gemm_phased_ref(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    junk = torch.full_like(want, float("nan"))
+    del junk
+    reset_launch_counts()
+    got = tg.tap_gemm_phased(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    assert tg.variant_launch_counts() == {"tap_gemm_phased:dw": 1}
+    _close_rel(got, want, BF16_REL_TOL if dtype == torch.bfloat16
+               else DW_F32_TOL)
+    for p, n in enumerate(counts):
+        if n == 0:
+            assert not got[:, p].any(), p
+    assert torch.equal(got, tg.tap_gemm_phased(src, ws, pp.phase_taps,
+                                               pp.n_qh, pp.n_qw))
+
+
+@pytest.mark.parametrize("length", range(97, 104))
+def test_dw_input_grad_takes_rows_misaligned_by_1_to_7_elements(cuda,
+                                                                length):
+    """Mamba2's geometry in bf16 at lengths 97-103: dY rows of 1-7
+    elements past a 16-byte multiple, so most windows and stores are off a
+    16-byte boundary and the causal taps run past each row's end; within
+    bf16 rounding of the plain version, and with dY and the weights each a
+    view 2 bytes past a 16-byte boundary, equal bit for bit."""
+    d, g = _mamba2_dims(2, length), 64
+    gen = torch.Generator().manual_seed(47)
+    dy = _randn(gen, d.B, g, d.H_o, d.W_o, dev=cuda).bfloat16()
+    w = _randn(gen, g, 1, d.K_h, d.K_w, dev=cuda).bfloat16()
+    src, ws, pp = ops.input_grad_operands(dy, w, d, g)
+    assert src.shape[-2] % 8 == length % 8 != 0
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 2
+        return view
+
+    reset_launch_counts()
+    got = tg.tap_gemm_phased(src, ws, pp.phase_taps, pp.n_qh, pp.n_qw)
+    _close_rel(got, ref.tap_gemm_phased_ref(src, ws, pp.phase_taps, pp.n_qh,
+                                            pp.n_qw), BF16_REL_TOL)
+    assert torch.equal(tg.tap_gemm_phased(shifted(src), shifted(ws),
+                                          pp.phase_taps, pp.n_qh, pp.n_qw),
+                       got)
+    assert tg.variant_launch_counts() == {"tap_gemm_phased:dw": 2}

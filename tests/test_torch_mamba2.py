@@ -335,7 +335,9 @@ def test_tap_plans_are_keyed_by_operand_type():
 def test_a_plan_past_the_grid_z_limit_is_refused_at_mamba2_width():
     """Mamba2-370M's conv is 2,304 groups: a weight-grad plan of 32 splits
     would put 73,728 blocks on the grid's z; ``plan_gap`` refuses it, and
-    no candidate of any role breaches the limit."""
+    no candidate of any role breaches the limit: a tile's groups x splits
+    (or x work rows) on the grid's z, a dw plan's threads on the grid's
+    x."""
     d = ConvDims(B=8, C=1, H_i=1, W_i=512, N=1, K_h=1, K_w=4, P_w=3,
                  P_h_hi=0, P_w_hi=0)
     g = 2304
@@ -346,8 +348,15 @@ def test_a_plan_past_the_grid_z_limit_is_refused_at_mamba2_width():
         prob = ops.problem(role, d, g, torch.bfloat16)
         plans = tg.candidate_plans(prob, 132)
         assert plans and plans[0] == tg.analytic_plan(prob, 132)
+        assert plans[0].variant == "dw"
         for plan in plans:
             assert tg.plan_gap(prob, plan) is None
+            if plan.variant == "dw":
+                blocks = (g * plan.splits if role == "weight_grad" else
+                          tg._cdiv(g * len(prob.counts) * tg.dw_units(prob),
+                                   tg.DW_THREADS))
+                assert blocks <= tg.INT32_MAX, (role, plan)
+                continue
             z = plan.splits if role != "input_grad" else len(tg.phased_work(
                 prob.counts, prob.cin, plan.splits,
                 tg.PHASED_TILES[plan.variant].step)[0])

@@ -421,13 +421,12 @@ def _dw_problem(role, groups=2304, taps=4, cin=1, cout=1, b=8, oh=1, ow=512,
 @pytest.mark.parametrize("cin,cout", [(1, 1), (1, 2), (2, 1), (4, 4)])
 def test_analytic_plan_takes_dw_exactly_at_one_channel_a_group(role, cin,
                                                                cout):
-    """The forward and the weight grad plan the depthwise variant exactly
-    where CIN = COUT = 1; the input grad, which has no such variant, and
-    every other problem keep their tiles.  Every analytic plan launches."""
+    """Every role, the input grad too, plans the depthwise variant exactly
+    where CIN = COUT = 1; every other problem keeps its tiles.  Every
+    analytic plan launches."""
     prob = _dw_problem(role, groups=64, cin=cin, cout=cout)
     plan = tg.analytic_plan(prob, H100_SMS)
-    assert (plan.variant == "dw") == (role != "input_grad"
-                                      and cin == cout == 1)
+    assert (plan.variant == "dw") == (cin == cout == 1)
     assert tg.plan_gap(prob, plan) is None
 
 
@@ -454,8 +453,8 @@ def test_dw_holds_to_its_tap_limit(taps):
     ("tap_wgrad", tg.Plan("weight_grad", "dw", 1), (2, 2),
      "one channel a group"),
     ("tap_wgrad", tg.Plan("weight_grad", "dw", 3), (1, 1), "empty"),
-    ("tap_gemm_phased", tg.Plan("input_grad", "dw", 1), (1, 1),
-     "no variant"),
+    ("tap_gemm_phased", tg.Plan("input_grad", "dw", 2), (1, 1),
+     "input grad does not split"),
 ], ids=["fwd_cin2", "fwd_cout3", "fwd_split", "wgrad_2x2", "wgrad_empty",
         "phased"])
 def test_a_dw_plan_it_cannot_run_raises(name, plan, shape, match):
@@ -463,7 +462,7 @@ def test_a_dw_plan_it_cannot_run_raises(name, plan, shape, match):
     ``plan_gap`` before any launch, on CPU tensors too: two or more
     channels, a split forward, a weight-grad split left empty (4 groups
     of 2 x 9 pixels: 2 float32 vectors a row, 4 vectors in all, cannot
-    take 3 splits), the input grad."""
+    take 3 splits), a split input grad."""
     cin, cout = shape
     src = torch.zeros(4, 1, 2, 9, 9, cin)
     taps = [(0, 0, 0), (0, 0, 1)]
@@ -480,9 +479,11 @@ def test_a_dw_plan_it_cannot_run_raises(name, plan, shape, match):
 
 def test_dw_has_no_grid_limit_at_100000_groups():
     """The depthwise variant puts the groups on the grid's x: 100,000 groups
-    plan and launch unsplit (the forward) or split (the weight grad), where
-    the tiles, whose groups share the grid's z (65,535), are refused."""
-    for role, tile in (("forward", "64x64"), ("weight_grad", "64x16")):
+    plan and launch unsplit (the forward, the input grad) or split (the
+    weight grad), where the tiles, whose groups share the grid's z
+    (65,535), are refused."""
+    for role, tile in (("forward", "64x64"), ("weight_grad", "64x16"),
+                       ("input_grad", "128x8")):
         for groups in (4096, 70_000, 100_000):
             prob = _dw_problem(role, groups=groups, b=2, ow=64)
             plan = tg.analytic_plan(prob, H100_SMS)
@@ -541,7 +542,8 @@ def test_candidates_time_dw_beside_the_tiles():
     role's tiles beside it (the tuner times both); a problem of more
     channels never sees dw."""
     for role, variants in (("forward", {"dw", "64x64"}),
-                           ("weight_grad", {"dw", "64x64", "64x16"})):
+                           ("weight_grad", {"dw", "64x64", "64x16"}),
+                           ("input_grad", {"dw", "64x64", "64x16", "128x8"})):
         for groups, dtype in ((2304, "bf16"), (16, "f32")):
             prob = _dw_problem(role, groups=groups, taps=9, b=32, oh=8, ow=8,
                                dtype=dtype)
@@ -593,3 +595,146 @@ def test_dw_plans_on_cpu_match_the_jax_kernels(case):
         np.testing.assert_allclose(dw[k].numpy(), np.asarray(want_dw), **TOL)
     assert not any(tg.launch_counts().values())
     assert tg.variant_launch_counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# The depthwise variant "dw" of the input grad: its tap table, its limits,
+# and conv2d under pallas at the depthwise geometries against JAX
+# ---------------------------------------------------------------------------
+
+#: depthwise convs (one channel a group) and the taps of their input
+#: grad's phases: (label, x shape, w shape, ConvSpec kwargs, taps a
+#: phase).  Mamba2's causal conv (4 taps on an H = 1 plane, left pad 3),
+#: the CNN's cnn.dw, a 3 x 3 at stride 2, a 7 x 7 at stride 2 (49 taps
+#: over 4 phases: the table's capacity), a (2, 3) stride with dilation 2
+#: (three phases without taps) and K = 2 at stride 3 (five).
+DW_GRAD_GEOMS = [
+    ("mamba2", (2, 6, 1, 32), (6, 1, 1, 4),
+     dict(padding=((0, 0), (3, 0)), groups=6), [4]),
+    ("cnn.dw", (2, 4, 8, 8), (4, 1, 3, 3),
+     dict(stride=1, padding=1, groups=4), [9]),
+    ("3x3 s2", (2, 3, 9, 9), (3, 1, 3, 3),
+     dict(stride=2, padding=1, groups=3), [1, 2, 2, 4]),
+    ("7x7 s2", (1, 2, 14, 14), (2, 1, 7, 7),
+     dict(stride=2, padding=3, groups=2), [9, 12, 12, 16]),
+    ("s2x3 d2", (1, 2, 13, 14), (2, 1, 3, 3),
+     dict(stride=(2, 3), padding=2, dilation=2, groups=2),
+     [3, 3, 3, 0, 0, 0]),
+    ("k2 s3", (1, 3, 10, 10), (3, 1, 2, 2), dict(stride=3, groups=3),
+     [1, 1, 0, 1, 1, 0, 0, 0, 0]),
+]
+
+
+def _dw_grad_dims(x_shape, w_shape, kw):
+    from repro_torch.core.convspec import ConvSpec
+    spec = ConvSpec.make(**kw)
+    return tconv.spec_dims(x_shape, w_shape, spec), spec
+
+
+@pytest.mark.parametrize("label,x_shape,w_shape,kw,counts", DW_GRAD_GEOMS,
+                         ids=[c[0] for c in DW_GRAD_GEOMS])
+def test_dw_phase_table_holds_the_input_grad_plans_taps(label, x_shape,
+                                                        w_shape, kw, counts):
+    """The host tables the depthwise input grad's entry receives: the rows
+    ``(j, du, dv)`` of every phase of ``ops.input_grad_plan(d)``, phase
+    after phase and in each phase's order, and ``PH + 1`` starts that cut
+    them back into the phases (a phase without taps an empty range); every
+    weight slot j within the stack's ``t_max``; the analytic plan is dw."""
+    from repro_torch.kernels import ops
+    d, spec = _dw_grad_dims(x_shape, w_shape, kw)
+    pp = ops.input_grad_plan(d)
+    assert [len(t) for t in pp.phase_taps] == counts
+    host_rows, host_starts = tg.dw_phase_table(pp.phase_taps)
+    starts = list(host_starts)
+    assert len(starts) == len(pp.phase_taps) + 1 and starts[0] == 0
+    assert starts[-1] == sum(counts) <= tg.DW_MAX_TAPS
+    flat = list(host_rows)[:3 * starts[-1]]
+    rows = [tuple(flat[i:i + 3]) for i in range(0, len(flat), 3)]
+    for p, taps in enumerate(pp.phase_taps):
+        assert tuple(rows[starts[p]:starts[p + 1]]) == taps
+    assert all(0 <= j < pp.t_max and du >= 0 and dv >= 0
+               for j, du, dv in rows)
+    prob = ops.problem("input_grad", d, spec.groups)
+    plan = tg.analytic_plan(prob, H100_SMS)
+    assert plan == tg.Plan("input_grad", "dw", 1)
+    assert tg.plan_gap(prob, plan) is None
+
+
+#: one input-grad problem a limit of the dw variant: (label, problem,
+#: splits, the refusal's words or None where it launches).
+DW_GRAD_LIMITS = [
+    ("split", tg.Problem("input_grad", 64, (4,), 1, 1, 4096, 512, "bf16"), 2,
+     "input grad does not split"),
+    ("cout2", tg.Problem("input_grad", 64, (4,), 1, 2, 4096, 512, "bf16"), 1,
+     "one channel a group"),
+    ("65 phases", tg.Problem("input_grad", 4, (0,) * 64 + (1,), 1, 1, 64, 8,
+                             "f32"), 1, "65 phases outside"),
+    ("64 phases", tg.Problem("input_grad", 4, (0,) * 63 + (1,), 1, 1, 64, 8,
+                             "f32"), 1, None),
+    ("50 taps", tg.Problem("input_grad", 4, (16, 12, 12, 10), 1, 1, 98, 7,
+                           "f32"), 1, "50 taps over all phases exceed"),
+    ("49 taps", tg.Problem("input_grad", 4, (16, 12, 12, 9), 1, 1, 98, 7,
+                           "f32"), 1, None),
+    ("no taps", tg.Problem("input_grad", 4, (0, 0, 0, 0), 1, 1, 98, 7,
+                           "f32"), 1, None),
+    ("grid x", tg.Problem("input_grad", 2**22, (1,) * 32 + (0,) * 32, 1, 1,
+                          2**20, 1024, "f32"), 1,
+     "blocks exceed the grid's x"),
+    ("pixels", tg.Problem("input_grad", 1, (4,), 1, 1, 2**31, 2**16, "bf16"),
+     1, "32-bit pixel index"),
+]
+
+
+@pytest.mark.parametrize("label,prob,splits,match", DW_GRAD_LIMITS,
+                         ids=[c[0] for c in DW_GRAD_LIMITS])
+def test_dw_gap_holds_the_input_grads_limits(label, prob, splits, match):
+    """``plan_gap`` refuses a dw input-grad plan past each of its limits
+    (a split, two output channels, 65 phases, 50 taps over all phases, a
+    grid past 2^31 - 1 blocks, 2^31 pixels) and takes one at each limit
+    (64 phases, 49 taps in all, no taps at all: every phase stores zeros).
+    Where dw is refused for a problem it could otherwise take, the analytic
+    plan keeps a tile: planning, not a fallback at run time."""
+    gap = tg.plan_gap(prob, tg.Plan("input_grad", "dw", splits))
+    if match is None:
+        assert gap is None
+        assert tg.analytic_plan(prob, H100_SMS).variant == "dw"
+        return
+    assert gap is not None and match in gap, gap
+    if splits == 1:
+        assert tg.analytic_plan(prob, H100_SMS).variant != "dw"
+
+
+@pytest.mark.parametrize("label,x_shape,w_shape,kw,counts", DW_GRAD_GEOMS,
+                         ids=[c[0] for c in DW_GRAD_GEOMS])
+def test_conv2d_pallas_at_depthwise_geometries_matches_jax_lax(
+        label, x_shape, w_shape, kw, counts):
+    """``conv2d`` under ``pallas`` on CPU tensors (the plain versions of the
+    three tap kernels, fed by the port's lowering) at the depthwise
+    geometries whose input grad plans dw on the card, forward and both
+    grads against the JAX package's ``conv2d`` under ``lax`` on the same
+    numpy-seeded inputs (f32, 1e-4)."""
+    import jax
+
+    from repro.core import conv as jconv
+    from repro.core.convspec import ConvSpec as JSpec
+    d, spec = _dw_grad_dims(x_shape, w_shape, kw)
+    rng = np.random.RandomState(21)
+    x, w = _rand(rng, *x_shape), _rand(rng, *w_shape)
+    dy = _rand(rng, d.B, d.N * spec.groups, d.H_o, d.W_o)
+    y, vjp = jax.vjp(lambda a, b: jconv.conv2d(a, b, JSpec.make(**kw), "lax"),
+                     jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    tconv.reset_dispatch_events()
+    got = tconv.conv2d(xt, wt, spec, "pallas")
+    got.backward(torch.from_numpy(dy))
+    assert tconv.dispatch_events() == {"forward:pallas": 1,
+                                       "input_grad:pallas": 1,
+                                       "weight_grad:pallas": 1}
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(y),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(want_dw),
+                               rtol=1e-4, atol=1e-4)
