@@ -15,7 +15,7 @@ PATH):
                    bf16 operands, the depthwise variant of each at 16 and
                    49 taps,
                    the four ``matmul`` tiles, the bf16
-                   flash attention at head dims 64, 128 and 192); the
+                   flash attention at head dims 64, 128, 192 and 256); the
                    blocks an SM holds of each input-grad, weight-grad,
                    depthwise and ``matmul`` instance (the occupancy
                    calculator) against
@@ -50,7 +50,9 @@ PATH):
                    ``BF16_TOL``), the weight grad float32 (``REL_TOL``);
                    library = cuDNN's grouped conv (causal pad ahead), with
                    each call's plan and grid z (all three passes of the
-                   conv on ``dw``); then
+                   conv on ``dw``); the same at recurrentgemma-9b's
+                   temporal conv (4,096 groups, 4 taps; 4 x 512, its
+                   training shape, and a 1,024-token prefill); then
                    ``depthwise_causal_conv1d`` forward + backward at 8 x
                    512 under ``pallas`` and ``lax``: device time by kernel
                    (the lowering's copies beside the kernels).
@@ -105,7 +107,10 @@ PATH):
                    moonshot-v1-16b-a3b's prefill (16 heads of 128, P
                    1,024, bf16) and DeepSeek-V3 MLA's (128 heads of 192,
                    causal P 1,024 and 256 queries against 1,024 keys, bf16
-                   and float32); two runs are bit-equal; kernel, plain and
+                   and float32) and recurrentgemma-9b's (16 heads of 256
+                   against one KV head, causal P 1,024 in bf16 and float32,
+                   a ragged P 1,000 and 256 queries against 1,024 keys in
+                   bf16); two runs are bit-equal; kernel, plain and
                    ``F.scaled_dot_product_attention`` device times (timed
                    only: the port never calls it), host time, bound.
  11. serve      -- SmolLM-360M at full width, initialised from a seed: the
@@ -170,7 +175,27 @@ PATH):
                    4, 48 ``tap_gemm`` launches a request under ``pallas``;
                    static: 8 of 128 tokens, 8 new, none), tokens/s, p50,
                    peak memory.
- 14. lm_train   -- ``python -m repro_torch.launch.train --arch smollm-360m``
+ 14. serve_hybrid -- recurrentgemma-9b at its published widths (38 layers,
+                   10,444,664,832 parameters, bf16, drawn on the card from
+                   seed 0) under ``conv_policy="pallas"``: at
+                   ``HYBRID_SCAN_LAYERS`` layers the one-pass prefill vs
+                   the decode scan on each of ``HYBRID_PROMPTS`` (1,000
+                   tokens inside the 2,048-token window: the flash kernel
+                   at head dim 256; 2,100 past it: the blockwise path with
+                   the window mask), logits and every cache leaf within
+                   ``HYBRID_BF16_TOL``, ``tap_gemm`` (``dw``) once an
+                   RG-LRU layer; the 38-layer model's init, one
+                   1,024-token prefill's launches (26 ``tap_gemm``, 12
+                   flash) and device time, a 4-lane decode step's (no
+                   launch); ``launch.serve --full --arch recurrentgemma-9b
+                   --conv-policy pallas`` on both engines (continuous: 8
+                   requests of 1,024 tokens, 32 new, batch 4, 26 + 12
+                   launches a request; static: 8 of 128 tokens, 8 new,
+                   none); float32 at ``HYBRID_F32_LAYERS`` layers: prefill
+                   vs scan on 2,100 tokens (``SERVE_F32_TOL``), greedy
+                   tokens of the two engines and of ``pallas`` against
+                   ``auto`` (the margin rule of serve).
+ 15. lm_train   -- ``python -m repro_torch.launch.train --arch smollm-360m``
                    at the published widths (bf16, seed 0, batch 8, seq 512,
                    ``--lr`` 3e-4, the guard on): (a) 30 steps with
                    checkpoints every 15; (b) the same stopped after 15 and
@@ -185,7 +210,7 @@ PATH):
                    falls; no kernel launched.  Median step time, tokens/s,
                    peak memory, and one profiled step's device-busy share
                    (last: the profiler slows later kernels).
- 15. lm_train_ssm -- ``python -m repro_torch.launch.train --arch
+ 16. lm_train_ssm -- ``python -m repro_torch.launch.train --arch
                    mamba2-370m --conv-policy pallas`` at the published
                    widths (bf16, seed 0, batch 8, seq 512, guard on, 6
                    steps): each layer's conv on the three tap kernels'
@@ -197,11 +222,22 @@ PATH):
                    float32 at ``SSM_F32_LAYERS`` layers, 5 steps of
                    ``pallas`` against ``lax`` (``LOSS_TOL``); median step
                    time, tokens/s, peak memory.
- 16. summary    -- every kernel's launches on each path, each path run with
+ 17. lm_train_hybrid -- recurrentgemma-9b's ``make_train_step`` at its
+                   published widths and ``LM_TRAIN_HYBRID_LAYERS`` layers
+                   (bf16, seed 0, batch 4 x 512, guard on): 6 steps under
+                   ``pallas`` (per step, 8 ``tap_gemm``, 4
+                   ``tap_gemm_phased`` and 4 ``tap_wgrad`` launches, all
+                   bf16 on ``dw`` at 4,096 groups), the first loss and grad
+                   norm against one step under ``auto``; float32 at
+                   ``HYBRID_F32_LAYERS`` layers, 5 steps of ``pallas``
+                   against ``lax`` (``LOSS_TOL``); median step time,
+                   tokens/s, peak memory.
+ 18. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
-Then a ``{"kernels": [...]}`` line (the five kernels, and the tap
-kernels' bf16 instances at Mamba2's training shape), and last
+Then a ``{"kernels": [...]}`` line (the five kernels; the tap kernels'
+bf16 instances at Mamba2's and at recurrentgemma-9b's training shapes;
+flash attention at recurrentgemma-9b's head dim 256), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
 it also does so without a CUDA device or without the package beside it.
@@ -405,21 +441,22 @@ def bound(flops: float, nbytes_: float,
 #: kernels (the three tap GEMMs, float32 and bf16 instances, the
 #: depthwise forward, input grad and weight grad at 16 and 49 taps,
 #: the four ``matmul`` tiles, the bf16
-#: tensor-core flash attention: head dims 64, 128 and 192, each with and
-#: without 16-byte rows), whose registers, spills and shared memory the
-#: build phase reports, and how many entries each has.
+#: tensor-core flash attention: head dims 64, 128, 192 and 256, each with
+#: and without 16-byte rows), whose registers, spills and shared memory
+#: the build phase reports, and how many entries each has.
 REDESIGNED = {"tap_gemm": (("3fwd6kernel", "2dw10fwd_kernel"), 12),
               "tap_gemm_phased": (("6phased6kernel", "2dw13phased_kernel"),
                                   28),
               "tap_wgrad": (("5wgrad6kernel", "2dw12wgrad_kernel"), 20),
               "matmul": (("4gemm6kernel", "4tall6kernel", "6mirror6kernel"),
                          22),
-              "flash_attention": (("flash_bf16_kernel",), 6)}
+              "flash_attention": (("flash_bf16_kernel",), 8)}
 
 
 def flash_bf16_smem(dm: int) -> int:
     """Dynamic shared memory of ``flash_bf16_kernel<DM>``: Q plus two stages
-    of K and V, 64 rows each, of DM + 8 bf16 (csrc/flash_attention.cu)."""
+    of K and V, 64 rows each, of DM + 8 bf16 (csrc/flash_attention.cu);
+    168,960 bytes at DM 256, one block an SM."""
     return (64 + 4 * 64) * (dm + 8) * 2
 
 
@@ -1112,8 +1149,9 @@ def phase_autotune(smoke, torch, ops, tg, ref, autotune, config, kernels,
 
 #: (label, B, H, Hk, Lq, Lk, causal, dtype name, D); the first is the shape
 #: a 1,024-token prefill gives the kernel on the SmolLM serving path; the
-#: moonshot-v1-16b-a3b prefill's (16 heads of 128) and DeepSeek-V3 MLA's
-#: (128 heads of 192: qk_nope 128 + qk_rope 64) follow the SmolLM cases.
+#: moonshot-v1-16b-a3b prefill's (16 heads of 128), DeepSeek-V3 MLA's
+#: (128 heads of 192: qk_nope 128 + qk_rope 64) and recurrentgemma-9b's
+#: (16 heads of 256 against one KV head) follow the SmolLM cases.
 FLASH_CASES = (
     [("serve P1024 bf16", 1, 15, 5, 1024, 1024, True, "bfloat16", 64)]
     + [(f"serve P{p} {dt[0]}{dt[-2:]}", 1, 15, 5, p, p, True, dt, 64)
@@ -1126,7 +1164,15 @@ FLASH_CASES = (
        ("moonshot P1024 bf16", 1, 16, 16, 1024, 1024, True, "bfloat16", 128)]
     + [(f"mla {shape} {dt[0]}{dt[-2:]}", 1, 128, 128, lq, 1024, True, dt, 192)
        for shape, lq in (("P1024", 1024), ("q256 k1024", 256))
-       for dt in ("bfloat16", "float32")])
+       for dt in ("bfloat16", "float32")]
+    + [(f"rg {shape} {dt[0]}{dt[-2:]}", 1, 16, 1, lq, lk, True, dt, 256)
+       for shape, lq, lk, dts in (
+           ("P1024", 1024, 1024, ("bfloat16", "float32")),
+           ("ragged P1000", 1000, 1000, ("bfloat16",)),
+           ("q256 k1024", 256, 1024, ("bfloat16",)))
+       for dt in dts])
+#: the recurrentgemma-9b prefill's case: its row of the ``kernels`` line.
+FLASH_D256_CASE = "rg P1024 b16"
 
 
 def attention_pairs(lq: int, lk: int, causal: bool) -> int:
@@ -1139,9 +1185,10 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
 
 def phase_flash(smoke, torch, F, fa, kref, dev):
     """``flash_attention`` against its plain version at ``FLASH_CASES``.
-    Returns the first case's record (the serving shape), which makes up
-    the kernel's row of the final ``kernels`` line."""
-    first = None
+    Returns the records of the first case (SmolLM's serving shape) and of
+    ``FLASH_D256_CASE``, which make up the kernel's rows of the final
+    ``kernels`` line (``flash_attention``, ``flash_attention_d256``)."""
+    rows = {}
     for i, (label, b, h, hk, lq, lk, causal, dt, d) in enumerate(
             FLASH_CASES):
         dtype = getattr(torch, dt)
@@ -1189,12 +1236,14 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
         check(launches == 1, f"flash_attention: {launches} launches")
         check(err <= tol, f"flash_attention at {label}: relative error "
                           f"{err} > {tol}")
-        if first is None:
-            first = {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
-                     "library_ms": rec["library_ms"], "flops": flops,
-                     "bytes": by, "max_abs_err": abs_err,
-                     "peak": PEAK_BF16_FLOPS}
-    return first
+        name = ("flash_attention" if i == 0 else "flash_attention_d256"
+                if label == FLASH_D256_CASE else None)
+        if name:
+            rows[name] = {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                          "library_ms": rec["library_ms"], "flops": flops,
+                          "bytes": by, "max_abs_err": abs_err,
+                          "peak": PEAK_BF16_FLOPS}
+    return rows
 
 
 #: SmolLM-360M through the launcher: the continuous engine on 1,024-token
@@ -1382,32 +1431,34 @@ def phase_serve(smoke, torch, kernels, serve, M, T, dev):
 
 
 def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
-                  dev, kernel: str = "flash_attention",
-                  per_request: int | None = None,
+                  dev, per_request: dict | None = None,
                   label: str | None = None,
-                  variant: str | None = None) -> dict:
+                  variants: dict | None = None) -> dict:
     """``launch.serve.main(argv + ["--engine", engine])`` for each engine
     of ``argvs`` (8 requests each): every request ``ok`` with
     ``--max-new`` tokens; the continuous engine admits all 8 and launches
-    ``kernel`` ``per_request`` times per request (default: once a layer,
-    in its one-pass prefill; a tap kernel on its ``variant``), the static
-    engine (lockstep prefill through the decode path) never; tokens/s, p50
-    latency, peak memory.  Returns each engine's launches as ``"{label}
-    {engine}"`` (label: the phase)."""
+    each kernel of ``per_request`` that many times per request (default:
+    ``flash_attention`` once a layer, in its one-pass prefill), and no
+    other kernel (a tap kernel's launches per request by variant:
+    ``variants``), the static engine (lockstep prefill through the decode
+    path) never; tokens/s, p50 latency, peak memory.  Returns each
+    engine's launches as ``"{label} {engine}"`` (label: the phase)."""
     from repro_torch.kernels import tap_gemm as tg
     paths = {}
     label = label or phase
-    per_request = cfg.n_layers if per_request is None else per_request
+    per_request = ({"flash_attention": cfg.n_layers} if per_request is None
+                   else per_request)
     for engine, argv in argvs.items():
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         res = serve.main(argv + ["--engine", engine])
         counts = paths[f"{label} {engine}"] = kernels.launch_counts()
-        variants = tg.variant_launch_counts()
+        got_variants = tg.variant_launch_counts()
         s, reqs = res["summary"], res["requests"]
         max_new = int(argv[argv.index("--max-new") + 1])
         smoke.emit(phase, engine=engine, config=cfg.name, path=label,
-                   dtype=cfg.param_dtype, requests=len(reqs),
+                   dtype=cfg.param_dtype, layers=cfg.n_layers,
+                   requests=len(reqs),
                    prompt_len=int(argv[argv.index("--prompt-len") + 1]),
                    status=sorted({r.status for r in reqs}),
                    tokens=[len(r.out) for r in reqs],
@@ -1419,21 +1470,23 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
                    tok_s=res["tok_s"], p50_latency_s=res["p50_latency_s"],
                    seconds=res["seconds"],
                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
-                       dev), launches=counts, variant_launches=variants,
+                       dev), launches=counts, variant_launches=got_variants,
                    summary=s)
         check(len(reqs) == 8 and all(r.status == "ok"
                                      and len(r.out) == max_new
                                      for r in reqs),
               f"{cfg.name} {engine}: "
               f"{[(r.status, len(r.out)) for r in reqs]}")
-        want = per_request * s["admitted"] if engine == "continuous" else 0
-        check(counts[kernel] == want
-              and sum(counts.values()) == counts[kernel]
+        n = s["admitted"] if engine == "continuous" else 0
+        want = {k: per_request.get(k, 0) * n for k in counts}
+        want_variants = {k: v * n for k, v in (variants or {}).items()
+                         if v * n}
+        check(counts == want
               and (engine == "static" or s["admitted"] == 8)
-              and (variant is None or variants == (
-                  {f"{kernel}:{variant}": want} if want else {})),
+              and (variants is None or got_variants == want_variants),
               f"{cfg.name} {label} {engine}: {counts} launches "
-              f"({variants}), {s['admitted']} admitted")
+              f"({got_variants}), want {want} ({want_variants}), "
+              f"{s['admitted']} admitted")
         del res
         free_card(torch)
     return paths
@@ -1662,6 +1715,17 @@ def kernel_bf16_shapes(ConvDims, paper_cnn):
              paper_cnn.dims(paper_cnn.TABLE2_LAYERS[3]), 1, False)]
 
 
+def rg_conv_shapes(ConvDims):
+    """recurrentgemma-9b's temporal conv (``rglru_width`` = 4,096 groups of
+    one channel, 4 taps, causal; the geometry of Mamba2's): its training
+    shape in lm_train_hybrid (batch 4 x seq 512, the row the ``kernels``
+    line sums) and a 1,024-token prefill."""
+    return [("rg train 4x512 g4096", mamba2_conv_dims(ConvDims, 4, 512),
+             4096, True),
+            ("rg prefill 1x1024 g4096", mamba2_conv_dims(ConvDims, 1, 1024),
+             4096, False)]
+
+
 def dw_conv_times(smoke, torch, conv, tg, dev) -> None:
     """Mamba2-370M's conv as its layers call it at the training shape:
     ``depthwise_causal_conv1d`` on a (8, 512, 2,304) bf16 input, forward
@@ -1827,12 +1891,205 @@ def phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T, dev) -> dict:
 
     paths = {}
     for policy in ("pallas", "auto"):
+        n = full.n_layers if policy == "pallas" else 0
         paths.update(serve_engines(
             smoke, "serve_ssm", torch, kernels, serve, full,
             {e: a + ["--conv-policy", policy]
-             for e, a in SERVE_SSM_ARGV.items()}, dev, kernel="tap_gemm",
-            per_request=full.n_layers if policy == "pallas" else 0,
-            label=f"serve_ssm {policy}", variant=tg.DW))
+             for e, a in SERVE_SSM_ARGV.items()}, dev,
+            per_request={"tap_gemm": n}, label=f"serve_ssm {policy}",
+            variants={f"tap_gemm:{tg.DW}": n}))
+    return paths
+
+
+#: recurrentgemma-9b (``configs/recurrentgemma_9b.py``) through the
+#: launcher under ``--conv-policy pallas``, as the other families: the
+#: continuous engine on 1,024-token prompts (inside the 2,048-token window:
+#: each prefill runs ``tap_gemm`` once in each of the 26 RG-LRU layers and
+#: the flash kernel once in each of the 12 attention layers), the static
+#: engine on 128-token prompts.
+SERVE_HYBRID_ARGV = {
+    "continuous": ["--full", "--arch", "recurrentgemma-9b", "--requests",
+                   "8", "--prompt-len", "1024", "--max-new", "32",
+                   "--max-batch", "4", "--conv-policy", "pallas"],
+    "static": ["--full", "--arch", "recurrentgemma-9b", "--requests", "8",
+               "--prompt-len", "128", "--max-new", "8", "--max-batch", "4",
+               "--conv-policy", "pallas"]}
+#: the prefill-vs-scan checks' depth: one (rec, rec, attn) super-block and
+#: the two extra RG-LRU layers (the remainder full depth has), every width
+#: kept; the launcher and the device times run all 38 layers.
+HYBRID_SCAN_LAYERS = 5
+#: their prompts: 1,000 tokens fit the 2,048-token window (the prefill's
+#: attention runs the flash kernel at head dim 256); 2,100 pass it (the
+#: blockwise path with the window mask; the decode steps run the dense
+#: masked path).
+HYBRID_PROMPTS = (1000, 2100)
+#: the float32 checks' depth (one super-block and one extra RG-LRU layer).
+HYBRID_F32_LAYERS = 4
+#: recurrentgemma-9b's bf16 prefill vs its decode scan, as max |a - b| /
+#: max |b| over the last logits and every cache leaf of every layer: the
+#: bf16 roundings of the other families' checks (kernel attention and the
+#: conv's float32 sums against bf16 einsums), at 5 layers.
+HYBRID_BF16_TOL = SERVE_BF16_TOL
+
+
+def flat(tree, prefix: str = "") -> dict:
+    """``{"super/rec1/h": leaf, ...}`` of a nested dict."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(flat(val, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def hybrid_layers(cfg) -> tuple[int, int]:
+    """(RG-LRU layers, attention layers) of a hybrid config: a super-block
+    holds two and one, the remainder is RG-LRU."""
+    n_super = cfg.n_layers // len(cfg.layer_pattern)
+    return cfg.n_layers - n_super, n_super
+
+
+def hybrid_prefill_check(smoke, torch, M, T, kernels, tg, cfg, params,
+                         prompt, dev, tol, **fields) -> dict:
+    """The hybrid one-pass prefill against a scan of decode steps on one
+    prompt: relative errors of the last logits and of each cache leaf per
+    layer (``super/rec1/h`` ...); the prefill launches ``tap_gemm`` (on
+    ``dw``) once an RG-LRU layer under ``pallas`` and the flash kernel once
+    an attention layer when the prompt fits the window, the scan
+    nothing."""
+    toks = torch.as_tensor([prompt], device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, toks, cfg, len(prompt) + 1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = {k: v for k, v in kernels.launch_counts().items() if v}
+    pre_variants = tg.variant_launch_counts()
+    kernels.reset_launch_counts()
+    scan = T.init_cache(cfg, 1, len(prompt) + 1, dev)
+    t0 = time.perf_counter()
+    for t in range(len(prompt)):
+        want, scan = M.decode_step(params, scan, toks[:, t], t, cfg)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    scan_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    theirs = flat(scan)
+    by_leaf = {key: [rel_err(torch, leaf[i], theirs[key][i])[0]
+                     for i in range(leaf.shape[0])]
+               for key, leaf in flat(cache).items()}
+    rec = {"rel_err_logits": rel_err(torch, logits, want)[0],
+           "rel_err_cache_max": max(max(v) for v in by_leaf.values()),
+           "rel_err_by_leaf": by_leaf, "prefill_launches": pre,
+           "prefill_variant_launches": pre_variants,
+           "scan_launches": scan_launches, "prefill_seconds": prefill_s,
+           "scan_seconds": scan_s}
+    n_rec, n_attn = hybrid_layers(cfg)
+    pallas = cfg.conv_policy == "pallas"
+    flash = len(prompt) <= cfg.local_window
+    want_launches = {k: v for k, v in (("tap_gemm", n_rec * pallas),
+                                       ("flash_attention", n_attn * flash))
+                     if v}
+    rec.update(config=cfg.name, dtype=cfg.param_dtype, layers=cfg.n_layers,
+               conv_policy=cfg.conv_policy, prompt_len=len(prompt),
+               window=cfg.local_window, tol=tol,
+               want_prefill_launches=want_launches, **fields)
+    smoke.emit("serve_hybrid", **rec)
+    check(pre == want_launches and not scan_launches
+          and pre_variants == ({f"tap_gemm:{tg.DW}": n_rec} if pallas
+                               else {}),
+          f"{cfg.name} {len(prompt)} tokens: prefill launched {pre} "
+          f"({pre_variants}), want {want_launches}; the scan "
+          f"{scan_launches}")
+    check(max(rec["rel_err_logits"], rec["rel_err_cache_max"]) <= tol,
+          f"{cfg.name} {cfg.param_dtype} prefill vs decode scan at "
+          f"{len(prompt)} tokens: logits {rec['rel_err_logits']}, cache "
+          f"{rec['rel_err_cache_max']} (tol {tol})")
+    return rec
+
+
+def phase_serve_hybrid(smoke, torch, kernels, tg, serve, M, T, dev) -> dict:
+    """recurrentgemma-9b at its published widths under ``pallas``:
+    prefill vs the decode scan at ``HYBRID_SCAN_LAYERS`` layers on
+    ``HYBRID_PROMPTS`` (bf16), the 38-layer model's init, the launches and
+    device time of a 1,024-token prefill and a 4-lane decode step, both
+    engines through the launcher, and in float32 at ``HYBRID_F32_LAYERS``
+    layers prefill vs scan on the longer prompt and the greedy tokens of
+    the two engines and of ``pallas`` against ``auto``.  Returns each
+    engine's kernel launches."""
+    import dataclasses
+    full = dataclasses.replace(serve.get_config("recurrentgemma-9b"),
+                               conv_policy="pallas")
+    n_rec, n_attn = hybrid_layers(full)
+    cut = dataclasses.replace(full, n_layers=HYBRID_SCAN_LAYERS)
+    params, info = init_timed(torch, serve, M, cut, dev)
+    for plen in HYBRID_PROMPTS:
+        hybrid_prefill_check(smoke, torch, M, T, kernels, tg, cut, params,
+                             prompt_for(cut, plen), dev, HYBRID_BF16_TOL,
+                             check="prefill vs decode scan", **info)
+    del params
+    free_card(torch)
+
+    params, info = init_timed(torch, serve, M, full, dev)
+    check(info["n_params"] == 10_444_664_832,
+          f"recurrentgemma-9b: {info['n_params']} parameters")
+    smoke.emit("serve_hybrid", check="init", config=full.name,
+               memory_allocated_bytes=torch.cuda.memory_allocated(dev),
+               **info)
+    toks = torch.as_tensor([prompt_for(full, 1024, seed=1)], device=dev)
+    cache = T.init_cache(full, 4, 1024 + 34, dev)
+    nxt = toks[0, :4].clone()
+    pos = torch.full((4,), 1024, device=dev)
+    kernels.reset_launch_counts()
+    M.prefill(params, toks, full, 1024 + 34)
+    pre = kernels.launch_counts()
+    pre_variants = tg.variant_launch_counts()
+    prefill = device_time(torch, lambda: M.prefill(params, toks, full,
+                                                   1024 + 34), top=10)
+    kernels.reset_launch_counts()
+    step = device_time(torch, lambda: M.decode_step(params, cache, nxt, pos,
+                                                    full), top=10)
+    decode_launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    smoke.emit("serve_hybrid", check="device time", config=full.name,
+               dtype=full.param_dtype, conv_policy=full.conv_policy,
+               prefill_1024=prefill, prefill_launches=pre,
+               prefill_variant_launches=pre_variants,
+               decode_step_batch4=step, decode_launches=decode_launches)
+    check(pre["tap_gemm"] == n_rec and pre["flash_attention"] == n_attn
+          and sum(pre.values()) == n_rec + n_attn
+          and pre_variants == {f"tap_gemm:{tg.DW}": n_rec},
+          f"a 1,024-token prefill launched {pre} ({pre_variants})")
+    check(not decode_launches, f"decode launched {decode_launches}")
+    del params, cache
+    free_card(torch)
+
+    paths = serve_engines(smoke, "serve_hybrid", torch, kernels, serve, full,
+                          SERVE_HYBRID_ARGV, dev,
+                          per_request={"tap_gemm": n_rec,
+                                       "flash_attention": n_attn},
+                          variants={f"tap_gemm:{tg.DW}": n_rec})
+
+    cfg32 = dataclasses.replace(full, param_dtype="float32",
+                                act_dtype="float32",
+                                n_layers=HYBRID_F32_LAYERS)
+    params, info = init_timed(torch, serve, M, cfg32, dev)
+    hybrid_prefill_check(smoke, torch, M, T, kernels, tg, cfg32, params,
+                         prompt_for(cfg32, HYBRID_PROMPTS[-1]), dev,
+                         SERVE_F32_TOL, check="prefill vs decode scan",
+                         **info)
+    for label, rec in (
+            ("static vs continuous",
+             engines_agree(torch, serve, M, cfg32, params, 256, 16, dev)),
+            ("pallas vs auto",
+             ssm_policies_agree(torch, serve, M, cfg32, params, 256, 16,
+                                dev))):
+        smoke.emit("serve_hybrid", check=f"float32 greedy tokens, {label}",
+                   config=cfg32.name, layers=cfg32.n_layers, **rec)
+        check(all(d["margin"] < MARGIN_TOL for d in rec["differing"]),
+              f"float32 recurrentgemma {label} disagree beyond a near-tie: "
+              f"{rec['differing']}")
+    del params
+    free_card(torch)
     return paths
 
 
@@ -2056,6 +2313,123 @@ def phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi, dev) -> dict:
     return paths
 
 
+#: recurrentgemma-9b trained at its published widths and a depth cut:
+#: one super-block and the two extra RG-LRU layers (3.22 B parameters,
+#: 38.6 GB with AdamW's float32 moments; 38 layers would need 83.6 GB of
+#: moments alone), bf16, batch 4 x 512, through ``make_train_step`` with
+#: ``donate=True``: the functional update's second copy of the parameters
+#: and moments (and the guard's float32 grads) ran the card out of memory
+#: at 72.9 GB allocated.
+LM_TRAIN_HYBRID_LAYERS = 5
+LM_TRAIN_HYBRID_STEPS = 6
+
+
+def phase_lm_train_hybrid(smoke, torch, kernels, tg, train, smi,
+                          dev) -> dict:
+    """recurrentgemma-9b's train step at ``LM_TRAIN_HYBRID_LAYERS`` layers,
+    full width, bf16, guard on, donating its parameters and moments:
+    ``LM_TRAIN_HYBRID_STEPS`` steps under
+    ``pallas`` (each RG-LRU layer's conv on the three tap kernels' bf16
+    ``dw`` instances at 4,096 groups: the forward twice a layer a step,
+    remat, the super-block one checkpoint; the other two once), their
+    first loss and gradient norm against one step under ``auto``
+    (``LM_SSM_BF16_TOL``, ``LM_SSM_GNORM_TOL``; no launch); float32 at
+    ``HYBRID_F32_LAYERS`` layers, 5 steps (batch 2 x 256) under ``pallas``
+    against ``lax`` (``LOSS_TOL``).  Returns the bf16 runs' launches."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    t_phase = time.perf_counter()
+    full = train.get_config("recurrentgemma-9b")
+
+    def run(cfg, policy, steps, batch, seq, timed=False):
+        dcfg = DataConfig(seed=0, seq_len=seq, global_batch=batch,
+                          vocab=cfg.vocab)
+        params = M.init_params(torch.Generator().manual_seed(0), cfg, dev)
+        n_params = M.count_params(params)
+        opt = adamw.init_state(params)
+        step_fn = TS.make_train_step(cfg, adamw.AdamWConfig(peak_lr=3e-4),
+                                     total_steps=steps, warmup=1, guard=True,
+                                     conv_policy=policy, donate=True)
+        hist = []
+        for step in range(steps):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in make_batch(cfg, dcfg, step).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, b, step)
+            loss = float(metrics["loss"])
+            hist.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                         "grad_norm": float(metrics["grad_norm"]),
+                         "guard_bad": float(metrics["guard_bad"])})
+        del params, opt, metrics
+        free_card(torch)
+        return hist, n_params
+
+    cut = dataclasses.replace(full, n_layers=LM_TRAIN_HYBRID_LAYERS)
+    n_rec, _ = hybrid_layers(cut)
+    paths, hist, types, variants, peak = {}, {}, {}, {}, {}
+    for policy, steps in (("pallas", LM_TRAIN_HYBRID_STEPS), ("auto", 1)):
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        hist[policy], n_params = run(cut, policy, steps, 4, 512)
+        paths[f"lm_train_hybrid {policy}"] = kernels.launch_counts()
+        types[policy] = tg.type_launch_counts()
+        variants[policy] = tg.variant_launch_counts()
+        peak[policy] = torch.cuda.max_memory_allocated(dev)
+    a = [h["loss"] for h in hist["pallas"]]
+    secs = [h["seconds"] for h in hist["pallas"]]
+    step_s = statistics.median(secs[1:])
+    rel = lambda x, y: abs(x - y) / abs(y)     # noqa: E731
+    first_err = rel(a[0], hist["auto"][0]["loss"])
+    gnorm_err = rel(hist["pallas"][0]["grad_norm"],
+                    hist["auto"][0]["grad_norm"])
+
+    cfg32 = dataclasses.replace(full, param_dtype="float32",
+                                act_dtype="float32",
+                                n_layers=HYBRID_F32_LAYERS)
+    f32 = {policy: [h["loss"] for h in run(cfg32, policy, 5, 2, 256)[0]]
+           for policy in ("pallas", "lax")}
+    f32_err = max(rel(x, y) for x, y in zip(f32["pallas"], f32["lax"]))
+    n = LM_TRAIN_HYBRID_STEPS * n_rec
+    want = {"tap_gemm:bf16": 2 * n, "tap_gemm_phased:bf16": n,
+            "tap_wgrad:bf16": n}
+    want_variants = {"tap_gemm:dw": 2 * n, "tap_gemm_phased:dw": n,
+                     "tap_wgrad:dw": n}
+    smoke.emit("lm_train_hybrid", nvidia_smi=smi, config=full.name,
+               layers=cut.n_layers, n_params=n_params, dtype="bfloat16",
+               batch=4, seq=512, steps=len(a), median_step_s=step_s,
+               first_step_s=secs[0], tokens_per_s=4 * 512 / step_s,
+               max_memory_allocated_bytes=peak, history=hist,
+               first_loss_pallas_vs_auto=first_err, tol=LM_SSM_BF16_TOL,
+               first_grad_norm_pallas_vs_auto=gnorm_err,
+               grad_norm_tol=LM_SSM_GNORM_TOL,
+               f32_layers=HYBRID_F32_LAYERS, f32_losses=f32,
+               f32_max_rel_err=f32_err, f32_tol=LOSS_TOL, launches=paths,
+               launches_by_type=types, launches_by_variant=variants,
+               want_launches=want, want_variant_launches=want_variants,
+               seconds=time.perf_counter() - t_phase)
+    every = a + [hist["auto"][0]["loss"]] + f32["pallas"] + f32["lax"]
+    check(all(math.isfinite(x) for x in every), f"non-finite loss: {every}")
+    check(not any(h["guard_bad"] for v in hist.values() for h in v),
+          "the guard dropped a step")
+    check(types["pallas"] == want and variants["pallas"] == want_variants,
+          f"pallas training launched {types['pallas']} "
+          f"({variants['pallas']}), want {want} ({want_variants})")
+    check(not any(paths["lm_train_hybrid auto"].values()),
+          f"auto training launched {paths['lm_train_hybrid auto']}")
+    check(first_err <= LM_SSM_BF16_TOL and gnorm_err <= LM_SSM_GNORM_TOL,
+          f"first step pallas vs auto: loss {first_err} (tol "
+          f"{LM_SSM_BF16_TOL}), grad norm {gnorm_err} (tol "
+          f"{LM_SSM_GNORM_TOL})")
+    check(f32_err <= LOSS_TOL,
+          f"float32 losses pallas vs lax: {f32_err} > {LOSS_TOL}")
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -2129,6 +2503,9 @@ def main(argv=None) -> int:
     agg_bf16 = phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
                              kernel_bf16_shapes(ConvDims, paper_cnn), dev,
                              torch.bfloat16, "kernels_bf16")
+    agg_rg = phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
+                           rg_conv_shapes(ConvDims), dev, torch.bfloat16,
+                           "kernels_bf16")
     dw_conv_times(smoke, torch, conv, tg, dev)
     agg["matmul"] = phase_matmul(smoke, torch, mm, ref, tg,
                                  matmul_cases(torch, conv, shapes, ae), dev)
@@ -2143,26 +2520,35 @@ def main(argv=None) -> int:
     paths.update(phase_autotune(
         smoke, torch, ops, tg, ref, autotune, config, kernels, cnn_bp,
         shapes + [row[:4] for row in ae], paths["cnn_bp pallas"], dev))
-    agg["flash_attention"] = phase_flash(smoke, torch, F, fa, ref, dev)
+    agg.update(phase_flash(smoke, torch, F, fa, ref, dev))
     paths.update(phase_serve(smoke, torch, kernels, serve, M, T, dev))
     free_card(torch)
     paths.update(phase_serve_moe(smoke, torch, kernels, serve, M, T, dev))
     paths.update(phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T,
                                  dev))
+    paths.update(phase_serve_hybrid(smoke, torch, kernels, tg, serve, M, T,
+                                    dev))
     paths.update(phase_lm_train(smoke, torch, kernels, train, smi, dev))
     paths.update(phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi,
                                     dev))
+    paths.update(phase_lm_train_hybrid(smoke, torch, kernels, tg, train, smi,
+                                       dev))
     smoke.emit("summary", launches_by_path=paths)
 
     main_path = {k: "cnn_bp pallas" for k in TAP_KERNELS}
     main_path["matmul"] = "cnn_bp traditional"
     main_path["flash_attention"] = "serve continuous"
+    main_path["flash_attention_d256"] = "serve_hybrid continuous"
     shapes = {"matmul": "sum over the 15 traditional GEMMs (forward, input "
                         "grad, weight grad) of the 5 Table II layers, batch "
                         "2, float32",
               "flash_attention": "one prefill's attention: causal (1, 15, "
                                  "1024, 64) queries against (1, 5, 1024, 64) "
-                                 "keys and values, bf16"}
+                                 "keys and values, bf16",
+              "flash_attention_d256": "one recurrentgemma-9b prefill's "
+                                      "attention layer: causal (1, 16, 1024, "
+                                      "256) queries against (1, 1, 1024, 256) "
+                                      "keys and values, bf16"}
     for name in TAP_KERNELS:
         agg[f"{name}_bf16"] = agg_bf16[name]
         main_path[f"{name}_bf16"] = "lm_train_ssm pallas"
@@ -2171,15 +2557,25 @@ def main(argv=None) -> int:
                                   "batch 8 x seq 512, 2,304 groups of one "
                                   "channel, 4 taps; variant "
                                   + agg_bf16[name]["variant"])
+        agg[f"{name}_bf16_g4096"] = agg_rg[name]
+        main_path[f"{name}_bf16_g4096"] = "lm_train_hybrid pallas"
+        shapes[f"{name}_bf16_g4096"] = (
+            "the bf16 instance at recurrentgemma-9b's temporal conv, "
+            "training shape: batch 4 x seq 512, 4,096 groups of one "
+            "channel, 4 taps; variant " + agg_rg[name]["variant"])
     # The tap kernels' bf16-operand instances (the TPU kernels take the
-    # operands' dtype and sum in float32) have rows of their own.
-    rows = {**KERNELS, **{f"{k}_bf16": KERNELS[k] for k in TAP_KERNELS}}
+    # operands' dtype and sum in float32) have rows of their own, at
+    # Mamba2's and recurrentgemma's convs; so has flash attention at
+    # recurrentgemma's head dim 256.
+    rows = {**KERNELS, **{f"{k}_bf16{g}": KERNELS[k] for k in TAP_KERNELS
+                          for g in ("", "_g4096")},
+            "flash_attention_d256": KERNELS["flash_attention"]}
     out = []
     for name, (replaces, source) in rows.items():
         a = agg[name]
         b_s, b_by = bound(a["flops"], a["bytes"],
                           a.get("peak", PEAK_F32_FLOPS))
-        kernel = name.removesuffix("_bf16")
+        kernel = re.sub(r"_(bf16|d256).*", "", name)
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[main_path[name]][kernel],

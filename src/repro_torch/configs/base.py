@@ -1,18 +1,19 @@
 """Architecture configuration of the port's LM path.
 
 PyTorch-package copy of ``repro.configs.base.ArchConfig`` with the fields
-the dense, MoE and SSM families read (GQA or MLA attention, Mamba2's SSD
-block; the port imports nothing of the JAX package), and the per-pass conv
-engine policy of the model's convs (``conv_policy``, with the deprecated
-``conv_mode``).  ``dtype``/``adtype`` are torch dtypes.  ``reduced()``
-derives the CPU-scale smoke variant from the full config as the JAX
-package does, MoE, MLA and SSM overrides included.
+the dense, MoE, SSM and hybrid families read (GQA or MLA attention,
+Mamba2's SSD block, the RG-LRU block and the (rec, rec, attn) layer
+pattern with its local attention window; the port imports nothing of the
+JAX package), and the per-pass conv engine policy of the model's convs
+(``conv_policy``, with the deprecated ``conv_mode``).  ``dtype``/
+``adtype`` are torch dtypes.  ``reduced()`` derives the CPU-scale smoke
+variant from the full config as the JAX package does, MoE, MLA, SSM and
+window overrides included.
 
 The JAX config's ``attn_impl`` is left out: the port does not choose
-attention by a flag (every full-sequence causal call on the card runs the
-flash-attention kernel).  Fields of the other families (RG-LRU, hybrid
-patterns, frontends) come with them (ROADMAP A10); ``local_window``
-stays so that such a config is refused.
+attention by a flag (every full-sequence causal call on the card that no
+window masks runs the flash-attention kernel).  The frontend fields come
+with their families (ROADMAP A10.4).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense | moe | ssm (the families ported)
+    family: str                       # dense | moe | ssm | hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,6 +38,8 @@ class ArchConfig:
     vocab: int
     attn_kind: str = "causal"         # causal | bidir (encoder-only)
     local_window: Optional[int] = None
+    # hybrid: the repeating block pattern, e.g. ("rec", "rec", "attn")
+    layer_pattern: Optional[tuple[str, ...]] = None
     rope_theta: float = 10000.0
     # MoE
     n_experts: int = 0
@@ -58,6 +61,9 @@ class ArchConfig:
     ssm_conv: int = 4
     ssm_expand: int = 2
     ssm_head_dim: int = 64
+    # recurrent (RG-LRU / Griffin)
+    rglru_conv: int = 4
+    rglru_width: int = 0              # recurrent block width (defaults d_model)
     param_dtype: str = "float32"
     act_dtype: str = "float32"
     norm_eps: float = 1e-6
@@ -106,9 +112,12 @@ class ArchConfig:
         return self.family in ("ssm", "hybrid")
 
     def layer_kind(self, i: int) -> str:
-        """'ssm' or 'attn' for block i (the hybrid family's pattern comes
-        with it, ROADMAP A10)."""
-        return "ssm" if self.family == "ssm" else "attn"
+        """'attn' | 'rec' | 'ssm' for block i."""
+        if self.family == "ssm":
+            return "ssm"
+        if self.layer_pattern:
+            return self.layer_pattern[i % len(self.layer_pattern)]
+        return "attn"
 
     def is_moe_layer(self, i: int) -> bool:
         return self.n_experts > 0 and i >= self.first_dense_layers

@@ -13,13 +13,16 @@
 // 128-row blocks; here ragged edges are masked, so nothing is padded.
 // Blocks own 64 query rows of one (batch, head), walk key tiles of 64
 // rows, and run the heaviest causal blocks first.  No atomics: results are
-// identical run to run.  D <= 192, in instances for D <= 64, 128 and 192.
+// identical run to run.  D <= 256, in instances for D <= 64, 128, 192 and
+// 256.
 //
 // It runs the attention of every prefill of the LM server: one causal
 // pass over the prompt per layer, at SmolLM-360M's (1, 15, P, 64) queries
 // against (1, 5, P, 64) keys and values, moonshot-v1-16b-a3b's (1, 16, P,
-// 128) and DeepSeek-V3 MLA's (1, 128, P, 192) (qk_nope 128 + qk_rope 64,
-// v zero-padded from 128 to 192 by the caller), in bf16.  What bounds it on an
+// 128), DeepSeek-V3 MLA's (1, 128, P, 192) (qk_nope 128 + qk_rope 64,
+// v zero-padded from 128 to 192 by the caller) and recurrentgemma-9b's
+// (1, 16, P, 256) against one key/value head (MQA; only prompts that fit
+// its 2,048-key window reach the kernel), in bf16.  What bounds it on an
 // H100: at P = 1,024 a launch does 2.0 GFLOP (causal half of 4 P^2 D H)
 // against 4.5 MB, far above the bf16 ridge (989 TFLOP/s / 3.35 TB/s
 // = 295 FLOP/byte), so it is bound by operations, and those only run at
@@ -42,10 +45,15 @@
 // edge compute masks; a masked score becomes p = 0 exactly.  Rows that
 // are not 16-byte aligned (D % 8 != 0, or an unaligned base) take plain
 // loads into the same ring.  Shared memory: 45 KB for D <= 64, 85 KB for
-// D <= 128, 128 KB for D <= 192.  At D = 192 the output accumulator alone
-// takes 96 registers a thread, so that instance does not hold Q's 48
-// fragment registers for the walk: it re-reads them from shared memory
-// (where Q stays) with ldmatrix in every tile.
+// D <= 128, 128 KB for D <= 192, 165 KB for D <= 256 (one block an SM).
+// At D = 192 the output accumulator alone takes 96 registers a thread, so
+// that instance does not hold Q's 48 fragment registers for the walk: it
+// re-reads them from shared memory (where Q stays) with ldmatrix in every
+// tile.  At D = 256 the accumulator would take 128, so that instance runs
+// 8 warps, two to each 16-row strip: both compute the strip's S (and so
+// the same softmax statistics, with no exchange), and each holds and
+// updates half of O's columns (64 registers), reading its half of V.  The
+// second S costs a third more tensor-core work than one warp a strip.
 //
 // float32 (flash_kernel): SIMT float32 FMA (67 TFLOP/s peak).  256
 // threads; Q (scaled), K and V of the tile are staged in dynamic shared
@@ -54,8 +62,9 @@
 // scores (rows 4ty.., keys 4tx..); a row's max and sum are reduced over
 // the 16 threads of its half-warp with shuffles.  P goes back to shared
 // memory (transposed) for O += P V, where the thread owns rows 4ty.. and
-// columns 4tx.. (+64, +128 for wider D) of the output.  68.6, 119.8 or
-// 171.0 KB of shared memory.  Its products stay full float32: TF32 or bf16
+// columns 4tx.. (+64, +128, +192 for wider D) of the output.  68.6, 119.8,
+// 171.0 or 222.2 KB of shared memory (the last under the 227 KB a block
+// may take; one block an SM).  Its products stay full float32: TF32 or bf16
 // products would break the float32 serving path's 1e-5 tolerance.
 //
 // The entry returns cudaGetLastError() right after its launch.
@@ -98,8 +107,14 @@ int allow_smem(Kernel kernel, int bytes, bool* allowed) {
 
 namespace tc {
 
-constexpr int THREADS = 128;  // 4 warps x 16 query rows
 typedef __nv_bfloat16 bf16;
+
+// Warps to each 16-row strip of the 64 query rows: each holds 1 / CS of
+// O's columns.
+template <int DM>
+__host__ __device__ constexpr int col_split() { return DM > 192 ? 2 : 1; }
+template <int DM>
+__host__ __device__ constexpr int threads() { return 128 * col_split<DM>(); }
 
 // Row pitch of every shared tile (bf16): 16 bytes of padding put the 8
 // rows an ldmatrix phase reads on 8 distinct groups of 4 banks.
@@ -169,18 +184,19 @@ template <int DM, bool VEC>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           int row0, int rows, int D) {
   constexpr int P = pitch<DM>();
+  constexpr int NT = threads<DM>();
   if constexpr (VEC) {
     constexpr int CPR = DM / 8;  // 16-byte chunks per row
 #pragma unroll
-    for (int i = 0; i < 64 * CPR / THREADS; ++i) {
-      const int c = threadIdx.x + i * THREADS;
+    for (int i = 0; i < 64 * CPR / NT; ++i) {
+      const int c = threadIdx.x + i * NT;
       const int r = c / CPR, col = (c % CPR) * 8, row = row0 + r;
       const bool ok = row < rows && col < D;
       cp_async16(smem_addr(dst + r * P + col),
                  ok ? src + (size_t)row * D + col : src, ok ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < 64 * DM; e += THREADS) {
+    for (int e = threadIdx.x; e < 64 * DM; e += NT) {
       const int r = e / DM, col = e % DM, row = row0 + r;
       dst[r * P + col] = (row < rows && col < D)
                              ? src[(size_t)row * D + col]
@@ -190,17 +206,19 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 // grid = (cdiv(Lq, BQ), B * H).  q (B, H, Lq, D), k/v (B, Hk, Lk, D),
-// o (B, H, Lq, D), all contiguous bf16; DM = 64, 128 or 192 >= D.
+// o (B, H, Lq, D), all contiguous bf16; DM = 64, 128, 192 or 256 >= D.
 // scale_log2 = scale * log2(e).
 template <int DM, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(threads<DM>())
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                   int Hk, int Lq, int Lk, int D, int causal,
                   float scale_log2) {
   constexpr int P = pitch<DM>();
+  constexpr int CS = col_split<DM>();
   constexpr int KD = DM / 16;  // k-steps of S = Q K^T; column pairs of O
-  constexpr int NO = DM / 8;   // 8-column tiles of O
+  constexpr int KO = KD / CS;  // column pairs of O this warp holds
+  constexpr int NO = DM / 8 / CS;  // 8-column tiles of O this warp holds
   // Q held in registers for the whole walk, or (DM = 192) re-read from
   // shared memory in every tile.
   constexpr bool QREG = DM <= 128;
@@ -210,6 +228,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sv = sk + 2 * BKV * P;  // [2][BKV][P]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int strip = warp % 4;  // 16 query rows
+  const int col0 = (warp / 4) * KO;  // first column pair of O held here
   const int grp = lane / 4, tig = lane % 4;  // accumulator row, column pair
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -244,7 +264,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // stage the next load overwrites.
     cp_async_wait_all();
     __syncthreads();
-    const bf16* q_frag = sq + (warp * 16 + (lm_mat % 2) * 8 + lm_row) * P
+    const bf16* q_frag = sq + (strip * 16 + (lm_mat % 2) * 8 + lm_row) * P
                          + (lm_mat / 2) * 8;
     if constexpr (QREG) {
       if (t == 0) {
@@ -295,7 +315,7 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
     if (k0 + BKV > Lk || (causal && k0 + BKV - 1 > q_offset + q0)) {
-      const int qpos = q_offset + q0 + warp * 16 + grp;
+      const int qpos = q_offset + q0 + strip * 16 + grp;
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
@@ -350,13 +370,14 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // O += P V: V rows (keys) are the k dim, so .trans gives the B operand.
+    // This warp's columns: pairs col0 .. col0 + KO - 1.
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int dp = 0; dp < KD; ++dp) {
+      for (int dp = 0; dp < KO; ++dp) {
         uint32_t bf[4];
         ldsm_x4_trans(smem_addr(vt + (kk * 16 + (lm_mat % 2) * 8 + lm_row) * P
-                                + dp * 16 + (lm_mat / 2) * 8),
+                                + (col0 + dp) * 16 + (lm_mat / 2) * 8),
                       bf);
         mma(acc[2 * dp], pf[kk], bf[0], bf[1]);
         mma(acc[2 * dp + 1], pf[kk], bf[2], bf[3]);
@@ -370,12 +391,12 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    const int row = q0 + warp * 16 + grp + 8 * i;
+    const int row = q0 + strip * 16 + grp + 8 * i;
     if (row >= Lq) continue;
     bf16* orow = og + (size_t)row * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
-      const int col = n * 8 + tig * 2;
+      const int col = col0 * 16 + n * 8 + tig * 2;
       const float x = acc[n][2 * i] * inv, y = acc[n][2 * i + 1] * inv;
       if (VEC) {
         if (col < D)
@@ -398,7 +419,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const int err = allow_smem(flash_bf16_kernel<DM, VEC>, bytes, allowed);
   if (err) return err;
   const dim3 grid(cdiv(Lq, BQ), B * H);
-  flash_bf16_kernel<DM, VEC><<<grid, THREADS, bytes, stream>>>(
+  flash_bf16_kernel<DM, VEC><<<grid, threads<DM>(), bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Hk, Lq, Lk, D,
       causal, scale * 1.4426950408889634f);
@@ -420,9 +441,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
                                    scale, stream)
                : launch<128, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
                                     scale, stream);
-  return vec ? launch<192, true>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+  if (D <= 192)
+    return vec ? launch<192, true>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+                                   scale, stream)
+               : launch<192, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+                                    scale, stream);
+  return vec ? launch<256, true>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
                                  scale, stream)
-             : launch<192, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
+             : launch<256, false>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal,
                                   scale, stream);
 }
 
@@ -458,7 +484,7 @@ struct Tiles {
 };
 
 // grid = (cdiv(Lq, BQ), B * H).  q (B, H, Lq, D), k/v (B, Hk, Lk, D),
-// o (B, H, Lq, D), all contiguous float32; DM = 64, 128 or 192 >= D.
+// o (B, H, Lq, D), all contiguous float32; DM = 64, 128, 192 or 256 >= D.
 template <int DM>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -600,7 +626,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q, o: (B, H, Lq, D); k, v: (B, Hk, Lk, D); contiguous row-major, all
-// bfloat16 (bf16 = 1) or all float32 (bf16 = 0).  H % Hk == 0, 1 <= D <= 192,
+// bfloat16 (bf16 = 1) or all float32 (bf16 = 0).  H % Hk == 0, 1 <= D <= 256,
 // Lq >= 1, Lk >= 1, and Lq <= Lk when causal (the wrapper checks).
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int bf16, int B, int H, int Hk, int Lq, int Lk, int D,
@@ -614,7 +640,10 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   if (D <= 128)
     return launch_f32<128>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
                            stream);
-  return launch_f32<192>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
+  if (D <= 192)
+    return launch_f32<192>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
+                           stream);
+  return launch_f32<256>(q, k, v, o, B, H, Hk, Lq, Lk, D, causal, scale,
                          stream);
 }
 

@@ -6,7 +6,8 @@ on ``(B, H, L, D)``, causal or full, float32 sums, output in ``q.dtype``,
 plus grouped key/value heads (``k``, ``v`` may have ``Hk`` heads with
 ``H % Hk == 0``; query head h reads head ``h // (H // Hk)``).  It runs the
 attention of every prefill of the LM server
-(``repro_torch.models.attention._sdpa``), MLA's at head dim 192.
+(``repro_torch.models.attention._sdpa``), MLA's at head dim 192 and
+recurrentgemma-9b's at 256 (its prompts that fit the local window).
 
 bfloat16 inputs run on the tensor cores (``mma.sync``) and round each
 probability to bf16 before the P V product, where the TPU kernel keeps
@@ -41,8 +42,8 @@ from repro_torch.kernels.tap_gemm import GRID_YZ_MAX, _on_cuda, _stream
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
 
 #: the largest head dim the kernel's shared-memory tiles hold (instances
-#: for D <= 64, 128 and 192; the TPU kernel takes any D, ROADMAP B4).
-MAX_HEAD_DIM = 192
+#: for D <= 64, 128, 192 and 256; the TPU kernel takes any D, ROADMAP B4).
+MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p

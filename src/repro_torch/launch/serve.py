@@ -12,15 +12,18 @@ slotted-cache continuous-batching engine (``repro_torch.serve.continuous``),
 whose prefills run the flash-attention kernel.  The model is initialised
 from ``--seed`` (no weights are read).  ``--arch`` names a registered
 config (``repro_torch.configs``: smollm-360m, moonshot-v1-16b-a3b,
-deepseek-v3-671b, whose 61 layers at ``--full`` no one card holds, and
-mamba2-370m).  ``--full`` serves the published widths (``FULL``) instead
-of the smoke config the JAX launcher serves; the prompts are the JAX
-launcher's (``np.random.RandomState(seed)``).  ``--conv-policy`` pins the
-model's per-pass conv engines, as in the JAX launcher (Mamba2's depthwise
-conv: ``pallas`` runs its prefill's conv on the ``tap_gemm`` kernel).
+deepseek-v3-671b, whose 61 layers at ``--full`` no one card holds,
+mamba2-370m and recurrentgemma-9b).  ``--full`` serves the published
+widths (``FULL``) instead of the smoke config the JAX launcher serves;
+the prompts are the JAX launcher's (``np.random.RandomState(seed)``).
+``--conv-policy`` pins the model's per-pass conv engines, as in the JAX
+launcher (Mamba2's depthwise conv and RecurrentGemma's temporal conv:
+``pallas`` runs their prefill's conv on the ``tap_gemm`` kernel).
 ``--device`` defaults to the card and never falls back.
 
     python -m repro_torch.launch.serve --full --arch mamba2-370m \
+        --conv-policy pallas --requests 8 --prompt-len 1024 --max-new 32
+    python -m repro_torch.launch.serve --full --arch recurrentgemma-9b \
         --conv-policy pallas --requests 8 --prompt-len 1024 --max-new 32
 """
 

@@ -16,20 +16,28 @@ Layouts are the JAX package's: q (B, L, H, D), k/v (B, L, Hk, D), caches
 (n_layers, B, L_max, Hk, D); MLA caches (n_layers, B, L_max, kv_lora_rank)
 and (n_layers, B, L_max, qk_rope_head_dim).
 
-``_sdpa`` sends a full-sequence causal call with no ``window`` and no
-``kv_len`` to the flash-attention kernel wrapper
-(``repro_torch.kernels.flash_attention``: the CUDA kernel on the card, its
-plain version on the CPU) only when no gradient can flow through it (grad
-mode off, or none of q, k, v requires grad): the kernel has no backward,
-in the JAX package as here, and the JAX package trains through its XLA
-attention.  Every other call -- training, decode -- runs the JAX
-package's plain attention at that length: ``_sdpa_dense``, or
-``_sdpa_blockwise`` (the online softmax over key blocks, in plain
-PyTorch) for more than ``config.blockwise_kv_threshold`` keys.  MLA's
-full-sequence call takes the same route at head dim ``qk_nope +
-qk_rope`` (192 at DeepSeek-V3's widths), its ``v`` zero-padded to that
-dim and the output cropped, as in the JAX package.  A local window comes
-with its family (ROADMAP A10) and raises.
+``_sdpa`` sends a full-sequence causal call with no ``kv_len`` to the
+flash-attention kernel wrapper (``repro_torch.kernels.flash_attention``:
+the CUDA kernel on the card, its plain version on the CPU) only when no
+gradient can flow through it (grad mode off, or none of q, k, v requires
+grad): the kernel has no backward, in the JAX package as here, and the
+JAX package trains through its XLA attention.  Every other call --
+training, decode -- runs the JAX package's plain attention at that
+length: ``_sdpa_dense``, or ``_sdpa_blockwise`` (the online softmax over
+key blocks, in plain PyTorch) for more than
+``config.blockwise_kv_threshold`` keys.  MLA's full-sequence call takes
+the same route at head dim ``qk_nope + qk_rope`` (192 at DeepSeek-V3's
+widths), its ``v`` zero-padded to that dim and the output cropped, as in
+the JAX package.
+
+A local ``window`` (RecurrentGemma's attention layers) masks keys at or
+more than ``window`` positions behind the query (``q_pos - k_pos <
+window``), in the dense and the blockwise path, with scalar or per-lane
+query offsets.  The flash kernel takes no window (nor does the TPU
+kernel): a windowed call goes to it only when it has no more queries than
+the window, where the mask excludes nothing.  The JAX package's
+``_sdpa_local_window`` (behind its ``WINDOW_SKIP = False``, so it never
+runs there) is not ported (ROADMAP A0).
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ def _lane(v):
     return v[:, None, None] if torch.is_tensor(v) else v
 
 
-def _sdpa_dense(q, k, v, *, causal, q_offset, kv_len, scale):
+def _sdpa_dense(q, k, v, *, causal, q_offset, kv_len, scale, window=None):
     """q (B,Lq,H,D), k/v (B,Lk,Hk,D) -> (B,Lq,H,D); the JAX package's dense
     attention (scores in the inputs' type, softmax in float32).
     ``q_offset`` and ``kv_len`` are ints or per-lane (B,) tensors."""
@@ -86,6 +94,8 @@ def _sdpa_dense(q, k, v, *, causal, q_offset, kv_len, scale):
     mask = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (q_pos >= k_pos)
+    if window is not None:
+        mask = mask & (q_pos - k_pos < window)
     if kv_len is not None:
         mask = mask & (k_pos < _lane(kv_len))
     mask = mask.expand(b, lq, lk)
@@ -95,7 +105,8 @@ def _sdpa_dense(q, k, v, *, causal, q_offset, kv_len, scale):
     return out.reshape(b, lq, h, dh)
 
 
-def _sdpa_blockwise(q, k, v, *, causal, q_offset, kv_len, scale):
+def _sdpa_blockwise(q, k, v, *, causal, q_offset, kv_len, scale,
+                    window=None):
     """The JAX package's blockwise attention: an online softmax over key
     blocks of ``BLOCK_K``, in float32 (a loop of plain PyTorch in place
     of its ``lax.scan``).  ``q_offset`` and ``kv_len`` are scalars."""
@@ -118,6 +129,8 @@ def _sdpa_blockwise(q, k, v, *, causal, q_offset, kv_len, scale):
             mask = mask & (k_pos[None, :] < kv_len)
         if causal:
             mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        if window is not None:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
         s = s.masked_fill(~mask, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
@@ -138,16 +151,16 @@ def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
           q_offset=0, kv_len=None, scale: float | None = None):
     """q (B,Lq,H,D), k/v (B,Lk,Hk,D) -> (B,Lq,H,D).
 
-    GQA: query head h attends kv head h // (H/Hk); ``kv_len`` masks cache
-    positions >= len.  A full-sequence causal call through which no
-    gradient flows runs the flash kernel (heads-first copies in and out);
-    the rest is dense, or blockwise past the key-length threshold."""
-    if window is not None:
-        raise NotImplementedError("local-window attention is not ported "
-                                  "yet (ROADMAP A10)")
+    GQA: query head h attends kv head h // (H/Hk); ``window`` is a local
+    attention window (RecurrentGemma); ``kv_len`` masks cache positions >=
+    len.  A full-sequence causal call through which no gradient flows, and
+    whose window (if any) spans all its queries, runs the flash kernel
+    (heads-first copies in and out); the rest is dense, or blockwise past
+    the key-length threshold."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if (causal and kv_len is None and isinstance(q_offset, int)
             and q_offset == 0 and q.shape[1] == k.shape[1]
+            and (window is None or q.shape[1] <= window)
             and not _needs_grad(q, k, v)):
         o = flash_attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
@@ -156,9 +169,9 @@ def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
         return o.transpose(1, 2)
     if k.shape[1] > config.blockwise_kv_threshold and q.shape[1] > 1:
         return _sdpa_blockwise(q, k, v, causal=causal, q_offset=q_offset,
-                               kv_len=kv_len, scale=scale)
+                               kv_len=kv_len, scale=scale, window=window)
     return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset,
-                       kv_len=kv_len, scale=scale)
+                       kv_len=kv_len, scale=scale, window=window)
 
 
 def gqa_prefill(p, x, cfg: ArchConfig, *, window=None, positions=None):
@@ -194,10 +207,8 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *, window=None):
     ``pos`` is an int (one position clock for the whole batch) or a
     per-lane (B,) tensor (every lane writes its own slot).  The caches are
     updated in place (the JAX version returns new arrays): a step writes one
-    position per lane instead of copying the cache."""
-    if window is not None:
-        raise NotImplementedError("local-window attention is not ported "
-                                  "yet (ROADMAP A10)")
+    position per lane instead of copying the cache.  ``window`` masks the
+    keys ``window`` or more positions behind ``pos``."""
     b = x.shape[0]
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     per_lane = torch.is_tensor(pos)
@@ -216,8 +227,8 @@ def gqa_decode(p, x, cache_k, cache_v, pos, cfg: ArchConfig, *, window=None):
     else:
         cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
         cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    o = _sdpa(q, cache_k, cache_v, causal=False, q_offset=pos,
-              kv_len=pos + 1)
+    o = _sdpa(q, cache_k, cache_v, causal=False, window=window,
+              q_offset=pos, kv_len=pos + 1)
     return L.linear(p["wo"], o.reshape(b, 1, h * dh)), cache_k, cache_v
 
 

@@ -1,6 +1,6 @@
 """Top-level LM API used by the server, the trainer and the tests
-(counterpart of ``repro.models.model``, the token path of the dense, MoE
-and SSM families):
+(counterpart of ``repro.models.model``, the token path of the dense, MoE,
+SSM and hybrid families):
 
     model = build_model(cfg)
     params = model.init(generator, device)
@@ -12,14 +12,17 @@ The parameter tree is key for key the JAX package's, so
 ``repro_torch.tree.params_from_numpy(jax_params)`` plugs straight in.  The
 head is tied to the embedding or an untied ``lm_head``; ``forward``
 returns the MoE aux terms and, for a config with ``mtp_depth``, the
-multi-token-prediction logits.  Frontends come with ROADMAP A10.
+multi-token-prediction logits.  Frontends come with ROADMAP A10.4.
 
 ``prefill`` is ONE causal pass over the prompt, whose attention runs the
 flash-attention kernel on the card (MoE layers at a capacity that drops
 no token; a Mamba2 layer runs its chunked SSD, its depthwise conv on the
 ``tap_gemm`` kernel under ``pallas``, and caches its final state and last
-conv inputs); the JAX package computes the same result as a ``lax.scan``
-of ``P`` decode steps.
+conv inputs; a hybrid RG-LRU layer likewise runs its temporal conv on
+``tap_gemm`` and caches its final recurrent state and last conv inputs,
+and its local-window attention runs the kernel when the prompt fits the
+window, the masked plain attention past it); the JAX package computes
+the same result as a ``lax.scan`` of ``P`` decode steps.
 """
 
 from __future__ import annotations
@@ -127,9 +130,14 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int):
     JAX package's scan of ``P`` decode steps returns.  A Mamba2 layer
     caches its SSM state after position ``P - 1`` and its last ``ssm_conv
     - 1`` conv inputs (a ragged last SSD chunk is padded with steps that
-    change nothing), the state that scan leaves.  MoE layers run at
-    capacity ``B * P``, which drops no token, as the scan's steps do.  The
-    head runs on the last position only."""
+    change nothing), the state that scan leaves.  The hybrid cache holds,
+    per super-block, ``rec1``/``rec2`` (each the float32 recurrent state
+    ``h`` after position ``P - 1`` and the last ``rglru_conv - 1``
+    pre-conv inputs ``conv``, zero on the left of a shorter prompt) and
+    ``attn``'s keys and values at ``[0, P)``, and the ``extra`` RG-LRU
+    layers' ``h``/``conv``.  MoE layers run at capacity ``B * P``, which
+    drops no token, as the scan's steps do.  The head runs on the last
+    position only."""
     b, plen = tokens.shape
     if not 1 <= plen <= max_len:
         raise ValueError(f"prefill: prompt of {plen} tokens for a cache of "

@@ -16,7 +16,9 @@ The engine keeps a slotted KV cache with per-lane position clocks:
 For the SSM family (Mamba2) the "cache" is each layer's SSM state and its
 last conv inputs: the prefill's one pass runs the depthwise conv on the
 ``tap_gemm`` kernel under ``conv_policy="pallas"`` (one launch a layer),
-and decode steps read no position.  ``conv_policy`` pins the model's conv
+and decode steps read no position.  The hybrid family (RecurrentGemma)
+caches each RG-LRU layer's recurrent state and last conv inputs the same
+way, and each local-window attention layer's keys and values.  ``conv_policy`` pins the model's conv
 engines, as in the JAX engine.
 
 The JAX engine's observability spans and its ``serve.prefill`` /

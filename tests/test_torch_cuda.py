@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each tap-GEMM kernel, ``matmul`` and
-``flash_attention`` against its plain version (head dims up to 192), a
+``flash_attention`` against its plain version (head dims up to 256), a
 prefill's one kernel launch per layer against a lockstep scan of decode
-steps (SmolLM-360M, and the MoE family with GQA and MLA), ``conv2d``
+steps (SmolLM-360M, the MoE family with GQA and MLA, and the hybrid
+family's RG-LRU and local-window layers), ``conv2d``
 under ``pallas``, ``traditional`` and ``bp_im2col`` against ``lax``,
 ``conv2d_transpose`` against its ``lax`` materialization, determinism
 of the split-K sums, launch counting, 20 training steps against ``lax``,
@@ -440,6 +441,17 @@ FLASH_CASES = [
     (1, 4, 4, 64, 256, 192, True, torch.float32),
     (1, 4, 2, 100, 130, 160, False, torch.float32),
     (1, 4, 2, 77, 130, 180, True, torch.bfloat16),
+    # D up to 256 (recurrentgemma-9b: 16 query heads of 256 against one
+    # KV head): causal and ragged, full with Hk == H, Lq < Lk, and rows of
+    # D = 250 that are not 16-byte aligned.
+    (1, 16, 1, 1000, 1000, 256, True, torch.bfloat16),
+    (1, 16, 1, 1000, 1000, 256, True, torch.float32),
+    (1, 4, 4, 200, 200, 256, False, torch.bfloat16),
+    (1, 4, 4, 200, 200, 256, False, torch.float32),
+    (1, 4, 1, 64, 300, 256, True, torch.bfloat16),
+    (1, 4, 1, 64, 300, 256, True, torch.float32),
+    (2, 4, 2, 77, 130, 250, True, torch.bfloat16),
+    (1, 4, 2, 1, 130, 256, True, torch.bfloat16),
 ]
 
 
@@ -474,7 +486,7 @@ def test_flash_attention_raises_on_what_the_kernel_does_not_take(cuda):
         flash_attention(q, q.bfloat16(), q.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3), q)
-    wide = torch.zeros(1, 2, 8, 200, device=cuda)
+    wide = torch.zeros(1, 2, 8, 300, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="head dim"):
@@ -583,6 +595,41 @@ def test_moe_prefill_launches_the_kernel_once_per_layer(cuda, arch):
     for name in cache:
         for key in cache[name]:
             _close(cache[name][key], scan[name][key])
+
+
+@pytest.mark.parametrize("plen", [30, 45])
+def test_hybrid_prefill_matches_the_decode_scan(cuda, plen):
+    """recurrentgemma-9b's smoke config (window 32) in float32 under
+    ``pallas``: the one-pass prefill launches ``tap_gemm`` once a
+    recurrent layer and, for a prompt that fits the window, the flash
+    kernel once an attention layer (none past it: the masked plain
+    attention runs); the decode scan launches neither.  Logits and every
+    cache leaf match the scan."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-9b"),
+                              conv_policy="pallas")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, plen),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    reset_launch_counts()
+    logits, cache = M.prefill(params, toks, cfg, plen + 4)
+    counts = launch_counts()
+    assert counts["tap_gemm"] == 3
+    assert counts["flash_attention"] == (1 if plen <= cfg.local_window
+                                         else 0)
+    reset_launch_counts()
+    scan = T.init_cache(cfg, 2, plen + 4, cuda)
+    for t in range(plen):
+        want, scan = M.decode_step(params, scan, toks[:, t], t, cfg)
+    assert not any(launch_counts().values())
+    _close(logits, want)
+    for got, ref_ in zip(tree_leaves(cache), tree_leaves(scan)):
+        _close(got, ref_)
 
 
 #: input grads of each variant and copy width, as (x shape, w shape, conv

@@ -3,7 +3,7 @@ version (``repro_torch.kernels.ref.flash_attention_ref``, which the wrapper
 returns for CPU tensors) against the Pallas ``flash_attention`` kernel in
 interpret mode and against ``repro.kernels.ref.flash_attention_ref`` --
 causal and full, ragged lengths, fewer queries than keys, grouped
-key/value heads (against JAX on repeated K/V) and head dims up to 192 --
+key/value heads (against JAX on repeated K/V) and head dims up to 256 --
 all within 1e-5 in float32.  The CUDA kernel itself is held against the plain version on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
@@ -34,6 +34,10 @@ CASES = [
     # MLA's head dim (qk_nope 128 + qk_rope 64), the card's widest instance
     (1, 2, 2, 130, 130, 192, True),
     (1, 4, 2, 48, 160, 192, True),       # Lq < Lk, GQA
+    # recurrentgemma-9b's head dim, one KV head (MQA): the card's widest
+    (1, 4, 1, 130, 130, 256, True),
+    (1, 2, 2, 100, 100, 256, False),
+    (1, 4, 1, 48, 160, 256, True),       # Lq < Lk
 ]
 
 

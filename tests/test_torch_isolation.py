@@ -67,7 +67,9 @@ def test_module_list_covers_the_slice():
               "repro_torch.optim.compression", "repro_torch.data.pipeline",
               "repro_torch.ft.failures", "repro_torch.ckpt.checkpoint",
               "repro_torch.launch.train", "repro_torch.models.mamba2",
-              "repro_torch.configs.mamba2_370m"):
+              "repro_torch.configs.mamba2_370m",
+              "repro_torch.models.recurrent",
+              "repro_torch.configs.recurrentgemma_9b"):
         assert m in mods
         importlib.import_module(m)
 

@@ -21,6 +21,7 @@ from repro.configs import deepseek_v3_671b as jdeepseek  # noqa: E402
 from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
 from repro.configs import mamba2_370m as jmamba2  # noqa: E402
 from repro.configs import moonshot_v1_16b_a3b as jmoonshot  # noqa: E402
+from repro.configs import recurrentgemma_9b as jrg  # noqa: E402
 from repro.configs import smollm_360m as jsmol  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
@@ -31,6 +32,7 @@ from repro_torch.configs import deepseek_v3_671b as tdeepseek  # noqa: E402
 from repro_torch.configs import mamba2_370m as tmamba2  # noqa: E402
 from repro_torch.configs import moonshot_v1_16b_a3b as tmoonshot  # noqa: E402,E501
 from repro_torch.configs import smollm_360m as tsmol  # noqa: E402
+from repro_torch.configs import recurrentgemma_9b as trg  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -68,7 +70,8 @@ CONFIGS = [pytest.param(mine, theirs, conf,
            for name, mine, theirs in (("smollm", tsmol, jsmol),
                                       ("moonshot", tmoonshot, jmoonshot),
                                       ("deepseek", tdeepseek, jdeepseek),
-                                      ("mamba2", tmamba2, jmamba2))
+                                      ("mamba2", tmamba2, jmamba2),
+                                      ("recurrentgemma", trg, jrg))
            for conf in ("FULL", "SMOKE")]
 
 
@@ -84,25 +87,30 @@ def test_configs_match_the_jax_package(mine, theirs, conf):
 
 
 def test_only_smollm_is_registered():
-    """The registry holds the dense SmolLM-360M, the MoE family and the SSM
-    family (Mamba2), by module name and dashed alias; a family still
-    unported (hybrid) raises, in the registry and in the model."""
+    """The registry holds the dense SmolLM-360M, the MoE family, the SSM
+    family (Mamba2) and the hybrid family (recurrentgemma-9b), by module
+    name and dashed alias; a config still unported (granite-3-8b) raises,
+    in the registry, and so does a family still unported (vlm) in the
+    model; a windowed ``_sdpa`` call runs."""
     assert configs.get_config("smollm_360m") is tsmol.FULL
-    for mod in (tmoonshot, tdeepseek, tmamba2):
+    for mod in (tmoonshot, tdeepseek, tmamba2, trg):
         name = mod.__name__.rsplit(".", 1)[1]
         assert configs.get_config(name) is mod.FULL \
             is configs.get_config(name.replace("_", "-"))
         assert configs.get_smoke_config(mod.FULL.name) is mod.SMOKE
-    with pytest.raises(NotImplementedError, match="A10"):
-        configs.get_config("recurrentgemma-9b")
+    for name in ("granite_3_8b", "granite-3-8b"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            configs.get_config(name)
     assert sorted(M.init_params(torch.Generator(), tmamba2.SMOKE, "cpu")
                   ["blocks"]) == ["ln", "ssm"]
+    assert sorted(M.init_params(torch.Generator(), trg.SMOKE, "cpu")) == [
+        "embed", "extra", "final_norm", "lm_head", "super"]
     with pytest.raises(NotImplementedError, match="A10"):
         M.init_params(torch.Generator(), dataclasses.replace(
-            CFG, family="hybrid"), "cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        A._sdpa(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
-                torch.zeros(1, 4, 2, 8), causal=True, window=2)
+            CFG, family="vlm"), "cpu")
+    q = torch.randn(1, 4, 2, 8, generator=torch.Generator().manual_seed(0))
+    out = A._sdpa(q, q, q, causal=True, window=2)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
 
 
 def test_rmsnorm_rope_and_mlp_match_jax(jparams, params):

@@ -367,6 +367,43 @@ def test_guard_drops_nan_steps_like_jax(jparams):
     assert int(to["step"]) == int(jo["step"]) == 3
 
 
+@pytest.mark.parametrize("guard", [False, True])
+def test_a_donated_step_equals_the_functional_step(guard, monkeypatch):
+    """``make_train_step(..., donate=True)`` writes into the parameters and
+    moments it is given (here in chunks of 1,000 elements, so chunks
+    straddle every leaf's end): the same values as the functional step
+    bit for bit, steps 2-3 poisoned with NaN (dropped by the guard) and
+    the clip engaged after them; the returned trees are the tensors that
+    went in."""
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 1000)
+    kw = dict(total_steps=10, warmup=2, loss=_poisoned(TS.loss_fn),
+              guard=TS.GuardConfig(clip_after=1) if guard else None)
+    runs = {}
+    for donate in (False, True):
+        params = M.init_params(torch.Generator().manual_seed(0), CFG, "cpu")
+        opt = adamw.init_state(params)
+        step = TS.make_train_step(CFG, adamw.AdamWConfig(peak_lr=5e-3),
+                                  donate=donate, **kw)
+        hist = []
+        for s, b in enumerate(_batches(5)):
+            poison = np.nan if guard and s in (2, 3) else 1.0
+            b = tree_from_numpy({**b, "poison": np.float32(poison)}, "cpu")
+            ins = tree_leaves(params) + tree_leaves(opt["m"])
+            params, opt, metrics = step(params, opt, b, s)
+            if donate:
+                assert all(a is b for a, b in zip(
+                    ins, tree_leaves(params) + tree_leaves(opt["m"])))
+            hist.append({k: float(v) for k, v in metrics.items()})
+        runs[donate] = (hist, params, opt)
+    (h0, p0, o0), (h1, p1, o1) = runs[False], runs[True]
+    np.testing.assert_equal(h0, h1)         # NaN grad norms equal too
+    if guard:
+        assert [h["guard_bad"] for h in h0] == [0, 0, 1, 1, 0]
+        assert h0[4]["guard_clipped"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(p0) + tree_leaves(o0), tree_leaves(p1) + tree_leaves(o1)))
+
+
 def test_compressed_gradients_still_train():
     """int8 compression with error feedback (the port's mirror of the JAX
     package's test): training descends and tracks the uncompressed
