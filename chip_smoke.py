@@ -110,7 +110,9 @@ PATH):
                    and float32) and recurrentgemma-9b's (16 heads of 256
                    against one KV head, causal P 1,024 in bf16 and float32,
                    a ragged P 1,000 and 256 queries against 1,024 keys in
-                   bf16); two runs are bit-equal; kernel, plain and
+                   bf16) and hubert-xlarge's encoder (4 x 16 heads of
+                   80, full attention over 1,000 frames, bf16 and
+                   float32); two runs are bit-equal; kernel, plain and
                    ``F.scaled_dot_product_attention`` device times (timed
                    only: the port never calls it), host time, bound.
  11. serve      -- SmolLM-360M at full width, initialised from a seed: the
@@ -195,7 +197,34 @@ PATH):
                    vs scan on 2,100 tokens (``SERVE_F32_TOL``), greedy
                    tokens of the two engines and of ``pallas`` against
                    ``auto`` (the margin rule of serve).
- 15. lm_train   -- ``python -m repro_torch.launch.train --arch smollm-360m``
+ 15. serve_dense -- granite-3-8b, minicpm-2b and phi4-mini-3.8b at full
+                   width (bf16, drawn on the card from seed 0, with their
+                   init seconds; the parameter count held to the JAX
+                   package's): prefill vs the decode scan on a
+                   ``DENSE_PROMPT``-token prompt at ``DENSE_SCAN_LAYERS``
+                   layers, bf16 (``SERVE_BF16_TOL``) and float32
+                   (``SERVE_F32_TOL``); the device time of a 1,024-token
+                   prefill and a 4-lane decode step at full depth;
+                   ``launch.serve --full --arch <name>`` continuous, 4
+                   requests of 1,024 tokens, 16 new, batch 4 (flash at D 64
+                   or 128, n_layers x admitted launches), tokens/s, peak
+                   memory.
+ 16. serve_vlm  -- internvl2-76b at its published widths cut to
+                   ``VLM_LAYERS`` layers (bf16): a no-grad ``forward`` on
+                   256 image embeddings and 768 text tokens (8 flash
+                   launches at D 128, logits over the text only) against
+                   the same forward in grad mode (dense attention, no
+                   launch) within ``SERVE_BF16_TOL``; the continuous
+                   engine on 4 text requests of 1,024 tokens, 16 new
+                   (``VLM_LAYERS`` launches a request); prefill vs scan at
+                   ``DENSE_SCAN_LAYERS`` layers on text.
+ 17. encode_audio -- hubert-xlarge at full width (48 layers, bf16): a
+                   no-grad forward on 4 x 1,000 frames (flash non-causal
+                   at D 80, 48 launches) against the grad-mode forward
+                   (dense) within ``SERVE_BF16_TOL``, device time and peak
+                   memory; the same in float32 at ``DENSE_SCAN_LAYERS``
+                   layers within ``SERVE_F32_TOL``.
+ 18. lm_train   -- ``python -m repro_torch.launch.train --arch smollm-360m``
                    at the published widths (bf16, seed 0, batch 8, seq 512,
                    ``--lr`` 3e-4, the guard on): (a) 30 steps with
                    checkpoints every 15; (b) the same stopped after 15 and
@@ -210,7 +239,7 @@ PATH):
                    falls; no kernel launched.  Median step time, tokens/s,
                    peak memory, and one profiled step's device-busy share
                    (last: the profiler slows later kernels).
- 16. lm_train_ssm -- ``python -m repro_torch.launch.train --arch
+ 19. lm_train_ssm -- ``python -m repro_torch.launch.train --arch
                    mamba2-370m --conv-policy pallas`` at the published
                    widths (bf16, seed 0, batch 8, seq 512, guard on, 6
                    steps): each layer's conv on the three tap kernels'
@@ -222,7 +251,7 @@ PATH):
                    float32 at ``SSM_F32_LAYERS`` layers, 5 steps of
                    ``pallas`` against ``lax`` (``LOSS_TOL``); median step
                    time, tokens/s, peak memory.
- 17. lm_train_hybrid -- recurrentgemma-9b's ``make_train_step`` at its
+ 20. lm_train_hybrid -- recurrentgemma-9b's ``make_train_step`` at its
                    published widths and ``LM_TRAIN_HYBRID_LAYERS`` layers
                    (bf16, seed 0, batch 4 x 512, guard on): 6 steps under
                    ``pallas`` (per step, 8 ``tap_gemm``, 4
@@ -232,12 +261,21 @@ PATH):
                    ``HYBRID_F32_LAYERS`` layers, 5 steps of ``pallas``
                    against ``lax`` (``LOSS_TOL``); median step time,
                    tokens/s, peak memory.
- 18. summary    -- every kernel's launches on each path, each path run with
+ 21. lm_train_audio -- ``python -m repro_torch.launch.train --arch
+                   hubert-xlarge`` at full width (bf16, batch 8, seq 512,
+                   6 steps, guard on; no launch: training runs dense
+                   attention): finite losses, seconds a step, frames/s,
+                   peak memory; float32 at ``DENSE_SCAN_LAYERS`` layers,
+                   the first 3 losses of ``make_train_step`` on the card
+                   against the same run on this machine's CPU from the same
+                   parameters (``LOSS_TOL``).
+ 22. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
 Then a ``{"kernels": [...]}`` line (the five kernels; the tap kernels'
 bf16 instances at Mamba2's and at recurrentgemma-9b's training shapes;
-flash attention at recurrentgemma-9b's head dim 256), and last
+flash attention at recurrentgemma-9b's head dim 256 and, full, at
+hubert-xlarge's head dim 80), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed phase raises, so the script exits non-zero and prints no result;
 it also does so without a CUDA device or without the package beside it.
@@ -1150,8 +1188,10 @@ def phase_autotune(smoke, torch, ops, tg, ref, autotune, config, kernels,
 #: (label, B, H, Hk, Lq, Lk, causal, dtype name, D); the first is the shape
 #: a 1,024-token prefill gives the kernel on the SmolLM serving path; the
 #: moonshot-v1-16b-a3b prefill's (16 heads of 128), DeepSeek-V3 MLA's
-#: (128 heads of 192: qk_nope 128 + qk_rope 64) and recurrentgemma-9b's
-#: (16 heads of 256 against one KV head) follow the SmolLM cases.
+#: (128 heads of 192: qk_nope 128 + qk_rope 64), recurrentgemma-9b's
+#: (16 heads of 256 against one KV head) and hubert-xlarge's encoder's (4
+#: clips of 1,000 frames, 16 heads of 80 on the D-128 instance, full
+#: attention) follow the SmolLM cases.
 FLASH_CASES = (
     [("serve P1024 bf16", 1, 15, 5, 1024, 1024, True, "bfloat16", 64)]
     + [(f"serve P{p} {dt[0]}{dt[-2:]}", 1, 15, 5, p, p, True, dt, 64)
@@ -1170,9 +1210,13 @@ FLASH_CASES = (
            ("P1024", 1024, 1024, ("bfloat16", "float32")),
            ("ragged P1000", 1000, 1000, ("bfloat16",)),
            ("q256 k1024", 256, 1024, ("bfloat16",)))
-       for dt in dts])
-#: the recurrentgemma-9b prefill's case: its row of the ``kernels`` line.
-FLASH_D256_CASE = "rg P1024 b16"
+       for dt in dts]
+    + [(f"hubert P1000 full {dt[0]}{dt[-2:]}", 4, 16, 16, 1000, 1000, False,
+        dt, 80) for dt in ("bfloat16", "float32")])
+#: the cases of the ``kernels`` line's rows beside the first case's:
+#: recurrentgemma-9b's prefill and hubert-xlarge's encoder.
+FLASH_ROW_CASES = {"rg P1024 b16": "flash_attention_d256",
+                   "hubert P1000 full b16": "flash_attention_bidir_d80"}
 
 
 def attention_pairs(lq: int, lk: int, causal: bool) -> int:
@@ -1186,8 +1230,9 @@ def attention_pairs(lq: int, lk: int, causal: bool) -> int:
 def phase_flash(smoke, torch, F, fa, kref, dev):
     """``flash_attention`` against its plain version at ``FLASH_CASES``.
     Returns the records of the first case (SmolLM's serving shape) and of
-    ``FLASH_D256_CASE``, which make up the kernel's rows of the final
-    ``kernels`` line (``flash_attention``, ``flash_attention_d256``)."""
+    ``FLASH_ROW_CASES``, which make up the kernel's rows of the final
+    ``kernels`` line (``flash_attention``, ``flash_attention_d256``,
+    ``flash_attention_bidir_d80``)."""
     rows = {}
     for i, (label, b, h, hk, lq, lk, causal, dt, d) in enumerate(
             FLASH_CASES):
@@ -1236,8 +1281,7 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
         check(launches == 1, f"flash_attention: {launches} launches")
         check(err <= tol, f"flash_attention at {label}: relative error "
                           f"{err} > {tol}")
-        name = ("flash_attention" if i == 0 else "flash_attention_d256"
-                if label == FLASH_D256_CASE else None)
+        name = "flash_attention" if i == 0 else FLASH_ROW_CASES.get(label)
         if name:
             rows[name] = {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                           "library_ms": rec["library_ms"], "flops": flops,
@@ -1255,10 +1299,11 @@ SERVE_ARGV = {
                    "--max-new", "32", "--max-batch", "4"],
     "static": ["--full", "--requests", "8", "--prompt-len", "128",
                "--max-new", "8", "--max-batch", "4"]}
-#: the bf16 prefill-vs-scan check runs half of SmolLM's 32 layers, every
-#: width kept (its 1,024-step scan took 59 s at 32); the device times and
-#: the launcher run all 32.
-SERVE_BF16_LAYERS = 16
+#: the bf16 prefill-vs-scan check runs a quarter of SmolLM's 32 layers,
+#: every width kept (its 1,024-step scan took 59 s at 32; 16 until the
+#: dense, VLM and audio phases came); the device times and the launcher
+#: run all 32.
+SERVE_BF16_LAYERS = 8
 
 
 def prefill_vs_scan(torch, M, T, cfg, params, prompt, dev):
@@ -1435,8 +1480,8 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
                   label: str | None = None,
                   variants: dict | None = None) -> dict:
     """``launch.serve.main(argv + ["--engine", engine])`` for each engine
-    of ``argvs`` (8 requests each): every request ``ok`` with
-    ``--max-new`` tokens; the continuous engine admits all 8 and launches
+    of ``argvs`` (``--requests`` each): every request ``ok`` with
+    ``--max-new`` tokens; the continuous engine admits all and launches
     each kernel of ``per_request`` that many times per request (default:
     ``flash_attention`` once a layer, in its one-pass prefill), and no
     other kernel (a tap kernel's launches per request by variant:
@@ -1456,6 +1501,7 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
         got_variants = tg.variant_launch_counts()
         s, reqs = res["summary"], res["requests"]
         max_new = int(argv[argv.index("--max-new") + 1])
+        n_req = int(argv[argv.index("--requests") + 1])
         smoke.emit(phase, engine=engine, config=cfg.name, path=label,
                    dtype=cfg.param_dtype, layers=cfg.n_layers,
                    requests=len(reqs),
@@ -1472,9 +1518,9 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
                        dev), launches=counts, variant_launches=got_variants,
                    summary=s)
-        check(len(reqs) == 8 and all(r.status == "ok"
-                                     and len(r.out) == max_new
-                                     for r in reqs),
+        check(len(reqs) == n_req and all(r.status == "ok"
+                                         and len(r.out) == max_new
+                                         for r in reqs),
               f"{cfg.name} {engine}: "
               f"{[(r.status, len(r.out)) for r in reqs]}")
         n = s["admitted"] if engine == "continuous" else 0
@@ -1482,7 +1528,7 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
         want_variants = {k: v * n for k, v in (variants or {}).items()
                          if v * n}
         check(counts == want
-              and (engine == "static" or s["admitted"] == 8)
+              and (engine == "static" or s["admitted"] == n_req)
               and (variants is None or got_variants == want_variants),
               f"{cfg.name} {label} {engine}: {counts} launches "
               f"({got_variants}), want {want} ({want_variants}), "
@@ -1503,11 +1549,12 @@ SERVE_MOE_ARGV = {
 #: prompt of the MoE prefill-vs-scan checks (the scan reads every expert
 #: of every layer at each of its steps).
 MOE_PROMPT = 512
-#: moonshot's bf16 prefill-vs-scan check runs its first 16 of 48 layers
-#: (the dense one and 15 MoE layers), every width kept: the 512-step scan
-#: of all 48 took 152 s on the H100's host; the device times and the
-#: launcher run all 48.
-MOE_SCAN_LAYERS = 16
+#: moonshot's bf16 prefill-vs-scan check runs its first 8 of 48 layers
+#: (the dense one and 7 MoE layers), every width kept: the 512-step scan
+#: of all 48 took 152 s on the H100's host (16 layers until the dense,
+#: VLM and audio phases came); the device times and the launcher run all
+#: 48.
+MOE_SCAN_LAYERS = 8
 #: the float32 moonshot checks run 4 of its 48 layers (the dense first
 #: layer and 3 MoE layers), every width kept.
 MOE_F32_LAYERS = 4
@@ -1624,6 +1671,48 @@ def serve_moonshot_f32(smoke, torch, serve, M, T, dev) -> None:
     free_card(torch)
 
 
+def engine_run(smoke, phase, torch, kernels, serve, cfg, params,
+               prompt_len: int, dev, max_new: int = 16) -> dict:
+    """The continuous engine built directly (a depth cut the launcher has
+    not) on 4 requests of ``prompt_len`` tokens, ``max_new`` new, 4 lanes:
+    every request ``ok`` with its tokens and the flash kernel launched
+    once a layer a request; tokens/s and peak memory.  Returns the
+    launches."""
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = serve.ENGINES["continuous"](cfg, params, max_batch=4,
+                                      max_len=prompt_len + max_new + 2)
+    for rid in range(4):
+        eng.submit(serve.Request(rid=rid, prompt=prompt_for(
+            cfg, prompt_len, seed=10 + rid), max_new=max_new))
+    t0 = time.perf_counter()
+    reqs = eng.run()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    s = eng.run_summary()
+    smoke.emit(phase, engine="continuous", config=cfg.name,
+               layers=cfg.n_layers, dtype=cfg.param_dtype,
+               requests=len(reqs), prompt_len=prompt_len,
+               status=sorted({r.status for r in reqs}),
+               tokens=[len(r.out) for r in reqs], admitted=s["admitted"],
+               decode_steps=s["decode_steps"],
+               prefill_s_per_request=s["prefill_s"] / len(reqs),
+               decode_ms_per_step=1e3 * s["decode_s"]
+               / max(s["decode_steps"], 1),
+               tok_s=sum(len(r.out) for r in reqs) / secs, seconds=secs,
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                   dev), launches=counts)
+    check(len(reqs) == 4 and all(r.status == "ok" and len(r.out) == max_new
+                                 for r in reqs),
+          f"{cfg.name} continuous: "
+          f"{[(r.status, len(r.out)) for r in reqs]}")
+    check(counts["flash_attention"] == cfg.n_layers * 4
+          and s["admitted"] == 4,
+          f"{cfg.name} continuous: {counts['flash_attention']} flash "
+          f"launches, {s['admitted']} admitted")
+    return counts
+
+
 def serve_deepseek(smoke, torch, kernels, serve, M, T, dev) -> dict:
     """DeepSeek-V3 at its published widths, ``DEEPSEEK_LAYERS`` layers, in
     bf16: the prefill (the kernel at head dim 192) vs the absorbed decode
@@ -1635,34 +1724,9 @@ def serve_deepseek(smoke, torch, kernels, serve, M, T, dev) -> dict:
     prefill_check(smoke, "serve_moe", torch, M, T, cfg, params,
                   prompt_for(cfg, MOE_PROMPT), dev, MLA_BF16_TOL,
                   check="MLA prefill vs absorbed decode scan", **info)
-    kernels.reset_launch_counts()
-    eng = serve.ENGINES["continuous"](cfg, params, max_batch=4,
-                                      max_len=MOE_PROMPT + 16 + 2)
-    for rid in range(4):
-        eng.submit(serve.Request(rid=rid, prompt=prompt_for(
-            cfg, MOE_PROMPT, seed=10 + rid), max_new=16))
-    t0 = time.perf_counter()
-    reqs = eng.run()
-    secs = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    s = eng.run_summary()
-    smoke.emit("serve_moe", engine="continuous", config=cfg.name,
-               layers=cfg.n_layers, dtype=cfg.param_dtype,
-               requests=len(reqs), prompt_len=MOE_PROMPT,
-               status=sorted({r.status for r in reqs}),
-               tokens=[len(r.out) for r in reqs], admitted=s["admitted"],
-               decode_steps=s["decode_steps"],
-               prefill_s_per_request=s["prefill_s"] / len(reqs),
-               decode_ms_per_step=1e3 * s["decode_s"]
-               / max(s["decode_steps"], 1),
-               tok_s=sum(len(r.out) for r in reqs) / secs, seconds=secs,
-               launches=counts)
-    check(len(reqs) == 4 and all(r.status == "ok" and len(r.out) == 16
-                                 for r in reqs),
-          f"DeepSeek continuous: {[(r.status, len(r.out)) for r in reqs]}")
-    check(counts["flash_attention"] == cfg.n_layers * 4,
-          f"DeepSeek continuous: {counts['flash_attention']} flash launches")
-    del params, eng
+    counts = engine_run(smoke, "serve_moe", torch, kernels, serve, cfg,
+                        params, MOE_PROMPT, dev)
+    del params
     free_card(torch)
     return {"serve_mla continuous": counts}
 
@@ -2093,6 +2157,218 @@ def phase_serve_hybrid(smoke, torch, kernels, tg, serve, M, T, dev) -> dict:
     return paths
 
 
+#: the dense configs served at full width, with their parameter counts
+#: (the JAX package's ``init_params`` under ``jax.eval_shape``).
+DENSE_PARAMS = {"granite-3-8b": 8_170_848_256, "minicpm-2b": 2_724_880_896,
+                "phi4-mini-3.8b": 4_450_618_368}
+#: the prefill-vs-scan checks of the dense configs and the VLM's text, and
+#: the audio encoder's float32 forward: the first layers, every width
+#: kept; the prompt of the prefill-vs-scan checks.
+DENSE_SCAN_LAYERS = 4
+DENSE_PROMPT = 256
+
+
+def dense_argv(arch: str) -> dict:
+    """The continuous engine through the launcher: 4 requests of 1,024
+    tokens, 16 new, on 4 lanes."""
+    return {"continuous": ["--full", "--arch", arch, "--requests", "4",
+                           "--prompt-len", "1024", "--max-new", "16",
+                           "--max-batch", "4"]}
+
+
+def prefill_and_step_times(smoke, phase, torch, M, T, cfg, params, dev):
+    """Device time of one 1,024-token prefill and of one decode step of 4
+    lanes past it, emitted under ``phase``."""
+    toks = torch.as_tensor([prompt_for(cfg, 1024, seed=1)], device=dev)
+    cache = T.init_cache(cfg, 4, 1024 + 34, dev)
+    nxt = toks[0, :4].clone()
+    pos = torch.full((4,), 1024, device=dev)
+    smoke.emit(phase, check="device time", config=cfg.name,
+               layers=cfg.n_layers, dtype=cfg.param_dtype,
+               prefill_1024=device_time(torch, lambda: M.prefill(
+                   params, toks, cfg, 1024 + 34)),
+               decode_step_batch4=device_time(
+                   torch, lambda: M.decode_step(params, cache, nxt, pos,
+                                                cfg)))
+
+
+def phase_serve_dense(smoke, torch, kernels, serve, M, T, dev) -> dict:
+    """granite-3-8b, minicpm-2b and phi4-mini-3.8b at their published
+    widths: prefill vs the decode scan at ``DENSE_SCAN_LAYERS`` layers in
+    bf16 and float32, the full model's init (its parameter count held to
+    ``DENSE_PARAMS``), the device time of a prefill and a decode step, and
+    the continuous engine through the launcher.  Returns each config's
+    launches."""
+    import dataclasses
+    paths = {}
+    for arch, n_params in DENSE_PARAMS.items():
+        full = serve.get_config(arch)
+        cut = dataclasses.replace(full, n_layers=DENSE_SCAN_LAYERS)
+        for cfg, tol in ((cut, SERVE_BF16_TOL), (dataclasses.replace(
+                cut, param_dtype="float32", act_dtype="float32"),
+                SERVE_F32_TOL)):
+            params, info = init_timed(torch, serve, M, cfg, dev)
+            prefill_check(smoke, "serve_dense", torch, M, T, cfg, params,
+                          prompt_for(cfg, DENSE_PROMPT), dev, tol,
+                          check="prefill vs decode scan", **info)
+            del params
+            free_card(torch)
+        params, info = init_timed(torch, serve, M, full, dev)
+        smoke.emit("serve_dense", check="init", config=full.name,
+                   memory_allocated_bytes=torch.cuda.memory_allocated(dev),
+                   **info)
+        check(info["n_params"] == n_params,
+              f"{arch}: {info['n_params']} parameters, want {n_params}")
+        prefill_and_step_times(smoke, "serve_dense", torch, M, T, full,
+                               params, dev)
+        del params
+        free_card(torch)
+        paths.update(serve_engines(smoke, "serve_dense", torch, kernels,
+                                   serve, full, dense_argv(arch), dev,
+                                   label=f"serve_dense {arch}"))
+    return paths
+
+
+#: internvl2-76b at its published widths cut to its first 8 of 80 layers
+#: (8,972,804,096 parameters, 17.9 GB in bf16; the 80 layers' 141 GB fit
+#: no card), as DeepSeek-V3 is cut; 256 image embeddings (its
+#: ``frontend_tokens``) ahead of 768 text tokens.
+VLM_LAYERS = 8
+VLM_PARAMS = 8_972_804_096
+VLM_TEXT = 768
+
+
+def phase_serve_vlm(smoke, torch, kernels, serve, M, T, dev) -> dict:
+    """internvl2-76b at ``VLM_LAYERS`` layers in bf16: a no-grad forward on
+    image embeddings and text (one flash launch a layer, logits over the
+    text only) against the grad-mode forward (dense attention), the
+    continuous engine on text prompts (built directly: the launcher has
+    no depth cut, nor has the JAX one), and prefill vs scan at
+    ``DENSE_SCAN_LAYERS`` layers on text.  Returns the engine's
+    launches."""
+    import dataclasses
+    full = serve.get_config("internvl2-76b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    params, info = init_timed(torch, serve, M, cfg, dev)
+    check(info["n_params"] == VLM_PARAMS,
+          f"internvl2-76b at {VLM_LAYERS} layers: {info['n_params']} "
+          f"parameters, want {VLM_PARAMS}")
+    gen = torch.Generator(device=dev).manual_seed(500)
+    image = torch.randn(1, cfg.frontend_tokens, cfg.d_frontend, device=dev,
+                        generator=gen)
+    batch = {"tokens": torch.as_tensor([prompt_for(cfg, VLM_TEXT)],
+                                       device=dev), "frontend": image}
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = M.forward(params, batch, cfg)[0]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["flash_attention"]
+    with torch.no_grad():
+        fwd = device_time(torch, lambda: M.forward(params, batch, cfg))
+    kernels.reset_launch_counts()
+    want = M.forward(params, dict(batch, frontend=image.clone()
+                                  .requires_grad_(True)), cfg)[0].detach()
+    dense_launches = kernels.launch_counts()["flash_attention"]
+    err = rel_err(torch, got, want)[0]
+    smoke.emit("serve_vlm", check="forward, flash vs dense", config=cfg.name,
+               layers=cfg.n_layers, dtype=cfg.param_dtype,
+               image_tokens=cfg.frontend_tokens, text_tokens=VLM_TEXT,
+               logits_shape=list(got.shape), flash_launches=launches,
+               dense_launches=dense_launches, rel_err_logits=err,
+               tol=SERVE_BF16_TOL, forward=fwd, **info)
+    check(tuple(got.shape) == (1, VLM_TEXT, cfg.vocab),
+          f"VLM logits {tuple(got.shape)}")
+    check(launches == cfg.n_layers and dense_launches == 0,
+          f"VLM forward: {launches} flash launches, grad mode "
+          f"{dense_launches}")
+    check(err <= SERVE_BF16_TOL, f"VLM forward flash vs dense: {err}")
+    del got, want
+
+    counts = engine_run(smoke, "serve_vlm", torch, kernels, serve, cfg,
+                        params, 1024, dev)
+    del params
+    free_card(torch)
+
+    cut = dataclasses.replace(full, n_layers=DENSE_SCAN_LAYERS)
+    params, info = init_timed(torch, serve, M, cut, dev)
+    prefill_check(smoke, "serve_vlm", torch, M, T, cut, params,
+                  prompt_for(cut, DENSE_PROMPT), dev, SERVE_BF16_TOL,
+                  check="text prefill vs decode scan", **info)
+    del params
+    free_card(torch)
+    return {"serve_vlm continuous": counts}
+
+
+#: hubert-xlarge's encoder input: 4 clips of 20 s at its 50 frames a
+#: second, 1,000 frames each; its parameter count (the JAX package's).
+AUDIO_CLIPS, AUDIO_FRAMES = 4, 1000
+AUDIO_PARAMS = 1_260_360_960
+
+
+def audio_forward_check(smoke, torch, kernels, serve, M, cfg, dev, tol,
+                        n_params: int | None = None) -> dict:
+    """A no-grad forward of the audio encoder (the flash kernel, full, once
+    a layer) against the grad-mode forward (dense attention, no launch):
+    the largest logit difference over the largest logit within ``tol``;
+    with ``n_params`` (the published model), the parameter count held to
+    it and the forward's device time.  Returns the no-grad forward's
+    launches."""
+    params, info = init_timed(torch, serve, M, cfg, dev)
+    check(n_params is None or info["n_params"] == n_params,
+          f"{cfg.name}: {info['n_params']} parameters, want {n_params}")
+    gen = torch.Generator(device=dev).manual_seed(600)
+    frames = torch.randn(AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_frontend,
+                         device=dev, generator=gen)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        got = M.forward(params, {"frontend": frames}, cfg)[0]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rec = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(
+        dev)}
+    if n_params is not None:
+        with torch.no_grad():
+            rec["forward"] = device_time(torch, lambda: M.forward(
+                params, {"frontend": frames}, cfg), top=8)
+        rec["frames_per_s"] = (AUDIO_CLIPS * AUDIO_FRAMES * 1e3
+                               / rec["forward"]["wall_ms"])
+    kernels.reset_launch_counts()
+    want = M.forward(params, {"frontend": frames.clone().requires_grad_(
+        True)}, cfg)[0].detach()
+    dense = kernels.launch_counts()["flash_attention"]
+    err = rel_err(torch, got, want)[0]
+    smoke.emit("encode_audio", check="forward, flash (full, D 80) vs dense",
+               config=cfg.name, layers=cfg.n_layers, dtype=cfg.param_dtype,
+               clips=AUDIO_CLIPS, frames=AUDIO_FRAMES,
+               logits_shape=list(got.shape), launches=counts,
+               dense_launches=dense, rel_err_logits=err, tol=tol, **rec,
+               **info)
+    check(tuple(got.shape) == (AUDIO_CLIPS, AUDIO_FRAMES, cfg.vocab),
+          f"audio logits {tuple(got.shape)}")
+    check(counts["flash_attention"] == cfg.n_layers and dense == 0,
+          f"audio forward: {counts['flash_attention']} flash launches, "
+          f"grad mode {dense}")
+    check(err <= tol, f"audio forward flash vs dense: {err} > {tol}")
+    del params, got, want
+    free_card(torch)
+    return counts
+
+
+def phase_encode_audio(smoke, torch, kernels, serve, M, dev) -> dict:
+    """hubert-xlarge at full width in bf16 and in float32 at
+    ``DENSE_SCAN_LAYERS`` layers: ``audio_forward_check``.  Returns the
+    bf16 forward's launches."""
+    import dataclasses
+    full = serve.get_config("hubert-xlarge")
+    counts = audio_forward_check(smoke, torch, kernels, serve, M, full, dev,
+                                 SERVE_BF16_TOL, AUDIO_PARAMS)
+    audio_forward_check(smoke, torch, kernels, serve, M, dataclasses.replace(
+        full, param_dtype="float32", act_dtype="float32",
+        n_layers=DENSE_SCAN_LAYERS), dev, SERVE_F32_TOL)
+    return {"encode_audio": counts}
+
+
 #: the launcher's own --lr: 3e-3 (what examples/train_lm.py passes at the
 #: smoke config) drives the full-width model's loss up within 30 steps of
 #: a one-step warmup on the H100 (PERF.md, §6).
@@ -2430,6 +2706,81 @@ def phase_lm_train_hybrid(smoke, torch, kernels, tg, train, smi,
     return paths
 
 
+#: hubert-xlarge through the training launcher at its published widths.
+LM_TRAIN_AUDIO_ARGV = ["--arch", "hubert-xlarge", "--batch", "8", "--seq",
+                       "512", "--steps", "6", "--log-every", "5"]
+#: the float32 card-vs-CPU steps: batch and frames (the CPU's time).
+AUDIO_F32_BATCH, AUDIO_F32_SEQ, AUDIO_F32_STEPS = 2, 128, 3
+
+
+def phase_lm_train_audio(smoke, torch, kernels, train, smi, dev) -> dict:
+    """hubert-xlarge trained through the launcher at full width (bf16,
+    guard on; dense attention, no launch): finite losses, no step dropped,
+    seconds a step, frames/s, peak memory.  Then in float32 at
+    ``DENSE_SCAN_LAYERS`` layers, ``AUDIO_F32_STEPS`` guarded steps of
+    ``make_train_step`` on the card and on this machine's CPU from the
+    same parameters (drawn on the CPU) and batches: losses within
+    ``LOSS_TOL``.  Returns the launcher run's launches."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist = []
+    losses = train.main(LM_TRAIN_AUDIO_ARGV, history=hist)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    free_card(torch)
+    secs = [h["seconds"] for h in hist]
+    step_s = statistics.median(secs[1:])
+    frames = 8 * 512
+
+    cfg32 = dataclasses.replace(train.get_config("hubert-xlarge"),
+                                param_dtype="float32", act_dtype="float32",
+                                n_layers=DENSE_SCAN_LAYERS)
+    dcfg = DataConfig(seed=0, seq_len=AUDIO_F32_SEQ,
+                      global_batch=AUDIO_F32_BATCH, vocab=cfg32.vocab)
+    on_cpu = M.init_params(torch.Generator().manual_seed(0), cfg32, "cpu")
+    f32 = {}
+    for where, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        params = tree_map(lambda t: t.to(d, copy=True), on_cpu)
+        opt = adamw.init_state(params)
+        step_fn = TS.make_train_step(cfg32, adamw.AdamWConfig(peak_lr=3e-4),
+                                     total_steps=AUDIO_F32_STEPS, warmup=1,
+                                     guard=True)
+        f32[where] = []
+        for step in range(AUDIO_F32_STEPS):
+            b = {k: torch.from_numpy(v).to(d)
+                 for k, v in make_batch(cfg32, dcfg, step).items()}
+            params, opt, metrics = step_fn(params, opt, b, step)
+            f32[where].append(float(metrics["loss"]))
+        del params, opt, metrics
+    free_card(torch)
+    f32_err = max(abs(a - b) / abs(b) for a, b in zip(f32["cuda"],
+                                                      f32["cpu"]))
+    smoke.emit("lm_train_audio", nvidia_smi=smi, config="hubert-xlarge",
+               dtype="bfloat16", batch=8, seq=512, steps=len(losses),
+               losses=losses, history=hist, median_step_s=step_s,
+               first_step_s=secs[0], frames_per_s=frames / step_s,
+               max_memory_allocated_bytes=peak, launches=counts,
+               f32_layers=DENSE_SCAN_LAYERS, f32_batch=AUDIO_F32_BATCH,
+               f32_seq=AUDIO_F32_SEQ, f32_losses=f32,
+               f32_max_rel_err=f32_err, f32_tol=LOSS_TOL,
+               seconds=time.perf_counter() - t_phase)
+    check(len(losses) == 6 and all(math.isfinite(x) for x in losses)
+          and not any(h["guard_bad"] for h in hist),
+          f"hubert-xlarge training: {hist}")
+    check(not any(counts.values()), f"training launched {counts}")
+    check(f32_err <= LOSS_TOL,
+          f"float32 losses card vs CPU: {f32} ({f32_err} > {LOSS_TOL})")
+    return {"lm_train_audio": counts}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -2528,17 +2879,23 @@ def main(argv=None) -> int:
                                  dev))
     paths.update(phase_serve_hybrid(smoke, torch, kernels, tg, serve, M, T,
                                     dev))
+    paths.update(phase_serve_dense(smoke, torch, kernels, serve, M, T, dev))
+    paths.update(phase_serve_vlm(smoke, torch, kernels, serve, M, T, dev))
+    paths.update(phase_encode_audio(smoke, torch, kernels, serve, M, dev))
     paths.update(phase_lm_train(smoke, torch, kernels, train, smi, dev))
     paths.update(phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi,
                                     dev))
     paths.update(phase_lm_train_hybrid(smoke, torch, kernels, tg, train, smi,
                                        dev))
+    paths.update(phase_lm_train_audio(smoke, torch, kernels, train, smi,
+                                      dev))
     smoke.emit("summary", launches_by_path=paths)
 
     main_path = {k: "cnn_bp pallas" for k in TAP_KERNELS}
     main_path["matmul"] = "cnn_bp traditional"
     main_path["flash_attention"] = "serve continuous"
     main_path["flash_attention_d256"] = "serve_hybrid continuous"
+    main_path["flash_attention_bidir_d80"] = "encode_audio"
     shapes = {"matmul": "sum over the 15 traditional GEMMs (forward, input "
                         "grad, weight grad) of the 5 Table II layers, batch "
                         "2, float32",
@@ -2548,7 +2905,12 @@ def main(argv=None) -> int:
               "flash_attention_d256": "one recurrentgemma-9b prefill's "
                                       "attention layer: causal (1, 16, 1024, "
                                       "256) queries against (1, 1, 1024, 256) "
-                                      "keys and values, bf16"}
+                                      "keys and values, bf16",
+              "flash_attention_bidir_d80": "one hubert-xlarge encoder "
+                                           "layer's attention: full (4, 16, "
+                                           "1000, 80) queries, keys and "
+                                           "values, bf16, on the D-128 "
+                                           "instance"}
     for name in TAP_KERNELS:
         agg[f"{name}_bf16"] = agg_bf16[name]
         main_path[f"{name}_bf16"] = "lm_train_ssm pallas"
@@ -2566,16 +2928,17 @@ def main(argv=None) -> int:
     # The tap kernels' bf16-operand instances (the TPU kernels take the
     # operands' dtype and sum in float32) have rows of their own, at
     # Mamba2's and recurrentgemma's convs; so has flash attention at
-    # recurrentgemma's head dim 256.
+    # recurrentgemma's head dim 256 and, full, at hubert-xlarge's 80.
     rows = {**KERNELS, **{f"{k}_bf16{g}": KERNELS[k] for k in TAP_KERNELS
                           for g in ("", "_g4096")},
-            "flash_attention_d256": KERNELS["flash_attention"]}
+            "flash_attention_d256": KERNELS["flash_attention"],
+            "flash_attention_bidir_d80": KERNELS["flash_attention"]}
     out = []
     for name, (replaces, source) in rows.items():
         a = agg[name]
         b_s, b_by = bound(a["flops"], a["bytes"],
                           a.get("peak", PEAK_F32_FLOPS))
-        kernel = re.sub(r"_(bf16|d256).*", "", name)
+        kernel = re.sub(r"_(bf16|d256|bidir).*", "", name)
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[main_path[name]][kernel],

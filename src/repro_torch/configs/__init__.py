@@ -1,35 +1,41 @@
 """The paper's conv workloads, and the LM configs of the serving path.
 
-``get_config(name)``/``get_smoke_config(name)`` know the dense SmolLM-360M,
-the MoE family (moonshot-v1-16b-a3b; deepseek-v3-671b, with MLA), the
-SSM family (mamba2-370m) and the hybrid family (recurrentgemma-9b), by
-the JAX package's module names and their dashed aliases: the other
-architectures of the JAX package (the remaining dense configs, the VLM
-and audio families) come with ROADMAP A10 and raise
-``NotImplementedError`` until then.
+``get_config(name)``/``get_smoke_config(name)`` know every architecture
+of the JAX package (``repro.configs.ARCH_IDS``): the dense family
+(smollm-360m, granite-3-8b, minicpm-2b, phi4-mini-3.8b), the MoE family
+(moonshot-v1-16b-a3b; deepseek-v3-671b, with MLA), the SSM family
+(mamba2-370m), the hybrid family (recurrentgemma-9b), the VLM
+(internvl2-76b) and the audio encoder (hubert-xlarge), by module name,
+config name and the module name dashed (``phi4-mini-3-8b`` beside
+``phi4-mini-3.8b``), as the JAX package's ``ALIASES``.  A name neither
+knows raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_v3_671b, mamba2_370m,
-                                 moonshot_v1_16b_a3b, recurrentgemma_9b,
+from repro_torch.configs import (deepseek_v3_671b, granite_3_8b,
+                                 hubert_xlarge, internvl2_76b, mamba2_370m,
+                                 minicpm_2b, moonshot_v1_16b_a3b,
+                                 phi4_mini_3_8b, recurrentgemma_9b,
                                  smollm_360m)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.paper_cnn import (BATCH, NETWORKS, TABLE2_LAYERS,
                                            dims, table2_dims)
 
 _ARCHS = {alias: mod
-          for mod in (deepseek_v3_671b, mamba2_370m, moonshot_v1_16b_a3b,
-                      recurrentgemma_9b, smollm_360m)
-          for alias in (mod.FULL.name, mod.__name__.rsplit(".", 1)[1])}
+          for mod in (deepseek_v3_671b, moonshot_v1_16b_a3b,
+                      recurrentgemma_9b, internvl2_76b, smollm_360m,
+                      phi4_mini_3_8b, minicpm_2b, granite_3_8b,
+                      hubert_xlarge, mamba2_370m)
+          for module in (mod.__name__.rsplit(".", 1)[1],)
+          for alias in (mod.FULL.name, module, module.replace("_", "-"))}
 
 
 def _module(name: str):
     if name not in _ARCHS:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: the port serves "
-            f"{', '.join(sorted(a for a in _ARCHS if '-' in a))}; the other "
-            f"configs come with ROADMAP A10")
+            f"unknown architecture {name!r}: the port knows "
+            f"{', '.join(sorted(set(m.FULL.name for m in _ARCHS.values())))}")
     return _ARCHS[name]
 
 

@@ -1,19 +1,21 @@
 """Architecture configuration of the port's LM path.
 
-PyTorch-package copy of ``repro.configs.base.ArchConfig`` with the fields
-the dense, MoE, SSM and hybrid families read (GQA or MLA attention,
-Mamba2's SSD block, the RG-LRU block and the (rec, rec, attn) layer
-pattern with its local attention window; the port imports nothing of the
-JAX package), and the per-pass conv engine policy of the model's convs
-(``conv_policy``, with the deprecated ``conv_mode``).  ``dtype``/
+PyTorch-package copy of ``repro.configs.base.ArchConfig``, field for
+field (the port imports nothing of the JAX package): GQA or MLA
+attention, Mamba2's SSD block, the RG-LRU block and the (rec, rec, attn)
+layer pattern with its local attention window, the VLM and audio
+families' frontend stubs (``frontend``, ``d_frontend``,
+``frontend_tokens``), and the per-pass conv engine policy of the model's
+convs (``conv_policy``, with the deprecated ``conv_mode``).  ``dtype``/
 ``adtype`` are torch dtypes.  ``reduced()`` derives the CPU-scale smoke
-variant from the full config as the JAX package does, MoE, MLA, SSM and
-window overrides included.
+variant from the full config as the JAX package does, MoE, MLA, SSM,
+window and frontend overrides included.
 
-The JAX config's ``attn_impl`` is left out: the port does not choose
-attention by a flag (every full-sequence causal call on the card that no
-window masks runs the flash-attention kernel).  The frontend fields come
-with their families (ROADMAP A10.4).
+``attn_impl`` is carried for parity and read by nothing, as in the JAX
+package, whose models never read it either: attention is chosen by the
+call (``repro_torch.models.attention._sdpa``: a full-sequence call that
+no gradient flows through and no window masks runs the flash-attention
+kernel).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense | moe | ssm | hybrid (ported)
+    family: str                       # dense | moe | hybrid | vlm | ssm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -64,6 +66,10 @@ class ArchConfig:
     # recurrent (RG-LRU / Griffin)
     rglru_conv: int = 4
     rglru_width: int = 0              # recurrent block width (defaults d_model)
+    # modality frontend stubs
+    frontend: Optional[str] = None    # vision | audio
+    d_frontend: int = 0
+    frontend_tokens: int = 0
     param_dtype: str = "float32"
     act_dtype: str = "float32"
     norm_eps: float = 1e-6
@@ -75,6 +81,7 @@ class ArchConfig:
     # DEPRECATED: the old uniform engine knob.  When set it wins over
     # conv_policy (mapped to a uniform EnginePolicy) with a warning.
     conv_mode: Optional[str] = None
+    attn_impl: str = "xla"            # xla | flash; read by nothing
     remat: str = "block"              # none | block (training only)
 
     @property
@@ -147,6 +154,8 @@ class ArchConfig:
             base.update(ssm_state=16, ssm_head_dim=16)
         if self.local_window:
             base.update(local_window=32)
+        if self.frontend:
+            base.update(d_frontend=32, frontend_tokens=8)
         if self.mtp_depth:
             base.update(mtp_depth=1)
         base.update(overrides)

@@ -11,10 +11,12 @@
 slotted-cache continuous-batching engine (``repro_torch.serve.continuous``),
 whose prefills run the flash-attention kernel.  The model is initialised
 from ``--seed`` (no weights are read).  ``--arch`` names a registered
-config (``repro_torch.configs``: smollm-360m, moonshot-v1-16b-a3b,
-deepseek-v3-671b, whose 61 layers at ``--full`` no one card holds,
-mamba2-370m and recurrentgemma-9b).  ``--full`` serves the published
-widths (``FULL``) instead of the smoke config the JAX launcher serves;
+config (``repro_torch.configs``: every architecture of the JAX package;
+at ``--full`` no one card holds deepseek-v3-671b's 61 layers or
+internvl2-76b's 80, whose prompts are text only, as in the JAX launcher;
+hubert-xlarge is an encoder and is not served).  ``--full`` serves the
+published widths (``FULL``) instead of the smoke config the JAX launcher
+serves;
 the prompts are the JAX launcher's (``np.random.RandomState(seed)``).
 ``--conv-policy`` pins the model's per-pass conv engines, as in the JAX
 launcher (Mamba2's depthwise conv and RecurrentGemma's temporal conv:
@@ -25,6 +27,8 @@ launcher (Mamba2's depthwise conv and RecurrentGemma's temporal conv:
         --conv-policy pallas --requests 8 --prompt-len 1024 --max-new 32
     python -m repro_torch.launch.serve --full --arch recurrentgemma-9b \
         --conv-policy pallas --requests 8 --prompt-len 1024 --max-new 32
+    python -m repro_torch.launch.serve --full --arch granite-3-8b \
+        --requests 4 --prompt-len 1024 --max-new 16
 """
 
 from __future__ import annotations

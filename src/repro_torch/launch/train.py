@@ -19,6 +19,14 @@ whatever it holds; a run resumed with no steps left trains nothing and
 returns no losses.  The end's save is left out when the last step's
 checkpoint was just written (the JAX loop writes the same files again).
 
+``--arch`` takes every architecture of the JAX package: the pipeline
+makes the VLM's batches (image embeddings and text) and the audio
+encoder's (frames and targets), and minicpm-2b trains on WSD
+(``repro_torch.optim.schedule.default_schedule_for``):
+
+    python -m repro_torch.launch.train --arch hubert-xlarge --batch 8 \
+        --seq 512 --steps 6
+
 ``--conv-policy`` (or the deprecated ``--conv-mode``) sets the model's conv
 engines: ``--arch mamba2-370m --conv-policy pallas`` runs every pass of
 each layer's depthwise conv on the tap kernels (bf16 at full width).

@@ -16,12 +16,14 @@ Layouts are the JAX package's: q (B, L, H, D), k/v (B, L, Hk, D), caches
 (n_layers, B, L_max, Hk, D); MLA caches (n_layers, B, L_max, kv_lora_rank)
 and (n_layers, B, L_max, qk_rope_head_dim).
 
-``_sdpa`` sends a full-sequence causal call with no ``kv_len`` to the
-flash-attention kernel wrapper (``repro_torch.kernels.flash_attention``:
-the CUDA kernel on the card, its plain version on the CPU) only when no
-gradient can flow through it (grad mode off, or none of q, k, v requires
-grad): the kernel has no backward, in the JAX package as here, and the
-JAX package trains through its XLA attention.  Every other call --
+``_sdpa`` sends a full-sequence call (no ``kv_len``, no query offset,
+as many queries as keys) to the flash-attention kernel wrapper
+(``repro_torch.kernels.flash_attention``: the CUDA kernel on the card, its
+plain version on the CPU), causal or full as the call asks (the audio
+encoder's bidirectional attention runs it full), only when no gradient
+can flow through it (grad mode off, or none of q, k, v requires grad):
+the kernel has no backward, in the JAX package as here, and the JAX
+package trains through its XLA attention.  Every other call --
 training, decode -- runs the JAX package's plain attention at that
 length: ``_sdpa_dense``, or ``_sdpa_blockwise`` (the online softmax over
 key blocks, in plain PyTorch) for more than
@@ -153,19 +155,19 @@ def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
 
     GQA: query head h attends kv head h // (H/Hk); ``window`` is a local
     attention window (RecurrentGemma); ``kv_len`` masks cache positions >=
-    len.  A full-sequence causal call through which no gradient flows, and
-    whose window (if any) spans all its queries, runs the flash kernel
-    (heads-first copies in and out); the rest is dense, or blockwise past
-    the key-length threshold."""
+    len.  A full-sequence call, causal or full, through which no gradient
+    flows, and whose window (if any) spans all its queries, runs the flash
+    kernel (heads-first copies in and out); the rest (training, decode) is
+    dense, or blockwise past the key-length threshold."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if (causal and kv_len is None and isinstance(q_offset, int)
-            and q_offset == 0 and q.shape[1] == k.shape[1]
+    if (kv_len is None and isinstance(q_offset, int) and q_offset == 0
+            and q.shape[1] == k.shape[1]
             and (window is None or q.shape[1] <= window)
             and not _needs_grad(q, k, v)):
         o = flash_attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(),
-                            causal=True, scale=scale)
+                            causal=causal, scale=scale)
         return o.transpose(1, 2)
     if k.shape[1] > config.blockwise_kv_threshold and q.shape[1] > 1:
         return _sdpa_blockwise(q, k, v, causal=causal, q_offset=q_offset,

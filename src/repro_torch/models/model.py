@@ -1,18 +1,30 @@
 """Top-level LM API used by the server, the trainer and the tests
-(counterpart of ``repro.models.model``, the token path of the dense, MoE,
-SSM and hybrid families):
+(counterpart of ``repro.models.model``: the dense, MoE, SSM, hybrid, VLM
+and audio families):
 
     model = build_model(cfg)
     params = model.init(generator, device)
-    logits, aux = model.forward(params, {"tokens": tokens})
+    logits, aux = model.forward(params, batch)
     logits, cache = model.prefill(params, tokens, max_len)
     logits, cache = model.decode_step(params, cache, tokens, pos)
+
+Batch conventions (the JAX package's, made by ``repro_torch.data``):
+  LM            : {"tokens": (B, L), "targets": (B, L)}
+  VLM           : + {"frontend": (B, F, d_frontend)}; the F projected image
+                  embeddings take sequence positions [0, F), the tokens
+                  the L text positions after them
+  audio encoder : {"frontend": (B, L, d_frontend), "targets": (B, L)}
 
 The parameter tree is key for key the JAX package's, so
 ``repro_torch.tree.params_from_numpy(jax_params)`` plugs straight in.  The
 head is tied to the embedding or an untied ``lm_head``; ``forward``
 returns the MoE aux terms and, for a config with ``mtp_depth``, the
-multi-token-prediction logits.  Frontends come with ROADMAP A10.4.
+multi-token-prediction logits.  The VLM and audio frontends are the JAX
+package's stubs: one linear projection ``frontend_proj`` of precomputed
+embeddings (the audio encoder keeps an ``embed`` table it never reads, so
+the trees stay key for key).  ``prefill`` and ``decode_step`` take tokens
+only (the VLM's text, as in the JAX package); the audio encoder has no
+decode.
 
 ``prefill`` is ONE causal pass over the prompt, whose attention runs the
 flash-attention kernel on the card (MoE layers at a capacity that drops
@@ -60,6 +72,9 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_linear(generator, d, cfg.vocab, cfg.dtype,
                                           device=device)
+    if cfg.frontend:
+        params["frontend_proj"] = L.init_linear(generator, cfg.d_frontend, d,
+                                                cfg.dtype, device=device)
     if cfg.mtp_depth:
         params["mtp"] = {
             "proj": L.init_linear(generator, 2 * d, d, cfg.dtype,
@@ -82,13 +97,31 @@ def _lm_head(params, cfg: ArchConfig, x):
     return L.linear(params["lm_head"], x)
 
 
-def forward(params, batch, cfg: ArchConfig):
-    """``batch["tokens"]`` (B, L) -> (logits (B, L, V), aux): ``moe_lb`` and
-    ``moe_z`` summed over the MoE layers, and ``mtp_logits`` (B, L, V) for
-    a config with ``mtp_depth``; ``{}`` for the dense family."""
+def _embed_inputs(params, batch, cfg: ArchConfig):
+    """The input sequence (B, L, D): the audio encoder's projected frames;
+    the VLM's projected image embeddings ahead of the token embeddings;
+    else the token embeddings."""
+    if cfg.family == "audio":
+        return L.linear(params["frontend_proj"],
+                        batch["frontend"].to(cfg.adtype))
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.adtype)
-    x, aux = T.forward_stacks(params, x, cfg)
+    if cfg.family == "vlm" and "frontend" in batch:
+        img = L.linear(params["frontend_proj"],
+                       batch["frontend"].to(cfg.adtype))
+        x = torch.cat([img, x], dim=1)
+    return x
+
+
+def forward(params, batch, cfg: ArchConfig):
+    """``batch`` (above) -> (logits (B, L, V), aux): ``moe_lb`` and
+    ``moe_z`` summed over the MoE layers, and ``mtp_logits`` (B, L, V) for
+    a config with ``mtp_depth``; ``{}`` for the other families.  The VLM's
+    logits cover the text positions only: the image positions are dropped
+    before the head."""
+    x, aux = T.forward_stacks(params, _embed_inputs(params, batch, cfg), cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.family == "vlm" and "frontend" in batch:
+        x = x[:, batch["frontend"].shape[1]:]
     logits = _lm_head(params, cfg, x)
     if cfg.mtp_depth and "tokens" in batch:
         aux = dict(aux, mtp_logits=_mtp_forward(params, batch, x, cfg))

@@ -1,5 +1,5 @@
-"""Block assembly of the dense, MoE, SSM and hybrid families (counterpart
-of ``repro.models.transformer``).
+"""Block assembly of the dense, MoE, SSM, hybrid, VLM and audio families
+(counterpart of ``repro.models.transformer``).
 
 All layers of a stack share one stacked parameter tree (leading dim =
 #layers), the JAX package's layout, so JAX parameters carry across
@@ -13,7 +13,8 @@ block again in the backward.  The JAX package's ``constrain_batch`` (mesh
 sharding, ROADMAP A13) is dropped.
 
 Families:
-  dense  : one stack of attention blocks, ``blocks``
+  dense, vlm, audio : one stack of attention blocks, ``blocks`` (audio's
+           bidirectional: ``cfg.attn_kind == "bidir"``)
   moe    : ``blocks_dense`` (the first ``first_dense_layers``, SwiGLU) and
            ``blocks_moe`` (routed experts, ``models/moe.py``)
   ssm    : one stack of Mamba2 blocks, ``blocks`` (``models/mamba2.py``)
@@ -23,8 +24,8 @@ Families:
            ``n_layers`` after whole super-blocks as RG-LRU blocks
 The dense and MoE families' attention is GQA or MLA (``cfg.use_mla``).
 A hybrid super-block is one block: one checkpoint when a gradient flows,
-one layer slice of ``super`` in the cache.  The VLM and audio families
-come with ROADMAP A10.4 and raise.
+one layer slice of ``super`` in the cache.  The audio encoder has no
+cache (no decode), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def _stacks(cfg: ArchConfig) -> list[tuple[str, int, str]]:
     """``(name, layers, kind)`` of each stack, in the order they run; the
     kind (``attn``, ``moe``, ``ssm``, ``rec`` or ``super``) names the
     block of :data:`_BLOCKS`."""
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "vlm", "audio", "ssm"):
         kind = "ssm" if cfg.family == "ssm" else "attn"
         return [("blocks", cfg.n_layers, kind)]
     if cfg.family == "moe":
@@ -58,9 +59,7 @@ def _stacks(cfg: ArchConfig) -> list[tuple[str, int, str]]:
         n_extra = cfg.n_layers - n_super * len(cfg.layer_pattern)
         return [("super", n_super, "super")] + (
             [("extra", n_extra, "rec")] if n_extra else [])
-    raise NotImplementedError(
-        f"{cfg.name}: the dense, MoE, SSM and hybrid families are ported; "
-        f"{cfg.family} comes with ROADMAP A10.4")
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def cache_keys(cfg: ArchConfig) -> tuple[str, str]:
@@ -261,7 +260,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     ssm_conv - 1, channels) state, whatever ``max_len``; for the hybrid
     family, per super-block ``rec1``/``rec2`` (each ``h`` (n, batch, W)
     float32 and ``conv`` (n, batch, rglru_conv - 1, W)) and ``attn``'s
-    ``k``/``v`` at ``max_len``, and ``extra``'s ``h``/``conv``."""
+    ``k``/``v`` at ``max_len``, and ``extra``'s ``h``/``conv``.  An
+    encoder-only config (the audio family) has no cache: it raises, as the
+    JAX package's ``init_cache`` does."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name}: an encoder-only model has no decode "
+                         f"cache")
     return {name: _init_layer_cache(kind, cfg, batch, max_len, nl, device)
             for name, nl, kind in _stacks(cfg)}
 

@@ -59,10 +59,13 @@ class GuardConfig:
 
 def _value_and_grad(loss: Callable, params, batch, cfg):
     """``(loss, metrics, grads)``: the loss and its metrics detached, the
-    grads a tree like ``params`` in each parameter's dtype."""
+    grads a tree like ``params`` in each parameter's dtype; a parameter
+    the loss never reads (the audio encoder's ``embed``) gets zeros, as
+    under ``jax.grad``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss_val, metrics = loss(tree_unflatten(params, leaves), batch, cfg)
-    grads = torch.autograd.grad(loss_val, leaves)
+    grads = torch.autograd.grad(loss_val, leaves, allow_unused=True,
+                                materialize_grads=True)
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
     return loss_val.detach(), metrics, tree_unflatten(params, list(grads))

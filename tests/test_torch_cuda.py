@@ -452,6 +452,10 @@ FLASH_CASES = [
     (1, 4, 1, 64, 300, 256, True, torch.float32),
     (2, 4, 2, 77, 130, 250, True, torch.bfloat16),
     (1, 4, 2, 1, 130, 256, True, torch.bfloat16),
+    # hubert-xlarge's encoder: 16 heads of 80 (the D-128 instance, zero
+    # past D), full attention over 1,000 frames (20 s at 50 frames/s).
+    (4, 16, 16, 1000, 1000, 80, False, torch.bfloat16),
+    (4, 16, 16, 1000, 1000, 80, False, torch.float32),
 ]
 
 
@@ -569,6 +573,39 @@ def test_prefill_launches_the_kernel_once_per_layer(cuda):
     _close(logits, want)
     for key in ("k", "v"):
         _close(cache["blocks"][key], scan["blocks"][key])
+
+
+def test_audio_encoder_forward_runs_full_flash_once_per_layer(cuda,
+                                                              monkeypatch):
+    """hubert-xlarge's smoke config in float32 on the card: a no-grad
+    forward launches the kernel once a layer, non-causal, and equals the
+    grad-mode forward (dense attention, no launch); position 0 reads the
+    last frame."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("hubert-xlarge")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    frames = _randn(torch.Generator().manual_seed(1), 2, 300, cfg.d_frontend,
+                    dev=cuda)
+    calls = []
+    spy = A.flash_attention
+    monkeypatch.setattr(A, "flash_attention", lambda *a, **k: calls.append(
+        k["causal"]) or spy(*a, **k))
+    reset_launch_counts()
+    with torch.no_grad():
+        got, _ = M.forward(params, {"frontend": frames}, cfg)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    assert calls == [False] * cfg.n_layers
+    frames.requires_grad_(True)
+    want, _ = M.forward(params, {"frontend": frames}, cfg)
+    assert launch_counts()["flash_attention"] == cfg.n_layers
+    _close(got, want.detach())
+    later = frames.detach().clone()
+    later[:, -1] += 1.0
+    with torch.no_grad():
+        moved = M.forward(params, {"frontend": later}, cfg)[0]
+    assert (moved[:, 0] - got[:, 0]).abs().max().item() > 1e-3
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])

@@ -38,6 +38,8 @@ CASES = [
     (1, 4, 1, 130, 130, 256, True),
     (1, 2, 2, 100, 100, 256, False),
     (1, 4, 1, 48, 160, 256, True),       # Lq < Lk
+    # hubert-xlarge's encoder: heads of 80, full attention, ragged length
+    (2, 4, 4, 100, 100, 80, False),
 ]
 
 

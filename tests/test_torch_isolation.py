@@ -69,7 +69,12 @@ def test_module_list_covers_the_slice():
               "repro_torch.launch.train", "repro_torch.models.mamba2",
               "repro_torch.configs.mamba2_370m",
               "repro_torch.models.recurrent",
-              "repro_torch.configs.recurrentgemma_9b"):
+              "repro_torch.configs.recurrentgemma_9b",
+              "repro_torch.configs.granite_3_8b",
+              "repro_torch.configs.minicpm_2b",
+              "repro_torch.configs.phi4_mini_3_8b",
+              "repro_torch.configs.internvl2_76b",
+              "repro_torch.configs.hubert_xlarge"):
         assert m in mods
         importlib.import_module(m)
 

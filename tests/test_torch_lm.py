@@ -8,6 +8,7 @@ the port, a scan of decode steps in JAX -- logits and every layer's cache
 the routing of ``_sdpa`` to it is checked here, the kernel on the card."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -17,21 +18,15 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from repro.configs import deepseek_v3_671b as jdeepseek  # noqa: E402
+from repro.configs import ALIASES as JALIASES  # noqa: E402
+from repro.configs import ARCH_IDS  # noqa: E402
 from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
-from repro.configs import mamba2_370m as jmamba2  # noqa: E402
-from repro.configs import moonshot_v1_16b_a3b as jmoonshot  # noqa: E402
-from repro.configs import recurrentgemma_9b as jrg  # noqa: E402
-from repro.configs import smollm_360m as jsmol  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
 from repro.models import layers as jL  # noqa: E402
 from repro.models import model as jM  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.configs import deepseek_v3_671b as tdeepseek  # noqa: E402
 from repro_torch.configs import mamba2_370m as tmamba2  # noqa: E402
-from repro_torch.configs import moonshot_v1_16b_a3b as tmoonshot  # noqa: E402,E501
-from repro_torch.configs import smollm_360m as tsmol  # noqa: E402
 from repro_torch.configs import recurrentgemma_9b as trg  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -63,21 +58,22 @@ def params(jparams):
     return params_from_numpy(jparams, device="cpu")
 
 
-#: (port module, JAX module, FULL or SMOKE); SmolLM's ids stay the bare
-#: config name.
-CONFIGS = [pytest.param(mine, theirs, conf,
-                        id=conf if mine is tsmol else f"{name}-{conf}")
-           for name, mine, theirs in (("smollm", tsmol, jsmol),
-                                      ("moonshot", tmoonshot, jmoonshot),
-                                      ("deepseek", tdeepseek, jdeepseek),
-                                      ("mamba2", tmamba2, jmamba2),
-                                      ("recurrentgemma", trg, jrg))
-           for conf in ("FULL", "SMOKE")]
+#: (architecture, FULL or SMOKE) over every architecture of the JAX
+#: package; SmolLM's ids stay the bare config name.
+CONFIGS = [pytest.param(arch, conf, id=conf if arch == "smollm_360m"
+                        else f"{arch.split('_')[0]}-{conf}")
+           for arch in ARCH_IDS for conf in ("FULL", "SMOKE")]
 
 
-@pytest.mark.parametrize("mine,theirs,conf", CONFIGS)
-def test_configs_match_the_jax_package(mine, theirs, conf):
-    mine, theirs = getattr(mine, conf), getattr(theirs, conf)
+@pytest.mark.parametrize("arch,conf", CONFIGS)
+def test_configs_match_the_jax_package(arch, conf):
+    """The port's config module is the JAX one's copy: the same fields
+    (none missing on either side), each equal."""
+    mine = getattr(importlib.import_module(f"repro_torch.configs.{arch}"),
+                   conf)
+    theirs = getattr(importlib.import_module(f"repro.configs.{arch}"), conf)
+    assert ({f.name for f in dataclasses.fields(mine)}
+            == {f.name for f in dataclasses.fields(theirs)})
     for f in dataclasses.fields(mine):
         assert getattr(mine, f.name) == getattr(theirs, f.name), f.name
     assert str(mine.dtype).split(".")[-1] == str(theirs.dtype)
@@ -87,27 +83,28 @@ def test_configs_match_the_jax_package(mine, theirs, conf):
 
 
 def test_only_smollm_is_registered():
-    """The registry holds the dense SmolLM-360M, the MoE family, the SSM
-    family (Mamba2) and the hybrid family (recurrentgemma-9b), by module
-    name and dashed alias; a config still unported (granite-3-8b) raises,
-    in the registry, and so does a family still unported (vlm) in the
-    model; a windowed ``_sdpa`` call runs."""
-    assert configs.get_config("smollm_360m") is tsmol.FULL
-    for mod in (tmoonshot, tdeepseek, tmamba2, trg):
-        name = mod.__name__.rsplit(".", 1)[1]
-        assert configs.get_config(name) is mod.FULL \
-            is configs.get_config(name.replace("_", "-"))
-        assert configs.get_smoke_config(mod.FULL.name) is mod.SMOKE
-    for name in ("granite_3_8b", "granite-3-8b"):
-        with pytest.raises(NotImplementedError, match="A10"):
+    """Every architecture of the JAX package resolves by module name, by
+    each JAX alias (``phi4-mini-3.8b``) and by its dashed module name, to
+    the port's config module; an unknown name raises in the registry, and
+    a family neither package knows raises in the model; a windowed
+    ``_sdpa`` call runs."""
+    for arch in ARCH_IDS:
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        names = [arch, arch.replace("_", "-"), mod.FULL.name] + [
+            a for a, m in JALIASES.items() if m == arch]
+        for name in names:
+            assert configs.get_config(name) is mod.FULL
+            assert configs.get_smoke_config(name) is mod.SMOKE
+    for name in ("granite-3-9b", "paper_cnn", "llama"):
+        with pytest.raises(NotImplementedError, match="unknown"):
             configs.get_config(name)
     assert sorted(M.init_params(torch.Generator(), tmamba2.SMOKE, "cpu")
                   ["blocks"]) == ["ln", "ssm"]
     assert sorted(M.init_params(torch.Generator(), trg.SMOKE, "cpu")) == [
         "embed", "extra", "final_norm", "lm_head", "super"]
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="unknown family"):
         M.init_params(torch.Generator(), dataclasses.replace(
-            CFG, family="vlm"), "cpu")
+            CFG, family="video"), "cpu")
     q = torch.randn(1, 4, 2, 8, generator=torch.Generator().manual_seed(0))
     out = A._sdpa(q, q, q, causal=True, window=2)
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
