@@ -269,8 +269,40 @@ PATH):
                    the first 3 losses of ``make_train_step`` on the card
                    against the same run on this machine's CPU from the same
                    parameters (``LOSS_TOL``).
- 22. summary    -- every kernel's launches on each path, each path run with
+ 22. chaos      -- (run after autotune) the chaos drill
+                   (``repro_torch.train.chaos``, ``pallas``, 14 steps at
+                   batch 32, trace and metrics on): every assertion of the
+                   drill; each tap kernel launched ``n_pallas[pass] x 13``
+                   times (step 3's faulted and steps 4-5's quarantined
+                   passes launch nothing); the 14 losses against the same
+                   loop under ``bp_phase`` with the same NaN at step 5
+                   (``LOSS_TOL``), every failure's survivor ``bp_phase``;
+                   ``scripts/validate_trace.py --require-span conv:`` on its
+                   trace and metrics; the bus consistent with the legacy
+                   counters.
+ 23. chaos_serve -- (after serve) SmolLM-360M at full width, bf16, on the
+                   continuous engine: 8 requests of 256 tokens, 16 new, 4
+                   lanes, unarmed and then with ``serve.decode:raise@step3``
+                   (telemetry on): the 4 lanes of decode step 3 end
+                   ``failed`` with the unarmed run's first 3 tokens, the
+                   other 4 ``ok`` with its tokens (``token_diffs``' near-tie
+                   rule); flash launched 32 x 8 times; ``run_summary()
+                   ["failed"] == 4``; a ``serve_tick`` line a decode step.
+ 24. lm_train_obs -- (after lm_train) the launcher at lm_train's settings
+                   for 6 steps with ``--fault-spec grad.values:nan@step2
+                   --trace --metrics``: only step 2 dropped by the guard;
+                   steps 0-1's losses within ``LM_TRAIN_TOL`` of lm_train's;
+                   the trace valid with a ``train:step`` span a step; a
+                   ``train_step`` line a step; seconds a step beside
+                   lm_train's; no kernel launched.
+ 25. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
+
+On the card the conv dispatch degrades only on an injected fault, and
+the continuous engine fails a request only on one: a kernel that fails
+to build or launch raises out of its phase and fails the run.  Every
+request of every serving phase but chaos_serve's armed run must end
+``ok``.
 
 Then a ``{"kernels": [...]}`` line (the five kernels; the tap kernels'
 bf16 instances at Mamba2's and at recurrentgemma-9b's training shapes;
@@ -1364,7 +1396,11 @@ def margin_at(torch, M, cfg, params, req, step, dev) -> float:
 def token_diffs(torch, M, cfg, params, runs_a, runs_b, dev) -> dict:
     """Two runs of the same requests (each sorted by rid): how many got
     identical greedy tokens, and for each that did not, the first
-    differing step's top-2 logit margin under ``cfg``."""
+    differing step's top-2 logit margin under ``cfg``.  Every request of
+    both runs must have ended ``ok``."""
+    check(all(r.status == "ok" for r in (*runs_a, *runs_b)),
+          f"{cfg.name}: a request did not end ok: "
+          f"{[(r.rid, r.status) for r in (*runs_a, *runs_b)]}")
     diffs = []
     for a, b in zip(runs_a, runs_b):
         if a.out != b.out:
@@ -2379,7 +2415,8 @@ LM_TRAIN_ARGV = ["--arch", "smollm-360m", "--batch", "8", "--seq", "512",
 def phase_lm_train(smoke, torch, kernels, train, smi, dev):
     """SmolLM-360M trained at full width through the port's launcher: runs
     (a)-(d), their checks, and one profiled step.  Returns the path's
-    kernel launches (counts set to 0 just before (a), read after (d))."""
+    kernel launches (counts set to 0 just before (a), read after (d)), and
+    (a)'s first two losses and median step time."""
     import shutil
     import tempfile
 
@@ -2476,7 +2513,7 @@ def phase_lm_train(smoke, torch, kernels, train, smi, dev):
     prof = device_time(torch, lambda: step_fn(params, opt, batch, 0))
     smoke.emit("lm_train", check="one profiled step", nvidia_smi=smi,
                **prof)
-    return {"lm_train": launches}
+    return {"lm_train": launches}, {"losses": a[:2], "median_step_s": step_s}
 
 
 #: Mamba2-370M trained at full width through the launcher (bf16, guard on).
@@ -2781,6 +2818,236 @@ def phase_lm_train_audio(smoke, torch, kernels, train, smi, dev) -> dict:
     return {"lm_train_audio": counts}
 
 
+#: the chaos drill's steps: 14 armed (a pass of step 3 faulted, steps 4-5
+#: quarantined, so 11 on the tap kernels) and 2 disarmed.
+CHAOS_STEPS = 14
+CHAOS_LAUNCH_STEPS = CHAOS_STEPS - 3 + 2
+#: the pass each tap kernel serves.
+PASS_KERNEL = {"forward": "tap_gemm", "input_grad": "tap_gemm_phased",
+               "weight_grad": "tap_wgrad"}
+
+
+def phase_chaos(smoke, torch, conv, kernels, config, dev):
+    """The chaos drill on the card (``python -m repro_torch.train.chaos``
+    under ``pallas``, trace and metrics on): every assertion of the drill;
+    each tap kernel launched ``n_pallas[pass] x 13`` times (the faulted and
+    quarantined passes launch nothing); the 14 losses against the same run
+    under ``bp_phase`` with the same NaN at step 5 (``LOSS_TOL``); the
+    trace and metrics through ``scripts/validate_trace.py``; the bus
+    consistent with the legacy counters.  Returns the path's launches."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.train import chaos
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chaos_") as tmp:
+        trace, metrics = f"{tmp}/chaos.json", f"{tmp}/chaos.jsonl"
+        kernels.reset_launch_counts()
+        res = chaos.main(["--device", str(dev), "--steps", str(CHAOS_STEPS),
+                          "--trace", trace, "--metrics", metrics])
+        counts = kernels.launch_counts()
+        drill_s = time.perf_counter() - t0
+        val = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "validate_trace.py"),
+             trace, "--require-span", "conv:", "--metrics", metrics,
+             "--require-metrics-kind", "train_step"],
+            capture_output=True, text=True, timeout=120)
+    n = res["n_pallas"]
+    want = {k: 0 for k in counts}
+    want.update({PASS_KERNEL[p]: n[p] * CHAOS_LAUNCH_STEPS for p in n})
+    with config.override(fault_spec="grad.values:nan@step5"):
+        ref = chaos.train_loop("bp_phase", CHAOS_STEPS, 32, 0.05, dev)
+    diff = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
+    rep = res["obs"]
+    smoke.emit("chaos", n_pallas=n, launches=counts, want_launches=want,
+               losses=res["losses"], bp_phase_losses=ref["losses"],
+               max_loss_diff=diff, tol=LOSS_TOL, bad_steps=res["bad_steps"],
+               bp_phase_bad_steps=ref["bad_steps"],
+               survivors=sorted({f["survivor"]
+                                 for f in res["runtime_failures"]}),
+               dispatch=res["dispatch_events"],
+               faults_fired=len(res["fired"]),
+               events_by_kind=rep["events_by_kind"],
+               trace_events=rep["trace"]["events"],
+               metrics_lines=rep["metrics"]["lines"],
+               consistent=rep["consistent"],
+               validate_trace=(val.returncode, val.stdout.strip()
+                               or val.stderr.strip()),
+               drill_s=drill_s, seconds=time.perf_counter() - t0)
+    check(counts == want, f"chaos launches {counts}, want {want}")
+    check(len(res["losses"]) == len(ref["losses"]) == CHAOS_STEPS
+          and diff <= LOSS_TOL and ref["bad_steps"] == [5],
+          f"chaos vs bp_phase losses differ by {diff} (bad steps "
+          f"{res['bad_steps']} / {ref['bad_steps']})")
+    check({f["survivor"] for f in res["runtime_failures"]} == {"bp_phase"},
+          f"survivors {res['runtime_failures']}")
+    check(val.returncode == 0, f"validate_trace: {val.stdout} {val.stderr}")
+    check(rep["consistent"], f"bus divergence: {rep['divergences']}")
+    # The drill's degradation was asked for: forget it, and its state.
+    conv.reset_dispatch_events()
+    obs.reset_all()
+    return {"chaos": counts}
+
+
+#: SmolLM-360M served at full width by the continuous engine with one
+#: decode step faulted: 8 requests of 256 tokens, 16 new, on 4 lanes.
+CHAOS_SERVE = {"requests": 8, "prompt_len": 256, "max_new": 16, "lanes": 4,
+               "fault_spec": "serve.decode:raise@step3"}
+
+
+def phase_chaos_serve(smoke, torch, kernels, serve, M, config, dev):
+    """A failed lane on flash serving: the continuous engine unarmed, then
+    with ``serve.decode`` faulted at decode step 3 (telemetry on).  The 4
+    lanes active at step 3 end ``failed`` with their partial tokens (the
+    unarmed run's first 3), the other 4 ``ok`` with the unarmed run's
+    tokens (a difference only at a near-tie, ``token_diffs``); flash
+    launched once a layer per admitted request (8); a ``serve_tick`` line
+    a decode step.  Returns the armed run's launches."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.ft import inject
+    c = CHAOS_SERVE
+    cfg = serve.get_config("smollm-360m")
+    params = serve.init_params(cfg, 0, dev)
+
+    def run():
+        kernels.reset_launch_counts()
+        inject.set_step(0)
+        eng = serve.ENGINES["continuous"](
+            cfg, params, max_batch=c["lanes"],
+            max_len=c["prompt_len"] + c["max_new"] + 2)
+        for rid in range(c["requests"]):
+            eng.submit(serve.Request(rid=rid, prompt=prompt_for(
+                cfg, c["prompt_len"], seed=30 + rid), max_new=c["max_new"]))
+        t0 = time.perf_counter()
+        reqs = sorted(eng.run(), key=lambda r: r.rid)
+        return reqs, eng.run_summary(), kernels.launch_counts(), \
+            time.perf_counter() - t0
+
+    want_reqs, want_s, want_counts, want_secs = run()
+    check(all(r.status == "ok" and len(r.out) == c["max_new"]
+              for r in want_reqs),
+          f"unarmed: {[(r.status, len(r.out)) for r in want_reqs]}")
+    with tempfile.TemporaryDirectory(prefix="chaos_serve_") as tmp:
+        metrics = f"{tmp}/serve.jsonl"
+        with config.override(fault_spec=c["fault_spec"], telemetry=True,
+                             metrics_path=metrics):
+            obs.reset_all()
+            reqs, s, counts, secs = run()
+            fired = inject.fired_events()
+            rep = obs.finalize()
+        with open(metrics) as f:
+            lines = [json.loads(ln) for ln in f]
+    inject.set_step(0)
+    failed = [r.rid for r in reqs if r.status == "failed"]
+    ok = [r for r in reqs if r.status == "ok"]
+    diffs = token_diffs(torch, M, cfg, params, ok,
+                        [want_reqs[r.rid] for r in ok], dev)
+    smoke.emit("chaos_serve", config=cfg.name, dtype=cfg.param_dtype,
+               layers=cfg.n_layers, **c, status=[r.status for r in reqs],
+               tokens=[len(r.out) for r in reqs], failed=failed,
+               faults_fired=[(f["site"], f["step"]) for f in fired],
+               summary=s, unarmed_summary=want_s, launches=counts,
+               unarmed_launches=want_counts, token_diffs=diffs,
+               metrics_lines=len(lines),
+               serve_events=rep["events_by_kind"]["serve"],
+               consistent=rep["consistent"], seconds=secs,
+               unarmed_seconds=want_secs)
+    check(failed == [0, 1, 2, 3] and len(ok) == 4
+          and all(r.out == want_reqs[r.rid].out[:3]
+                  for r in reqs if r.status == "failed")
+          and all(len(r.out) == c["max_new"] for r in ok),
+          f"failed lanes {failed}: {[(r.status, len(r.out)) for r in reqs]}")
+    check(all(d["margin"] < MARGIN_TOL for d in diffs["differing"]),
+          f"the ok requests' tokens differ beyond a near-tie: {diffs}")
+    check(s["failed"] == 4 and s["admitted"] == c["requests"]
+          and counts == {**{k: 0 for k in counts},
+                         "flash_attention": cfg.n_layers * s["admitted"]}
+          and counts == want_counts,
+          f"summary {s}, launches {counts} (unarmed {want_counts})")
+    check(len(lines) == s["decode_steps"]
+          and all(ln["kind"] == "serve_tick" for ln in lines)
+          and lines[-1]["failed"] == 4 and rep["consistent"],
+          f"{len(lines)} metrics lines for {s['decode_steps']} decode steps")
+    check([f["step"] for f in fired] == [3] * 4, f"fired {fired}")
+    obs.reset_all()
+    del params
+    free_card(torch)
+    return {"chaos_serve continuous": counts}
+
+
+#: the traced LM training run: ``LM_TRAIN_ARGV`` for 6 steps, step 2's
+#: gradients NaN-poisoned.
+LM_TRAIN_OBS_STEPS = 6
+LM_TRAIN_OBS_FAULT = "grad.values:nan@step2"
+
+
+def phase_lm_train_obs(smoke, torch, kernels, train, config, smi, lm, dev):
+    """``python -m repro_torch.launch.train`` at full width with
+    ``--fault-spec grad.values:nan@step2 --trace T --metrics M``: only step
+    2 dropped by the guard, steps 0-1's losses equal the unarmed
+    ``lm_train`` phase's (``LM_TRAIN_TOL``), the trace valid with a
+    ``train:step`` span a step, a ``train_step`` metrics line a step; the
+    seconds a step with telemetry on beside ``lm_train``'s.  Returns the
+    path's launches (none)."""
+    import tempfile
+
+    from repro_torch import obs
+    t0 = time.perf_counter()
+    hist = []
+    saved = config.snapshot()
+    with tempfile.TemporaryDirectory(prefix="lm_train_obs_") as tmp:
+        trace, metrics = f"{tmp}/train.json", f"{tmp}/train.jsonl"
+        kernels.reset_launch_counts()
+        try:
+            losses = train.main(
+                LM_TRAIN_ARGV + ["--steps", str(LM_TRAIN_OBS_STEPS),
+                                 "--fault-spec", LM_TRAIN_OBS_FAULT,
+                                 "--trace", trace, "--metrics", metrics],
+                history=hist)
+        finally:
+            config.update(**saved)
+            obs.reset_all()
+        launches = kernels.launch_counts()
+        val = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "validate_trace.py"),
+             trace, "--require-span", "train:step", "--metrics", metrics,
+             "--require-metrics-kind", "train_step"],
+            capture_output=True, text=True, timeout=120)
+        with open(trace) as f:
+            spans = [e["name"] for e in json.load(f)["traceEvents"]
+                     if e["ph"] == "B"]
+        with open(metrics) as f:
+            lines = [json.loads(ln) for ln in f]
+    bad = [h["guard_bad"] for h in hist]
+    rel = [abs(x - y) / abs(y) for x, y in zip(losses[:2], lm["losses"])]
+    step_s = statistics.median(h["seconds"] for h in hist)
+    smoke.emit("lm_train_obs", nvidia_smi=smi, config="smollm-360m",
+               steps=len(losses), fault_spec=LM_TRAIN_OBS_FAULT,
+               losses=losses, guard_bad=bad, rel_err_steps_0_1=rel,
+               tol=LM_TRAIN_TOL, median_step_s=step_s,
+               lm_train_median_step_s=lm["median_step_s"],
+               step_s=[h["seconds"] for h in hist],
+               train_step_spans=spans.count("train:step"),
+               metrics_lines=len(lines),
+               validate_trace=(val.returncode, val.stdout.strip()
+                               or val.stderr.strip()),
+               launches=launches, seconds=time.perf_counter() - t0)
+    check(bad == [float(s == 2) for s in range(LM_TRAIN_OBS_STEPS)],
+          f"guard_bad by step {bad}")
+    check(all(math.isfinite(x) for x in losses) and max(rel) <= LM_TRAIN_TOL,
+          f"steps 0-1 against lm_train: {rel}")
+    check(val.returncode == 0, f"validate_trace: {val.stdout} {val.stderr}")
+    check(spans.count("train:step") == LM_TRAIN_OBS_STEPS
+          and [(ln["kind"], ln["step"]) for ln in lines]
+          == [("train_step", s) for s in range(LM_TRAIN_OBS_STEPS)],
+          f"{spans.count('train:step')} spans, {len(lines)} metrics lines")
+    check(not any(launches.values()),
+          f"a kernel launched while training: {launches}")
+    return {"lm_train_obs": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -2871,9 +3138,12 @@ def main(argv=None) -> int:
     paths.update(phase_autotune(
         smoke, torch, ops, tg, ref, autotune, config, kernels, cnn_bp,
         shapes + [row[:4] for row in ae], paths["cnn_bp pallas"], dev))
+    paths.update(phase_chaos(smoke, torch, conv, kernels, config, dev))
     agg.update(phase_flash(smoke, torch, F, fa, ref, dev))
     paths.update(phase_serve(smoke, torch, kernels, serve, M, T, dev))
     free_card(torch)
+    paths.update(phase_chaos_serve(smoke, torch, kernels, serve, M, config,
+                                   dev))
     paths.update(phase_serve_moe(smoke, torch, kernels, serve, M, T, dev))
     paths.update(phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T,
                                  dev))
@@ -2882,7 +3152,10 @@ def main(argv=None) -> int:
     paths.update(phase_serve_dense(smoke, torch, kernels, serve, M, T, dev))
     paths.update(phase_serve_vlm(smoke, torch, kernels, serve, M, T, dev))
     paths.update(phase_encode_audio(smoke, torch, kernels, serve, M, dev))
-    paths.update(phase_lm_train(smoke, torch, kernels, train, smi, dev))
+    lm_paths, lm = phase_lm_train(smoke, torch, kernels, train, smi, dev)
+    paths.update(lm_paths)
+    paths.update(phase_lm_train_obs(smoke, torch, kernels, train, config,
+                                    smi, lm, dev))
     paths.update(phase_lm_train_ssm(smoke, torch, kernels, tg, train, smi,
                                     dev))
     paths.update(phase_lm_train_hybrid(smoke, torch, kernels, tg, train, smi,

@@ -28,9 +28,14 @@ Restore is degradation-aware: a candidate checkpoint that cannot be loaded
 is SKIPPED with the reason recorded (:func:`skipped_checkpoints`) and the
 next-newest committed step is tried.  Only when NO candidate is loadable --
 or an explicitly requested ``step=`` is bad -- does restore raise.  Leaves
-come back as tensors on the requested device.  (The JAX package's fault
-sites ``ckpt.write``/``ckpt.read`` and its trace spans come with ROADMAP
-A12.)
+come back as tensors on the requested device.
+
+Fault sites and telemetry, as in the JAX package: ``ckpt.write`` fires
+inside the writer (on the writer thread for an async save, so its fault
+is the one re-raised from the next ``save()`` or :func:`wait`),
+``ckpt.read`` at the top of :func:`restore`; each write and restore is a
+``ckpt`` event on the obs bus, and each write a ``ckpt:write`` span (on
+the writer thread's own ``tid`` lane for an async save).
 """
 
 from __future__ import annotations
@@ -48,6 +53,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.ft.inject import fault_point
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import trace as obs_trace
 
 _STEP_DIR = re.compile(r"step_(\d+)")
 BF16 = "bfloat16"
@@ -175,7 +183,9 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
     leaves = [(".".join(path), *_to_host(leaf))
               for path, leaf in _leaf_paths(tree)]
 
-    def _write():
+    def _write_impl():
+        fault_point("ckpt.write")
+        obs_events.emit("ckpt", "write", step=step, blocking=blocking)
         d = os.path.join(ckpt_dir, f"step_{step:08d}")
         tmp = d + ".tmp"
         try:
@@ -205,6 +215,13 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
             shutil.rmtree(d)
         os.rename(tmp, d)
         _rotate(ckpt_dir, keep)
+
+    def _write():
+        # The span runs on the writer thread for an async save, so the
+        # trace shows the checkpoint I/O beside the steps on its own lane.
+        with obs_trace.span("ckpt:write", step=step, leaves=len(leaves),
+                            blocking=blocking):
+            _write_impl()
 
     if blocking:
         _write()
@@ -302,6 +319,8 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *, device=None,
     failure.  An explicit ``step=`` never falls back -- a bad requested
     checkpoint raises immediately.
     """
+    fault_point("ckpt.read")
+    obs_events.emit("ckpt", "restore", step=step)
     dev = resolve_device(device)
     steps = latest_steps(ckpt_dir)
     if not steps:

@@ -15,10 +15,14 @@ rematerialization override:
 Fields initialize once from the environment (``REPRO_AUTOTUNE``,
 ``REPRO_AUTOTUNE_TOP_K``, ``REPRO_AUTOTUNE_REPS``, ``REPRO_PLAN_CACHE_DIR``,
 ``REPRO_SSD_CHUNK``, ``REPRO_BLOCKWISE_THRESHOLD``, ``REPRO_REMAT``,
-parsed as the JAX package parses them), and direct attribute assignment
-raises: mutation goes through :meth:`GlobalConfig.update` /
-:meth:`GlobalConfig.override`, which validate values and drop the tuner's
-in-process memo when a plan-affecting field changes.
+``REPRO_FAULT_SPEC``, ``REPRO_FAULT_SEED``, ``REPRO_TELEMETRY``,
+``REPRO_TRACE_PATH``, ``REPRO_METRICS_PATH``, parsed as the JAX package
+parses them), and direct attribute assignment raises: mutation goes
+through :meth:`GlobalConfig.update` / :meth:`GlobalConfig.override`, which
+validate values, drop the tuner's in-process memo when a plan-affecting
+field changes, re-arm the fault injector when a fault field changes and
+re-sync the telemetry when a telemetry field changes.  A bad fault spec
+fails the ``update()`` that sets it.
 """
 
 from __future__ import annotations
@@ -30,6 +34,11 @@ import sys
 from typing import Any, Callable
 
 AUTOTUNE_MODES = ("off", "measure", "cached")
+
+
+def _parse_bool(raw: str) -> bool:
+    """unset/1/true -> True; 0/false/no/off -> False."""
+    return raw.strip().lower() not in ("0", "false", "no", "off")
 
 
 def _parse_optional_str(raw: str) -> str | None:
@@ -54,6 +63,29 @@ def _check_positive_int(name: str) -> Callable[[Any], int]:
 def _check_optional_str(v: Any) -> str | None:
     if v is not None and not isinstance(v, str):
         raise ValueError(f"expected a str or None, got {v!r}")
+    return v
+
+
+def _check_bool(v: Any) -> bool:
+    if not isinstance(v, bool):
+        raise ValueError(f"expected a bool, got {v!r}")
+    return v
+
+
+def _check_int_any(v: Any) -> int:
+    if not isinstance(v, int) or isinstance(v, bool):
+        raise ValueError(f"expected an int, got {v!r}")
+    return v
+
+
+def _check_fault_spec(v: Any) -> str | None:
+    """Validate the grammar before the value is stored, so a bad spec
+    fails the update() cleanly (imported here: config must not import the
+    ft stack at module load)."""
+    v = _check_optional_str(v)
+    if v:
+        from repro_torch.ft.inject import parse_fault_spec
+        parse_fault_spec(v)
     return v
 
 
@@ -101,7 +133,32 @@ FIELDS: dict[str, _Field] = {
     # force the policy globally (models/transformer.py).
     "remat": _Field("REPRO_REMAT", None, _parse_optional_str,
                     _check_optional_str),
+    # Deterministic fault injection (repro_torch.ft.inject): ';'-separated
+    # rules '<site-glob>:<action>[@stepN][~pP]', e.g.
+    # "pallas.*:raise@step3;grad.values:nan@step5".  None/"" disarms.
+    "fault_spec": _Field("REPRO_FAULT_SPEC", None, _parse_optional_str,
+                         _check_fault_spec),
+    # Seed of the injector's probability stream (the '~pP' rules).
+    "fault_seed": _Field("REPRO_FAULT_SEED", 0, int, _check_int_any),
+    # Telemetry (repro_torch.obs): the master switch of the event bus, the
+    # span tracer and the metrics stream.  Off (the default): every obs
+    # hook is a single ``is None`` check.
+    "telemetry": _Field("REPRO_TELEMETRY", False, _parse_bool, _check_bool),
+    # Perfetto/Chrome trace_event JSON output path (repro_torch.obs.trace);
+    # spans are recorded only when ``telemetry`` is on AND a path is set.
+    "trace_path": _Field("REPRO_TRACE_PATH", None, _parse_optional_str,
+                         _check_optional_str),
+    # Per-step metrics JSONL output path (repro_torch.obs.metrics); active
+    # only when ``telemetry`` is on AND a path is set.
+    "metrics_path": _Field("REPRO_METRICS_PATH", None, _parse_optional_str,
+                           _check_optional_str),
 }
+
+#: fields whose change must re-arm the fault injector.
+_FAULT_FIELDS = ("fault_spec", "fault_seed")
+
+#: fields whose change must re-sync the telemetry subsystem.
+_OBS_FIELDS = ("telemetry", "trace_path", "metrics_path")
 
 
 def _invalidate_plan_caches() -> None:
@@ -110,6 +167,31 @@ def _invalidate_plan_caches() -> None:
     autotune = sys.modules.get("repro_torch.kernels.autotune")
     if autotune is not None:
         autotune.clear_memo()
+
+
+def _sync_fault_injector(import_now: bool = False) -> None:
+    """Re-arm ``repro_torch.ft.inject`` from the fault fields.  Lazy by
+    default (no import cycle with the ft stack); ``import_now`` forces the
+    import so an explicit ``update(fault_spec=...)`` arms at once."""
+    inject = sys.modules.get("repro_torch.ft.inject")
+    if inject is None and import_now:
+        import importlib
+        inject = importlib.import_module("repro_torch.ft.inject")
+    if inject is not None:
+        inject.sync_from_config()
+
+
+def _sync_obs(import_now: bool = False) -> None:
+    """Re-sync ``repro_torch.obs`` (bus / tracer / metrics stream) from
+    the telemetry fields.  Lazy by default; ``import_now`` forces the
+    import so an explicit ``update(telemetry=True)`` activates the bus at
+    once."""
+    obs = sys.modules.get("repro_torch.obs")
+    if obs is None and import_now:
+        import importlib
+        obs = importlib.import_module("repro_torch.obs")
+    if obs is not None:
+        obs.sync_from_config()
 
 
 class GlobalConfig:
@@ -139,20 +221,24 @@ class GlobalConfig:
 
     def update(self, **kw) -> None:
         """Validated permanent update; drops the tuner's memo when a
-        plan-affecting field actually changes.  Every value is checked
-        before any is stored."""
+        plan-affecting field actually changes, re-arms the injector when a
+        fault field does and re-syncs the telemetry when a telemetry field
+        does.  Every value is checked before any is stored."""
         unknown = set(kw) - set(FIELDS)
         if unknown:
             raise ValueError(
                 f"unknown config field(s) {sorted(unknown)}; fields: "
                 f"{tuple(FIELDS)}")
         new = {name: FIELDS[name].check(v) for name, v in kw.items()}
-        invalidate = any(FIELDS[name].plan_affecting
-                         and self._values[name] != v
-                         for name, v in new.items())
+        changed = {name for name, v in new.items()
+                   if self._values[name] != v}
         self._values.update(new)
-        if invalidate:
+        if any(FIELDS[name].plan_affecting for name in changed):
             _invalidate_plan_caches()
+        if changed & set(_FAULT_FIELDS):
+            _sync_fault_injector(import_now=True)
+        if changed & set(_OBS_FIELDS):
+            _sync_obs(import_now=True)
 
     @contextlib.contextmanager
     def override(self, **kw):

@@ -27,8 +27,24 @@ GEMMs.  Registered engines (``ENGINES``):
 
 Engines that cannot serve a geometry resolve down ``bp_phase -> lax``;
 :func:`dispatch_events` counts the engine actually used per pass and
-:func:`policy_decisions` keeps the reasons.  A kernel error propagates: there
-is no runtime degradation in this package.
+:func:`policy_decisions` keeps the reasons.
+
+The same ladder runs at EXECUTION time (:func:`_execute`, as in the JAX
+package): a pass whose engine RAISES is re-run down the chain instead of
+killing the step.  On the card only an injected fault
+(``ft.inject.InjectedFault``, e.g. at a ``pallas.*.launch`` site) is
+absorbed so: a kernel that fails to build, or a launch the wrapper
+refuses, propagates unchanged, so no slower engine ever serves a pass
+under the kernel's name.  Off the card any exception is absorbed, as in
+the JAX package.  The failure edge is recorded (``"pass:failed->survivor"`` in
+:func:`dispatch_events`, the exception class in :func:`runtime_failures`),
+the failing engine is quarantined for that (pass, geometry) and probed
+after :data:`QUARANTINE_PROBE_AFTER` dispatches, and a crashing ``pallas``
+pass poison-marks its plan-cache entry (``autotune.poison_plan``) so
+``autotune="cached"`` does not serve it again.  ``lax`` is terminal: never
+quarantined, and when every engine fails the first exception propagates.
+Only what raises at the call is caught: a device-side fault surfaces at a
+later synchronization, outside the pass, and is not degraded.
 
 Every engine serves a grouped conv in one call (``groups`` argument), so
 the kernel engine runs a depthwise layer as one launch per pass.  Dilation
@@ -60,6 +76,9 @@ from repro_torch.core import bpim2col, im2col_ref, phase_decomp
 from repro_torch.core.convspec import (AUTO, ConvSpec, ConvTransposeSpec,
                                        EnginePolicy)
 from repro_torch.core.im2col_ref import ConvDims, insert_zeros, rot180
+from repro_torch.ft import inject
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import trace as obs_trace
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +324,11 @@ def policy_decisions() -> list[dict]:
 def reset_dispatch_events() -> None:
     DISPATCH_EVENTS.clear()
     POLICY_DECISIONS.clear()
+    RUNTIME_FAILURES.clear()
+    _QUARANTINE.clear()
+    # Keep the bus-backed view (obs.events.counters("dispatch")) in lockstep
+    # with the legacy dict under every reset pattern (no-op when off).
+    obs_events.drop("dispatch")
 
 
 def _capability_gap(e: Engine, d: ConvDims) -> str | None:
@@ -390,25 +414,195 @@ def resolve_engine(requested: str, pass_name: str, d: ConvDims,
     return requested, "requested"
 
 
+# ---------------------------------------------------------------------------
+# Runtime degradation: execute with fallback, quarantine, probes
+# ---------------------------------------------------------------------------
+
+#: structured log of runtime engine failures (bounded like the decisions).
+RUNTIME_FAILURES: list[dict] = []
+
+#: a quarantined (pass, engine, geometry) is skipped for this many
+#: dispatches, then probed for recovery (the port dispatches every call,
+#: so one dispatch is one call of the pass).
+QUARANTINE_PROBE_AFTER = 3
+
+#: (pass_key, engine, _dims_key(d)) -> dispatches skipped since the
+#: quarantine began.  The key is the JAX package's: no operand type, no
+#: group count.
+_QUARANTINE: dict[tuple, int] = {}
+
+
+def runtime_failures() -> list[dict]:
+    """Every runtime engine failure absorbed by the degradation layer:
+    pass, engine, exception class, the survivor that served the pass, and
+    the geometry.  Reset by :func:`reset_dispatch_events`."""
+    return list(RUNTIME_FAILURES)
+
+
+def quarantined_engines() -> list[dict]:
+    """The quarantined (pass, engine, geometry) entries and how many
+    dispatches each has been skipped for."""
+    return [{"pass": k[0], "engine": k[1], "dims": k[2], "skips": v}
+            for k, v in sorted(_QUARANTINE.items(),
+                               key=lambda kv: (kv[0][0], kv[0][1]))]
+
+
+def clear_quarantine() -> None:
+    _QUARANTINE.clear()
+
+
+def _record_event(key: str) -> None:
+    DISPATCH_EVENTS[key] = DISPATCH_EVENTS.get(key, 0) + 1
+    obs_events.emit("dispatch", key)
+
+
 def _dims_key(d: ConvDims) -> tuple:
     return (d.B, d.C, d.H_i, d.W_i, d.N, d.K_h, d.K_w, d.s_h, d.s_w)
 
 
-def _dispatch(pass_name: str, requested: str, d: ConvDims,
-              transposed: bool, groups: int, device, dtype) -> Engine:
-    """Resolve one pass on ``device`` for operands of ``dtype``, record the
-    event and the decision.  A transposed conv's passes count under their
-    own keys (``"forward_T:pallas"``)."""
+def _fallbacks(name: str, d: ConvDims) -> list[str]:
+    """The capable engines below ``name`` on the ``bp_phase -> lax``
+    ladder, ``lax`` always last (the JAX package's runtime chain after
+    ``name``).  Worked out only once ``name`` is passed over, so a pass
+    that does not fail pays for none of it."""
+    chain = [cand for cand in _FALLBACK_CHAIN
+             if cand != name and cand in ENGINES
+             and _capability_gap(ENGINES[cand], d) is None]
+    if "lax" not in chain and name != "lax":
+        chain.append("lax")
+    return chain
+
+
+def _poison_plan_entry(pass_name: str, transposed: bool, d: ConvDims,
+                       groups: int, device, dtype) -> None:
+    """Poison-mark the plan-cache entry of a crashing kernel pass (best
+    effort: poisoning must never mask the degradation itself).  Nothing
+    under ``autotune="off"`` or off the card, where no plan is cached."""
+    from repro_torch.core.config import config
+    if config.autotune == "off" or torch.device(device).type != "cuda":
+        return
+    role = _TRANSPOSE_ROLE[pass_name] if transposed else pass_name
+    try:
+        from repro_torch.kernels import autotune
+        autotune.poison_plan(role, d, groups, device, dtype)
+    except Exception:
+        pass
+
+
+def _record_pass(pass_name: str, pkey: str, requested: str, engine: str,
+                 reason: str, transposed: bool, d: ConvDims, dkey) -> None:
+    """The dispatch event and the policy decision of a pass ``engine``
+    served."""
+    _record_event(f"{pkey}:{engine}")
+    if len(POLICY_DECISIONS) < _MAX_DECISIONS:
+        POLICY_DECISIONS.append({
+            "pass": pass_name, "requested": requested, "engine": engine,
+            "reason": reason, "transpose": transposed,
+            "dims": _dims_key(d) if dkey is None else dkey})
+
+
+def _execute(pass_name: str, requested: str, d: ConvDims, transposed: bool,
+             groups: int, device, dtype, run: Callable):
+    """Resolve one pass on ``device`` for operands of ``dtype`` and run it
+    with runtime degradation.
+
+    ``run(engine)`` performs the pass under one :class:`Engine` (the
+    weight it takes, compact or dilated, is derived per engine inside
+    it).  An exception that :func:`inject.absorbs` (on the card only an
+    injected fault; any other propagates at once, recording nothing)
+    re-runs the pass down :func:`_fallbacks` (:func:`_ladder`).  Without
+    a failure the pass records what it always did: one dispatch event and
+    one policy decision.  With nothing quarantined and no trace to record,
+    the resolved engine runs bare and only a failure enters the ladder,
+    whose loop and span would cost each pass microseconds of host time.
+    A transposed conv's passes count under their own keys
+    (``"forward_T:pallas"``)."""
     name, reason = resolve_engine(requested, pass_name, d, transposed,
                                   groups, device, dtype)
-    key = f"{pass_name}{'_T' if transposed else ''}:{name}"
-    DISPATCH_EVENTS[key] = DISPATCH_EVENTS.get(key, 0) + 1
-    if len(POLICY_DECISIONS) < _MAX_DECISIONS:
-        POLICY_DECISIONS.append({"pass": pass_name, "requested": requested,
-                                 "engine": name, "reason": reason,
-                                 "transpose": transposed,
-                                 "dims": _dims_key(d)})
-    return ENGINES[name]
+    pkey = f"{pass_name}_T" if transposed else pass_name
+    failed = None
+    if not _QUARANTINE and not obs_trace.active():
+        try:
+            out = run(ENGINES[name])
+        except Exception as e:
+            if not inject.absorbs(e, device):
+                raise
+            failed = e
+        else:
+            _record_pass(pass_name, pkey, requested, name, reason,
+                         transposed, d, None)
+            return out
+    return _ladder(pass_name, pkey, requested, name, reason, d, transposed,
+                   groups, device, dtype, run, failed)
+
+
+def _ladder(pass_name: str, pkey: str, requested: str, name: str,
+            reason: str, d: ConvDims, transposed: bool, groups: int, device,
+            dtype, run: Callable, failed: Exception | None):
+    """``name`` then :func:`_fallbacks` until one engine serves the pass
+    (``failed``: what ``name`` already raised in :func:`_execute`; it is
+    not run again).  A failure is recorded (``"pass:failed->survivor"``
+    in :func:`dispatch_events`, the exception class in
+    :func:`runtime_failures`), the failing engine is quarantined for this
+    (pass, geometry) -- later dispatches skip it for
+    :data:`QUARANTINE_PROBE_AFTER` rounds, then probe it once; a probe
+    that succeeds lifts the quarantine (``"pass:engine:recovered"``), one
+    that fails re-arms it -- and a crashing ``pallas`` pass poison-marks
+    its plan-cache entry.  ``lax`` is terminal: never quarantined, and
+    when every engine fails the first exception propagates.  Each engine
+    run is a ``dispatch_span``."""
+    dkey = _dims_key(d)
+    first_exc = None
+    failures: list[dict] = []
+    chain = [name]
+    for cand in chain:              # grows by _fallbacks once name is passed
+        probing = skip = False
+        qkey = (pkey, cand, dkey)
+        if qkey in _QUARANTINE and cand != "lax":
+            _QUARANTINE[qkey] += 1
+            skip = _QUARANTINE[qkey] <= QUARANTINE_PROBE_AFTER
+            probing = not skip
+            _record_event(f"{pkey}:{cand}:"
+                          + ("quarantined" if skip else "probe"))
+        if not skip:
+            err, failed = failed, None
+            if err is None:
+                try:
+                    with obs_trace.dispatch_span(pkey, cand, d):
+                        out = run(ENGINES[cand])
+                except Exception as e:
+                    if not inject.absorbs(e, device):
+                        raise
+                    err = e
+            if err is None:
+                if probing:
+                    del _QUARANTINE[qkey]
+                    _record_event(f"{pkey}:{cand}:recovered")
+                for fail in failures:
+                    fail["survivor"] = cand
+                    _record_event(f"{pkey}:{fail['engine']}->{cand}")
+                    reason = (f"runtime degradation: {fail['engine']} raised "
+                              f"{fail['exception']}; quarantined, {cand} "
+                              f"survives")
+                _record_pass(pass_name, pkey, requested, cand, reason,
+                             transposed, d, dkey)
+                return out
+            if first_exc is None:
+                first_exc = err
+            if cand != "lax":
+                _QUARANTINE[qkey] = 0
+            fail = {"pass": pkey, "engine": cand,
+                    "exception": type(err).__name__, "error": str(err)[:200],
+                    "survivor": None, "probe": probing, "dims": dkey}
+            failures.append(fail)
+            if len(RUNTIME_FAILURES) < _MAX_DECISIONS:
+                RUNTIME_FAILURES.append(fail)
+            if cand == "pallas":
+                _poison_plan_entry(pass_name, transposed, d, groups, device,
+                                   dtype)
+        if len(chain) == 1:
+            chain += _fallbacks(name, d)
+    raise first_exc            # lax is never skipped: it ran and raised
 
 
 def _validate_policy(policy: EnginePolicy) -> EnginePolicy:
@@ -475,11 +669,13 @@ class _Conv2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, spec: ConvSpec, policy: EnginePolicy):
         d = spec_dims(x.shape, w.shape, spec)
-        eng = _dispatch("forward", policy.forward, d, False, spec.groups,
-                        x.device, x.dtype)
         ctx.save_for_backward(x, w)
         ctx.spec, ctx.policy = spec, policy
-        return eng.forward(x, _weight_for(eng, w, spec), d, spec.groups)
+        return _execute(
+            "forward", policy.forward, d, False, spec.groups, x.device,
+            x.dtype,
+            lambda eng: eng.forward(x, _weight_for(eng, w, spec), d,
+                                    spec.groups))
 
     @staticmethod
     def backward(ctx, dy):
@@ -489,20 +685,23 @@ class _Conv2d(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            eng = _dispatch("input_grad", policy.input_grad, d, False,
-                            spec.groups, dy.device, dy.dtype)
-            dx = eng.input_grad(dy, _weight_for(eng, w, spec), d,
-                                spec.groups).to(x.dtype)
+            dx = _execute(
+                "input_grad", policy.input_grad, d, False, spec.groups,
+                dy.device, dy.dtype,
+                lambda eng: eng.input_grad(dy, _weight_for(eng, w, spec), d,
+                                           spec.groups)).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            eng = _dispatch("weight_grad", policy.weight_grad, d, False,
-                            spec.groups, dy.device, dy.dtype)
-            dw = _run_wgrad(x, dy, d, eng, spec).to(w.dtype)
+            dw = _execute(
+                "weight_grad", policy.weight_grad, d, False, spec.groups,
+                dy.device, dy.dtype,
+                lambda eng: _run_wgrad(x, dy, d, eng, spec)).to(w.dtype)
         return dx, dw, None, None
 
 
 def _run_wgrad(x, dy, d: ConvDims, eng: Engine, spec) -> torch.Tensor:
     """One engine's weight grad, un-dilated when the engine took the
-    materialized kernel."""
+    materialized kernel: the whole engine-dependent pipeline, since a
+    survivor may differ from the failed engine in ``native_dilation``."""
     dw = eng.weight_grad(x, dy, d, spec.groups)
     return dw if eng.native_dilation else _undilate_dweight(dw, spec)
 
@@ -654,18 +853,25 @@ def materialized_dims(x_shape, w_shape, spec: ConvTransposeSpec) -> ConvDims:
                     N=w_shape[1], K_h=keff_h, K_w=keff_w, S=1)
 
 
+def _t_forward(x, w, d: ConvDims, eng: Engine, spec: ConvTransposeSpec):
+    """A transposed forward under one engine: the mirror input grad when
+    the engine is transpose-native (zero space never built), else the
+    zero-insertion materialization."""
+    if not eng.native_transpose:
+        return conv2d_transpose_materialized(x, w, spec, eng.name)
+    return eng.input_grad(x, _weight_for(eng, w, spec), d, spec.groups)
+
+
 class _Conv2dTranspose(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, spec: ConvTransposeSpec, policy: EnginePolicy):
         d = transpose_dims(x.shape, w.shape, spec)
-        eng = _dispatch("forward", policy.forward, d, True, spec.groups,
-                        x.device, x.dtype)
         ctx.save_for_backward(x, w)
         ctx.spec, ctx.policy = spec, policy
-        if not eng.native_transpose:
-            return conv2d_transpose_materialized(x, w, spec, eng.name)
-        return eng.input_grad(x, _weight_for(eng, w, spec), d, spec.groups)
+        return _execute("forward", policy.forward, d, True, spec.groups,
+                        x.device, x.dtype,
+                        lambda eng: _t_forward(x, w, d, eng, spec))
 
     @staticmethod
     def backward(ctx, dy):
@@ -677,14 +883,16 @@ class _Conv2dTranspose(torch.autograd.Function):
         # dX is the mirror STRIDED conv of dy; dW the mirror weight grad
         # with the input and output roles swapped.
         if ctx.needs_input_grad[0]:
-            eng = _dispatch("input_grad", policy.input_grad, d, True,
-                            spec.groups, dy.device, dy.dtype)
-            dx = eng.forward(dy, _weight_for(eng, w, spec), d,
-                             spec.groups).to(x.dtype)
+            dx = _execute(
+                "input_grad", policy.input_grad, d, True, spec.groups,
+                dy.device, dy.dtype,
+                lambda eng: eng.forward(dy, _weight_for(eng, w, spec), d,
+                                        spec.groups)).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            eng = _dispatch("weight_grad", policy.weight_grad, d, True,
-                            spec.groups, dy.device, dy.dtype)
-            dw = _run_wgrad(dy, x, d, eng, spec).to(w.dtype)
+            dw = _execute(
+                "weight_grad", policy.weight_grad, d, True, spec.groups,
+                dy.device, dy.dtype,
+                lambda eng: _run_wgrad(dy, x, d, eng, spec)).to(w.dtype)
         return dx, dw, None, None
 
 

@@ -37,8 +37,13 @@ Every resolution is observable: plans carry ``autotuned`` /
 ``measured_us`` / ``candidates_timed`` / ``cache``
 (``hit|miss|stale|poisoned``), surfaced by ``ops.plan_report`` and counted
 in ``ops.plan_events()`` as ``{role}_autotune_{hit,miss,stale,poisoned,
-measure_failed}``.  :func:`poison_plan` marks an entry that must not be
-served again; a candidate that raises while timed is counted and skipped.
+measure_failed}`` (and on the obs bus as ``plan`` events).
+:func:`poison_plan` marks an entry that must not be served again (the
+conv dispatch calls it when a kernel pass raises); a candidate that
+raises while timed is counted and skipped.  The store's read and write and
+the timing harness are the fault sites ``plan_cache.read`` (absorbed as a
+cold cache), ``plan_cache.write`` (absorbed with the warning) and
+``autotune.measure`` (inside an ``autotune:measure`` span).
 """
 
 from __future__ import annotations
@@ -54,8 +59,10 @@ import torch
 
 from repro_torch.core.config import config
 from repro_torch.core.im2col_ref import ConvDims
+from repro_torch.ft.inject import InjectedFault, fault_point
 from repro_torch.kernels import build, ops, timing
 from repro_torch.kernels import tap_gemm as tg
+from repro_torch.obs import trace as obs_trace
 
 #: bump when the key layout or entry payload changes; older files are
 #: ignored wholesale (equivalent to a cold cache).
@@ -96,29 +103,33 @@ def cache_path() -> str:
 
 def _load_store() -> dict:
     """The on-disk store, or a fresh one on any read/parse/schema problem
-    (a corrupt cache is a cold cache, never an error)."""
+    (a corrupt cache is a cold cache, never an error; so is a fault at the
+    ``plan_cache.read`` site)."""
     try:
+        fault_point("plan_cache.read")
         with open(cache_path(), encoding="utf-8") as f:
             store = json.load(f)
         if (isinstance(store, dict) and store.get("schema") == CACHE_SCHEMA
                 and isinstance(store.get("entries"), dict)):
             return store
-    except (OSError, ValueError):
+    except (OSError, ValueError, InjectedFault):
         pass
     return {"schema": CACHE_SCHEMA, "entries": {}}
 
 
 def _save_store(store: dict) -> None:
     """Atomic best-effort write (tmp + ``os.replace``); an unwritable
-    cache dir degrades to tuning every process, not to a crash."""
+    cache dir (or a fault at the ``plan_cache.write`` site) degrades to
+    tuning every process, not to a crash."""
     path = cache_path()
     try:
+        fault_point("plan_cache.write")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w", encoding="utf-8") as f:
             json.dump(store, f, indent=0, sort_keys=True)
         os.replace(tmp, path)
-    except OSError as e:
+    except (OSError, InjectedFault) as e:
         warnings.warn(f"plan cache not persisted ({e}); will re-tune next "
                       f"process", RuntimeWarning, stacklevel=2)
 
@@ -193,10 +204,17 @@ def measure_plan(role: str, d: ConvDims, groups: int, plan: tg.Plan,
     """Device time of one call of ``role``'s kernel under ``plan`` on
     operands of ``dtype``, in MICROSECONDS: the best of ``reps``
     (``config.autotune_reps``) CUDA-graph replays of :data:`CALLS`
-    back-to-back calls (``timing.replay_ms``)."""
+    back-to-back calls (``timing.replay_ms``), inside an
+    ``autotune:measure`` span; the ``autotune.measure`` fault site comes
+    first (the candidate loop counts a raise as ``measure_failed``)."""
     reps = config.autotune_reps if reps is None else reps
-    fn = _run_fn(role, d, groups, plan, torch.device(device), dtype)
-    return min(timing.replay_ms(fn, max(1, reps), CALLS, warm=1)) * 1e3
+    with obs_trace.span(
+            "autotune:measure", role=role, reps=reps, variant=plan.variant,
+            splits=plan.splits,
+            dims=[d.B, d.C, d.H_i, d.W_i, d.N, d.K_h, d.K_w]):
+        fault_point("autotune.measure")
+        fn = _run_fn(role, d, groups, plan, torch.device(device), dtype)
+        return min(timing.replay_ms(fn, max(1, reps), CALLS, warm=1)) * 1e3
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,9 @@ import torch.nn.functional as F
 from repro_torch.core import phase_decomp
 from repro_torch.core.config import config
 from repro_torch.core.im2col_ref import ConvDims, zero_pad
+from repro_torch.ft.inject import fault_point
 from repro_torch.kernels import tap_gemm as tg
+from repro_torch.obs import events as obs_events
 
 _cdiv = tg._cdiv
 
@@ -46,6 +48,7 @@ PLAN_EVENTS: dict[str, int] = {}
 
 def _count_event(name: str) -> None:
     PLAN_EVENTS[name] = PLAN_EVENTS.get(name, 0) + 1
+    obs_events.emit("plan", name)
 
 
 def plan_events() -> dict[str, int]:
@@ -54,6 +57,8 @@ def plan_events() -> dict[str, int]:
 
 def reset_plan_events() -> None:
     PLAN_EVENTS.clear()
+    # Keep the bus-backed view in lockstep with the legacy dict (no-op off).
+    obs_events.drop("plan")
 
 
 def _taps_halo(taps) -> tuple[int, int]:
@@ -302,6 +307,13 @@ def pass_plan(role: str, d: ConvDims, groups: int, device,
     return autotune.tuned_plan(role, d, groups, device, plan, dtype)
 
 
+def plan_cache_info():
+    """The analytic plan memo's ``cache_info()`` (hits prove that a
+    geometry's plan is worked out once; the metrics stream's
+    ``plan_cache_hit_rate``)."""
+    return _analytic.cache_info()
+
+
 def plan_candidates(role: str, d: ConvDims, groups: int = 1,
                     k: int | None = None, device="cuda",
                     dtype=torch.float32) -> list[tg.Plan]:
@@ -459,7 +471,10 @@ def conv2d_forward(x, w, d: ConvDims, groups: int = 1,
                    plan: tg.Plan | None = None) -> torch.Tensor:
     """Forward conv through ``tap_gemm``.  ``w`` is the COMPACT kernel
     (``k_taps_h x k_taps_w``); a dilation's zero taps are skipped by the
-    tap table.  ``plan`` defaults to :func:`pass_plan`'s."""
+    tap table.  ``plan`` defaults to :func:`pass_plan`'s.  The
+    ``pallas.forward.launch`` fault site comes first: a faulted pass
+    launches nothing (and on CPU tensors runs no plain version)."""
+    fault_point("pallas.forward.launch")
     if plan is None:
         plan = pass_plan("forward", d, groups, x.device, x.dtype)
     src, wt, taps = forward_operands(x, w, d, groups)
@@ -470,7 +485,9 @@ def conv2d_forward(x, w, d: ConvDims, groups: int = 1,
 def conv2d_input_grad(dy, w, d: ConvDims, groups: int = 1,
                       plan: tg.Plan | None = None) -> torch.Tensor:
     """Input grad through ONE ``tap_gemm_phased`` launch over all phases;
-    ``plan`` defaults to :func:`pass_plan`'s."""
+    ``plan`` defaults to :func:`pass_plan`'s; the
+    ``pallas.input_grad.launch`` fault site comes first."""
+    fault_point("pallas.input_grad.launch")
     if plan is None:
         plan = pass_plan("input_grad", d, groups, dy.device, dy.dtype)
     src, w_stack, pp = input_grad_operands(dy, w, d, groups)
@@ -483,7 +500,9 @@ def conv2d_input_grad(dy, w, d: ConvDims, groups: int = 1,
 def conv2d_weight_grad(x, dy, d: ConvDims, groups: int = 1,
                        plan: tg.Plan | None = None) -> torch.Tensor:
     """Weight grad through ``tap_wgrad``, at the compact kernel extent;
-    ``plan`` defaults to :func:`pass_plan`'s."""
+    ``plan`` defaults to :func:`pass_plan`'s; the
+    ``pallas.weight_grad.launch`` fault site comes first."""
+    fault_point("pallas.weight_grad.launch")
     if plan is None:
         plan = pass_plan("weight_grad", d, groups, x.device, x.dtype)
     src, dyn, taps = weight_grad_operands(x, dy, d, groups)

@@ -34,8 +34,15 @@ each layer's depthwise conv on the tap kernels (bf16 at full width).
 model is initialised from ``--seed`` on the device (on the card from a CUDA
 generator: ``repro_torch.models.layers._draw``).
 ``--autotune`` and ``--plan-cache-dir`` set ``repro_torch.core.config``.
-``--conv-mesh`` raises (ROADMAP A13); ``--fault-spec``, ``--trace`` and
-``--metrics`` raise (ROADMAP A12).
+``--fault-spec`` arms the fault injector (``repro_torch.ft.inject``; the
+loop sets its clock to the step, so ``grad.values:nan@step2`` poisons
+step 2's grads and the guard drops that step); ``--trace PATH`` turns the
+telemetry on and writes a Perfetto trace of the run (a ``train:step`` span
+a step, conv and checkpoint spans inside it); ``--metrics PATH`` streams
+a ``train_step`` JSON line a step (``repro_torch.obs``).  With either, the
+introspection counters are reset at the start (``obs.reset_all``) and the
+run ends with ``obs.finalize()``, failing when a legacy counter disagrees
+with the event bus.  ``--conv-mesh`` raises (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -46,11 +53,13 @@ import warnings
 
 import torch
 
+from repro_torch import obs
 from repro_torch.ckpt import checkpoint as CKPT
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.config import config
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.device import resolve_device
+from repro_torch.ft import inject
 from repro_torch.ft.failures import (GuardState, HeartbeatTable,
                                      StragglerDetector,
                                      make_guard_restart_plan)
@@ -115,11 +124,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fault-spec", default=None,
-                    help="fault injection (not ported: ROADMAP A12)")
+                    help="arm the fault injector (config.fault_spec), e.g. "
+                         "'grad.values:nan@step5'")
     ap.add_argument("--trace", default=None, metavar="PATH",
-                    help="trace export (not ported: ROADMAP A12)")
+                    help="enable telemetry and write a Chrome/Perfetto "
+                         "trace_event JSON of the run (repro_torch.obs."
+                         "trace) to PATH")
     ap.add_argument("--metrics", default=None, metavar="PATH",
-                    help="metrics JSONL (not ported: ROADMAP A12)")
+                    help="enable telemetry and stream per-step metrics "
+                         "JSONL (loss/grad_norm/guard/dispatch mix) to PATH")
     guard_group = ap.add_mutually_exclusive_group()
     guard_group.add_argument("--guard", dest="guard", action="store_true",
                              default=True,
@@ -155,15 +168,19 @@ def main(argv=None, *, params=None, opt_state=None,
     if args.conv_mesh is not None:
         raise NotImplementedError("--conv-mesh: the conv mesh is not "
                                   "ported yet (ROADMAP A13)")
-    for flag in ("fault_spec", "trace", "metrics"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: fault injection and telemetry "
-                f"are not ported yet (ROADMAP A12)")
-    if args.autotune is not None:
-        config.update(autotune=args.autotune)
-    if args.plan_cache_dir is not None:
-        config.update(plan_cache_dir=args.plan_cache_dir)
+    updates = {k: v for k, v in (("autotune", args.autotune),
+                                 ("plan_cache_dir", args.plan_cache_dir),
+                                 ("fault_spec", args.fault_spec))
+               if v is not None}
+    if args.trace is not None:
+        updates.update(telemetry=True, trace_path=args.trace)
+    if args.metrics is not None:
+        updates.update(telemetry=True, metrics_path=args.metrics)
+    config.update(**updates)
+    if args.trace is not None or args.metrics is not None:
+        # The traced run's window starts here: the bus begins empty, so the
+        # legacy counters start with it (finalize compares the two).
+        obs.reset_all()
     conv_policy = resolve_conv_policy_args(args.conv_policy, args.conv_mode)
     dev = resolve_device(args.device)
 
@@ -204,12 +221,16 @@ def main(argv=None, *, params=None, opt_state=None,
         else args.steps
     for step in range(start_step, end_step):
         t0 = time.perf_counter()
+        inject.set_step(step)
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in make_batch(cfg, dcfg, step).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
-        loss = float(metrics["loss"])
+        with obs.trace.span("train:step", step=step):
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 step)
+            loss = float(metrics["loss"])
         losses.append(loss)
         dt = time.perf_counter() - t0
+        obs.metrics.train_step(step, metrics, step_s=dt)
         bad = float(metrics.get("guard_bad", 0.0))
         if history is not None:
             history.append({"step": step, "loss": loss,
@@ -219,6 +240,8 @@ def main(argv=None, *, params=None, opt_state=None,
         straggler.observe([dt])
         if gs is not None and bad:
             action = gs.observe(True)
+            obs.events.emit("train", f"guard:{action or 'skip'}", step=step,
+                            streak=gs.bad_streak)
             print(f"[train] step={step} non-finite step dropped "
                   f"(streak={gs.bad_streak}, action={action})", flush=True)
             if action == "rollback":
@@ -256,6 +279,15 @@ def main(argv=None, *, params=None, opt_state=None,
     if gs is not None and gs.total_bad:
         print(f"[train] guard: {gs.total_bad} non-finite steps dropped, "
               f"{gs.rollbacks} rollbacks")
+    if obs.enabled():
+        rep = obs.finalize()
+        print(f"[train] obs: {rep['events_total']} events "
+              f"{rep['events_by_kind']} trace={rep['trace_file']} "
+              f"metrics={rep['metrics']['lines']} lines")
+        if not rep["consistent"]:
+            raise SystemExit("[train] telemetry divergence: legacy counters "
+                             "disagree with the bus-backed views: "
+                             + "; ".join(rep["divergences"]))
     print(f"[train] done: first_loss={losses[0]:.4f} "
           f"last_loss={losses[-1]:.4f}")
     return losses

@@ -21,10 +21,20 @@ caches each RG-LRU layer's recurrent state and last conv inputs the same
 way, and each local-window attention layer's keys and values.  ``conv_policy`` pins the model's conv
 engines, as in the JAX engine.
 
-The JAX engine's observability spans and its ``serve.prefill`` /
-``serve.decode`` fault sites, with the ``except Exception`` that finalizes
-a crashing prefill as ``status="failed"``, are left out (ROADMAP A12): a
-failed kernel build or launch raises out of :meth:`run`.
+Failure domain, as in the JAX engine: the ``serve.prefill`` /
+``serve.decode`` fault sites (``repro_torch.ft.inject``) fire per request
+/ per lane.  A prefill that raises an injected fault finalizes THAT
+request with ``status="failed"`` (off the card any exception does, as in
+the JAX engine; on the card a kernel that does not build or launch
+propagates and fails the run, as every other error of the port does); an
+injected ``serve.decode`` fault, checked per active lane after the decode
+step, releases that lane as ``failed`` with its partial tokens; the other
+lanes keep serving.  The engine sets the injection clock to its decode
+step count, so ``@stepN`` rules target exact decode steps.  A decode step
+that itself raises is not caught: its error belongs to every lane.
+Telemetry: ``serve`` events (admit, insert, finalize with latency), the
+``serve:prefill`` / ``serve:insert`` / ``serve:decode`` spans and a
+``serve_tick`` metrics line a decode step.
 """
 
 from __future__ import annotations
@@ -36,8 +46,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.ft import inject
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import cache as C
 from repro_torch.serve.engine import (merged_summary, params_device, sync,
                                       with_conv_policy)
@@ -97,6 +111,11 @@ class ContinuousEngine:
         req.t_done = self.clock()
         key = req.status if req.status != "ok" else "completed"
         self.counters[key] = self.counters.get(key, 0) + 1
+        latency = req.t_done - req.t_submit
+        obs_events.emit("serve", f"finalize:{key}", engine=self.engine_kind,
+                        rid=req.rid, latency_s=round(latency, 6),
+                        tokens=len(req.out))
+        obs_metrics.record_latency(latency)
 
     def run_summary(self) -> dict:
         return merged_summary(self.engine_kind, self.counters, self.stats)
@@ -112,7 +131,9 @@ class ContinuousEngine:
     def _admit(self, finished: list[Request]) -> None:
         """Fill every free lane from the queue head.  Deadline-expired
         queue entries are finalized at admission time (no decode step is
-        ever spent on them)."""
+        ever spent on them); a prefill that raises what
+        :func:`inject.absorbs` (on the card only an injected fault)
+        finalizes that request with ``status="failed"`` and moves on."""
         for lane in self.free_lanes():
             while self.queue:
                 req = self.queue.popleft()
@@ -121,14 +142,29 @@ class ContinuousEngine:
                     self._finalize(req, "timed_out")
                     finished.append(req)
                     continue
-                t0 = time.perf_counter()
-                logits, src = M.prefill(
-                    self.params,
-                    torch.as_tensor([req.prompt], device=self.device),
-                    self.cfg, self.max_len)
-                sync(self.device)
-                self.stats["prefill_s"] += time.perf_counter() - t0
+                try:
+                    inject.fault_point("serve.prefill")
+                    t0 = time.perf_counter()
+                    with obs_trace.span("serve:prefill",
+                                        engine=self.engine_kind,
+                                        rid=req.rid, plen=len(req.prompt)):
+                        logits, src = M.prefill(
+                            self.params,
+                            torch.as_tensor([req.prompt],
+                                            device=self.device),
+                            self.cfg, self.max_len)
+                        sync(self.device)
+                    self.stats["prefill_s"] += time.perf_counter() - t0
+                except Exception as e:
+                    if not inject.absorbs(e, self.device):
+                        raise
+                    self._finalize(req, "failed")
+                    finished.append(req)
+                    continue
                 self.counters["admitted"] += 1
+                obs_events.emit("serve", "admit", engine=self.engine_kind,
+                                rid=req.rid, lane=lane,
+                                plen=len(req.prompt))
                 self.stats["prefill_tokens"] += len(req.prompt)
                 tok = self._sample(logits).tolist()[0]
                 req.out.append(tok)
@@ -141,10 +177,14 @@ class ContinuousEngine:
                     continue
                 # The insert is part of the admission cost (prefill_s).
                 t0 = time.perf_counter()
-                C.lane_insert(self.cache, src, lane)
-                sync(self.device)
+                with obs_trace.span("serve:insert", engine=self.engine_kind,
+                                    rid=req.rid, lane=lane):
+                    C.lane_insert(self.cache, src, lane)
+                    sync(self.device)
                 self.stats["prefill_s"] += time.perf_counter() - t0
                 self.counters["inserts"] += 1
+                obs_events.emit("serve", "insert", engine=self.engine_kind,
+                                rid=req.rid, lane=lane)
                 self.lanes[lane] = req
                 self.lane_pos[lane] = len(req.prompt)
                 self.next_tok[lane] = tok
@@ -164,24 +204,33 @@ class ContinuousEngine:
     def step(self, finished: list[Request]) -> bool:
         """One decode step across all occupied lanes (per-lane position
         vector); samples on the device, advances each lane's clock,
-        finalizes lanes that completed or timed out.  Returns False when
-        no lane is occupied."""
+        finalizes lanes that completed, timed out or failed (an injected
+        ``serve.decode`` fault).  Returns False when no lane is
+        occupied."""
         active = self.active_lanes()
         if not active:
             return False
         self.counters["decode_steps"] += 1
+        inject.set_step(self.counters["decode_steps"])
         t0 = time.perf_counter()
-        logits, self.cache = M.decode_step(
-            self.params, self.cache,
-            torch.as_tensor(self.next_tok, device=self.device),
-            torch.as_tensor(self.lane_pos, device=self.device), self.cfg)
-        sync(self.device)
+        with obs_trace.span("serve:decode", engine=self.engine_kind,
+                            active=len(active)):
+            logits, self.cache = M.decode_step(
+                self.params, self.cache,
+                torch.as_tensor(self.next_tok, device=self.device),
+                torch.as_tensor(self.lane_pos, device=self.device), self.cfg)
+            sync(self.device)
         self.stats["decode_s"] += time.perf_counter() - t0
         sampled = self._sample(logits).tolist()
         self.stats["lane_steps"] += len(active)
         now = self.clock()
         for i in active:
             r = self.lanes[i]
+            try:
+                inject.fault_point("serve.decode")
+            except inject.InjectedFault:
+                self._release(i, finished, "failed")
+                continue
             tok = sampled[i]
             r.out.append(tok)
             self.stats["tokens"] += 1
@@ -192,6 +241,7 @@ class ContinuousEngine:
             elif (r.deadline_s is not None
                     and now - r.t_submit > r.deadline_s):
                 self._release(i, finished, "timed_out")
+        obs_metrics.serve_tick(self)
         if self.on_step is not None:
             self.on_step(self)
         return True

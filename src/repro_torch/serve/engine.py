@@ -9,8 +9,12 @@ admitted as the queue refills.  It is the lockstep baseline the continuous
 engine (:mod:`repro_torch.serve.continuous`) is compared against.
 
 ``conv_policy`` pins the per-pass conv engines of the served model (a
-Mamba2 layer's depthwise conv), as in the JAX engine.  The JAX engine's
-observability spans, events and metrics are left out (ROADMAP A12).
+Mamba2 layer's depthwise conv), as in the JAX engine.  Telemetry, as in
+the JAX engine: ``serve`` events (wave, finalize with latency), the
+``serve:prefill`` span over a wave's lockstep prefill and a
+``serve:decode`` span and ``serve_tick`` metrics line a decode step.  The
+fault sites are the continuous engine's: a wave shares one batch, so a
+lane has no failure of its own here.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.obs import events as obs_events
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.request import Request
 from repro_torch.serve.sampling import make_sampler
 
@@ -120,6 +127,11 @@ class Engine:
         req.t_done = self.clock()
         key = req.status if req.status != "ok" else "completed"
         self.counters[key] = self.counters.get(key, 0) + 1
+        latency = req.t_done - req.t_submit
+        obs_events.emit("serve", f"finalize:{key}", engine=self.engine_kind,
+                        rid=req.rid, latency_s=round(latency, 6),
+                        tokens=len(req.out))
+        obs_metrics.record_latency(latency)
 
     def _expire(self, wave: list[Request]) -> None:
         """Finalize overdue requests: keep the tokens generated so far,
@@ -139,6 +151,8 @@ class Engine:
 
     def _run_wave(self, wave: list[Request]) -> None:
         self.counters["waves"] += 1
+        obs_events.emit("serve", "wave", engine=self.engine_kind,
+                        size=len(wave))
         b = self.max_batch
         plen = max(len(r.prompt) for r in wave)
         toks = np.full((b, plen), self.pad_id, np.int64)
@@ -149,12 +163,14 @@ class Engine:
         # Lockstep prefill through the decode path.
         logits = None
         t0 = time.perf_counter()
-        for t in range(plen):
-            if all(r.done for r in wave):
-                break
-            logits, cache = self._decode(cache, toks[:, t], t)
-            self._tick()
-        sync(self.device)
+        with obs_trace.span("serve:prefill", engine=self.engine_kind,
+                            size=len(wave), plen=plen):
+            for t in range(plen):
+                if all(r.done for r in wave):
+                    break
+                logits, cache = self._decode(cache, toks[:, t], t)
+                self._tick()
+            sync(self.device)
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += sum(len(r.prompt) for r in wave)
         pos = plen
@@ -181,11 +197,14 @@ class Engine:
             if all(r.done for r in wave):
                 break
             t0 = time.perf_counter()
-            logits, cache = self._decode(
-                cache, torch.as_tensor(nxt, device=self.device), pos)
-            sync(self.device)
+            with obs_trace.span("serve:decode", engine=self.engine_kind,
+                                pos=pos, active=active):
+                logits, cache = self._decode(
+                    cache, torch.as_tensor(nxt, device=self.device), pos)
+                sync(self.device)
             self.stats["decode_s"] += time.perf_counter() - t0
             self.counters["decode_steps"] += 1
+            obs_metrics.serve_tick(self)
             self._tick()
             pos += 1
         for r in wave:

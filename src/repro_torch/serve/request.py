@@ -9,9 +9,10 @@ finalize.  ``status`` records how it ended:
 ``"timed_out"``  its ``deadline_s`` wall-clock budget expired -- at
                  admission time (never decoded) or mid-stream (keeps the
                  tokens generated so far)
-
-A failed prefill or decode raises out of the engine: the port has no
-fault sites yet and catches nothing (ROADMAP A12).
+``"failed"``     its prefill or its decode lane crashed (for example an
+                 armed ``serve.prefill`` / ``serve.decode`` fault in the
+                 continuous engine) -- the request is finalized with its
+                 partial output instead of the crash killing the batch
 
 ``t_submit`` / ``t_done`` are engine-clock stamps, so ``t_done - t_submit``
 is the request latency.

@@ -11,9 +11,12 @@ that runs eagerly (no ``jit`` counterpart is needed); ``step`` is the
 loop's Python int.  Grads keep the parameter dtype, as
 ``jax.value_and_grad`` gives them (bf16 at full width); the accumulator is
 float32.  Everything the guard decides stays on the device: the step reads
-nothing back to the host.  The conv mesh (ROADMAP A13) raises; the JAX
-step's ``grad.values`` fault injection comes with ``ft/inject.py``
-(ROADMAP A12).
+nothing back to the host.  The ``grad.values`` fault site sits where the
+JAX step has it, after the grads and before compression and the guard:
+an armed ``grad.values:nan@stepN`` rule multiplies step N's grads by NaN
+(:func:`repro_torch.ft.inject.nan_factor`, decided on the host from the
+step number), so the guard drops exactly step N.  The conv mesh (ROADMAP
+A13) raises.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.ft import inject
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compression, schedule
 from repro_torch.train import losses
@@ -162,6 +166,14 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         else:
             loss_val, metrics, grads = _accumulated(loss, params, batch,
                                                     cfg, accum_steps)
+
+        # Fault injection on the gradient VALUES, where the JAX step has
+        # it: the guard below then sees step N non-finite.
+        nan_steps = inject.value_fault_steps("grad.values")
+        if nan_steps is not None:
+            factor = inject.nan_factor(step, nan_steps)
+            if factor != 1.0:
+                grads = tree_map(lambda g: g * factor, grads)
 
         if compress_grads:
             ef = opt_state.get("ef") or tree_map(

@@ -1,7 +1,9 @@
 """The port's runtime config (``repro_torch.core.config``) against the JAX
-package's (``repro.core.config``) for the fields they share: defaults, env
-parsing, validation errors; then the frozen surface, scoped overrides and
-the tuner's memo invalidation."""
+package's (``repro.core.config``) for the fields they share (the tuner's,
+the model knobs, and fault injection and telemetry): defaults, env
+parsing, validation errors; then the frozen surface, scoped overrides, the
+tuner's memo invalidation, and the injector and telemetry re-synced on a
+change."""
 
 import pytest
 
@@ -14,7 +16,8 @@ from repro_torch.core.config import config  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
 
 SHARED = ("autotune", "autotune_top_k", "autotune_reps", "plan_cache_dir",
-          "ssd_chunk", "blockwise_kv_threshold", "remat")
+          "ssd_chunk", "blockwise_kv_threshold", "remat", "fault_spec",
+          "fault_seed", "telemetry", "trace_path", "metrics_path")
 
 
 @pytest.fixture(autouse=True)
@@ -48,8 +51,16 @@ def test_fields_and_env_names_equal_jax():
     {"REPRO_BLOCKWISE_THRESHOLD": "256", "REPRO_REMAT": "none"},
     {"REPRO_REMAT": ""},                     # empty -> None
     {"REPRO_SSD_CHUNK": "64"},
+    {"REPRO_FAULT_SPEC": "pallas.*:raise@step3", "REPRO_FAULT_SEED": "7",
+     "REPRO_TELEMETRY": "1", "REPRO_TRACE_PATH": "/t.json",
+     "REPRO_METRICS_PATH": "/m.jsonl"},
+    {"REPRO_FAULT_SPEC": "", "REPRO_TELEMETRY": "off",
+     "REPRO_TRACE_PATH": "", "REPRO_METRICS_PATH": ""},   # empty -> None
+    {"REPRO_TELEMETRY": " No ", "REPRO_FAULT_SEED": "-3"},
+    {"REPRO_TELEMETRY": "anything"},         # not a false word -> True
 ], ids=["empty", "cached", "all", "empty_dir", "unchecked", "zero_k",
-        "attention", "empty_remat", "ssd_chunk"])
+        "attention", "empty_remat", "ssd_chunk", "faults_telemetry",
+        "empty_obs", "telemetry_no", "telemetry_word"])
 def test_env_parsing_equals_jax(env):
     assert _shared(tcfg.GlobalConfig(env=env)) == \
         _shared(jcfg.GlobalConfig(env=env))
@@ -58,7 +69,8 @@ def test_env_parsing_equals_jax(env):
 @pytest.mark.parametrize("env", [{"REPRO_AUTOTUNE_TOP_K": "x"},
                                  {"REPRO_AUTOTUNE_REPS": "1.5"},
                                  {"REPRO_BLOCKWISE_THRESHOLD": "big"},
-                                 {"REPRO_SSD_CHUNK": "q"}])
+                                 {"REPRO_SSD_CHUNK": "q"},
+                                 {"REPRO_FAULT_SEED": "1.5"}])
 def test_unparsable_env_raises_like_jax(env):
     with pytest.raises(ValueError):
         jcfg.GlobalConfig(env=env)
@@ -72,7 +84,11 @@ def test_unparsable_env_raises_like_jax(env):
     dict(autotune_top_k="3"), dict(autotune_reps=0), dict(autotune_reps=2.0),
     dict(plan_cache_dir=3), dict(blockwise_kv_threshold=0),
     dict(blockwise_kv_threshold=512.0), dict(remat=1), dict(ssd_chunk=0),
-    dict(ssd_chunk=16.0),
+    dict(ssd_chunk=16.0), dict(fault_spec=3),
+    dict(fault_spec="bogus.site:raise"), dict(fault_spec="ckpt.write:boom"),
+    dict(fault_spec="ckpt.write:raise~p2"), dict(fault_seed=True),
+    dict(fault_seed=1.5), dict(telemetry=1), dict(telemetry="yes"),
+    dict(trace_path=3), dict(metrics_path=b"m"),
 ], ids=lambda kw: "-".join(f"{k}={v!r}" for k, v in kw.items()))
 def test_update_validation_errors_equal_jax(kw):
     mine, theirs = tcfg.GlobalConfig(env={}), jcfg.GlobalConfig(env={})
@@ -88,7 +104,10 @@ def test_valid_updates_equal_jax():
     mine, theirs = tcfg.GlobalConfig(env={}), jcfg.GlobalConfig(env={})
     kw = dict(autotune="cached", autotune_top_k=2, autotune_reps=5,
               plan_cache_dir="/plans", ssd_chunk=64,
-              blockwise_kv_threshold=2048, remat="none")
+              blockwise_kv_threshold=2048, remat="none",
+              fault_spec="pallas.*:raise@step3;grad.values:nan@5",
+              fault_seed=-2, telemetry=True, trace_path="/t.json",
+              metrics_path="/m.jsonl")
     mine.update(**kw)
     theirs.update(**kw)
     assert _shared(mine) == _shared(theirs) == kw
@@ -138,3 +157,17 @@ def test_plan_affecting_change_clears_the_memo(field, value):
     assert autotune._MEMO == {"k": "plan"}
     config.update(**{field: value})
     assert autotune._MEMO == {}
+
+
+def test_fault_and_telemetry_changes_resync_their_modules(tmp_path):
+    from repro_torch import obs
+    from repro_torch.ft import inject
+    config.update(fault_spec="ckpt.write:raise", fault_seed=4)
+    assert inject.armed_rules() and inject._RNG.random() == \
+        __import__("random").Random(4).random()
+    config.update(fault_spec=None)
+    assert not inject.armed_rules()
+    with config.override(telemetry=True, trace_path=str(tmp_path / "t"),
+                         metrics_path=str(tmp_path / "m")):
+        assert obs.enabled() and obs.trace.active() and obs.metrics.active()
+    assert not (obs.enabled() or obs.trace.active() or obs.metrics.active())

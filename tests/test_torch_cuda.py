@@ -19,7 +19,11 @@ grad (Mamba2's geometry, ragged lengths, operands off a 16-byte boundary,
 the CNN's 3 x 3 in float32, a stride-2 3 x 3, a 7 x 7, 4,096 and 70,000
 groups; the input grad also at a 7 x 7 at stride 2, phases without taps,
 and rows misaligned by 1-7 elements; the tiles it replaces still right at
-its geometry).
+its geometry); and fault injection on the card (a faulted tap-kernel
+pass served by ``bp_phase`` with no launch, a quarantine probe that
+launches the kernel again, a failed decode lane on flash serving; a
+kernel or prefill that raises anything but an injected fault fails its
+call).
 
 Every test needs an NVIDIA GPU and skips without one.  This file imports no
 JAX, so it also runs where only PyTorch is installed:
@@ -1290,3 +1294,152 @@ def test_dw_input_grad_takes_rows_misaligned_by_1_to_7_elements(cuda,
                                           pp.phase_taps, pp.n_qh, pp.n_qw),
                        got)
     assert tg.variant_launch_counts() == {"tap_gemm_phased:dw": 2}
+
+
+# ---------------------------------------------------------------------------
+# Fault injection and runtime degradation on the card (ROADMAP A12)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def armed():
+    """The port's config restored, the injector's clock at 0 and every
+    introspection surface clean, before and after."""
+    from repro_torch import obs
+    from repro_torch.core.config import config
+    from repro_torch.ft import inject
+    saved = config.snapshot()
+    obs.reset_all()
+    inject.set_step(0)
+    yield config
+    config.update(**saved)
+    inject.set_step(0)
+    obs.reset_all()
+
+
+def test_a_faulted_kernel_pass_degrades_and_launches_nothing(cuda, armed):
+    """``pallas.forward.launch`` faulted on a CUDA conv: the pass re-runs
+    on ``bp_phase``, equal to the unarmed kernel's output within
+    ``REL_TOL``, and the faulted pass launches no tap kernel."""
+    gen = torch.Generator().manual_seed(0)
+    x, w = _randn(gen, 4, 16, 17, 17, dev=cuda), _randn(gen, 32, 16, 3, 3,
+                                                       dev=cuda)
+    spec = ConvSpec.make(stride=2, padding=1)
+    reset_launch_counts()
+    want = tconv.conv2d(x, w, spec, "pallas")
+    assert launch_counts()["tap_gemm"] == 1
+    armed.update(fault_spec="pallas.forward.launch:raise")
+    reset_launch_counts()
+    got = tconv.conv2d(x, w, spec, "pallas")
+    assert not any(launch_counts().values())
+    _close(got, want)
+    ev = tconv.dispatch_events()
+    assert ev["forward:pallas->bp_phase"] == 1 and ev["forward:bp_phase"] == 1
+    assert tconv.runtime_failures()[0]["exception"] == "InjectedFault"
+
+
+def test_a_probe_relaunches_the_kernel(cuda, armed, monkeypatch):
+    """Faulted at step 0, quarantined at step 1, probed at step 2: the
+    probe launches the kernel again and lifts the quarantine; every
+    output matches the kernel's."""
+    from repro_torch.ft import inject
+    monkeypatch.setattr(tconv, "QUARANTINE_PROBE_AFTER", 1)
+    gen = torch.Generator().manual_seed(1)
+    x = _randn(gen, 2, 8, 12, 12, dev=cuda).requires_grad_(True)
+    w = _randn(gen, 16, 8, 3, 3, dev=cuda).requires_grad_(True)
+    spec = ConvSpec.make(stride=2, padding=1)
+    y = tconv.conv2d(x, w, spec, "pallas")
+    want = torch.autograd.grad(y.square().sum(), [x, w])
+    armed.update(fault_spec="pallas.*:raise@step0")
+    launches = []
+    for step in range(3):
+        inject.set_step(step)
+        reset_launch_counts()
+        y = tconv.conv2d(x, w, spec, "pallas")
+        got = torch.autograd.grad(y.square().sum(), [x, w])
+        launches.append(launch_counts())
+        for g, t in zip(got, want):
+            _close(g, t)
+    taps = ("tap_gemm", "tap_gemm_phased", "tap_wgrad")
+    assert [[c[k] for k in taps] for c in launches] == \
+        [[0, 0, 0], [0, 0, 0], [1, 1, 1]]
+    ev = tconv.dispatch_events()
+    for p in ("forward", "input_grad", "weight_grad"):
+        assert ev[f"{p}:pallas:probe"] == ev[f"{p}:pallas:recovered"] == 1
+    assert not tconv.quarantined_engines()
+
+
+def test_a_decode_fault_fails_only_its_lanes_on_the_card(cuda, armed):
+    """SmolLM-360M's smoke config on the card, continuous engine, 2 lanes:
+    ``serve.decode:raise@step2`` fails the two requests of decode step 2
+    (the unarmed run's first 2 tokens kept); the other two end ``ok`` with
+    the unarmed run's tokens; flash launched once a layer per request."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.request import Request
+    cfg = get_smoke_config("smollm-360m")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+
+    def run():
+        reset_launch_counts()
+        eng = ContinuousEngine(cfg, params, max_batch=2, max_len=40)
+        for rid in range(4):
+            prompt = torch.randint(1, cfg.vocab, (20,), generator=torch
+                                   .Generator().manual_seed(rid)).tolist()
+            eng.submit(Request(rid=rid, prompt=prompt, max_new=6))
+        done = {r.rid: r for r in eng.run()}
+        return done, eng.run_summary(), launch_counts()["flash_attention"]
+
+    want, _, _ = run()
+    armed.update(fault_spec="serve.decode:raise@step2")
+    got, summary, flash = run()
+    assert [got[r].status for r in range(4)] == ["failed", "failed", "ok",
+                                                 "ok"]
+    assert all(got[r].out == want[r].out[:2] for r in (0, 1))
+    assert all(got[r].out == want[r].out for r in (2, 3))
+    assert summary["failed"] == 2 and summary["admitted"] == 4
+    assert flash == cfg.n_layers * 4
+
+
+def test_a_kernel_that_fails_on_the_card_fails_the_call(cuda, armed,
+                                                       monkeypatch):
+    """A tap-kernel wrapper that raises anything but an injected fault
+    (here a refused launch) fails the conv on the card: no engine serves
+    the pass in its place, and nothing is recorded or quarantined."""
+    from repro_torch.kernels import ops
+
+    def refused(*a, **k):
+        raise RuntimeError("tap_gemm: CUDA launch failed")
+
+    monkeypatch.setattr(ops, "conv2d_forward", refused)
+    gen = torch.Generator().manual_seed(2)
+    x, w = _randn(gen, 2, 8, 12, 12, dev=cuda), _randn(gen, 16, 8, 3, 3,
+                                                      dev=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tconv.conv2d(x, w, ConvSpec.make(stride=2, padding=1), "pallas")
+    assert tconv.runtime_failures() == []
+    assert tconv.quarantined_engines() == []
+    assert tconv.dispatch_events() == {}
+
+
+def test_a_prefill_that_fails_on_the_card_fails_the_run(cuda, armed,
+                                                       monkeypatch):
+    """On the card a prefill that raises anything but an injected fault
+    escapes the continuous engine's ``run`` instead of being reported as
+    a failed request."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.serve.continuous import ContinuousEngine
+    from repro_torch.serve.request import Request
+    cfg = get_smoke_config("smollm-360m")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+
+    def refused(*a, **k):
+        raise RuntimeError("flash_attention: CUDA launch failed")
+
+    monkeypatch.setattr(M, "prefill", refused)
+    eng = ContinuousEngine(cfg, params, max_batch=2, max_len=16)
+    eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new=4))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eng.run()
+    assert eng.counters["failed"] == 0 and eng.counters["admitted"] == 0

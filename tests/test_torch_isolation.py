@@ -74,7 +74,10 @@ def test_module_list_covers_the_slice():
               "repro_torch.configs.minicpm_2b",
               "repro_torch.configs.phi4_mini_3_8b",
               "repro_torch.configs.internvl2_76b",
-              "repro_torch.configs.hubert_xlarge"):
+              "repro_torch.configs.hubert_xlarge",
+              "repro_torch.ft.inject", "repro_torch.obs",
+              "repro_torch.obs.events", "repro_torch.obs.trace",
+              "repro_torch.obs.metrics", "repro_torch.train.chaos"):
         assert m in mods
         importlib.import_module(m)
 

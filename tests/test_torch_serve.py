@@ -2,9 +2,11 @@
 SmolLM-360M's smoke config in float32: the slot ops ``lane_insert`` and
 ``lane_reset`` (exactly equal), and greedy tokens identical per request to
 the JAX engines for both engines, each run through its launcher's ``main``
-with the JAX launcher's parameters carried across.  Also: the continuous
-engine lets a failed prefill raise (it catches nothing), and the launcher
-refuses to run without a card unless asked for the CPU."""
+with the JAX launcher's parameters carried across.  Also: on the card the
+continuous engine lets a failed prefill raise unless it is an injected
+fault, off the card it finalizes that request as ``"failed"`` and serves
+on, and the launcher refuses to run without a card unless asked for the
+CPU."""
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro.models import model as jM  # noqa: E402
 from repro.serve import cache as jC  # noqa: E402
 
+from repro_torch.ft import inject  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import cache as C  # noqa: E402
@@ -79,9 +82,17 @@ def test_greedy_tokens_match_the_jax_engines(engine, jax_params,
 
 
 def test_continuous_engine_lets_a_failed_prefill_raise(monkeypatch):
+    """On the card a prefill that raises anything but an injected fault
+    (here a kernel launch) escapes ``run``: a broken kernel fails the
+    serving run instead of being reported as a failed request.  The card
+    is stood in for by what ``inject.absorbs`` answers for a CUDA
+    device."""
     cfg = tserve.get_smoke_config("smollm-360m")
     eng = ContinuousEngine(cfg, tserve.init_params(cfg, 0, "cpu"),
                            max_batch=2, max_len=16)
+    absorbs = inject.absorbs
+    monkeypatch.setattr(inject, "absorbs",
+                        lambda exc, device: absorbs(exc, "cuda"))
 
     def broken(*args, **kwargs):
         raise RuntimeError("flash_attention: CUDA launch failed")
@@ -91,6 +102,32 @@ def test_continuous_engine_lets_a_failed_prefill_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         eng.run()
     assert eng.counters["failed"] == 0 and eng.counters["admitted"] == 0
+
+
+def test_continuous_engine_fails_a_request_whose_prefill_raises_on_cpu(
+        monkeypatch):
+    """Off the card, as in the JAX engine, a prefill that raises
+    finalizes THAT request as ``"failed"`` and the engine serves the
+    next one."""
+    cfg = tserve.get_smoke_config("smollm-360m")
+    eng = ContinuousEngine(cfg, tserve.init_params(cfg, 0, "cpu"),
+                           max_batch=2, max_len=16)
+    prefill = M.prefill
+    calls = []
+
+    def broken_once(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            raise RuntimeError("flash_attention: CUDA launch failed")
+        return prefill(*args, **kwargs)
+
+    monkeypatch.setattr(M, "prefill", broken_once)
+    eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new=4))
+    eng.submit(Request(rid=1, prompt=[1, 2, 3], max_new=4))
+    done = {r.rid: r for r in eng.run()}
+    assert done[0].status == "failed" and done[0].out == []
+    assert done[1].status == "ok" and len(done[1].out) == 4
+    assert eng.counters["failed"] == 1 and eng.counters["admitted"] == 1
 
 
 def test_launcher_raises_without_a_card():

@@ -558,18 +558,50 @@ def test_resumed_run_with_no_steps_left_trains_nothing(tmp_path):
     assert [p.name for p in tmp_path.iterdir()] == ["step_00000002"]
 
 
-def test_launcher_flags():
-    """Not-ported flags raise naming their ROADMAP item; --conv-mode is
+def test_launcher_flags(tmp_path):
+    """--conv-mesh raises naming A13; --fault-spec, --trace and --metrics
+    run (A12): ``grad.values:nan@step1`` drops step 1 and no other, the
+    trace passes ``scripts/validate_trace.py`` with a ``train:step`` span a
+    step, the metrics hold one ``train_step`` line a step; --conv-mode is
     deprecated and exclusive with --conv-policy; --accum and --autotune
     run."""
+    import json
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    try:
+        from scripts.validate_trace import validate_trace
+    finally:
+        sys.path.pop(0)
+    from repro_torch import obs
     base = ["--arch", "smollm-360m", "--smoke", "--steps", "2", "--batch",
             "2", "--seq", "16", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="A13"):
         launch.main(base + ["--conv-mesh", "tp"])
-    for flag in (["--fault-spec", "grad.values:nan@step1"],
-                 ["--trace", "t.json"], ["--metrics", "m.jsonl"]):
-        with pytest.raises(NotImplementedError, match="A12"):
-            launch.main(base + flag)
+    saved = config.snapshot()
+    t, m = tmp_path / "t.json", tmp_path / "m.jsonl"
+    hist = []
+    # A dispatch counted before the traced run starts: the run's window
+    # (bus and legacy counters alike) begins at its start.
+    from repro_torch.core import conv as tconv
+    tconv.conv2d(torch.ones(1, 1, 4, 4), torch.ones(1, 1, 3, 3), None, "lax")
+    try:
+        launch.main(["--arch", "smollm-360m", "--smoke", "--steps", "4",
+                     "--batch", "2", "--seq", "16", "--device", "cpu",
+                     "--fault-spec", "grad.values:nan@step1",
+                     "--trace", str(t), "--metrics", str(m)], history=hist)
+        assert config.fault_spec == "grad.values:nan@step1"
+        assert config.telemetry and not obs.metrics.active()  # closed
+    finally:
+        config.update(**saved)
+        obs.reset_all()
+    assert [h["guard_bad"] for h in hist] == [0, 1, 0, 0]
+    problems, stats = validate_trace(json.loads(t.read_text()))
+    assert problems == []
+    assert stats["b_names"].count("train:step") == 4
+    lines = [json.loads(ln) for ln in m.read_text().splitlines()]
+    assert [(ln["kind"], ln["step"], ln["guard_bad"]) for ln in lines] == \
+        [("train_step", s, float(s == 1)) for s in range(4)]
     with pytest.deprecated_call():
         assert launch.resolve_conv_policy_args(None, "lax") == "lax"
     with pytest.raises(SystemExit):
