@@ -295,7 +295,38 @@ PATH):
                    the trace valid with a ``train:step`` span a step; a
                    ``train_step`` line a step; seconds a step beside
                    lm_train's; no kernel launched.
- 25. summary    -- every kernel's launches on each path, each path run with
+ 25. mesh       -- (after chaos) the mesh-parallel conv
+                   (``repro_torch.dist.conv_parallel``) on ``MESH_RANKS``
+                   ranks spawned on the one card: a ``(data=2, model=2)``
+                   mesh on gloo, each collective's tensors staged to the
+                   host, the kernels built by this process before the
+                   spawn.  (a) the five Table II layers at batch 2,
+                   float32, under ``pallas``, for ``spatial`` and ``tp``:
+                   forward, input grad and weight grad held to the same
+                   pass unsharded on the card (``MESH_TOL`` relative to
+                   max |.|), each plan's tag and drops to
+                   ``MESH_TABLE2``, each rank's ``halo`` bytes to
+                   ``shard_halo``'s rows x its block's bytes (three
+                   exchanges a layer: forward, input grad, weight grad);
+                   (b) the autoencoder CLI's loop (batch 16, widths (16,
+                   32), 16 x 16) for ``MESH_AE_STEPS`` steps through
+                   ``make_train_step(conv_mesh=)`` under ``tp``,
+                   ``dp_only`` and ``spatial``, every loss within
+                   ``MESH_AE_TOL`` relative of the unsharded card run's,
+                   parameters and moments bit-identical on every rank;
+                   every rank that sharded a pass launched every tap
+                   kernel.  (c) Mamba2-370M at full width through the
+                   launcher, ``--conv-policy pallas --conv-mesh dp_only``
+                   on 2 ranks started by ``torch.distributed.run``
+                   (lm_train_ssm's settings, ``MESH_LM_STEPS`` steps,
+                   every conv on the bf16 ``dw`` kernels), held to the
+                   launcher's unsharded run: the first loss within
+                   ``LM_SSM_BF16_TOL``, the first gradient norm within
+                   ``LM_SSM_GNORM_TOL``.  Each rank's launches, ``mesh:*``
+                   events and halo bytes on lines of their own; the
+                   ranks' seconds are those of processes sharing one
+                   card, not speeds.  NCCL across cards is not run.
+ 26. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
 On the card the conv dispatch degrades only on an injected fault, and
@@ -3048,7 +3079,309 @@ def phase_lm_train_obs(smoke, torch, kernels, train, config, smi, lm, dev):
     return {"lm_train_obs": launches}
 
 
+#: ranks of the mesh phase, all on the one card, and their mesh.
+MESH_RANKS = 4
+MESH_SHAPE = (2, 2)
+#: a sharded Table II pass against the same pass unsharded on the card:
+#: max |sharded - unsharded| / max |unsharded| (float32; the weight grad
+#: sums the shards' partial sums in another order).
+MESH_TOL = 1e-5
+#: the autoencoder's losses, sharded against unsharded, relative.
+MESH_AE_TOL = 1e-4
+MESH_AE_STEPS = 5
+MESH_LM_STEPS = 3
+#: each Table II layer's plan on (data=2, model=2) at batch 2: policy ->
+#: per layer (tag, the dropped roles), JAX's planner's outcome.
+MESH_TABLE2 = {
+    "spatial": (("data", ("h",)), ("data+h", ()), ("data+h", ()),
+                ("data+h", ()), ("data", ("h",))),
+    "tp": (("data+cout", ()),) * 5,
+}
+
+
+def _mesh_events(conv) -> dict:
+    return {k: v for k, v in conv.dispatch_events().items()
+            if k.startswith("mesh")}
+
+
+def _halo_bytes(obs_events) -> int:
+    return sum(e["tags"]["bytes"] for e in obs_events.events("halo"))
+
+
+def mesh_table2(torch, conv, cp, kernels, obs_events, ops, paper_cnn,
+                ConvSpec, mesh, dev, rank) -> dict:
+    """(a): each Table II layer's three passes sharded against unsharded,
+    under ``spatial`` and ``tp``."""
+    out = {}
+    launches = {k: 0 for k in kernels.launch_counts()}
+    for policy in MESH_TABLE2:
+        for i, (hi, ci, co, k, s, p) in enumerate(paper_cnn.TABLE2_LAYERS):
+            gen = torch.Generator().manual_seed(100 + i)
+            x = torch.randn(2, ci, hi, hi, generator=gen).to(dev)
+            w = (torch.randn(co, ci, k, k, generator=gen)
+                 * (ci * k * k) ** -0.5).to(dev)
+            spec = ConvSpec.make(stride=s, padding=p)
+            ho = (hi + 2 * p - k) // s + 1
+            dy = torch.randn(2, co, ho, ho, generator=gen).to(dev)
+
+            def passes():
+                xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+                y = conv.conv2d(xg, wg, spec, "pallas")
+                dx, dw = torch.autograd.grad(y, (xg, wg), dy)
+                return y.detach(), dx, dw
+            ref = passes()
+            conv.reset_dispatch_events()
+            obs_events.reset()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cp.conv_mesh(policy, mesh):
+                got = passes()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for name, n in kernels.launch_counts().items():
+                launches[name] += n
+            errs = {}
+            for name, a, b in zip(("y", "dx", "dw"), got, ref):
+                check(bool(torch.isfinite(a).all()), f"non-finite {name}")
+                errs[name] = ((a - b).abs().max()
+                              / b.abs().max().clamp_min(1e-30)).item()
+            ev = _mesh_events(conv)
+            tags = [key.split(":", 2)[2] for key in ev
+                    if key.startswith("mesh:conv2d:")]
+            drops = tuple(sorted(key.split(":")[2] for key in ev
+                                 if key.startswith("mesh:drop:")))
+            (lo, hi_), _ = ops.shard_halo(conv.spec_dims(
+                tuple(x.shape), tuple(w.shape), spec))
+            want_tag, want_drops = MESH_TABLE2[policy][i]
+            rows = max(lo, 0) + max(hi_, 0) if "+h" in want_tag else 0
+            want_halo = 3 * rows * (2 // MESH_SHAPE[0]) * ci * hi * 4
+            out[f"{policy} {hi}/{ci}/{co}/{k}/{s}/{p}"] = {
+                "rel_err": errs, "tag": tags, "drops": drops,
+                "halo_bytes": _halo_bytes(obs_events),
+                "want_halo_bytes": want_halo, "seconds": secs}
+            check(max(errs.values()) <= MESH_TOL,
+                  f"rank {rank} {policy} layer {i}: sharded vs unsharded "
+                  f"{errs} > {MESH_TOL}")
+            check(tags == [want_tag] and drops == want_drops,
+                  f"rank {rank} {policy} layer {i}: plan {tags} drops "
+                  f"{drops}, want {want_tag} {want_drops}")
+            check(_halo_bytes(obs_events) == want_halo,
+                  f"rank {rank} {policy} layer {i}: halo bytes "
+                  f"{_halo_bytes(obs_events)}, want {want_halo}")
+    return {"layers": out, "launches": launches}
+
+
+def mesh_autoencoder(torch, conv, kernels, autoencoder_bp, mesh, dev,
+                     rank) -> dict:
+    """(b): the autoencoder CLI's loop, sharded under each policy."""
+    import hashlib
+
+    from repro_torch.tree import tree_leaves
+    out = {}
+    for policy in ("tp", "dp_only", "spatial"):
+        conv.reset_dispatch_events()
+        kernels.reset_launch_counts()
+        with mesh:
+            res = autoencoder_bp.train("pallas", MESH_AE_STEPS, device=dev,
+                                       conv_mesh=policy)
+        digest = hashlib.sha256()
+        for t in tree_leaves(res["params"]):
+            digest.update(t.detach().cpu().numpy().tobytes())
+        out[policy] = {"losses": res["mses"], "seconds": res["seconds"],
+                       "events": _mesh_events(conv),
+                       "launches": kernels.launch_counts(),
+                       "params_sha256": digest.hexdigest()}
+    return out
+
+
+def mesh_rank(rank: int, out_dir: str) -> None:
+    """One rank of the mesh phase's (a) and (b) (``torch.multiprocessing``
+    spawn target): writes ``out_dir/rank<r>.json``.  A failed check
+    raises, which fails the spawn and the run."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import paper_cnn
+    from repro_torch.core import conv
+    from repro_torch.core.config import config
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.dist import conv_parallel as cp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as LM
+    from repro_torch.obs import events as obs_events
+    from repro_torch.train import autoencoder_bp
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = LM.init_distributed(
+        "cuda", init_method="file://" + str(pathlib.Path(out_dir) / "pg"),
+        rank=rank, world_size=MESH_RANKS, local_world=MESH_RANKS)
+    config.update(autotune="off", plan_cache_dir=None, telemetry=True)
+    mesh = LM.make_mesh(MESH_SHAPE, ("data", "model"))
+    t0 = time.perf_counter()
+    res = {"rank": rank, "backend": mesh.backend, "device": str(dev),
+           "coordinate": {a: mesh.coordinate(a) for a in mesh.axis_names}}
+    res["table2"] = mesh_table2(torch, conv, cp, kernels, obs_events, ops,
+                                paper_cnn, ConvSpec, mesh, dev, rank)
+    res["autoencoder"] = mesh_autoencoder(torch, conv, kernels,
+                                          autoencoder_bp, mesh, dev, rank)
+    res["seconds"] = time.perf_counter() - t0
+    (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    mesh.barrier()
+    LM.shutdown()
+
+
+def launcher_rank(out_dir: str, argv: list[str]) -> None:
+    """One rank of the mesh phase's (c), started by
+    ``torch.distributed.run``: the training launcher (which starts the
+    process group from the environment), then this rank's losses,
+    gradient norms, launches and ``mesh:*`` events into
+    ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.core import conv
+    from repro_torch.launch import mesh as LM
+    from repro_torch.launch import train
+    kernels.reset_launch_counts()
+    conv.reset_dispatch_events()
+    hist: list = []
+    t0 = time.perf_counter()
+    losses = train.main(argv, history=hist)
+    res = {"rank": LM.rank(), "losses": losses,
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "launches": kernels.launch_counts(),
+           "events": _mesh_events(conv),
+           "seconds": time.perf_counter() - t0}
+    (pathlib.Path(out_dir) / f"rank{res['rank']}.json").write_text(
+        json.dumps(res))
+    LM.shutdown()
+
+
+def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
+    """The ``mesh`` phase (module docstring, 25).  Returns each rank's
+    launches per part as paths."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    paths = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="mesh_", dir=ROOT / "build"))
+    # The unsharded autoencoder runs on this process, the card's kernels
+    # built already; the ranks load the same libraries.
+    ae_ref = autoencoder_bp.train("pallas", MESH_AE_STEPS, device=dev)["mses"]
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, args=(str(work),), nprocs=MESH_RANKS)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(MESH_RANKS)]
+    for r in ranks:
+        smoke.emit("mesh_rank", rank=r["rank"], backend=r["backend"],
+                   device=r["device"], coordinate=r["coordinate"],
+                   table2=r["table2"]["layers"],
+                   table2_launches=r["table2"]["launches"],
+                   autoencoder={k: {kk: vv for kk, vv in v.items()
+                                    if kk != "params_sha256"}
+                                for k, v in r["autoencoder"].items()},
+                   seconds=r["seconds"],
+                   seconds_note="4 processes sharing one card: not a speed")
+        paths[f"mesh table2 rank{r['rank']}"] = r["table2"]["launches"]
+        for policy, a in r["autoencoder"].items():
+            paths[f"mesh autoencoder {policy} rank{r['rank']}"] = \
+                a["launches"]
+    for r in ranks:
+        check(r["backend"] == "gloo", f"rank {r['rank']}: {r['backend']}")
+        check(all(r["table2"]["launches"][k] > 0 for k in TAP_KERNELS),
+              f"rank {r['rank']} Table II launches "
+              f"{r['table2']['launches']}")
+        for policy, a in r["autoencoder"].items():
+            err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                          ae_ref))
+            check(len(a["losses"]) == MESH_AE_STEPS
+                  and err <= MESH_AE_TOL,
+                  f"rank {r['rank']} autoencoder {policy}: losses "
+                  f"{a['losses']} vs unsharded {ae_ref} ({err})")
+            check(all(a["launches"][k] > 0 for k in TAP_KERNELS),
+                  f"rank {r['rank']} autoencoder {policy} launches "
+                  f"{a['launches']}")
+            check(any(k.startswith("mesh:conv2d") for k in a["events"]),
+                  f"rank {r['rank']} autoencoder {policy}: no sharded conv "
+                  f"{a['events']}")
+    for policy in ("tp", "dp_only", "spatial"):
+        digests = {r["autoencoder"][policy]["params_sha256"] for r in ranks}
+        check(len(digests) == 1,
+              f"autoencoder {policy}: parameters differ across ranks")
+    check(ranks[0]["autoencoder"]["tp"]["events"].get("mesh:drop:cout"),
+          "tp did not drop the decoder's Cout 3")
+
+    # (c) Mamba2-370M through the launcher on 2 ranks, against unsharded.
+    argv = [a for a in LM_TRAIN_SSM_ARGV] + ["--conv-policy", "pallas"]
+    argv[argv.index("--steps") + 1] = str(MESH_LM_STEPS)
+    kernels.reset_launch_counts()
+    hist: list = []
+    ref = train.main(argv, history=hist)
+    paths["mesh lm unsharded"] = kernels.launch_counts()
+    free_card(torch)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"),
+         "--launcher-rank", str(work), "--", *argv, "--conv-mesh",
+         "dp_only"], capture_output=True, text=True, env=env, timeout=600)
+    lm_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"launcher under torch.distributed.run failed "
+          f"({proc.returncode}): {proc.stderr[-4000:]}")
+    lm = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    for r in lm:
+        smoke.emit("mesh_lm_rank", rank=r["rank"], losses=r["losses"],
+                   grad_norms=r["grad_norms"], launches=r["launches"],
+                   events=r["events"], seconds=r["seconds"],
+                   seconds_note="2 processes sharing one card: not a speed")
+        paths[f"mesh lm rank{r['rank']}"] = r["launches"]
+    first_err = abs(lm[0]["losses"][0] - ref[0]) / abs(ref[0])
+    gnorm_err = abs(lm[0]["grad_norms"][0] - hist[0]["grad_norm"]) / abs(
+        hist[0]["grad_norm"])
+    smoke.emit("mesh", nvidia_smi=smi, ranks=MESH_RANKS,
+               mesh=dict(zip(("data", "model"), MESH_SHAPE)),
+               backend="gloo (host-staged)", table2_tol=MESH_TOL,
+               table2_max_rel_err=max(
+                   max(v["rel_err"].values()) for r in ranks
+                   for v in r["table2"]["layers"].values()),
+               autoencoder_unsharded=ae_ref, autoencoder_tol=MESH_AE_TOL,
+               lm_config="mamba2-370m", lm_losses_unsharded=ref,
+               lm_grad_norms_unsharded=[h["grad_norm"] for h in hist],
+               lm_losses_sharded=[r["losses"] for r in lm],
+               lm_first_loss_rel_err=first_err, lm_tol=LM_SSM_BF16_TOL,
+               lm_first_grad_norm_rel_err=gnorm_err,
+               lm_grad_norm_tol=LM_SSM_GNORM_TOL,
+               lm_stdout_tail=proc.stdout[-1500:], spawn_seconds=spawn_s,
+               lm_seconds=lm_s, seconds=time.perf_counter() - t_phase)
+    for r in lm:
+        check(len(r["losses"]) == MESH_LM_STEPS
+              and all(math.isfinite(x) for x in r["losses"]),
+              f"launcher rank {r['rank']}: losses {r['losses']}")
+        check(set(r["events"]) == {"mesh:conv2d:data"},
+              f"launcher rank {r['rank']}: events {r['events']}")
+        check(all(r["launches"][k] > 0 for k in TAP_KERNELS),
+              f"launcher rank {r['rank']}: launches {r['launches']}")
+    check(lm[0]["losses"] == lm[1]["losses"],
+          f"the ranks' losses differ: {lm[0]['losses']} {lm[1]['losses']}")
+    check(first_err <= LM_SSM_BF16_TOL and gnorm_err <= LM_SSM_GNORM_TOL,
+          f"sharded vs unsharded first step: loss {first_err} (tol "
+          f"{LM_SSM_BF16_TOL}), grad norm {gnorm_err} (tol "
+          f"{LM_SSM_GNORM_TOL})")
+    return paths
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--launcher-rank"]:
+        launcher_rank(argv[1], argv[argv.index("--") + 1:])
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
                     help="also write the phase lines to this file")
@@ -3139,6 +3472,8 @@ def main(argv=None) -> int:
         smoke, torch, ops, tg, ref, autotune, config, kernels, cnn_bp,
         shapes + [row[:4] for row in ae], paths["cnn_bp pallas"], dev))
     paths.update(phase_chaos(smoke, torch, conv, kernels, config, dev))
+    paths.update(phase_mesh(smoke, torch, kernels, autoencoder_bp, train,
+                            smi, dev))
     agg.update(phase_flash(smoke, torch, F, fa, ref, dev))
     paths.update(phase_serve(smoke, torch, kernels, serve, M, T, dev))
     free_card(torch)

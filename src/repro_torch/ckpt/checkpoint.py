@@ -305,11 +305,17 @@ def _load_one(ckpt_dir: str, step: int, device, verify: bool):
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, *, device=None,
-            verify: bool = True):
+            verify: bool = True, specs: Any = None, mesh: Any = None):
     """Restore the newest LOADABLE committed checkpoint (or the given step)
     onto ``device`` (default: the card).  Returns ``(step, tree)``, or
     ``(None, None)`` when no checkpoint exists.  A bf16 leaf comes back as
     ``torch.bfloat16``, the step count as a 0-d int32 tensor.
+
+    ``specs`` (a tree of ``repro_torch.dist.sharding.PartitionSpec``
+    matching the saved tree, or one spec) with ``mesh`` returns each
+    leaf as this rank's block of it (``sharding.to_local``): the elastic
+    resume onto another mesh than the one that saved, JAX's
+    ``shardings=``.  A leaf without a spec comes back whole.
 
     Without an explicit ``step=``, candidates are tried newest-first: a
     checkpoint that fails to load (truncated ``.npy``, manifest hash
@@ -325,9 +331,17 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *, device=None,
     steps = latest_steps(ckpt_dir)
     if not steps:
         return None, None
+
+    def load(s):
+        tree = _load_one(ckpt_dir, s, dev, verify)
+        if specs is None:
+            return tree
+        from repro_torch.dist.sharding import to_local
+        return to_local(tree, specs, mesh)
+
     if step is not None:
         try:
-            return step, _load_one(ckpt_dir, step, dev, verify)
+            return step, load(step)
         except (OSError, ValueError, KeyError, EOFError) as e:
             raise IOError(
                 f"requested checkpoint step {step} is not loadable: "
@@ -335,7 +349,7 @@ def restore(ckpt_dir: str, step: Optional[int] = None, *, device=None,
     errors = []
     for cand in reversed(steps):
         try:
-            return cand, _load_one(ckpt_dir, cand, dev, verify)
+            return cand, load(cand)
         except (OSError, ValueError, KeyError, EOFError) as e:
             _record_skip(f"step_{cand:08d}", str(e))
             errors.append(f"step {cand}: {e}")

@@ -18,15 +18,20 @@ from repro_torch.configs import (deepseek_v3_671b, granite_3_8b,
                                  minicpm_2b, moonshot_v1_16b_a3b,
                                  phi4_mini_3_8b, recurrentgemma_9b,
                                  smollm_360m)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeCfg,
+                                      applicable_shapes)
 from repro_torch.configs.paper_cnn import (BATCH, NETWORKS, TABLE2_LAYERS,
                                            dims, table2_dims)
 
+_MODULES = (deepseek_v3_671b, moonshot_v1_16b_a3b, recurrentgemma_9b,
+            internvl2_76b, smollm_360m, phi4_mini_3_8b, minicpm_2b,
+            granite_3_8b, hubert_xlarge, mamba2_370m)
+
+#: the architectures, by module name, in the JAX package's order.
+ARCH_IDS = [mod.__name__.rsplit(".", 1)[1] for mod in _MODULES]
+
 _ARCHS = {alias: mod
-          for mod in (deepseek_v3_671b, moonshot_v1_16b_a3b,
-                      recurrentgemma_9b, internvl2_76b, smollm_360m,
-                      phi4_mini_3_8b, minicpm_2b, granite_3_8b,
-                      hubert_xlarge, mamba2_370m)
+          for mod in _MODULES
           for module in (mod.__name__.rsplit(".", 1)[1],)
           for alias in (mod.FULL.name, module, module.replace("_", "-"))}
 
@@ -47,5 +52,10 @@ def get_smoke_config(name: str) -> ArchConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["ArchConfig", "BATCH", "NETWORKS", "TABLE2_LAYERS", "dims",
-           "get_config", "get_smoke_config", "table2_dims"]
+def all_arch_ids() -> list[str]:
+    return list(ARCH_IDS)
+
+
+__all__ = ["ARCH_IDS", "ArchConfig", "BATCH", "NETWORKS", "SHAPES",
+           "ShapeCfg", "TABLE2_LAYERS", "all_arch_ids", "applicable_shapes",
+           "dims", "get_config", "get_smoke_config", "table2_dims"]

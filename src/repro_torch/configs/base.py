@@ -160,3 +160,37 @@ class ArchConfig:
             base.update(mtp_depth=1)
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    """One production workload shape of the dry run
+    (``repro_torch.launch.dryrun``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # train | prefill | decode | long_decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeCfg("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCfg("long_500k", 524288, 1, "long_decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig) -> list[str]:
+    """The shapes an architecture runs: an encoder-only model has no
+    decode step, and the 500k-token decode needs sub-quadratic attention
+    (the SSM and hybrid families)."""
+    out = ["train_4k", "prefill_32k"]
+    if not cfg.is_encoder_only:
+        out.append("decode_32k")
+        if cfg.supports_long_context:
+            out.append("long_500k")
+    return out

@@ -310,6 +310,27 @@ DISPATCH_EVENTS: dict[str, int] = {}
 POLICY_DECISIONS: list[dict] = []
 _MAX_DECISIONS = 512
 
+#: mesh-parallel lowering hook, installed by
+#: ``repro_torch.dist.conv_parallel.conv_mesh``.  Called as ``hook(x, w,
+#: spec, policy)`` with the NCHW-normalized spec (ConvSpec or
+#: ConvTransposeSpec); returns the sharded result or ``NotImplemented`` to
+#: decline, in which case the single-device autograd function proceeds
+#: unchanged.  A mesh-aware RESOLUTION step, not an engine: inside the
+#: sharded lowering every local pass still dispatches through
+#: ``resolve_engine``/``_execute``.
+MESH_LOWERING = None
+
+
+def _mesh_dispatch(fn, x, w, spec, policy):
+    """Offer one conv call to the mesh hook before the single-device
+    autograd function ``fn``."""
+    hook = MESH_LOWERING
+    if hook is not None:
+        out = hook(x, w, spec, policy)
+        if out is not NotImplemented:
+            return out
+    return fn(x, w, spec, policy)
+
 
 def dispatch_events() -> dict[str, int]:
     """Counts of the engine ACTUALLY used per pass (``"input_grad:pallas"``
@@ -800,10 +821,10 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *args, **kwargs) -> torch.Tensor:
     spec, policy = _canon_call(args, kwargs)
     policy = _validate_policy(effective_policy(policy))
     if spec.layout == "NHWC":
-        y = _Conv2d.apply(x.permute(0, 3, 1, 2), w, spec.with_layout("NCHW"),
-                          policy)
+        y = _mesh_dispatch(_Conv2d.apply, x.permute(0, 3, 1, 2), w,
+                           spec.with_layout("NCHW"), policy)
         return y.permute(0, 2, 3, 1)
-    return _Conv2d.apply(x, w, spec, policy)
+    return _mesh_dispatch(_Conv2d.apply, x, w, spec, policy)
 
 
 # ---------------------------------------------------------------------------
@@ -952,10 +973,10 @@ def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, *args,
     spec, policy = _canon_transpose_call(args, kwargs)
     policy = _validate_policy(effective_policy(policy))
     if spec.layout == "NHWC":
-        y = _Conv2dTranspose.apply(x.permute(0, 3, 1, 2), w,
-                                   spec.with_layout("NCHW"), policy)
+        y = _mesh_dispatch(_Conv2dTranspose.apply, x.permute(0, 3, 1, 2),
+                           w, spec.with_layout("NCHW"), policy)
         return y.permute(0, 2, 3, 1)
-    return _Conv2dTranspose.apply(x, w, spec, policy)
+    return _mesh_dispatch(_Conv2dTranspose.apply, x, w, spec, policy)
 
 
 # ---------------------------------------------------------------------------

@@ -241,6 +241,40 @@ def launch_gap(pass_name: str, d: ConvDims, groups: int = 1,
 
 
 # ---------------------------------------------------------------------------
+# Halo export for mesh-parallel spatial sharding (repro_torch.dist)
+# ---------------------------------------------------------------------------
+
+def tap_span(d: ConvDims) -> tuple[int, int]:
+    """Per-axis extent of the KEPT (real) kernel taps.
+
+    Recovered from the tap table the kernels launch with
+    (:func:`_forward_taps`): a tap ``(plane, du, dv)`` sits at effective
+    kernel position ``(du*s_h + plane//s_w, dv*s_w + plane%s_w)``.  Zero
+    taps of a dilated kernel never enter the table, so the span is the
+    real footprint: what a spatial halo exchange must cover."""
+    taps = _forward_taps(_canonical(d))
+    span_h = 1 + max(du * d.s_h + p // d.s_w for p, du, dv in taps)
+    span_w = 1 + max(dv * d.s_w + p % d.s_w for p, du, dv in taps)
+    return span_h, span_w
+
+
+def shard_halo(d: ConvDims) -> tuple[tuple[int, int], tuple[int, int]]:
+    """Per-axis ``((lo_h, hi_h), (lo_w, hi_w))`` halo rows/cols a spatial
+    shard exchanges with its neighbors, in INPUT-plane units.
+
+    Adjacent stride windows overlap by ``span - stride`` rows, so that is
+    the total exchanged per boundary.  The low padding goes on the low
+    side: an edge shard's exchange then receives exactly the zero rows the
+    global padding would have provided, and no zero space crosses the
+    wire.  A negative ``hi`` means adjacent windows never touch the last
+    ``-hi`` local rows (1x1 at stride 2): the shard crops instead."""
+    d = _canonical(d)
+    span_h, span_w = tap_span(d)
+    return ((d.P_h, span_h - d.s_h - d.P_h),
+            (d.P_w, span_w - d.s_w - d.P_w))
+
+
+# ---------------------------------------------------------------------------
 # Launch plans: analytic, or measured (kernels/autotune.py)
 # ---------------------------------------------------------------------------
 

@@ -42,12 +42,30 @@ a step, conv and checkpoint spans inside it); ``--metrics PATH`` streams
 a ``train_step`` JSON line a step (``repro_torch.obs``).  With either, the
 introspection counters are reset at the start (``obs.reset_all``) and the
 run ends with ``obs.finalize()``, failing when a legacy counter disagrees
-with the event bus.  ``--conv-mesh`` raises (ROADMAP A13).
+with the event bus.
+
+``--conv-mesh POLICY`` runs every conv of the step sharded over the
+process world (``repro_torch.dist.conv_parallel``, mesh
+``launch.mesh.make_host_mesh()``: ``(world, 1)`` ``("data", "model")``),
+the rest of the step replicated on every rank.  Under
+``torch.distributed.run`` the launcher starts the process group from the
+environment (``nccl`` when each rank has a card of its own, ``gloo`` with
+host-staged collectives when ranks share one, or on the CPU), every rank
+builds the same global batch, and only rank 0 prints, checkpoints, traces
+and writes metrics::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.train --arch mamba2-370m \
+        --conv-policy pallas --conv-mesh dp_only --batch 8 --seq 512
+
+One process gets a ``(1, 1)`` mesh: every role drops, ``mesh:fallback``
+is recorded and the step runs unsharded.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 import warnings
 
@@ -63,6 +81,7 @@ from repro_torch.ft import inject
 from repro_torch.ft.failures import (GuardState, HeartbeatTable,
                                      StragglerDetector,
                                      make_guard_restart_plan)
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 from repro_torch.train import train_step as TS
@@ -110,8 +129,8 @@ def parser() -> argparse.ArgumentParser:
                     help="DEPRECATED: uniform spelling of --conv-policy")
     ap.add_argument("--conv-mesh", default=None,
                     choices=["tp", "dp_only", "spatial"],
-                    help="mesh-parallel conv lowering (not ported: ROADMAP "
-                         "A13)")
+                    help="mesh-parallel conv lowering over the process "
+                         "world (repro_torch.dist.conv_parallel)")
     ap.add_argument("--autotune", default=None,
                     choices=["off", "measure", "cached"],
                     help="measured autotuning of the tap kernels' plans "
@@ -165,24 +184,33 @@ def main(argv=None, *, params=None, opt_state=None,
     ``history``, when given, receives one ``{"step", "loss", "grad_norm",
     "seconds", "guard_bad"}`` dict a step."""
     args = parser().parse_args(argv)
-    if args.conv_mesh is not None:
-        raise NotImplementedError("--conv-mesh: the conv mesh is not "
-                                  "ported yet (ROADMAP A13)")
+    dev = resolve_device(args.device)
+    if mesh_lib.env_world() > 1:
+        dev = mesh_lib.init_distributed(dev)
+    lead = mesh_lib.rank() == 0          # prints, checkpoints, traces
     updates = {k: v for k, v in (("autotune", args.autotune),
                                  ("plan_cache_dir", args.plan_cache_dir),
                                  ("fault_spec", args.fault_spec))
                if v is not None}
-    if args.trace is not None:
+    if args.trace is not None and lead:
         updates.update(telemetry=True, trace_path=args.trace)
-    if args.metrics is not None:
+    if args.metrics is not None and lead:
         updates.update(telemetry=True, metrics_path=args.metrics)
     config.update(**updates)
-    if args.trace is not None or args.metrics is not None:
+    if "telemetry" in updates:
         # The traced run's window starts here: the bus begins empty, so the
         # legacy counters start with it (finalize compares the two).
         obs.reset_all()
     conv_policy = resolve_conv_policy_args(args.conv_policy, args.conv_mode)
-    dev = resolve_device(args.device)
+    log = print if lead else (lambda *a, **k: None)
+    mesh_ctx = contextlib.nullcontext()
+    mesh = None
+    if args.conv_mesh:
+        from repro_torch.dist import set_activation_policy, sharding
+        mesh = mesh_lib.make_host_mesh()
+        set_activation_policy(sharding.batch_axes(mesh, args.conv_mesh))
+        mesh_ctx = mesh                 # with mesh: the convs run sharded
+        log(f"[train] conv mesh {args.conv_mesh} on {mesh!r}")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = M.build_model(cfg)
@@ -194,7 +222,7 @@ def main(argv=None, *, params=None, opt_state=None,
     step_fn = TS.make_train_step(
         cfg, opt_cfg, total_steps=args.steps,
         warmup=max(1, args.steps // 20), accum_steps=args.accum,
-        conv_policy=conv_policy, guard=guard_cfg)
+        conv_policy=conv_policy, conv_mesh=args.conv_mesh, guard=guard_cfg)
 
     start_step = 0
     if args.ckpt_dir:
@@ -202,14 +230,14 @@ def main(argv=None, *, params=None, opt_state=None,
         if restored is not None:
             start_step = start_step_ + 1
             params, opt_state = restored["params"], restored["opt"]
-            print(f"[train] resumed from step {start_step_}")
+            log(f"[train] resumed from step {start_step_}")
     if params is None:
         params, opt_state = _fresh(model, args.seed, dev)
     elif opt_state is None:
         opt_state = adamw.init_state(params)
-    print(f"[train] arch={cfg.name} device={dev} "
-          f"params={model.param_count(params):,} "
-          f"active={model.active_param_count(params):,}")
+    log(f"[train] arch={cfg.name} device={dev} "
+        f"params={model.param_count(params):,} "
+        f"active={model.active_param_count(params):,}")
 
     hb = HeartbeatTable(n_workers=1)
     straggler = StragglerDetector(n_workers=1)
@@ -224,7 +252,7 @@ def main(argv=None, *, params=None, opt_state=None,
         inject.set_step(step)
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in make_batch(cfg, dcfg, step).items()}
-        with obs.trace.span("train:step", step=step):
+        with obs.trace.span("train:step", step=step), mesh_ctx:
             params, opt_state, metrics = step_fn(params, opt_state, batch,
                                                  step)
             loss = float(metrics["loss"])
@@ -242,8 +270,8 @@ def main(argv=None, *, params=None, opt_state=None,
             action = gs.observe(True)
             obs.events.emit("train", f"guard:{action or 'skip'}", step=step,
                             streak=gs.bad_streak)
-            print(f"[train] step={step} non-finite step dropped "
-                  f"(streak={gs.bad_streak}, action={action})", flush=True)
+            log(f"[train] step={step} non-finite step dropped "
+                f"(streak={gs.bad_streak}, action={action})", flush=True)
             if action == "rollback":
                 # The on-device skip and clip did not stop the streak:
                 # restore the last committed checkpoint (a fresh init when
@@ -252,7 +280,7 @@ def main(argv=None, *, params=None, opt_state=None,
                 ckpt_steps = CKPT.latest_steps(args.ckpt_dir) \
                     if args.ckpt_dir else []
                 plan = make_guard_restart_plan(gs, ckpt_steps)
-                print(f"[train] {plan.note}", flush=True)
+                log(f"[train] {plan.note}", flush=True)
                 if ckpt_steps:
                     _, restored = CKPT.restore(args.ckpt_dir, device=dev)
                     params, opt_state = restored["params"], restored["opt"]
@@ -262,23 +290,21 @@ def main(argv=None, *, params=None, opt_state=None,
         elif gs is not None:
             gs.observe(False)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"[train] step={step} loss={loss:.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms", flush=True)
+            log(f"[train] step={step} loss={loss:.4f} "
+                f"gnorm={float(metrics['grad_norm']):.3f} "
+                f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms", flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            CKPT.save(args.ckpt_dir, step,
-                      {"params": params, "opt": opt_state}, blocking=True)
+            _save(args.ckpt_dir, step, params, opt_state, lead, mesh)
     if not losses:
-        print(f"[train] nothing to run: resumed at step {start_step} of "
-              f"{end_step}")
+        log(f"[train] nothing to run: resumed at step {start_step} of "
+            f"{end_step}")
         return losses
     if args.ckpt_dir and end_step % args.ckpt_every:
-        CKPT.save(args.ckpt_dir, end_step - 1,
-                  {"params": params, "opt": opt_state}, blocking=True)
+        _save(args.ckpt_dir, end_step - 1, params, opt_state, lead, mesh)
     CKPT.wait()                       # join any async write before exit
     if gs is not None and gs.total_bad:
-        print(f"[train] guard: {gs.total_bad} non-finite steps dropped, "
-              f"{gs.rollbacks} rollbacks")
+        log(f"[train] guard: {gs.total_bad} non-finite steps dropped, "
+            f"{gs.rollbacks} rollbacks")
     if obs.enabled():
         rep = obs.finalize()
         print(f"[train] obs: {rep['events_total']} events "
@@ -288,10 +314,21 @@ def main(argv=None, *, params=None, opt_state=None,
             raise SystemExit("[train] telemetry divergence: legacy counters "
                              "disagree with the bus-backed views: "
                              + "; ".join(rep["divergences"]))
-    print(f"[train] done: first_loss={losses[0]:.4f} "
-          f"last_loss={losses[-1]:.4f}")
+    log(f"[train] done: first_loss={losses[0]:.4f} "
+        f"last_loss={losses[-1]:.4f}")
     return losses
+
+
+def _save(ckpt_dir, step, params, opt_state, lead, mesh) -> None:
+    """Rank 0 writes the checkpoint (every rank holds the same
+    parameters); the others wait until it is committed."""
+    if lead:
+        CKPT.save(ckpt_dir, step, {"params": params, "opt": opt_state},
+                  blocking=True)
+    if mesh is not None:
+        mesh.barrier()
 
 
 if __name__ == "__main__":
     main()
+    mesh_lib.shutdown()

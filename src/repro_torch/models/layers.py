@@ -114,6 +114,8 @@ def _draw(generator, shape, scale, dtype, device):
     and the card (the tests carry the JAX package's parameters across
     instead)."""
     dev = resolve_device(device)
+    if dev.type == "meta":            # shapes only (launch/dryrun.py)
+        return torch.empty(shape, dtype=dtype, device=dev)
     if dev.type == "cpu":
         w = torch.randn(shape, generator=generator, dtype=torch.float32)
         return (w * scale).to(dtype)

@@ -9,8 +9,10 @@ the layers' grads in one write.  When a gradient flows, each block is
 rematerialized as the JAX package's ``jax.checkpoint`` does it
 (``cfg.remat == "block"`` unless ``config.remat`` overrides it):
 ``torch.utils.checkpoint`` keeps only the block's input and runs the
-block again in the backward.  The JAX package's ``constrain_batch`` (mesh
-sharding, ROADMAP A13) is dropped.
+block again in the backward.  The JAX package's ``constrain_batch`` calls
+are left out: the port's (``repro_torch.dist.constraints``) returns its
+input unchanged, since the mesh-parallel conv keeps activations global on
+every rank.
 
 Families:
   dense, vlm, audio : one stack of attention blocks, ``blocks`` (audio's

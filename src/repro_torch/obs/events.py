@@ -26,7 +26,7 @@ import time
 #: registered event kinds -> (emitting modules of the port, description).
 #: The kinds and descriptions are the JAX package's; ``emit`` with an
 #: unregistered kind raises (when enabled).  ``halo`` is emitted by the
-#: mesh-parallel conv (ROADMAP A13), not ported yet.
+#: mesh-parallel conv's halo exchange, one event per send with its bytes.
 KINDS: dict[str, tuple[str, str]] = {
     "dispatch": (
         "core/conv.py, dist/conv_parallel.py",

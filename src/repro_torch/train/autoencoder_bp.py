@@ -54,10 +54,12 @@ def synthetic_images(rng: np.random.RandomState, n: int, c: int = 3,
 
 
 def train(policy="auto", steps: int = 200, batch: int = 16, size: int = 16,
-          lr: float = 1e-2, device=None, params=None, log=None) -> dict:
+          lr: float = 1e-2, device=None, params=None, log=None,
+          conv_mesh=None) -> dict:
     """AdamW on the synthetic images; returns ``{"mses", "seconds",
     "params"}``.  ``params`` defaults to :func:`init_autoencoder` with
-    seed 0."""
+    seed 0.  ``conv_mesh`` (a ``conv_parallel`` policy) runs every conv
+    sharded on the mesh of the caller's ``with mesh:``."""
     dev = resolve_device(device)
     cfg = M.AutoencoderConfig(c_in=3, widths=(16, 32), k=3,
                               conv_policy=str(policy))
@@ -68,7 +70,7 @@ def train(policy="auto", steps: int = 200, batch: int = 16, size: int = 16,
     step_fn = make_train_step(
         cfg, adamw.AdamWConfig(peak_lr=lr, weight_decay=0.0),
         total_steps=steps, warmup=max(1, steps // 10),
-        loss=M.autoencoder_loss, conv_policy=policy)
+        loss=M.autoencoder_loss, conv_policy=policy, conv_mesh=conv_mesh)
     rng = np.random.RandomState(0)
     mses = []
     t0 = time.perf_counter()

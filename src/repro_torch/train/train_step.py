@@ -15,8 +15,17 @@ nothing back to the host.  The ``grad.values`` fault site sits where the
 JAX step has it, after the grads and before compression and the guard:
 an armed ``grad.values:nan@stepN`` rule multiplies step N's grads by NaN
 (:func:`repro_torch.ft.inject.nan_factor`, decided on the host from the
-step number), so the guard drops exactly step N.  The conv mesh (ROADMAP
-A13) raises.
+step number), so the guard drops exactly step N.
+
+``conv_mesh=`` runs the loss and its grads inside
+``repro_torch.dist.conv_parallel.conv_mesh``, on the mesh of the
+enclosing ``with mesh:`` (JAX's ambient mesh): every conv runs sharded
+across the ranks and returns global tensors, and the rest of the step
+runs replicated on every rank.  With more than one rank the step then
+takes rank 0's grads on every rank (``Mesh.broadcast``): a replicated op
+on the card need not give the same bits in two processes (a
+scatter-add's atomics), so this is what keeps every rank's parameters
+bit-identical.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist import conv_parallel
+from repro_torch.dist.constraints import _active_mesh
 from repro_torch.ft import inject
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compression, schedule
@@ -121,6 +132,11 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     optimizer -- the numerics of a compressed cross-pod all-reduce; the
     residual rides in ``opt_state["ef"]``.
 
+    conv_mesh: a ``conv_parallel`` policy (``"tp"``, ``"dp_only"``,
+    ``"tp_rep"``, ``"spatial"`` or a ``ConvParallel``) for every conv of
+    the loss, on the mesh of the enclosing ``with mesh:`` (module
+    docstring); None runs unsharded.
+
     conv_policy: override ``cfg.conv_policy`` for every conv of the model
     (an ``EnginePolicy``, a policy string or an engine name); a config
     without the field has no conv to apply it to.
@@ -144,9 +160,6 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         guard = GuardConfig()
     elif guard is False:
         guard = None
-    if conv_mesh is not None:
-        raise NotImplementedError("the conv mesh is not ported yet "
-                                  "(ROADMAP A13)")
     if conv_policy is not None and any(
             f.name == "conv_policy" for f in dataclasses.fields(cfg)):
         # conv_mode=None (where the config has it): the override must win
@@ -160,12 +173,16 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     def train_step(params, opt_state, batch, step: int):
         dev = tree_leaves(params)[0].device
         opt_in = opt_state            # the state that entered the step
-        if accum_steps == 1:
-            loss_val, metrics, grads = _value_and_grad(loss, params, batch,
-                                                       cfg)
-        else:
-            loss_val, metrics, grads = _accumulated(loss, params, batch,
-                                                    cfg, accum_steps)
+        with conv_parallel.conv_mesh(conv_mesh):
+            if accum_steps == 1:
+                loss_val, metrics, grads = _value_and_grad(loss, params,
+                                                           batch, cfg)
+            else:
+                loss_val, metrics, grads = _accumulated(loss, params, batch,
+                                                        cfg, accum_steps)
+        mesh = _active_mesh() if conv_mesh is not None else None
+        if mesh is not None and mesh.size > 1:
+            mesh.broadcast(tree_leaves(grads), src=0)
 
         # Fault injection on the gradient VALUES, where the JAX step has
         # it: the guard below then sees step N non-finite.

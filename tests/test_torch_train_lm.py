@@ -559,8 +559,10 @@ def test_resumed_run_with_no_steps_left_trains_nothing(tmp_path):
 
 
 def test_launcher_flags(tmp_path):
-    """--conv-mesh raises naming A13; --fault-spec, --trace and --metrics
-    run (A12): ``grad.values:nan@step1`` drops step 1 and no other, the
+    """--conv-mesh runs (A13): one process has a (1, 1) mesh, so each of
+    Mamba2's depthwise convs records ``mesh:fallback`` and the losses are
+    the run's without the flag, bit for bit; --fault-spec, --trace and
+    --metrics run (A12): ``grad.values:nan@step1`` drops step 1 and no other, the
     trace passes ``scripts/validate_trace.py`` with a ``train:step`` span a
     step, the metrics hold one ``train_step`` line a step; --conv-mode is
     deprecated and exclusive with --conv-policy; --accum and --autotune
@@ -576,14 +578,20 @@ def test_launcher_flags(tmp_path):
     from repro_torch import obs
     base = ["--arch", "smollm-360m", "--smoke", "--steps", "2", "--batch",
             "2", "--seq", "16", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        launch.main(base + ["--conv-mesh", "tp"])
+    from repro_torch.core import conv as tconv
+    ssm = ["--arch", "mamba2-370m", "--smoke", "--steps", "2", "--batch",
+           "2", "--seq", "16", "--device", "cpu", "--conv-policy", "pallas"]
+    tconv.reset_dispatch_events()
+    meshed = launch.main(ssm + ["--conv-mesh", "tp"])
+    ev = {k: v for k, v in tconv.dispatch_events().items()
+          if k.startswith("mesh")}
+    assert set(ev) == {"mesh:fallback"} and ev["mesh:fallback"] > 0, ev
+    assert meshed == launch.main(ssm)
     saved = config.snapshot()
     t, m = tmp_path / "t.json", tmp_path / "m.jsonl"
     hist = []
     # A dispatch counted before the traced run starts: the run's window
     # (bus and legacy counters alike) begins at its start.
-    from repro_torch.core import conv as tconv
     tconv.conv2d(torch.ones(1, 1, 4, 4), torch.ones(1, 1, 3, 3), None, "lax")
     try:
         launch.main(["--arch", "smollm-360m", "--smoke", "--steps", "4",

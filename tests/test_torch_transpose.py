@@ -215,18 +215,36 @@ def test_adamw_step_matches_jax():
 
 
 def test_make_train_step_raises_on_what_is_not_ported():
-    """Accumulation, compression and the guard run through the loss plugin
-    (ported with the LM training stack); only the conv mesh still raises
-    (ROADMAP A13).  Without ``loss=`` the step takes the default LM loss."""
+    """Nothing raises any more: accumulation, compression and the guard
+    run through the loss plugin (ported with the LM training stack), and
+    the conv mesh (ROADMAP A13, ported) on one process's ``(1, 1)`` host
+    mesh drops every role and runs the step unsharded, each conv
+    recording ``mesh:fallback``, the same step bit for bit.  An unknown
+    mesh policy raises.  Without ``loss=`` the step takes the default LM
+    loss."""
+    from repro_torch.core import conv as tc
+    from repro_torch.launch.mesh import make_host_mesh
     cfg = TM.AutoencoderConfig()
     opt = adamw.AdamWConfig()
     loss = TM.autoencoder_loss
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(cfg, opt, loss=loss, conv_mesh="tp")
     params = TM.init_autoencoder(torch.Generator().manual_seed(0), cfg,
                                  "cpu")
     batch = {"image": torch.randn(4, 3, 8, 8,
                                   generator=torch.Generator().manual_seed(1))}
+    tc.reset_dispatch_events()
+    with make_host_mesh():
+        meshed = make_train_step(cfg, opt, loss=loss, conv_mesh="tp")(
+            params, adamw.init_state(params), batch, 0)
+    ev = tc.dispatch_events()
+    assert ev.get("mesh:fallback") == 2         # the two encoder convs
+    assert ev.get("mesh:fallback_T") == 2
+    plain = make_train_step(cfg, opt, loss=loss)(
+        params, adamw.init_state(params), batch, 0)
+    for a, b in zip(tree_leaves(meshed[0]), tree_leaves(plain[0])):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="unknown conv mesh policy"):
+        make_train_step(cfg, opt, loss=loss, conv_mesh="bogus")(
+            params, adamw.init_state(params), batch, 0)
     for kw in (dict(accum_steps=2), dict(compress_grads=True),
                dict(guard=True)):
         step = make_train_step(cfg, opt, loss=loss, conv_policy="lax", **kw)
