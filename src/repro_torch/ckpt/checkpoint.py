@@ -172,13 +172,25 @@ def wait() -> None:
 # ---------------------------------------------------------------------------
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
-         blocking: bool = True) -> str:
+         blocking: bool = True, specs: Any = None, mesh: Any = None) -> str:
     """Write a step-atomic checkpoint; returns its directory.
 
     Non-blocking saves hand the file I/O to a background thread; a failure
     there is re-raised from the NEXT ``save()`` (or :func:`wait`), so a
     dead disk cannot silently eat every checkpoint of a run.
+
+    ``specs`` (as for :func:`restore`) with ``mesh``: ``tree`` is this
+    rank's blocks (``repro_torch.dist.spmd``).  Every rank of the mesh
+    calls ``save``: the blocks are put back together
+    (``sharding.gather_tree``, a collective), and the rank at coordinate
+    0 of every axis writes the global arrays, as JAX's save of sharded
+    arrays does; the others write nothing.  Any mesh restores them.
     """
+    if specs is not None:
+        from repro_torch.dist.sharding import gather_tree
+        tree = gather_tree(tree, specs, mesh)
+        if any(mesh.coordinate(a) for a in mesh.axis_names):
+            return os.path.join(ckpt_dir, f"step_{step:08d}")
     _WRITER.wait()                    # surface any failed previous write
     leaves = [(".".join(path), *_to_host(leaf))
               for path, leaf in _leaf_paths(tree)]

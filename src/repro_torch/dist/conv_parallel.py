@@ -11,16 +11,23 @@ geometry checks run the per-pass SPMD bodies below (inside their own
 ``torch.autograd.Function``); everything else runs the single-device conv
 with the reason recorded in ``dispatch_events`` / ``policy_decisions``.
 
-SPMD, at the caller's boundary: the lowering takes and returns the
-caller's GLOBAL tensors, replicated on every rank, as ``shard_map`` over a
-global array does.  Each rank cuts its block by its mesh coordinate (the
-``in_specs``), runs the body -- every local pass through
-``core.conv._execute`` at the shard's own geometry, so under ``pallas``
-each shard launches the card's tap kernels -- and the output is put back
-together with ``all_gather`` over the axes the ``out_specs`` shard.  The
-collectives are the mesh's (``repro_torch.launch.mesh.Mesh``): ``psum`` as
-a fixed-order sum over the named axes, ``ppermute`` as one
-``batch_isend_irecv`` along an axis.
+SPMD, at the caller's boundary.  Inside a batch-sharded train step
+(``repro_torch.dist.constraints.batch_block``: an activation policy on the
+active mesh) the lowering takes and returns this rank's BATCH BLOCK: the
+plan's batch role is the step's cut, already made, so no rank cuts the
+batch again and no output is gathered over it; the weight grad is this
+block's, and the step sums it over the batch axes with every other grad.
+Otherwise it takes and returns the caller's GLOBAL tensors, replicated on
+every rank, as ``shard_map`` over a global array does, and cuts the batch
+itself.  Either way each rank cuts its block of the other roles by its
+mesh coordinate (the ``in_specs``), runs the body -- every local pass
+through ``core.conv._execute`` at the shard's own geometry, so under
+``pallas`` each shard launches the card's tap kernels -- and the output
+is put back together with ``all_gather`` over the axes the ``out_specs``
+shard (Cout under ``tp``, H under ``spatial``).  The collectives are the
+mesh's (``repro_torch.launch.mesh.Mesh``): ``psum`` as a fixed-order sum
+over the named axes, ``ppermute`` as one ``batch_isend_irecv`` along an
+axis.
 
 Spatial sharding exchanges exactly the planner's tap-derived halos
 (:func:`repro_torch.kernels.ops.shard_halo`): ``lo = P_lo`` and
@@ -38,6 +45,8 @@ Reduction placement per pass:
     forward         contracts Cin    contracts Cin    ``cin`` shards
     input grad      contracts Cout   contracts Cout   ``cout`` shards
     weight grad     contracts B,H,W  contracts B,H,W  ``batch`` + spatial
+                                                      (spatial only on a
+                                                      batch block)
     ==============  ===============  ===============  ==================
 
 Transposed convs ride the mirror-conv identity end to end: the mirror
@@ -55,7 +64,7 @@ import torch
 
 from repro_torch.core import conv as C
 from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec
-from repro_torch.dist.constraints import _active_mesh
+from repro_torch.dist.constraints import _active_mesh, current_block
 from repro_torch.dist.sharding import P, from_local, local_block
 from repro_torch.kernels.ops import shard_halo
 from repro_torch.obs import events as obs_events
@@ -158,6 +167,7 @@ class ConvShardPlan:
     halo_w: tuple[int, int] = (0, 0)
     transposed: bool = False
     dropped: tuple[tuple[str, str], ...] = ()
+    batch_local: bool = False
 
     @property
     def roles(self) -> tuple[str, ...]:
@@ -178,9 +188,16 @@ class ConvShardPlan:
 
     @property
     def batch_spec(self):
-        if not self.batch:
+        """The batch dim's spec entry for a global tensor; None on a batch
+        block (nothing left to cut)."""
+        if not self.batch or self.batch_local:
             return None
         return self.batch if len(self.batch) > 1 else self.batch[0]
+
+    @property
+    def batch_cut(self) -> int:
+        """How many blocks this plan cuts the caller's batch into."""
+        return 1 if self.batch_local else self.size(self.batch)
 
 
 def _check_spatial(name: str, n: int, h_i: int, h_o: int, s: int,
@@ -203,8 +220,12 @@ def _check_spatial(name: str, n: int, h_i: int, h_o: int, s: int,
 
 
 def plan_conv_sharding(x_shape, w_shape, spec, par: ConvParallel,
-                       mesh) -> ConvShardPlan:
+                       mesh, batch_local=None) -> ConvShardPlan:
     """Validate a :class:`ConvParallel` request against one layer's geometry.
+
+    ``batch_local``: the mesh axes a batch-sharded step cut the batch
+    over; ``x_shape`` is then this rank's block, and those axes are the
+    batch role whatever ``par.batch`` asks (already cut: nothing to check).
 
     Degrades per role, never whole-or-nothing: an indivisible batch drops
     only the batch sharding, a non-uniform plane drops only that spatial
@@ -237,14 +258,15 @@ def plan_conv_sharding(x_shape, w_shape, spec, par: ConvParallel,
         return tuple(keep)
 
     # batch ----------------------------------------------------------------
-    batch = usable("data", par.batch)
-    if batch:
-        n = _size(mesh, batch)
-        if d.B % n:
-            dropped.append(("data", f"batch {d.B} % {n} shards != 0"))
+    if batch_local:
+        batch = tuple(a for a in batch_local if shape.get(a, 1) > 1)
+    else:
+        batch = usable("data", par.batch)
+        if batch and d.B % _size(mesh, batch):
+            dropped.append(("data", f"batch {d.B} % {_size(mesh, batch)} "
+                                    f"shards != 0"))
             batch = ()
-        else:
-            used.update(batch)
+    used.update(batch)
 
     # spatial (regular: the input plane; transposed: the MIRROR input
     # plane, i.e. the transposed layer's output) --------------------------
@@ -294,7 +316,8 @@ def plan_conv_sharding(x_shape, w_shape, spec, par: ConvParallel,
         mesh=mesh, batch=batch, h=h_axis, w=w_axis,
         cin=cin_axis, cout=cout_axis,
         halo_h=(lo_h, hi_h), halo_w=(lo_w, hi_w),
-        transposed=transposed, dropped=tuple(dropped))
+        transposed=transposed, dropped=tuple(dropped),
+        batch_local=bool(batch_local))
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +450,10 @@ def _local_tspec(spec: ConvTransposeSpec,
 
 
 def _wgrad_axes(plan: ConvShardPlan) -> tuple[str, ...]:
-    """weight grad contracts batch x spatial: psum over all three."""
-    return plan.batch + tuple(a for a in (plan.h, plan.w) if a)
+    """weight grad contracts batch x spatial: psum over all three, but the
+    batch on a batch block, whose step sums every grad over it."""
+    batch = () if plan.batch_local else plan.batch
+    return batch + tuple(a for a in (plan.h, plan.w) if a)
 
 
 def _block(t, spec, plan: ConvShardPlan):
@@ -461,7 +486,7 @@ def _fwd_regular(x, w, spec: ConvSpec, policy, plan: ConvShardPlan):
 def _dgrad_regular(dy, w, x_shape, spec: ConvSpec, policy,
                    plan: ConvShardPlan):
     ls = _local_spec(spec, plan)
-    b_loc = x_shape[0] // plan.size(plan.batch)
+    b_loc = x_shape[0] // plan.batch_cut
     c_loc = x_shape[1] // plan.size(plan.cin)
     blk_h, blk_w = (x_shape[2] // plan.size(plan.h),
                     x_shape[3] // plan.size(plan.w))
@@ -551,7 +576,7 @@ def _t_fwd(x, w, spec: ConvTransposeSpec, policy, plan: ConvShardPlan,
 def _t_dgrad(dy, w, x_shape, spec: ConvTransposeSpec, policy,
              plan: ConvShardPlan):
     tl = _local_tspec(spec, plan)
-    x_loc = (x_shape[0] // plan.size(plan.batch),
+    x_loc = (x_shape[0] // plan.batch_cut,
              x_shape[1] // plan.size(plan.cin),
              x_shape[2] // plan.size(plan.h),
              x_shape[3] // plan.size(plan.w))
@@ -572,7 +597,7 @@ def _t_dgrad(dy, w, x_shape, spec: ConvTransposeSpec, policy,
 def _t_wgrad(dy, x, x_shape, w_shape, spec: ConvTransposeSpec, policy,
              plan: ConvShardPlan):
     tl = _local_tspec(spec, plan)
-    x_loc = (x_shape[0] // plan.size(plan.batch),
+    x_loc = (x_shape[0] // plan.batch_cut,
              x_shape[1] // plan.size(plan.cin),
              x_shape[2] // plan.size(plan.h),
              x_shape[3] // plan.size(plan.w))
@@ -653,8 +678,13 @@ def _maybe_lower(x, w, spec, policy):
     if mesh is None:
         C._record_event("mesh:no_mesh")
         return NotImplemented
+    blk = current_block()
+    if blk is not None and blk.mesh is not mesh:
+        raise RuntimeError(f"conv_mesh on {mesh!r} inside a step whose "
+                           f"batch is cut over {blk.mesh!r}")
     par = ConvParallel.coerce(requested, mesh)
-    plan = plan_conv_sharding(x.shape, w.shape, spec, par, mesh)
+    plan = plan_conv_sharding(x.shape, w.shape, spec, par, mesh,
+                              blk.axes if blk is not None else None)
     _record_plan(plan, requested)
     if not plan.roles:
         return NotImplemented

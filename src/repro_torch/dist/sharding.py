@@ -22,7 +22,8 @@ indivisible dim falls back to replication for that dim only.
 
 :func:`local_block` cuts a global tensor to one rank's block under a spec
 (the port's counterpart of placing an array with ``to_shardings``), and
-:func:`from_local` puts the blocks back together on every rank.
+:func:`from_local` puts the blocks back together on every rank;
+:func:`to_local` and :func:`gather_tree` do the same over trees.
 """
 
 from __future__ import annotations
@@ -231,15 +232,29 @@ def from_local(y, spec, mesh):
     return y
 
 
+def _with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree`` with the spec at the same path of
+    ``specs`` (a spec tree, or one spec for every leaf); a leaf without a
+    spec stays as it is."""
+    if isinstance(specs, PartitionSpec):
+        return tree_map(lambda x: fn(x, specs), tree)
+    if isinstance(tree, dict):
+        return {k: _with_specs(fn, v, specs[k]) if k in specs else v
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_specs(fn, v, s) for v, s in zip(tree, specs))
+    return tree
+
+
 def to_local(tree, specs, mesh):
     """Each leaf of ``tree`` cut to this rank's block under the spec at
     the same path of ``specs`` (a spec tree, or one spec for every leaf);
     a leaf without a spec stays whole."""
-    if isinstance(specs, PartitionSpec):
-        return tree_map(lambda x: local_block(x, specs, mesh), tree)
-    if isinstance(tree, dict):
-        return {k: to_local(v, specs[k], mesh) if k in specs else v
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_local(v, s, mesh) for v, s in zip(tree, specs))
-    return tree
+    return _with_specs(lambda x, s: local_block(x, s, mesh), tree, specs)
+
+
+def gather_tree(tree, specs, mesh):
+    """:func:`to_local` undone: each leaf, this rank's block, put back
+    together with :func:`from_local` (a collective every rank calls); a
+    leaf without a spec stays as it is."""
+    return _with_specs(lambda x, s: from_local(x, s, mesh), tree, specs)

@@ -27,7 +27,10 @@ transport is on the host.
 
 :meth:`Mesh.psum` sums in a fixed order (every member's block gathered,
 then added in the axis's coordinate order), so every rank of an axis holds
-the same bits, whatever the backend's own reduction order.
+the same bits, whatever the backend's own reduction order;
+:meth:`Mesh.psum_flat` does so for a list of tensors through one buffer a
+dtype (the train step's grads), and :meth:`Mesh.broadcast` copies one
+rank's tensors along an axis.
 """
 
 from __future__ import annotations
@@ -161,24 +164,51 @@ class Mesh:
                 req.wait()
         return [b.to(t.device) for b, (t, _) in zip(recvs, sends)]
 
-    def broadcast(self, tensors: list[torch.Tensor], src: int = 0) -> None:
-        """Overwrite ``tensors`` in place with rank ``src``'s, one flat
-        buffer per dtype."""
-        by_dtype: dict = {}
-        for t in tensors:
-            by_dtype.setdefault(t.dtype, []).append(t)
-        for group in by_dtype.values():
-            flat = self.stage(torch.cat([t.reshape(-1) for t in group]))
-            dist.broadcast(flat, src=src)
-            start = 0
-            for t in group:
-                n = t.numel()
-                t.copy_(flat[start:start + n].view(t.shape))
-                start += n
+    def psum_flat(self, tensors: list[torch.Tensor],
+                  axes) -> list[torch.Tensor]:
+        """:meth:`psum` of every tensor of the list, through one flat
+        buffer per dtype: new tensors, in the list's order."""
+        out: list = [None] * len(tensors)
+        for idx in _by_dtype(tensors).values():
+            flat = self.psum(torch.cat([tensors[i].reshape(-1)
+                                        for i in idx]), axes)
+            for i, part in zip(idx, _split(flat, [tensors[i] for i in idx])):
+                out[i] = part
+        return out
+
+    def broadcast(self, tensors: list[torch.Tensor], axis: str,
+                  index: int = 0) -> None:
+        """Overwrite ``tensors`` in place with those of the rank at
+        coordinate ``index`` along ``axis`` (this rank's coordinate on
+        every other axis), one flat buffer per dtype."""
+        root = self.rank_at(axis, index)
+        for idx in _by_dtype(tensors).values():
+            flat = self.stage(torch.cat([tensors[i].reshape(-1)
+                                         for i in idx]))
+            dist.broadcast(flat, src=root, group=self.group(axis))
+            for i, part in zip(idx, _split(flat, [tensors[i] for i in idx])):
+                tensors[i].copy_(part)
 
     def barrier(self) -> None:
         if self.device_mesh is not None:
             dist.barrier()
+
+
+def _by_dtype(tensors) -> dict:
+    """dtype -> the indices of ``tensors`` of that dtype, in order."""
+    out: dict = {}
+    for i, t in enumerate(tensors):
+        out.setdefault(t.dtype, []).append(i)
+    return out
+
+
+def _split(flat: torch.Tensor, like) -> list[torch.Tensor]:
+    """``flat`` cut into tensors of the shapes of ``like``, in order."""
+    out, start = [], 0
+    for t in like:
+        out.append(flat[start:start + t.numel()].view(t.shape))
+        start += t.numel()
+    return out
 
 
 def backend_for(device, local_world: int) -> str:

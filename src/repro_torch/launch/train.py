@@ -44,15 +44,20 @@ introspection counters are reset at the start (``obs.reset_all``) and the
 run ends with ``obs.finalize()``, failing when a legacy counter disagrees
 with the event bus.
 
-``--conv-mesh POLICY`` runs every conv of the step sharded over the
-process world (``repro_torch.dist.conv_parallel``, mesh
-``launch.mesh.make_host_mesh()``: ``(world, 1)`` ``("data", "model")``),
-the rest of the step replicated on every rank.  Under
-``torch.distributed.run`` the launcher starts the process group from the
-environment (``nccl`` when each rank has a card of its own, ``gloo`` with
-host-staged collectives when ranks share one, or on the CPU), every rank
-builds the same global batch, and only rank 0 prints, checkpoints, traces
-and writes metrics::
+``--conv-mesh POLICY`` trains batch-sharded over the process world, as
+the JAX launcher does (``set_activation_policy(batch_axes(mesh, POLICY))``
+under ``with mesh:``, mesh ``launch.mesh.make_host_mesh()``: ``(world,
+1)`` ``("data", "model")``).  Every rank builds the global batch
+(``make_batch`` with one worker), keeps its block under
+``dist.sharding.batch_specs`` and runs the forward and backward on that
+block only, every conv through ``repro_torch.dist.conv_parallel`` on it;
+the step sums the loss and the grads over the batch axes
+(``repro_torch.train.train_step``), and the parameters stay replicated.
+A batch that does not divide over the batch axes stops the launcher.
+Under ``torch.distributed.run`` the launcher starts the process group
+from the environment (``nccl`` when each rank has a card of its own,
+``gloo`` with host-staged collectives when ranks share one, or on the
+CPU), and only rank 0 prints, checkpoints, traces and writes metrics::
 
     python -m torch.distributed.run --standalone --nproc-per-node 2 \
         -m repro_torch.launch.train --arch mamba2-370m \
@@ -209,7 +214,7 @@ def main(argv=None, *, params=None, opt_state=None,
         from repro_torch.dist import set_activation_policy, sharding
         mesh = mesh_lib.make_host_mesh()
         set_activation_policy(sharding.batch_axes(mesh, args.conv_mesh))
-        mesh_ctx = mesh                 # with mesh: the convs run sharded
+        mesh_ctx = mesh                 # with mesh: the step runs sharded
         log(f"[train] conv mesh {args.conv_mesh} on {mesh!r}")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -250,8 +255,11 @@ def main(argv=None, *, params=None, opt_state=None,
     for step in range(start_step, end_step):
         t0 = time.perf_counter()
         inject.set_step(step)
-        batch = {k: torch.from_numpy(v).to(dev)
+        batch = {k: torch.from_numpy(v)
                  for k, v in make_batch(cfg, dcfg, step).items()}
+        if mesh is not None:
+            batch = _own_block(batch, mesh, args.conv_mesh)
+        batch = {k: v.to(dev) for k, v in batch.items()}
         with obs.trace.span("train:step", step=step), mesh_ctx:
             params, opt_state, metrics = step_fn(params, opt_state, batch,
                                                  step)
@@ -317,6 +325,20 @@ def main(argv=None, *, params=None, opt_state=None,
     log(f"[train] done: first_loss={losses[0]:.4f} "
         f"last_loss={losses[-1]:.4f}")
     return losses
+
+
+def _own_block(batch, mesh, policy):
+    """This rank's block of the global ``batch`` under ``batch_specs``;
+    stops the run when the batch does not divide over the batch axes
+    (the step would run the whole batch on every rank)."""
+    from repro_torch.dist import constraints, sharding
+    specs = sharding.batch_specs(batch, mesh, policy)
+    split = constraints.batch_split(mesh)
+    if split is not None and any(s[0] is None for s in specs.values()):
+        raise SystemExit(
+            f"[train] --batch {next(iter(batch.values())).shape[0]} does "
+            f"not divide over the batch axes {split.axes} of {mesh!r}")
+    return sharding.to_local(batch, specs, mesh)
 
 
 def _save(ckpt_dir, step, params, opt_state, lead, mesh) -> None:

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.train import losses
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,5 +78,5 @@ def autoencoder_loss(params, batch, cfg: AutoencoderConfig):
     for ``make_train_step``; returns ``(loss, metrics)``."""
     x = batch["image"]
     x_hat = autoencoder_apply(params, x, cfg)
-    mse = torch.mean(torch.square(x_hat.float() - x.float()))
+    mse = losses.batch_mean(torch.square(x_hat.float() - x.float()))
     return mse, {"mse": mse, "loss": mse}

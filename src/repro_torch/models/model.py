@@ -45,6 +45,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.constraints import constrain_batch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.tree import tree_leaves
@@ -118,7 +119,8 @@ def forward(params, batch, cfg: ArchConfig):
     a config with ``mtp_depth``; ``{}`` for the other families.  The VLM's
     logits cover the text positions only: the image positions are dropped
     before the head."""
-    x, aux = T.forward_stacks(params, _embed_inputs(params, batch, cfg), cfg)
+    x = constrain_batch(_embed_inputs(params, batch, cfg))
+    x, aux = T.forward_stacks(params, x, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.family == "vlm" and "frontend" in batch:
         x = x[:, batch["frontend"].shape[1]:]
@@ -148,7 +150,8 @@ def decode_step(params, cache, tokens, pos, cfg: ArchConfig):
     ``pos`` is an int (one shared position clock) or a per-lane (B,)
     tensor (continuous batching: every cache lane sits at its own
     position)."""
-    x = L.embed(params["embed"], tokens[:, None]).to(cfg.adtype)
+    x = constrain_batch(
+        L.embed(params["embed"], tokens[:, None]).to(cfg.adtype))
     x, cache = T.decode_stacks(params, cache, x, pos, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(params, cfg, x)[:, 0], cache

@@ -9,10 +9,11 @@ the layers' grads in one write.  When a gradient flows, each block is
 rematerialized as the JAX package's ``jax.checkpoint`` does it
 (``cfg.remat == "block"`` unless ``config.remat`` overrides it):
 ``torch.utils.checkpoint`` keeps only the block's input and runs the
-block again in the backward.  The JAX package's ``constrain_batch`` calls
-are left out: the port's (``repro_torch.dist.constraints``) returns its
-input unchanged, since the mesh-parallel conv keeps activations global on
-every rank.
+block again in the backward.  ``constrain_batch`` stands at the block
+boundaries where the JAX package calls it: inside a batch-sharded train
+step every activation there is this rank's batch block, and one that is
+not raises (``repro_torch.dist.constraints``); elsewhere it is the
+identity.
 
 Families:
   dense, vlm, audio : one stack of attention blocks, ``blocks`` (audio's
@@ -37,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.config import config
+from repro_torch.dist.constraints import constrain_batch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
@@ -116,18 +118,19 @@ def attn_block(p, x, cfg: ArchConfig, capacity: int | None = None,
     :func:`cache_keys`.  ``capacity`` is the MoE expert capacity (default:
     the training capacity, which drops); ``window`` a local attention
     window (GQA only, as in the JAX package)."""
+    x = constrain_batch(x)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.use_mla:
         o, *cached = A.mla_prefill(p["attn"], h, cfg)
     else:
         o, *cached = A.gqa_prefill(p["attn"], h, cfg, window=window)
-    x = x + o
+    x = constrain_batch(x + o)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
         y, aux = MOE.moe_apply(p["moe"], h, cfg, capacity)
     else:
         y, aux = L.mlp(p["mlp"], h), {}
-    return x + y, aux, dict(zip(cache_keys(cfg), cached))
+    return constrain_batch(x + y), aux, dict(zip(cache_keys(cfg), cached))
 
 
 def init_ssm_block(generator: torch.Generator, cfg: ArchConfig, nl: int,
@@ -139,9 +142,10 @@ def init_ssm_block(generator: torch.Generator, cfg: ArchConfig, nl: int,
 def ssm_block(p, x, cfg: ArchConfig, capacity: int | None = None):
     """One pre-norm Mamba2 layer: its cache holds the final SSM state and
     the last conv inputs.  ``capacity`` is unused (no experts)."""
+    x = constrain_batch(x)
     h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     y, *cached = M2.mamba2_block(p["ssm"], h, cfg, return_cache=True)
-    return x + y, {}, dict(zip(cache_keys(cfg), cached))
+    return constrain_batch(x + y), {}, dict(zip(cache_keys(cfg), cached))
 
 
 def init_rec_block(generator: torch.Generator, cfg: ArchConfig, nl: int,
@@ -156,11 +160,13 @@ def init_rec_block(generator: torch.Generator, cfg: ArchConfig, nl: int,
 def rec_block(p, x, cfg: ArchConfig, capacity: int | None = None):
     """One pre-norm RG-LRU layer with its SwiGLU MLP: its cache holds the
     final recurrent state ``h`` and the last conv inputs ``conv``."""
+    x = constrain_batch(x)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     y, h_last, conv = R.recurrent_block(p["rec"], h, cfg, return_cache=True)
-    x = x + y
+    x = constrain_batch(x + y)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(p["mlp"], h), {}, {"h": h_last, "conv": conv}
+    return (constrain_batch(x + L.mlp(p["mlp"], h)), {},
+            {"h": h_last, "conv": conv})
 
 
 def init_super_block(generator: torch.Generator, cfg: ArchConfig, nl: int,

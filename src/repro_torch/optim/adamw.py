@@ -8,6 +8,9 @@ keeps it) stay on the device, so a step needs no host round trip.
 ``apply_updates(..., in_place=True)`` writes the same values into the
 given tensors instead (the caller donates them), so a model whose
 parameters and moments take more than half the card still steps there.
+The update is element-wise, so it runs as well on one rank's blocks of
+the parameters, grads and moments (``repro_torch.dist.spmd``), given the
+norm of the whole grads (``gnorm=``) for the clip every rank shares.
 """
 
 from __future__ import annotations
@@ -76,9 +79,13 @@ def _step_leaf_in_place(p, g, m, v, scale, lr: float, b1c, b2c,
 
 
 def apply_updates(params, grads, state: dict, lr: float, cfg: AdamWConfig,
-                  *, in_place: bool = False, keep_if=None):
+                  *, in_place: bool = False, keep_if=None, gnorm=None):
     """Returns ``(new_params, new_state, metrics)``.  Gradients are scaled
     by ``min(1, clip_norm / global_norm)`` before the moments update.
+
+    ``gnorm``: the global norm of the whole grads when ``params``,
+    ``grads`` and ``state`` are one rank's blocks of them (default: the
+    norm of ``grads``).
 
     ``in_place``: the new parameters, moments and step count are written
     into ``params`` and ``state``'s tensors, which are returned (no second
@@ -90,7 +97,8 @@ def apply_updates(params, grads, state: dict, lr: float, cfg: AdamWConfig,
     if keep_if is not None and not in_place:
         raise ValueError("keep_if selects inside an in-place update only")
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         step = state["step"] + 1

@@ -4,16 +4,45 @@ weighting and the multi-token-prediction head (counterpart of
 
 ``torch.gather`` takes int64 indices where ``jnp.take_along_axis`` takes
 the pipeline's int32 targets, so targets are widened first.
+
+Inside a batch-sharded train step (``repro_torch.dist.constraints
+.batch_block``) each rank holds a block of the batch, and a mean over the
+batch is this rank's SHARE of the global one (:func:`batch_mean`): its
+own sum over the count of the whole batch, the count summed over the
+batch axes in a fixed order (``Mesh.psum``).  The shares add up to the
+global mean, and so do their grads; the step sums both over the batch
+axes.  A mean of per-rank means would weigh a rank's rows by how few
+``loss_mask`` kept.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.constraints import current_block
+
 MOE_LB_WEIGHT = 0.01
 MOE_Z_WEIGHT = 1e-4
 MTP_WEIGHT = 0.3
 Z_LOSS_WEIGHT = 1e-4
+
+
+def batch_mean(values, mask=None):
+    """The mean of ``values`` over the positions ``mask`` keeps (all of
+    them without one); inside a batch block, this rank's share of the
+    mean over the whole batch (module docstring)."""
+    blk = current_block()
+    if blk is None:
+        if mask is None:
+            return values.mean()
+        return (values * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if mask is None:
+        total, count = values.sum(), torch.full(
+            (1,), values.numel(), dtype=torch.float32, device=values.device)
+    else:
+        total, count = (values * mask).sum(), mask.sum().float().reshape(1)
+    count = blk.mesh.psum(count.detach(), blk.axes)[0]
+    return total / torch.clamp(count, min=1.0)
 
 
 def softmax_xent(logits, targets, mask=None):
@@ -22,11 +51,7 @@ def softmax_xent(logits, targets, mask=None):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    per_tok = logz - gold + Z_LOSS_WEIGHT * logz ** 2
-    if mask is not None:
-        per_tok = per_tok * mask
-        return per_tok.sum() / torch.clamp(mask.sum(), min=1.0)
-    return per_tok.mean()
+    return batch_mean(logz - gold + Z_LOSS_WEIGHT * logz ** 2, mask)
 
 
 def train_loss(logits, aux, batch):

@@ -17,26 +17,42 @@ an armed ``grad.values:nan@stepN`` rule multiplies step N's grads by NaN
 (:func:`repro_torch.ft.inject.nan_factor`, decided on the host from the
 step number), so the guard drops exactly step N.
 
-``conv_mesh=`` runs the loss and its grads inside
-``repro_torch.dist.conv_parallel.conv_mesh``, on the mesh of the
-enclosing ``with mesh:`` (JAX's ambient mesh): every conv runs sharded
-across the ranks and returns global tensors, and the rest of the step
-runs replicated on every rank.  With more than one rank the step then
-takes rank 0's grads on every rank (``Mesh.broadcast``): a replicated op
-on the card need not give the same bits in two processes (a
-scatter-add's atomics), so this is what keeps every rank's parameters
-bit-identical.
+On a mesh (the enclosing ``with mesh:``, JAX's ambient mesh) the step
+is SPMD.  With an activation policy whose axes cut the batch
+(``repro_torch.dist.constraints.batch_split``), ``batch`` is this rank's
+block of the global batch (``dist.sharding.batch_specs``), and the
+forward and backward run on that block only: the losses take this rank's
+share of the global mean (``losses.batch_mean``), the loss, its metrics
+and every grad are summed over the batch axes (``Mesh.psum``, a fixed
+order, so every rank holds the same bits), and the global norm and the
+clip are the global batch's.  The MoE family raises there: its expert
+capacity and load-balance terms would be a block's, not the batch's
+(ROADMAP A14).  ``conv_mesh=`` runs every conv of the loss through
+``repro_torch.dist.conv_parallel.conv_mesh``: on a batch block it takes
+and returns the block; without a policy it takes and returns global
+tensors and the rest of the step runs replicated.  Ranks that hold the
+same batch block (along a non-batch axis, or every rank without a
+policy) then take the grads and the loss of coordinate 0 of those axes
+(``Mesh.broadcast``): one op on the card need not give the same bits in
+two processes (a scatter-add's atomics), and this keeps the replicated
+parameters bit-identical.
+
+``train_step(..., layout=)`` takes the parameters and AdamW moments as
+this rank's blocks (``repro_torch.dist.spmd.sharded_step``, the
+counterpart of ``jit(in_shardings=...)``): the step gathers the
+parameters, runs the above, takes the norm and the clip of the whole
+grads, cuts each grad to its parameter's block and updates the blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
 
-from repro_torch.dist import conv_parallel
-from repro_torch.dist.constraints import _active_mesh
+from repro_torch.dist import constraints, conv_parallel
 from repro_torch.ft import inject
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compression, schedule
@@ -72,24 +88,32 @@ class GuardConfig:
     clip_norm: float = 0.5
 
 
-def _value_and_grad(loss: Callable, params, batch, cfg):
+def _value_and_grad(loss: Callable, params, batch, cfg, split=None):
     """``(loss, metrics, grads)``: the loss and its metrics detached, the
     grads a tree like ``params`` in each parameter's dtype; a parameter
     the loss never reads (the audio encoder's ``embed``) gets zeros, as
-    under ``jax.grad``."""
+    under ``jax.grad``.  ``split``: the batch is this rank's block of it
+    (this rank's shares of the loss and grads)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    loss_val, metrics = loss(tree_unflatten(params, leaves), batch, cfg)
-    grads = torch.autograd.grad(loss_val, leaves, allow_unused=True,
-                                materialize_grads=True)
+    block = contextlib.nullcontext() if split is None else \
+        constraints.batch_block(split, tree_leaves(batch)[0].shape[0])
+    with block:
+        loss_val, metrics = loss(tree_unflatten(params, leaves), batch, cfg)
+        grads = torch.autograd.grad(loss_val, leaves, allow_unused=True,
+                                    materialize_grads=True)
     metrics = {k: v.detach() if torch.is_tensor(v) else v
                for k, v in metrics.items()}
     return loss_val.detach(), metrics, tree_unflatten(params, list(grads))
 
 
-def _accumulated(loss: Callable, params, batch, cfg, accum_steps: int):
+def _accumulated(loss: Callable, params, batch, cfg, accum_steps: int,
+                 split=None):
     """The batch split on its leading axis into ``accum_steps``
     microbatches: grads summed in float32 zeros, then divided; loss and
-    metrics the mean over the microbatches."""
+    metrics the mean over the microbatches.  On a batch block each rank
+    splits its own rows: microbatch i is every rank's i-th slice, which
+    is JAX's microbatch i (a slice of the global batch) only where every
+    row counts alike (no ``loss_mask``)."""
     def micro(x, i):
         b = x.shape[0]
         return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])[i]
@@ -100,7 +124,7 @@ def _accumulated(loss: Callable, params, batch, cfg, accum_steps: int):
     ms = []
     for i in range(accum_steps):
         loss_val, m, g = _value_and_grad(
-            loss, params, tree_map(lambda x: micro(x, i), batch), cfg)
+            loss, params, tree_map(lambda x: micro(x, i), batch), cfg, split)
         g_acc = tree_map(torch.add, g_acc, g)
         l_acc = l_acc + loss_val
         ms.append(m)
@@ -108,6 +132,24 @@ def _accumulated(loss: Callable, params, batch, cfg, accum_steps: int):
                for k in ms[0]}
     return (l_acc / accum_steps, metrics,
             tree_map(lambda g: g / accum_steps, g_acc))
+
+
+def _sync(mesh, batch_axes: tuple[str, ...], loss_val, metrics, grads):
+    """Every rank's shares of the loss, its tensor metrics and the grads
+    summed over ``batch_axes`` (``Mesh.psum_flat``: a fixed order, one
+    buffer per dtype); then, over each other axis of size > 1 (whose
+    ranks hold the same batch block), coordinate 0's values."""
+    keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+    vals = [loss_val, *(metrics[k] for k in keys)]
+    leaves = tree_leaves(grads)
+    if batch_axes:
+        vals = mesh.psum_flat(vals, batch_axes)
+        leaves = mesh.psum_flat(leaves, batch_axes)
+    for axis, n in mesh.shape.items():
+        if n > 1 and axis not in batch_axes:
+            mesh.broadcast(vals + leaves, axis)
+    return (vals[0], {**metrics, **dict(zip(keys, vals[1:]))},
+            tree_unflatten(grads, leaves))
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
@@ -135,7 +177,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     conv_mesh: a ``conv_parallel`` policy (``"tp"``, ``"dp_only"``,
     ``"tp_rep"``, ``"spatial"`` or a ``ConvParallel``) for every conv of
     the loss, on the mesh of the enclosing ``with mesh:`` (module
-    docstring); None runs unsharded.
+    docstring); None runs the convs unsharded.
 
     conv_policy: override ``cfg.conv_policy`` for every conv of the model
     (an ``EnginePolicy``, a policy string or an engine name); a config
@@ -170,19 +212,31 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     sched = schedule.SCHEDULES[schedule_name
                                or schedule.default_schedule_for(cfg.name)]
 
-    def train_step(params, opt_state, batch, step: int):
+    def train_step(params, opt_state, batch, step: int, *, layout=None):
+        split = constraints.batch_split()
+        if split is not None and getattr(cfg, "family", None) == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: the MoE family's batch-sharded step is not "
+                f"ported (ROADMAP A14): its expert capacity and load-balance "
+                f"terms would be each rank's block's, not the batch's")
+        full = params if layout is None else layout.gather(params)
         dev = tree_leaves(params)[0].device
         opt_in = opt_state            # the state that entered the step
         with conv_parallel.conv_mesh(conv_mesh):
             if accum_steps == 1:
-                loss_val, metrics, grads = _value_and_grad(loss, params,
-                                                           batch, cfg)
+                loss_val, metrics, grads = _value_and_grad(loss, full, batch,
+                                                           cfg, split)
             else:
-                loss_val, metrics, grads = _accumulated(loss, params, batch,
-                                                        cfg, accum_steps)
-        mesh = _active_mesh() if conv_mesh is not None else None
+                loss_val, metrics, grads = _accumulated(
+                    loss, full, batch, cfg, accum_steps, split)
+        del full
+        mesh = split.mesh if split is not None else (
+            layout.mesh if layout is not None else
+            constraints._active_mesh() if conv_mesh is not None else None)
         if mesh is not None and mesh.size > 1:
-            mesh.broadcast(tree_leaves(grads), src=0)
+            loss_val, metrics, grads = _sync(
+                mesh, split.axes if split is not None else (), loss_val,
+                metrics, grads)
 
         # Fault injection on the gradient VALUES, where the JAX step has
         # it: the guard below then sees step N non-finite.
@@ -219,12 +273,18 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
 
         lr = sched(step + 1, peak_lr=opt_cfg.peak_lr, warmup=warmup,
                    total=total_steps)
+        gnorm = None
+        if layout is not None:
+            # The clip of the whole grads, then each rank's blocks.
+            gnorm = adamw.global_norm(grads)
+            grads = layout.cut(grads)
         new_params, new_opt, opt_metrics = adamw.apply_updates(
             params, grads,
             {k: v for k, v in opt_state.items()
              if k not in ("ef", "guard_streak")},
             lr, opt_cfg, in_place=donate,
-            keep_if=finite if donate and guard is not None else None)
+            keep_if=finite if donate and guard is not None else None,
+            gnorm=gnorm)
         if compress_grads:
             new_opt["ef"] = opt_state["ef"]
         metrics = {**metrics, **opt_metrics}

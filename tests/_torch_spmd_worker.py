@@ -1,0 +1,208 @@
+"""The ranks of ``tests/test_torch_spmd.py``: 8 gloo processes on the CPU.
+
+    python tests/_torch_spmd_worker.py IN_DIR OUT_DIR
+
+``IN_DIR/inputs.pkl`` holds the inputs the test made (the JAX package's
+initial parameters as numpy trees, the batches drawn from a seed).  Each
+rank runs every case on a ``(data=4, model=2)`` mesh and writes
+``OUT_DIR/rank<r>.json``; the blocked state of the SmolLM run is saved to
+``OUT_DIR/ckpt`` after its second step, and rank 0 writes the gathered
+parameters of that step as ``OUT_DIR/saved.npz``.  Imports torch and the
+port only: the JAX side of each comparison runs in the test.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import sys
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from _torch_mesh_worker import _digest, _mesh_events
+
+WORLD = 8
+SHAPE = (4, 2)
+STEPS = 3
+AE_POLICIES = ("tp", "dp_only", "spatial")
+#: the step after which the SmolLM run saves its blocked state.
+SAVE_AFTER = 1
+LR = 1e-3
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
+    """``STEPS`` steps of ``make_train_step(cfg, **kw)`` through
+    ``sharded_step`` on blocks under ``policy``; the losses, grad norms,
+    blocks' bytes and the gathered parameters' digest."""
+    from repro_torch.ckpt import checkpoint as CKPT
+    from repro_torch.dist import set_activation_policy
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.spmd import sharded_step
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_leaves
+    p_policy = "tp_rep" if policy == "spatial" else policy
+    set_activation_policy(SH.batch_axes(mesh, policy))
+    p_spec = SH.param_specs(params, mesh, p_policy)
+    o_spec = SH.opt_state_specs(params, mesh, p_policy)
+    b_spec = SH.batch_specs(batch, mesh, policy)
+    step_fn = sharded_step(make_train_step(
+        cfg, adamw.AdamWConfig(peak_lr=LR), total_steps=10, warmup=1, **kw),
+        mesh, p_spec, o_spec, b_spec)
+    p = SH.to_local(params, p_spec, mesh)
+    o = SH.to_local(adamw.init_state(params), o_spec, mesh)
+    b = SH.to_local(batch, b_spec, mesh)
+    res = {"losses": [], "grad_norms": [],
+           "param_bytes": _nbytes(p), "moment_bytes": _nbytes(o["m"])
+           + _nbytes(o["v"]), "rows": tree_leaves(b)[0].shape[0]}
+    for s in range(STEPS):
+        p, o, m = step_fn(p, o, b, s)
+        res["losses"].append(float(m["loss"]))
+        res["grad_norms"].append(float(m["grad_norm"]))
+        if out_dir is not None and s == SAVE_AFTER:
+            CKPT.save(os.path.join(out_dir, "ckpt"), s,
+                      {"params": p, "opt": o},
+                      specs={"params": p_spec, "opt": o_spec}, mesh=mesh)
+            saved = SH.gather_tree(p, p_spec, mesh)
+            if dist.get_rank() == 0:
+                import numpy as np
+                from repro_torch.ckpt.checkpoint import _leaf_paths
+                np.savez(os.path.join(out_dir, "saved.npz"),
+                         **{".".join(k): v.numpy()
+                            for k, v in _leaf_paths(saved)})
+    whole = SH.gather_tree(p, p_spec, mesh)
+    res["params"] = _digest(*tree_leaves(whole))
+    set_activation_policy(None)
+    return res
+
+
+def run_replicated(mesh, cfg, params, batch, policy, **kw):
+    """Path A: the parameters replicated, the batch this rank's block,
+    ``make_train_step`` under ``with mesh:``."""
+    from repro_torch.dist import set_activation_policy
+    from repro_torch.dist import sharding as SH
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    set_activation_policy(SH.batch_axes(mesh, policy))
+    step_fn = make_train_step(cfg, adamw.AdamWConfig(peak_lr=LR),
+                              total_steps=10, warmup=1, **kw)
+    b = SH.to_local(batch, SH.batch_specs(batch, mesh, policy), mesh)
+    p, o = params, adamw.init_state(params)
+    res = {"losses": [], "grad_norms": [],
+           "mask_count": float(b["loss_mask"].sum())}
+    with mesh:
+        for s in range(STEPS):
+            p, o, m = step_fn(p, o, b, s)
+            res["losses"].append(float(m["loss"]))
+            res["grad_norms"].append(float(m["grad_norm"]))
+    set_activation_policy(None)
+    return res
+
+
+def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(out_dir, "pg"),
+        rank=rank, world_size=WORLD)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import conv as C
+    from repro_torch.dist import conv_parallel as cp
+    from repro_torch.dist import set_activation_policy
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import autoencoder as AE
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import losses
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_from_numpy
+    with open(os.path.join(in_dir, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    mesh = LM.make_mesh(SHAPE, ("data", "model"))
+    cfg = get_smoke_config("smollm-360m")
+    lm_params = tree_from_numpy(inputs["lm_params"], "cpu")
+    lm_batch = tree_from_numpy(inputs["lm_batch"], "cpu")
+    out = {"rank": rank, "coordinate": {a: mesh.coordinate(a)
+                                        for a in mesh.axis_names}}
+
+    # JAX's own case: SmolLM, tp, parameters, moments and batch in blocks.
+    out["smollm_tp"] = run_sharded(mesh, cfg, lm_params, lm_batch, "tp",
+                                   out_dir=out_dir)
+
+    # A loss_mask whose count differs between the ranks' blocks (path A),
+    # then the same with per-rank means averaged (a mutation).
+    masked = {**lm_batch, "loss_mask": tree_from_numpy(
+        inputs["loss_mask"], "cpu")}
+    out["mask"] = run_replicated(mesh, cfg, lm_params, masked, "tp")
+    sound = losses.batch_mean
+
+    def mean_of_means(values, mask=None):
+        blk = losses.current_block()
+        n = 1
+        for a in blk.axes:
+            n *= blk.mesh.shape[a]
+        if mask is None:
+            return values.mean() / n
+        return (values * mask).sum() / mask.sum().clamp(min=1.0) / n
+    losses.batch_mean = mean_of_means
+    try:
+        out["mask_mutant"] = run_replicated(mesh, cfg, lm_params, masked,
+                                            "tp")
+    finally:
+        losses.batch_mean = sound
+
+    # The autoencoder's convs on the batch-local boundary, three policies.
+    acfg = AE.AutoencoderConfig(c_in=3, widths=(16, 32), k=3,
+                                conv_policy="pallas")
+    ae_params = tree_from_numpy(inputs["ae_params"], "cpu")
+    image = {"image": torch.from_numpy(inputs["image"])}
+    for policy in AE_POLICIES:
+        C.reset_dispatch_events()
+        res = run_sharded(mesh, acfg, ae_params, image, policy,
+                          loss=AE.autoencoder_loss, conv_mesh=policy)
+        res["events"] = _mesh_events(C)
+        out[f"ae_{policy}"] = res
+
+    # A mutation: the conv psums its weight grad over the batch axes on a
+    # batch block too, so the step counts it once per batch block again.
+    sound_axes = cp._wgrad_axes
+    cp._wgrad_axes = lambda plan: plan.batch + tuple(
+        a for a in (plan.h, plan.w) if a)
+    try:
+        out["ae_wgrad_mutant"] = run_sharded(
+            mesh, acfg, ae_params, image, "dp_only",
+            loss=AE.autoencoder_loss, conv_mesh="dp_only")
+    finally:
+        cp._wgrad_axes = sound_axes
+
+    # The MoE family on a batch block raises, naming the ROADMAP item.
+    mcfg = get_smoke_config("moonshot-v1-16b-a3b")
+    mparams = M.init_params(torch.Generator().manual_seed(0), mcfg, "cpu")
+    set_activation_policy(("data",))
+    step_fn = make_train_step(mcfg, adamw.AdamWConfig(), total_steps=2,
+                              warmup=1)
+    try:
+        with mesh:
+            step_fn(mparams, adamw.init_state(mparams),
+                    {k: v[:2] for k, v in lm_batch.items()}, 0)
+        out["moe"] = "ran"
+    except NotImplementedError as e:
+        out["moe"] = str(e)
+    finally:
+        set_activation_policy(None)
+
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(rank_main, args=(sys.argv[1], sys.argv[2]), nprocs=WORLD)

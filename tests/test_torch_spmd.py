@@ -1,0 +1,237 @@
+"""The port's batch-sharded train step and its step on blocks
+(``repro_torch.dist.spmd.sharded_step``) on 8 gloo ranks on the CPU,
+against the JAX package's single-device step.
+
+One process group runs every case (``tests/_torch_spmd_worker.py``, 8
+spawned ranks, one thread each, a ``(data=4, model=2)`` mesh); the JAX
+side runs here on the same numpy inputs:
+
+  * JAX's own case (``tests/test_distributed.py``): SmolLM's smoke
+    config, ``tp``, parameters, AdamW moments and an 8 x 64 batch in
+    their blocks, 3 steps: losses and gradient norms within rtol 1e-4 /
+    atol 1e-5 of JAX's ``make_train_step`` on one device (that test's
+    reference and tolerance), the same on every rank, the gathered
+    parameters bit-identical, and each rank's blocks exactly the bytes
+    the dry run counts a device;
+  * the autoencoder under ``tp``, ``dp_only`` and ``spatial``, every conv
+    on this rank's batch block (``mesh:conv2d:data...``), within the same
+    tolerance of JAX's step, parameters bit-identical on every rank;
+  * a ``loss_mask`` whose count differs between the ranks' blocks: within
+    the tolerance, where averaging per-rank means reads outside it;
+  * a conv that psums its weight grad over the batch axes on a batch
+    block too (counted twice): outside the tolerance on the norms;
+  * the MoE family raising, naming ROADMAP A14;
+  * the blocked state saved after step 2 as global arrays and restored
+    onto one rank: the gathered parameters bit for bit, and its third
+    step, run unsharded, within the tolerance of JAX's.
+"""
+
+import json
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro.train import train_step as JTS  # noqa: E402
+
+from repro_torch.ckpt import checkpoint as CKPT  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.dist import sharding as SH  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
+from repro_torch.tree import tree_from_numpy  # noqa: E402
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+import _torch_spmd_worker as W  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+RTOL, ATOL = 1e-4, 1e-5
+#: the 8 ranks' start and 5 runs of 3 steps take ~15 s on 8 threads.
+TIMEOUT_S = 240
+JCFG = jget_smoke("smollm-360m")
+ACFG = JM.AutoencoderConfig(c_in=3, widths=(16, 32), k=3, conv_policy="lax")
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _mask() -> np.ndarray:
+    """1s on a share of each row's positions that grows with the row, so
+    every data block of 2 rows keeps another count."""
+    mask = np.zeros((8, 64), np.float32)
+    for r in range(8):
+        mask[r, :8 * (r + 1)] = 1.0
+    return mask
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("spmd")
+    toks = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (8, 64), 0,
+                                         JCFG.vocab), np.int32)
+    inputs = {
+        "lm_params": _np(JM.init_params(jax.random.PRNGKey(0), JCFG)),
+        "lm_batch": {"tokens": toks, "targets": toks},
+        "loss_mask": _mask(),
+        "ae_params": _np(JM.init_autoencoder(jax.random.PRNGKey(0), ACFG)),
+        "image": np.random.RandomState(0).randn(8, 3, 16, 16).astype(
+            np.float32)}
+    with open(tmp / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "_torch_spmd_worker.py"),
+         str(tmp), str(tmp)], capture_output=True, text=True, env=env,
+        timeout=TIMEOUT_S, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+             for r in range(W.WORLD)]
+    return {"dir": tmp, "inputs": inputs, "ranks": ranks}
+
+
+def _jax_run(cfg, params, batch, loss=None, steps=W.STEPS):
+    kw = {} if loss is None else {"loss": loss}
+    step = jax.jit(JTS.make_train_step(
+        cfg, jadamw.AdamWConfig(peak_lr=W.LR), total_steps=10, warmup=1,
+        **kw))
+    p = jax.tree.map(jnp.asarray, params)
+    o = jadamw.init_state(p)
+    b = jax.tree.map(jnp.asarray, batch)
+    out = {"losses": [], "grad_norms": []}
+    for s in range(steps):
+        p, o, m = step(p, o, b, jnp.int32(s))
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    return out
+
+
+def _close(got, want) -> bool:
+    return np.allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _assert_matches(per_rank, want):
+    for r in per_rank:
+        np.testing.assert_allclose(r["losses"], want["losses"], rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(r["grad_norms"], want["grad_norms"],
+                                   rtol=RTOL, atol=ATOL)
+        assert r["losses"] == per_rank[0]["losses"]
+
+
+def test_smollm_tp_blocks_match_jax_single_device(runs):
+    i = runs["inputs"]
+    want = _jax_run(JCFG, i["lm_params"], i["lm_batch"])
+    per_rank = [r["smollm_tp"] for r in runs["ranks"]]
+    _assert_matches(per_rank, want)
+    assert len({r["params"] for r in per_rank}) == 1
+    assert {r["rows"] for r in per_rank} == {2}
+
+
+def test_blocks_hold_the_dry_runs_bytes_a_device(runs):
+    """Each rank's parameter and moment blocks are exactly what
+    ``dryrun.bytes_per_device`` counts for one device of an abstract
+    (4, 2) mesh under ``tp``; ``tp`` cuts them below the whole."""
+    params = tree_from_numpy(runs["inputs"]["lm_params"], "cpu")
+    mesh = Mesh(("data", "model"), W.SHAPE)
+    spec = SH.param_specs(params, mesh, "tp")
+    p_bytes = dryrun.bytes_per_device(params, spec, mesh)
+    m_bytes = 2 * dryrun.bytes_per_device(params, spec, mesh, torch.float32)
+    assert p_bytes < sum(t.nbytes for t in
+                         jax.tree.leaves(runs["inputs"]["lm_params"]))
+    for r in runs["ranks"]:
+        assert r["smollm_tp"]["param_bytes"] == p_bytes
+        assert r["smollm_tp"]["moment_bytes"] == m_bytes
+
+
+@pytest.mark.parametrize("policy", W.AE_POLICIES)
+def test_autoencoder_on_batch_blocks_matches_jax(runs, policy):
+    i = runs["inputs"]
+    want = _jax_run(ACFG, i["ae_params"], {"image": i["image"]},
+                    loss=JM.autoencoder_loss)
+    per_rank = [r[f"ae_{policy}"] for r in runs["ranks"]]
+    _assert_matches(per_rank, want)
+    assert len({r["params"] for r in per_rank}) == 1
+    ev = per_rank[0]["events"]
+    assert "mesh:fallback" not in ev and "mesh:fallback_T" not in ev, ev
+    want_tag = {"tp": "data+cout", "dp_only": "data",
+                "spatial": "data+h"}[policy]
+    assert ev.get(f"mesh:conv2d:{want_tag}"), ev
+    if policy == "tp":                 # the decoder's Cout 3 over model=2
+        assert ev.get("mesh:drop:cout") and ev.get("mesh:conv2d_T:data"), ev
+    assert {r["rows"] for r in per_rank} == {8 // (8 if policy == "dp_only"
+                                                   else 4)}
+
+
+def test_loss_mask_counts_differ_between_ranks(runs):
+    """The ranks' blocks keep different counts; the step sums each rank's
+    masked sum over the global count, so its losses are JAX's; averaging
+    the per-rank means reads outside the tolerance."""
+    i = runs["inputs"]
+    want = _jax_run(JCFG, i["lm_params"],
+                    {**i["lm_batch"], "loss_mask": i["loss_mask"]})
+    per_rank = [r["mask"] for r in runs["ranks"]]
+    assert len({r["mask_count"] for r in per_rank}) == 4
+    _assert_matches(per_rank, want)
+    mutant = runs["ranks"][0]["mask_mutant"]
+    assert not _close(mutant["losses"], want["losses"]), mutant
+
+
+def test_double_counted_conv_weight_grad_fails_the_check(runs):
+    """A conv that psums its weight grad over the batch axes on a batch
+    block, before the step sums every grad over them, reads 8x the grad
+    norm; the losses cannot tell (AdamW is scale-free), the norms can."""
+    i = runs["inputs"]
+    want = _jax_run(ACFG, i["ae_params"], {"image": i["image"]},
+                    loss=JM.autoencoder_loss)
+    mutant = runs["ranks"][0]["ae_wgrad_mutant"]
+    assert not _close(mutant["grad_norms"], want["grad_norms"]), mutant
+    np.testing.assert_allclose(np.array(mutant["grad_norms"][:1]),
+                               8 * np.array(want["grad_norms"][:1]),
+                               rtol=1e-4)
+
+
+def test_moe_family_raises_naming_the_roadmap_item(runs):
+    for r in runs["ranks"]:
+        assert "ROADMAP A14" in r["moe"], r["moe"]
+
+
+def test_blocked_checkpoint_restores_onto_one_rank(runs):
+    """Saved after step 2 as global arrays (every rank gathered, rank 0
+    wrote); restored without a mesh it is the gathered state bit for bit,
+    and its third step, unsharded, is JAX's third."""
+    step, tree = CKPT.restore(str(runs["dir"] / "ckpt"), device="cpu")
+    assert step == W.SAVE_AFTER
+    saved = np.load(runs["dir"] / "saved.npz")
+    got = {".".join(k): v for k, v in CKPT._leaf_paths(tree["params"])}
+    assert sorted(got) == sorted(saved.files)
+    for k in saved.files:
+        np.testing.assert_array_equal(got[k].numpy(), saved[k])
+    assert int(tree["opt"]["step"]) == W.SAVE_AFTER + 1
+    i = runs["inputs"]
+    cfg = get_smoke_config("smollm-360m")
+    step_fn = TS.make_train_step(cfg, adamw.AdamWConfig(peak_lr=W.LR),
+                                 total_steps=10, warmup=1)
+    _, _, m = step_fn(tree["params"], tree["opt"],
+                      tree_from_numpy(i["lm_batch"], "cpu"), W.SAVE_AFTER + 1)
+    want = _jax_run(JCFG, i["lm_params"], i["lm_batch"])
+    np.testing.assert_allclose(float(m["loss"]), want["losses"][-1],
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(m["loss"]),
+                               runs["ranks"][0]["smollm_tp"]["losses"][-1],
+                               rtol=RTOL, atol=ATOL)
