@@ -261,7 +261,16 @@ PATH):
                    ``HYBRID_F32_LAYERS`` layers, 5 steps of ``pallas``
                    against ``lax`` (``LOSS_TOL``); median step time,
                    tokens/s, peak memory.
- 21. lm_train_audio -- ``python -m repro_torch.launch.train --arch
+ 21. lm_train_moe -- moonshot-v1-16b-a3b's ``make_train_step`` at its
+                   published widths and ``LM_TRAIN_MOE_LAYERS`` layers (the
+                   dense one and 3 MoE layers, 2,520,664,064 parameters;
+                   bf16, seed 0, 8 x 512, guard on, donated): 6 steps,
+                   every loss and grad norm finite, none dropped; the first
+                   loss against ``loss_fn`` in float32 on the same weights
+                   (``LM_TRAIN_MOE_TOL``); median step time, tokens/s, peak
+                   memory, one profiled step's device-busy share; no launch
+                   (dense attention in training, no conv).
+ 22. lm_train_audio -- ``python -m repro_torch.launch.train --arch
                    hubert-xlarge`` at full width (bf16, batch 8, seq 512,
                    6 steps, guard on; no launch: training runs dense
                    attention): finite losses, seconds a step, frames/s,
@@ -269,7 +278,7 @@ PATH):
                    the first 3 losses of ``make_train_step`` on the card
                    against the same run on this machine's CPU from the same
                    parameters (``LOSS_TOL``).
- 22. chaos      -- (run after autotune) the chaos drill
+ 23. chaos      -- (run after autotune) the chaos drill
                    (``repro_torch.train.chaos``, ``pallas``, 14 steps at
                    batch 32, trace and metrics on): every assertion of the
                    drill; each tap kernel launched ``n_pallas[pass] x 13``
@@ -280,7 +289,7 @@ PATH):
                    ``scripts/validate_trace.py --require-span conv:`` on its
                    trace and metrics; the bus consistent with the legacy
                    counters.
- 23. chaos_serve -- (after serve) SmolLM-360M at full width, bf16, on the
+ 24. chaos_serve -- (after serve) SmolLM-360M at full width, bf16, on the
                    continuous engine: 8 requests of 256 tokens, 16 new, 4
                    lanes, unarmed and then with ``serve.decode:raise@step3``
                    (telemetry on): the 4 lanes of decode step 3 end
@@ -288,14 +297,14 @@ PATH):
                    other 4 ``ok`` with its tokens (``token_diffs``' near-tie
                    rule); flash launched 32 x 8 times; ``run_summary()
                    ["failed"] == 4``; a ``serve_tick`` line a decode step.
- 24. lm_train_obs -- (after lm_train) the launcher at lm_train's settings
+ 25. lm_train_obs -- (after lm_train) the launcher at lm_train's settings
                    for 6 steps with ``--fault-spec grad.values:nan@step2
                    --trace --metrics``: only step 2 dropped by the guard;
                    steps 0-1's losses within ``LM_TRAIN_TOL`` of lm_train's;
                    the trace valid with a ``train:step`` span a step; a
                    ``train_step`` line a step; seconds a step beside
                    lm_train's; no kernel launched.
- 25. mesh       -- (after chaos) the mesh-parallel conv
+ 26. mesh       -- (after chaos) the mesh-parallel conv
                    (``repro_torch.dist.conv_parallel``) on ``MESH_RANKS``
                    ranks spawned on the one card: a ``(data=2, model=2)``
                    mesh on gloo, each collective's tensors staged to the
@@ -333,11 +342,22 @@ PATH):
                    gradient norms at every step within
                    ``MESH_LM_LOSS_TOL`` / ``MESH_LM_GNORM_TOL`` of the
                    launcher's unsharded run, the ranks' losses equal.
-                   Each rank's launches, ``mesh:*`` events and halo bytes
-                   on lines of their own; the ranks' seconds are those of
-                   processes sharing one card, not speeds.  NCCL across
-                   cards is not run.
- 26. summary    -- every kernel's launches on each path, each path run with
+                   (e) on the same 4 ranks, moonshot-v1-16b-a3b at its
+                   published widths cut to ``MESH_MOE_LAYERS`` layers
+                   through ``sharded_step`` for ``MESH_MOE_STEPS`` steps,
+                   each policy of ``MESH_MOE_RUNS`` (``tp`` at 8 x 512: 2
+                   batch blocks of whole MoE groups; ``dp_only`` at 8 x
+                   500: 4 blocks across groups of 800) against an
+                   unsharded run of the same cut and batch made before the
+                   spawn: bytes a rank against the dry run, losses and
+                   norms (``MESH_MOE_LOSS_TOL`` / ``MESH_MOE_GNORM_TOL``),
+                   the tokens whose expert set or kept set differs at step
+                   0 (``MESH_MOE_ROUTE_TOL``), no launch.  Each rank's
+                   launches, ``mesh:*`` events and halo bytes on lines of
+                   their own; the ranks' seconds are those of processes
+                   sharing one card, not speeds.  NCCL across cards is not
+                   run.
+ 27. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
 
 On the card the conv dispatch degrades only on an injected fault, and
@@ -2785,6 +2805,115 @@ def phase_lm_train_hybrid(smoke, torch, kernels, tg, train, smi,
     return paths
 
 
+#: moonshot-v1-16b-a3b's training cut: its published widths at 4 layers
+#: (the dense one and 3 MoE layers), 2,520,664,064 parameters: bf16
+#: parameters and grads with float32 AdamW moments take ~30 GB, where the
+#: 48 layers' moments alone take 227 GB (ROADMAP A13).
+LM_TRAIN_MOE_LAYERS = 4
+LM_TRAIN_MOE_PARAMS = 2_520_664_064
+LM_TRAIN_MOE_STEPS = 6
+#: the bf16 step's first loss against the same cut's ``loss_fn`` in
+#: float32 on the same (bf16-representable) weights and batch, relative.
+#: The loss is ~12 (ln 163,840); every activation is rounded to bf16 (2^-8
+#: relative) on one side only, and a token whose 6th and 7th router
+#: choices are near a tie may take another expert under that rounding.
+#: Both should move the mean over 4,096 tokens far less than this (set
+#: before the first call on the card; PERF.md, §6, has the reading).
+LM_TRAIN_MOE_TOL = 1e-2
+
+
+def phase_lm_train_moe(smoke, torch, kernels, train, smi, dev) -> dict:
+    """moonshot-v1-16b-a3b's train step at its published widths and
+    ``LM_TRAIN_MOE_LAYERS`` layers (bf16, seed 0, 8 x 512, the launcher's
+    lr, guard and schedule, donated): ``LM_TRAIN_MOE_STEPS`` steps, each
+    loss and norm finite and no step dropped, the first loss within
+    ``LM_TRAIN_MOE_TOL`` of ``loss_fn`` in float32 on the card (a
+    grad-mode forward: dense attention as in training; no backward);
+    seconds a step, peak memory and one profiled step's device-busy share.
+    No kernel lies on this path: training runs dense attention and
+    moonshot has no conv.  Returns the path's launches."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    cut = dataclasses.replace(train.get_config("moonshot-v1-16b-a3b"),
+                              n_layers=LM_TRAIN_MOE_LAYERS)
+    dcfg = DataConfig(seed=0, seq_len=512, global_batch=8, vocab=cut.vocab)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in make_batch(cut, dcfg, step).items()}
+               for step in range(LM_TRAIN_MOE_STEPS)]
+    params = M.init_params(torch.Generator().manual_seed(0), cut, dev)
+    n_params = M.count_params(params)
+
+    # The float32 reference of the first loss, on these weights.
+    t0 = time.perf_counter()
+    p32 = tree_map(lambda t: t.float().requires_grad_(True), params)
+    cfg32 = dataclasses.replace(cut, param_dtype="float32",
+                                act_dtype="float32")
+    kernels.reset_launch_counts()
+    ref_loss = float(TS.loss_fn(p32, batches[0], cfg32)[0])
+    ref_launches = kernels.launch_counts()
+    del p32
+    free_card(torch)
+    ref_s = time.perf_counter() - t0
+
+    opt = adamw.init_state(params)
+    step_fn = TS.make_train_step(cut, adamw.AdamWConfig(peak_lr=3e-4),
+                                 total_steps=LM_TRAIN_MOE_STEPS, warmup=1,
+                                 guard=True, donate=True)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hist = []
+    for step, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, b, step)
+        loss = float(metrics["loss"])
+        hist.append({"loss": loss, "seconds": time.perf_counter() - t0,
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "moe_lb": float(metrics["moe_lb"]),
+                     "guard_bad": float(metrics["guard_bad"])})
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    # One more (donated) step under the profiler, after the counts.
+    prof = device_time(torch, lambda: step_fn(params, opt, batches[0], 0))
+    del params, opt, metrics
+    free_card(torch)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    secs = [h["seconds"] for h in hist]
+    step_s = statistics.median(secs[1:])
+    first_err = abs(losses[0] - ref_loss) / abs(ref_loss)
+    smoke.emit("lm_train_moe", nvidia_smi=smi, config=cut.name,
+               layers=cut.n_layers, n_params=n_params, dtype="bfloat16",
+               batch=8, seq=512, steps=len(hist), lr=3e-4,
+               median_step_s=step_s, first_step_s=secs[0],
+               tokens_per_s=8 * 512 / step_s,
+               max_memory_allocated_bytes=peak, history=hist,
+               f32_first_loss=ref_loss, f32_seconds=ref_s,
+               first_loss_bf16_vs_f32=first_err, tol=LM_TRAIN_MOE_TOL,
+               device_time_one_step=prof, launches=launches,
+               f32_launches=ref_launches,
+               seconds=time.perf_counter() - t_phase)
+    check(n_params == LM_TRAIN_MOE_PARAMS,
+          f"{n_params} parameters, want {LM_TRAIN_MOE_PARAMS}")
+    check(len(hist) == LM_TRAIN_MOE_STEPS
+          and all(math.isfinite(x) for x in losses + norms),
+          f"non-finite loss or norm: {losses} {norms}")
+    check(not any(h["guard_bad"] for h in hist), "the guard dropped a step")
+    check(first_err <= LM_TRAIN_MOE_TOL,
+          f"first loss {losses[0]} vs float32 {ref_loss}: {first_err} > "
+          f"{LM_TRAIN_MOE_TOL}")
+    check(not any(launches.values()) and not any(ref_launches.values()),
+          f"a kernel launched on the MoE training path: {launches} "
+          f"{ref_launches}")
+    return {"lm_train_moe": launches}
+
+
 #: hubert-xlarge through the training launcher at its published widths.
 LM_TRAIN_AUDIO_ARGV = ["--arch", "hubert-xlarge", "--batch", "8", "--seq",
                        "512", "--steps", "6", "--log-every", "5"]
@@ -3113,6 +3242,32 @@ MESH_LM_STEPS = 3
 #: norms are what catch both (PERF.md, §6).
 MESH_LM_LOSS_TOL = 5e-4
 MESH_LM_GNORM_TOL = 2e-3
+#: (e): moonshot-v1-16b-a3b at its published widths cut to
+#: ``MESH_MOE_LAYERS`` layers (the dense one and one MoE layer,
+#: 1,344,940,032 parameters), ``MESH_MOE_STEPS`` steps through
+#: ``dist.spmd.sharded_step`` on the 4 ranks: policy -> the sequence of
+#: its 8-row batch.  ``tp`` cuts the batch over ``data`` into 2 blocks of 4
+#: x 512 tokens, each 4 whole groups of 512 (aligned); ``dp_only`` over
+#: (data, model) into 4 blocks of 2 x 500, across groups of 800 (partial).
+MESH_MOE_LAYERS = 2
+MESH_MOE_STEPS = 2
+MESH_MOE_RUNS = {"tp": 512, "dp_only": 500}
+#: (e) against the unsharded run of the same cut and batch, relative, at
+#: every step.  As (d): the first loss differs in the order of float32
+#: sums and in bf16 roundings of GEMMs of other row counts; the grads are
+#: bf16 partial sums summed over the batch axes (one more rounding), and
+#: the second step follows one AdamW update of them.  Beside that, a
+#: token whose 6th and 7th router choices are near a tie may take another
+#: expert under another rounding, and with it the queue of its group;
+#: each such token moves the mean loss by a 4,096th of its own change.
+#: The norms get the looser bound: a flip also moves its experts' grads.
+MESH_MOE_LOSS_TOL = 5e-4
+MESH_MOE_GNORM_TOL = 5e-3
+#: (e) step 0: the share of tokens whose expert set, or whose set of kept
+#: (slotted) experts, differs from the unsharded run's (near-ties under
+#: bf16 roundings only; a queue that read another rank's choices at the
+#: wrong offsets would differ on most tokens of its groups).
+MESH_MOE_ROUTE_TOL = 0.05
 #: the conv passes whose batch each rank's dispatch records.
 CONV_PASSES = ("forward", "input_grad", "weight_grad")
 #: each Table II layer's plan on (data=2, model=2) at batch 2: policy ->
@@ -3307,9 +3462,135 @@ def mesh_lm_blocks(torch, kernels, conv, mesh, dev) -> dict:
             "conv_rows": rows, "params_sha256": digest.hexdigest()}
 
 
+def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
+                 out=None) -> dict:
+    """(e) one run: moonshot's ``MESH_MOE_LAYERS``-layer cut at 8 x
+    ``seq`` (lm_train's batches, lr and schedule; donated, no guard: four
+    ranks' blocks, gathered parameters and grads share the card),
+    ``MESH_MOE_STEPS`` steps: unsharded through ``make_train_step``
+    without ``mesh``; else its parameters, AdamW moments and batch in
+    their ``policy`` blocks through ``dist.spmd.sharded_step``, with the
+    bytes a rank holds against the dry run's and the gathered parameters'
+    digest.  Step 0's routing (the MoE layer's forward call: this rank's
+    first token, its tokens' experts and kept choices) is returned, or
+    saved to ``out`` with its path returned."""
+    import contextlib
+    import dataclasses
+    import hashlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist import set_activation_policy
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist.spmd import sharded_step
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                              n_layers=MESH_MOE_LAYERS)
+    dcfg = DataConfig(seed=0, seq_len=seq, global_batch=8, vocab=cfg.vocab)
+    model = M.build_model(cfg)
+    step_fn = TS.make_train_step(
+        cfg, adamw.AdamWConfig(peak_lr=3e-4), total_steps=MESH_MOE_STEPS,
+        warmup=1, donate=True)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    res = {"n_params": M.count_params(params)}
+    cut = lambda b: b                                      # noqa: E731
+    if mesh is not None:
+        meta = model.init(torch.Generator().manual_seed(0), dryrun.META)
+        abstract = Mesh(mesh.axis_names, mesh.axis_sizes)
+        meta_spec = SH.param_specs(meta, abstract, policy)
+        res["bytes_dryrun"] = {
+            "params": dryrun.bytes_per_device(meta, meta_spec, abstract),
+            "moments": 2 * dryrun.bytes_per_device(meta, meta_spec,
+                                                   abstract, torch.float32)}
+        p_spec = SH.param_specs(params, mesh, policy)
+        o_spec = SH.opt_state_specs(params, mesh, policy)
+        params = tree_map(torch.clone, SH.to_local(params, p_spec, mesh))
+        free_card(torch)
+        set_activation_policy(SH.batch_axes(mesh, policy))
+        b_spec = SH.batch_specs({k: torch.empty(v.shape) for k, v in
+                                 make_batch(cfg, dcfg, 0).items()},
+                                mesh, policy)
+        step_fn = sharded_step(step_fn, mesh, p_spec, o_spec, b_spec)
+        cut = lambda b: SH.to_local(b, b_spec, mesh)      # noqa: E731
+    opt = adamw.init_state(params)
+    if mesh is not None:
+        res["bytes_held"] = {
+            "params": sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params)),
+            "moments": sum(t.numel() * t.element_size()
+                           for k in ("m", "v") for t in tree_leaves(opt[k]))}
+    kernels.reset_launch_counts()
+    losses, norms, secs = [], [], []
+    for step in range(MESH_MOE_STEPS):
+        t0 = time.perf_counter()
+        batch = {k: v.to(dev) for k, v in cut(
+            {k: torch.from_numpy(v)
+             for k, v in make_batch(cfg, dcfg, step).items()}).items()}
+        with MOE.recording() if step == 0 else \
+                contextlib.nullcontext() as log:
+            params, opt, metrics = step_fn(params, opt, batch, step)
+        if step == 0:
+            route = {k: v.cpu() if torch.is_tensor(v) else v
+                     for k, v in log[0].items()}
+            res["rows"] = batch["tokens"].shape[0]
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    res.update(losses=losses, grad_norms=norms, step_seconds=secs,
+               launches=kernels.launch_counts())
+    if dev.type == "cuda":
+        res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
+    if mesh is not None:
+        whole = SH.gather_tree(params, p_spec, mesh)
+        digest = hashlib.sha256()
+        for t in tree_leaves(whole):
+            digest.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes())
+        res["params_sha256"] = digest.hexdigest()
+        set_activation_policy(None)
+        del whole
+    if out is not None:
+        torch.save(route, out)
+        res["route"] = str(out)
+    else:
+        res["route"] = route
+    del params, opt, metrics
+    free_card(torch)
+    return res
+
+
+def route_diffs(torch, ref: dict, got: dict) -> dict:
+    """Of ``got``'s tokens (from its first index on), how many take
+    another set of experts than in ``ref`` (the unsharded run's whole
+    batch), and how many another set of kept (slotted) experts."""
+    first, n = got["first"], got["experts"].shape[0]
+
+    def sets(r, lo):
+        e = r["experts"][lo:lo + n]
+        kept = torch.where(r["kept"][lo:lo + n], e, -1)
+        return e.sort(-1).values, kept.sort(-1).values
+    want_e, want_k = sets(ref, first)
+    got_e, got_k = sets(got, 0)
+    return {"tokens": n,
+            "experts_differ": int((want_e != got_e).any(-1).sum()),
+            "kept_differ": int((want_k != got_k).any(-1).sum()),
+            "dropped": int((~got["kept"]).sum()),
+            "dropped_unsharded": int((~ref["kept"][first:first + n]).sum())}
+
+
 def mesh_rank(rank: int, out_dir: str) -> None:
-    """One rank of the mesh phase's (a) and (b) (``torch.multiprocessing``
-    spawn target): writes ``out_dir/rank<r>.json``.  A failed check
+    """One rank of the mesh phase's (a), (b), (d) and (e)
+    (``torch.multiprocessing`` spawn target): writes
+    ``out_dir/rank<r>.json`` (and (e)'s routing beside it).  A failed check
     raises, which fails the spawn and the run."""
     import torch
 
@@ -3340,6 +3621,13 @@ def mesh_rank(rank: int, out_dir: str) -> None:
     t1 = time.perf_counter()
     res["lm_blocks"] = mesh_lm_blocks(torch, kernels, conv, mesh, dev)
     res["lm_blocks"]["seconds"] = time.perf_counter() - t1
+    res["moe"] = {}
+    for policy, seq in MESH_MOE_RUNS.items():
+        t1 = time.perf_counter()
+        res["moe"][policy] = mesh_moe_run(
+            torch, kernels, dev, seq, mesh, policy,
+            pathlib.Path(out_dir) / f"route_{policy}_rank{rank}.pt")
+        res["moe"][policy]["seconds"] = time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - t0
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
     mesh.barrier()
@@ -3376,7 +3664,7 @@ def launcher_rank(out_dir: str, argv: list[str]) -> None:
 
 
 def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
-    """The ``mesh`` phase (module docstring, 25).  Returns each rank's
+    """The ``mesh`` phase (module docstring, 26).  Returns each rank's
     launches per part as paths."""
     import os
     import tempfile
@@ -3389,8 +3677,27 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
     # The unsharded autoencoder runs on this process, the card's kernels
     # built already; the ranks load the same libraries.
     ae_ref = autoencoder_bp.train("pallas", MESH_AE_STEPS, device=dev)["mses"]
+    # (e)'s unsharded runs, one a batch shape.
     t0 = time.perf_counter()
-    mp.spawn(mesh_rank, args=(str(work),), nprocs=MESH_RANKS)
+    moe_ref = {policy: mesh_moe_run(torch, kernels, dev, seq)
+               for policy, seq in MESH_MOE_RUNS.items()}
+    moe_ref_s = time.perf_counter() - t0
+    for policy in MESH_MOE_RUNS:
+        paths[f"mesh moe {policy} unsharded"] = moe_ref[policy]["launches"]
+    held = {"allocated": torch.cuda.memory_allocated(dev),
+            "reserved": torch.cuda.memory_reserved(dev)}
+    # Four processes share the card: each rank's allocator maps segments
+    # as it grows, so that blocks one rank caches stay usable by the rest.
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(mesh_rank, args=(str(work),), nprocs=MESH_RANKS)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
     spawn_s = time.perf_counter() - t0
     ranks = [json.loads((work / f"rank{r}.json").read_text())
              for r in range(MESH_RANKS)]
@@ -3402,9 +3709,14 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
                    autoencoder={k: {kk: vv for kk, vv in v.items()
                                     if kk != "params_sha256"}
                                 for k, v in r["autoencoder"].items()},
-                   lm_blocks=r["lm_blocks"], seconds=r["seconds"],
+                   lm_blocks=r["lm_blocks"],
+                   moe={p: {k: v for k, v in m.items() if k != "route"}
+                        for p, m in r["moe"].items()},
+                   seconds=r["seconds"],
                    seconds_note="4 processes sharing one card: not a speed")
         paths[f"mesh table2 rank{r['rank']}"] = r["table2"]["launches"]
+        for policy, m in r["moe"].items():
+            paths[f"mesh moe {policy} rank{r['rank']}"] = m["launches"]
         for policy, a in r["autoencoder"].items():
             paths[f"mesh autoencoder {policy} rank{r['rank']}"] = \
                 a["launches"]
@@ -3494,6 +3806,7 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
                lm_blocks_bytes=[b["bytes_held"] for b in blk],
                lm_blocks_bytes_dryrun=blk[0]["bytes_dryrun"],
                lm_stdout_tail=proc.stdout[-1500:], spawn_seconds=spawn_s,
+               parent_card_bytes_at_spawn=held,
                lm_seconds=lm_s, seconds=time.perf_counter() - t_phase)
     for who, r in [(f"launcher rank {r['rank']}", r) for r in lm] + [
             (f"blocks rank {r['rank']}", r["lm_blocks"]) for r in ranks]:
@@ -3518,6 +3831,7 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
               f"blocks rank {r['rank']}: events {b['events']}")
     check(lm[0]["losses"] == lm[1]["losses"],
           f"the ranks' losses differ: {lm[0]['losses']} {lm[1]['losses']}")
+    phase_mesh_moe(smoke, torch, smi, ranks, moe_ref, moe_ref_s)
     check(len({tuple(b["losses"]) for b in blk}) == 1
           and len({r["lm_blocks"]["params_sha256"] for r in ranks}) == 1,
           "the blocked ranks' losses or gathered parameters differ")
@@ -3527,6 +3841,68 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
               f"{name} vs unsharded: {err} (tol {MESH_LM_LOSS_TOL}, "
               f"{MESH_LM_GNORM_TOL})")
     return paths
+
+
+def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
+    """(e)'s line and checks: each policy's ranks against its unsharded
+    run (``MESH_MOE_*``)."""
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    for policy, seq in MESH_MOE_RUNS.items():
+        runs = [r["moe"][policy] for r in ranks]
+        want = ref[policy]
+        err = {"loss": max(rel(m["losses"], want["losses"]) for m in runs),
+               "grad_norm": max(rel(m["grad_norms"], want["grad_norms"])
+                                for m in runs)}
+        routes = [route_diffs(torch, want["route"],
+                              torch.load(m["route"])) for m in runs]
+        smoke.emit("mesh_moe", nvidia_smi=smi, policy=policy,
+                   config="moonshot-v1-16b-a3b", layers=MESH_MOE_LAYERS,
+                   n_params=want["n_params"], batch=8, seq=seq,
+                   rows_a_rank=[m["rows"] for m in runs],
+                   losses_unsharded=want["losses"],
+                   grad_norms_unsharded=want["grad_norms"],
+                   losses=[m["losses"] for m in runs],
+                   grad_norms=[m["grad_norms"] for m in runs],
+                   rel_err=err, loss_tol=MESH_MOE_LOSS_TOL,
+                   grad_norm_tol=MESH_MOE_GNORM_TOL,
+                   routing_step0=routes, route_tol=MESH_MOE_ROUTE_TOL,
+                   bytes_held=[m["bytes_held"] for m in runs],
+                   bytes_dryrun=runs[0]["bytes_dryrun"],
+                   step_seconds=[m["step_seconds"] for m in runs],
+                   step_seconds_unsharded=want["step_seconds"],
+                   max_memory_allocated_bytes=[
+                       m.get("max_memory_allocated_bytes") for m in runs],
+                   max_memory_allocated_unsharded=want.get(
+                       "max_memory_allocated_bytes"),
+                   seconds=[m["seconds"] for m in runs],
+                   unsharded_seconds=ref_s,
+                   seconds_note="4 processes sharing one card: not a speed")
+        for r, m, route in zip(ranks, runs, routes):
+            who = f"(e) {policy} rank {r['rank']}"
+            check(len(m["losses"]) == MESH_MOE_STEPS
+                  and all(math.isfinite(x)
+                          for x in m["losses"] + m["grad_norms"]),
+                  f"{who}: losses {m['losses']} norms {m['grad_norms']}")
+            check(m["bytes_held"] == m["bytes_dryrun"],
+                  f"{who}: holds {m['bytes_held']}, the dry run counts "
+                  f"{m['bytes_dryrun']}")
+            check(not any(m["launches"].values()),
+                  f"{who}: launched {m['launches']}")
+            worst = max(route["experts_differ"], route["kept_differ"])
+            check(worst <= MESH_MOE_ROUTE_TOL * route["tokens"],
+                  f"{who}: routing differs from unsharded at step 0: "
+                  f"{route}")
+        check(not any(want["launches"].values()),
+              f"(e) {policy} unsharded launched {want['launches']}")
+        check(len({tuple(m["losses"]) for m in runs}) == 1
+              and len({m["params_sha256"] for m in runs}) == 1,
+              f"(e) {policy}: the ranks' losses or gathered parameters "
+              f"differ")
+        check(err["loss"] <= MESH_MOE_LOSS_TOL
+              and err["grad_norm"] <= MESH_MOE_GNORM_TOL,
+              f"(e) {policy} vs unsharded: {err} (tol {MESH_MOE_LOSS_TOL}, "
+              f"{MESH_MOE_GNORM_TOL})")
 
 
 def main(argv=None) -> int:
@@ -3647,6 +4023,7 @@ def main(argv=None) -> int:
                                     dev))
     paths.update(phase_lm_train_hybrid(smoke, torch, kernels, tg, train, smi,
                                        dev))
+    paths.update(phase_lm_train_moe(smoke, torch, kernels, train, smi, dev))
     paths.update(phase_lm_train_audio(smoke, torch, kernels, train, smi,
                                       dev))
     smoke.emit("summary", launches_by_path=paths)

@@ -40,6 +40,17 @@ class BatchBlock:
     axes: tuple[str, ...]
     rows: int | None = None
 
+    def index(self) -> tuple[int, int]:
+        """``(n, r)``: the blocks the batch is cut into and this rank's,
+        rows ``[r B/n, (r + 1) B/n)`` (``dist.sharding.batch_specs``: the
+        first axis the major one)."""
+        n, r = 1, 0
+        for a in self.axes:
+            size = self.mesh.shape[a]
+            r = r * size + self.mesh.coordinate(a)
+            n *= size
+        return n, r
+
 
 def set_activation_policy(axes) -> None:
     """axes: mesh axis names the batch dim is sharded over (or None/())."""

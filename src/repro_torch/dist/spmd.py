@@ -28,7 +28,11 @@ Not in scope: tensor-parallel matmuls on the parameter blocks, which
 JAX's partitioner derives from the same specs.  Here every rank computes
 with the whole gathered parameters, so ``tp`` cuts the bytes a rank holds
 between steps (the dry run's ``bytes_per_device``), not its compute
-during one.  The MoE family raises (ROADMAP A14).
+during one.  The MoE family trains so too: its expert tensors are held in
+their ``tp`` blocks (E over ``model``, d_in over ``data``) and gathered
+for the step like every other parameter, so each rank computes every
+expert; its groups, capacity queues and load-balance terms are the
+global batch's (``repro_torch.models.moe``).
 """
 
 from __future__ import annotations

@@ -29,8 +29,8 @@ transport is on the host.
 then added in the axis's coordinate order), so every rank of an axis holds
 the same bits, whatever the backend's own reduction order;
 :meth:`Mesh.psum_flat` does so for a list of tensors through one buffer a
-dtype (the train step's grads), and :meth:`Mesh.broadcast` copies one
-rank's tensors along an axis.
+dtype, a chunk at a time (the train step's grads), and
+:meth:`Mesh.broadcast` copies one rank's tensors along an axis.
 """
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ import os
 
 import torch
 import torch.distributed as dist
+
+#: :meth:`Mesh.psum_flat` sums its buffers in chunks of this many bytes.
+PSUM_CHUNK_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -129,10 +132,10 @@ class Mesh:
         other), added in coordinate order on ``t``'s device: every rank
         ends with the same bits."""
         for axis in axes:
-            parts = [p.to(t.device) for p in self._gather(t, axis)]
-            t = parts[0]
+            parts = self._gather(t, axis)
+            t = parts[0].to(t.device)
             for p in parts[1:]:
-                t = t + p
+                t.add_(p.to(t.device))
         return t
 
     def _gather(self, t: torch.Tensor, axis: str) -> list[torch.Tensor]:
@@ -167,11 +170,16 @@ class Mesh:
     def psum_flat(self, tensors: list[torch.Tensor],
                   axes) -> list[torch.Tensor]:
         """:meth:`psum` of every tensor of the list, through one flat
-        buffer per dtype: new tensors, in the list's order."""
+        buffer per dtype, summed ``PSUM_CHUNK_BYTES`` at a time in place
+        (the same sums; no second whole buffer on the device): new
+        tensors, in the list's order."""
         out: list = [None] * len(tensors)
         for idx in _by_dtype(tensors).values():
-            flat = self.psum(torch.cat([tensors[i].reshape(-1)
-                                        for i in idx]), axes)
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+            step = max(1, PSUM_CHUNK_BYTES // flat.element_size())
+            for start in range(0, flat.numel(), step):
+                chunk = flat[start:start + step]
+                chunk.copy_(self.psum(chunk, axes))
             for i, part in zip(idx, _split(flat, [tensors[i] for i in idx])):
                 out[i] = part
         return out

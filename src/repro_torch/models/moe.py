@@ -13,19 +13,58 @@ built wave by wave, each wave scattering its gates into it (no wave's
 through dense ``torch.einsum``s, as the JAX package computes them (outside any
 kernel); shared experts add a plain SwiGLU MLP.
 
+Inside a batch block of the train step (``repro_torch.dist.constraints
+.current_block``: this rank holds rows ``[r B/n, (r + 1) B/n)`` of the
+global batch, ``n`` the blocks of the split), the layer computes what
+JAX's single-device step computes on the global batch:
+
+  * the group count ``G``, the group size ``S`` and the capacity come from
+    the global token count ``t = B L`` (:func:`_span`).  Rank ``r`` holds
+    tokens ``[r t/n, (r + 1) t/n)`` of the row-major ``(B, L)`` order,
+    which fall into one or more global groups (:func:`_layout`): whole
+    groups, a piece of one group that spans every rank, or pieces of two;
+  * a token's slot in its expert's queue depends on every earlier token of
+    its group, so the routing choices (``gate_idx``, int, no grad) of the
+    whole batch are gathered over the batch axes in the mesh's order; each
+    rank queues its groups' choices wave by wave and keeps the slots of
+    its own tokens only.  The groups are laid out with this rank's tokens
+    at their places and zeros elsewhere, so the expert einsums run on the
+    slots its tokens fill (a slot of another rank's token stays empty, and
+    a token's output reads only its own slots);
+  * the aux terms are this rank's SHARES (:func:`_aux_shares`): the top-1
+    fractions ``frac`` of the whole batch (from the gathered choices),
+    ``moe_lb`` as ``E sum_e frac_e (this rank's sum of probs_e) / t`` and
+    ``moe_z`` as this rank's sum of ``lse^2`` over ``t``.  The step sums
+    the loss, its metrics and the grads over the batch axes, so the shares
+    add up to JAX's terms and their grads.
+
+Under remat the block runs again in the backward, and so does the gather:
+every rank recomputes its blocks in the same order, and the recomputed
+choices are the forward's (the same inputs through the same ops).
+Outside a block ``n = 1`` and nothing is gathered.  :func:`recording`
+lets a caller read each call's routing (the experts and the kept choices
+of this rank's tokens).
+
 Aux terms: the Switch-style load balance ``moe_lb`` and the router z-loss
 ``moe_z``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import constraints
+from repro_torch.dist.sharding import P, from_local
 from repro_torch.models import layers as L
 
 MOE_GROUP_TOKENS = 512
+
+#: the logs of the :func:`recording` blocks open, innermost last.
+_LOGS: list[list] = []
 
 
 def init_moe(generator: torch.Generator, cfg: ArchConfig, nl=None,
@@ -59,38 +98,105 @@ def _group(t: int) -> int:
     return g
 
 
+def _span(t_loc: int) -> tuple[int, int]:
+    """``(t, first)``: the batch's token count and the index of this
+    rank's first token in its row-major order; ``(t_loc, 0)`` outside a
+    batch block."""
+    blk = constraints.current_block()
+    if blk is None:
+        return t_loc, 0
+    n, r = blk.index()
+    return t_loc * n, r * t_loc
+
+
+def _layout(t: int, first: int, t_loc: int) -> tuple[int, int, int]:
+    """``(s, base, g)``: the group size of ``t`` tokens, the first token of
+    the first group that tokens ``[first, first + t_loc)`` touch, and the
+    count of groups they touch."""
+    s = t // _group(t)
+    g0 = first // s
+    return s, g0 * s, -(-(first + t_loc) // s) - g0
+
+
+def _aux_shares(logits, probs, top1, t: int) -> dict:
+    """This rank's shares of ``moe_lb`` and ``moe_z`` (module docstring):
+    ``logits`` and ``probs`` (t_loc, E) of its tokens, ``top1`` (t,) the
+    top-1 expert of every token of the batch."""
+    e = probs.shape[-1]
+    frac = F.one_hot(top1, e).float().sum(0) / t
+    lb = e * torch.sum(frac * probs.sum(0) / t)
+    z = torch.sum(torch.logsumexp(logits, dim=-1) ** 2) / t
+    return {"moe_lb": lb, "moe_z": z}
+
+
+@contextlib.contextmanager
+def recording():
+    """Each :func:`moe_apply` inside appends ``{"first", "experts",
+    "kept"}`` to the yielded list: the index of this rank's first token in
+    the batch, its tokens' experts ``(t_loc, k)`` and which of those
+    choices found a slot (bool), both detached.  Under remat a block's
+    layers log again in the backward, after every forward call."""
+    log: list = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
 def moe_apply(p, x, cfg: ArchConfig, capacity: int | None = None):
-    """x (B, L, D) -> (out (B, L, D), aux {"moe_lb", "moe_z"})."""
+    """x (B, L, D) -> (out (B, L, D), aux {"moe_lb", "moe_z"}); inside a
+    batch block, ``x`` is this rank's rows and aux its shares (module
+    docstring)."""
     b, l, d = x.shape
-    t = b * l
+    t_loc = b * l
     e, k = cfg.n_experts, cfg.moe_top_k
-    g = _group(t)
-    s = t // g
+    t, first = _span(t_loc)
+    s, base, g = _layout(t, first, t_loc)
     cap = capacity or max(1, int(s * k * cfg.capacity_factor / e))
     cap = min(cap, s)
-    xg = x.reshape(g, s, d)
+    xf = x.reshape(t_loc, d)
 
-    logits = L.linear(p["router"], xg.float())                    # (G,S,E)
+    logits = L.linear(p["router"], xf.float())                    # (T,E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)            # (G,S,k)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)            # (T,k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    # Every token's choices when the batch is cut, in the batch's order.
+    blk = constraints.current_block()
+    every = gate_idx if t == t_loc else from_local(
+        gate_idx, P(blk.axes), blk.mesh)                          # (t,k)
 
-    # Capacity bookkeeping: choice waves queue sequentially per expert.  A
-    # token's k experts are distinct, so each (s, e) takes at most one
-    # gate: scattering it (0 where the slot overflows) gives the JAX
+    # This rank's tokens at their places in the groups they touch.
+    lo = first - base
+
+    def place(y):
+        return F.pad(y, (0, 0, lo, g * s - lo - t_loc)).reshape(
+            g, s, *y.shape[1:])
+    xg = place(xf)                                                # (G,S,D)
+    gates = place(gate_vals)                                      # (G,S,k)
+    own = place(torch.ones((t_loc, 1), dtype=torch.bool, device=x.device))
+    idx = every[base:base + g * s].reshape(g, s, k)
+
+    # Capacity bookkeeping: choice waves queue sequentially per expert,
+    # over every token of the group.  A token's k experts are distinct,
+    # so each (s, e) takes at most one gate: scattering it (0 where the
+    # slot overflows or the token is another rank's) gives the JAX
     # package's sum of per-wave one-hots exactly.
     combine = torch.zeros((g, s, e, cap), dtype=torch.float32,
                           device=x.device)
     prior = torch.zeros((g, 1, e), dtype=torch.int64, device=x.device)
+    kept = []
     for choice in range(k):
-        oh = F.one_hot(gate_idx[..., choice], e)                   # (G,S,E)
+        oh = F.one_hot(idx[..., choice], e)                        # (G,S,E)
         pos = torch.cumsum(oh, dim=1) - 1 + prior
         prior = prior + oh.sum(1, keepdim=True)
-        keep = (pos < cap) & (oh > 0)
-        gate = torch.where(keep, gate_vals[..., choice, None], 0.0)
+        keep = (pos < cap) & (oh > 0) & own
+        gate = torch.where(keep, gates[..., choice, None], 0.0)
         combine.scatter_add_(-1, pos.clamp(0, cap - 1)[..., None],
                              gate[..., None])
+        if _LOGS:
+            kept.append(keep.any(-1).reshape(g * s)[lo:lo + t_loc])
         del oh, pos, keep, gate
     dispatch = (combine > 0).to(x.dtype)                          # (G,S,E,C)
     combine = combine.to(x.dtype)
@@ -104,12 +210,12 @@ def moe_apply(p, x, cfg: ArchConfig, capacity: int | None = None):
                       p["wo"]["w"].to(x.dtype))
     del hi, hg
     out = torch.einsum("gsec,gecd->gsd", combine, ye)
+    out = out.reshape(g * s, d)[lo:lo + t_loc]
 
     if "shared" in p:
-        out = out + L.mlp(p["shared"], xg)
+        out = out + L.mlp(p["shared"], xf)
 
-    frac_tokens = F.one_hot(gate_idx[..., 0], e).float().mean((0, 1))
-    mean_prob = probs.mean((0, 1))
-    lb_loss = e * torch.sum(frac_tokens * mean_prob)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return out.reshape(b, l, d), {"moe_lb": lb_loss, "moe_z": z_loss}
+    for log in _LOGS:
+        log.append({"first": first, "experts": gate_idx.detach(),
+                    "kept": torch.stack(kept, -1)})
+    return out.reshape(b, l, d), _aux_shares(logits, probs, every[:, 0], t)

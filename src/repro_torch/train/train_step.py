@@ -25,9 +25,14 @@ forward and backward run on that block only: the losses take this rank's
 share of the global mean (``losses.batch_mean``), the loss, its metrics
 and every grad are summed over the batch axes (``Mesh.psum``, a fixed
 order, so every rank holds the same bits), and the global norm and the
-clip are the global batch's.  The MoE family raises there: its expert
-capacity and load-balance terms would be a block's, not the batch's
-(ROADMAP A14).  ``conv_mesh=`` runs every conv of the loss through
+clip are the global batch's.  An MoE layer on a block takes its groups,
+capacity and expert queues from the global batch and adds this rank's
+shares of its load-balance and z terms (``repro_torch.models.moe``), so
+the MoE family's step is JAX's on the global batch too.  With
+``accum_steps > 1`` on a block, microbatch i is JAX's (rows ``[i B/a, (i
++ 1) B/a)`` of the global batch): the step gathers the batch over the
+batch axes and runs this rank's block of each microbatch.
+``conv_mesh=`` runs every conv of the loss through
 ``repro_torch.dist.conv_parallel.conv_mesh``: on a batch block it takes
 and returns the block; without a policy it takes and returns global
 tensors and the rest of the step runs replicated.  Ranks that hold the
@@ -53,6 +58,7 @@ from typing import Callable
 import torch
 
 from repro_torch.dist import constraints, conv_parallel
+from repro_torch.dist.sharding import P, from_local
 from repro_torch.ft import inject
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compression, schedule
@@ -106,25 +112,38 @@ def _value_and_grad(loss: Callable, params, batch, cfg, split=None):
     return loss_val.detach(), metrics, tree_unflatten(params, list(grads))
 
 
+def _microbatch(batch, accum_steps: int, i: int, split=None):
+    """Microbatch ``i`` of ``accum_steps``: rows ``[i B/a, (i + 1) B/a)``
+    of ``batch`` on its leading axis; on a batch block (``batch`` the
+    global batch, gathered by the caller), this rank's block of them."""
+    rows = tree_leaves(batch)[0].shape[0]
+    n, r = (1, 0) if split is None else split.index()
+    if rows % (accum_steps * n):
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{accum_steps} microbatches of {n} blocks")
+    per = rows // (accum_steps * n)
+    start = (i * n + r) * per
+    return tree_map(lambda x: x[start:start + per], batch)
+
+
 def _accumulated(loss: Callable, params, batch, cfg, accum_steps: int,
                  split=None):
     """The batch split on its leading axis into ``accum_steps``
-    microbatches: grads summed in float32 zeros, then divided; loss and
-    metrics the mean over the microbatches.  On a batch block each rank
-    splits its own rows: microbatch i is every rank's i-th slice, which
-    is JAX's microbatch i (a slice of the global batch) only where every
-    row counts alike (no ``loss_mask``)."""
-    def micro(x, i):
-        b = x.shape[0]
-        return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])[i]
-
+    microbatches (:func:`_microbatch`: JAX's microbatches, on a batch
+    block too, where the block's batch is gathered over the batch axes
+    first): grads summed in float32 zeros, then divided; loss and metrics
+    the mean over the microbatches."""
+    if split is not None:
+        batch = tree_map(lambda x: from_local(x, P(split.axes), split.mesh),
+                         batch)
     g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=p.device), params)
     l_acc = 0.0
     ms = []
     for i in range(accum_steps):
         loss_val, m, g = _value_and_grad(
-            loss, params, tree_map(lambda x: micro(x, i), batch), cfg, split)
+            loss, params, _microbatch(batch, accum_steps, i, split), cfg,
+            split)
         g_acc = tree_map(torch.add, g_acc, g)
         l_acc = l_acc + loss_val
         ms.append(m)
@@ -214,11 +233,6 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
 
     def train_step(params, opt_state, batch, step: int, *, layout=None):
         split = constraints.batch_split()
-        if split is not None and getattr(cfg, "family", None) == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE family's batch-sharded step is not "
-                f"ported (ROADMAP A14): its expert capacity and load-balance "
-                f"terms would be each rank's block's, not the batch's")
         full = params if layout is None else layout.gather(params)
         dev = tree_leaves(params)[0].device
         opt_in = opt_state            # the state that entered the step

@@ -28,6 +28,18 @@ WORLD = 8
 SHAPE = (4, 2)
 STEPS = 3
 AE_POLICIES = ("tp", "dp_only", "spatial")
+#: the MoE cases: name -> (arch, params, tokens of inputs.pkl, policy,
+#: accum_steps).  At 8 x 64 one group of 512 tokens spans the 4 data
+#: blocks (straddled); at 8 x 500 dp_only cuts 8 blocks of 500 tokens
+#: across groups of 800 (partial); "moe_capacity" favours one expert, so
+#: its queue overflows within the straddled group at step 0.
+MOE_CASES = {
+    "moe_tp": ("moonshot", "moe_params", "tokens_64", "tp", 1),
+    "moe_dp_only": ("moonshot", "moe_params", "tokens_500", "dp_only", 1),
+    "deepseek_tp": ("deepseek", "ds_params", "tokens_64", "tp", 1),
+    "moe_capacity": ("moonshot", "cap_params", "tokens_64", "tp", 1),
+    "moe_accum": ("moonshot", "moe_params", "tokens_64", "tp", 2),
+}
 #: the step after which the SmolLM run saves its blocked state.
 SAVE_AFTER = 1
 LR = 1e-3
@@ -40,12 +52,17 @@ def _nbytes(tree) -> int:
 
 def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
     """``STEPS`` steps of ``make_train_step(cfg, **kw)`` through
-    ``sharded_step`` on blocks under ``policy``; the losses, grad norms,
-    blocks' bytes and the gathered parameters' digest."""
+    ``sharded_step`` on blocks under ``policy``; the losses, grad norms
+    (and ``moe_lb`` where the model has it), blocks' bytes and the
+    gathered parameters' digest; for an MoE model, the (token, choice)
+    pairs of this rank's tokens that its MoE layers dropped at step 0."""
+    import contextlib
+
     from repro_torch.ckpt import checkpoint as CKPT
     from repro_torch.dist import set_activation_policy
     from repro_torch.dist import sharding as SH
     from repro_torch.dist.spmd import sharded_step
+    from repro_torch.models import moe as MOE
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import make_train_step
     from repro_torch.tree import tree_leaves
@@ -63,10 +80,20 @@ def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
     res = {"losses": [], "grad_norms": [],
            "param_bytes": _nbytes(p), "moment_bytes": _nbytes(o["m"])
            + _nbytes(o["v"]), "rows": tree_leaves(b)[0].shape[0]}
+    n_moe = sum(map(cfg.is_moe_layer, range(cfg.n_layers))) \
+        if getattr(cfg, "family", None) == "moe" else 0
     for s in range(STEPS):
-        p, o, m = step_fn(p, o, b, s)
+        with MOE.recording() if s == 0 and n_moe else \
+                contextlib.nullcontext([]) as log:
+            p, o, m = step_fn(p, o, b, s)
+        if log:
+            # The forward's calls come first; remat logs them again.
+            res["dropped"] = int(sum((~r["kept"]).sum()
+                                     for r in log[:n_moe]))
         res["losses"].append(float(m["loss"]))
         res["grad_norms"].append(float(m["grad_norm"]))
+        if "moe_lb" in m:
+            res.setdefault("moe_lb", []).append(float(m["moe_lb"]))
         if out_dir is not None and s == SAVE_AFTER:
             CKPT.save(os.path.join(out_dir, "ckpt"), s,
                       {"params": p, "opt": o},
@@ -107,6 +134,53 @@ def run_replicated(mesh, cfg, params, batch, policy, **kw):
     return res
 
 
+def run_moe(mesh, inputs) -> dict:
+    """The MoE family on batch blocks (``MOE_CASES``), then the two
+    mutations: each rank's own group arithmetic (its tokens as the whole
+    batch: its groups, capacity and queue) on the capacity-binding case,
+    and ``moe_lb`` as the mean of each rank's own product."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.tree import tree_from_numpy
+    out = {}
+    cfgs = {"moonshot": get_smoke_config("moonshot-v1-16b-a3b"),
+            "deepseek": get_smoke_config("deepseek-v3-671b")}
+
+    def run(case, **kw):
+        arch, params, batch, policy, accum = MOE_CASES[case]
+        toks = tree_from_numpy(inputs[batch], "cpu")
+        return run_sharded(mesh, cfgs[arch],
+                           tree_from_numpy(inputs[params], "cpu"),
+                           {"tokens": toks, "targets": toks}, policy,
+                           accum_steps=accum, **kw)
+    for case in MOE_CASES:
+        out[case] = run(case)
+
+    sound_layout, sound_aux = MOE._layout, MOE._aux_shares
+
+    def own_groups(t, first, t_loc):
+        s = t_loc // MOE._group(t_loc)
+        return s, first, t_loc // s
+
+    def own_product(logits, probs, top1, t):
+        aux = sound_aux(logits, probs, top1, t)
+        e, t_loc = probs.shape[-1], probs.shape[0]
+        frac = torch.nn.functional.one_hot(probs.argmax(-1), e).float()
+        lb = e * torch.sum(frac.mean(0) * probs.mean(0))
+        return {**aux, "moe_lb": lb * t_loc / t}
+    try:
+        MOE._layout = own_groups
+        out["moe_groups_mutant"] = run("moe_capacity")
+    finally:
+        MOE._layout = sound_layout
+    try:
+        MOE._aux_shares = own_product
+        out["moe_lb_mutant"] = run("moe_tp")
+    finally:
+        MOE._aux_shares = sound_aux
+    return out
+
+
 def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -115,13 +189,9 @@ def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import conv as C
     from repro_torch.dist import conv_parallel as cp
-    from repro_torch.dist import set_activation_policy
     from repro_torch.launch import mesh as LM
     from repro_torch.models import autoencoder as AE
-    from repro_torch.models import model as M
-    from repro_torch.optim import adamw
     from repro_torch.train import losses
-    from repro_torch.train.train_step import make_train_step
     from repro_torch.tree import tree_from_numpy
     with open(os.path.join(in_dir, "inputs.pkl"), "rb") as f:
         inputs = pickle.load(f)
@@ -182,21 +252,7 @@ def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
     finally:
         cp._wgrad_axes = sound_axes
 
-    # The MoE family on a batch block raises, naming the ROADMAP item.
-    mcfg = get_smoke_config("moonshot-v1-16b-a3b")
-    mparams = M.init_params(torch.Generator().manual_seed(0), mcfg, "cpu")
-    set_activation_policy(("data",))
-    step_fn = make_train_step(mcfg, adamw.AdamWConfig(), total_steps=2,
-                              warmup=1)
-    try:
-        with mesh:
-            step_fn(mparams, adamw.init_state(mparams),
-                    {k: v[:2] for k, v in lm_batch.items()}, 0)
-        out["moe"] = "ran"
-    except NotImplementedError as e:
-        out["moe"] = str(e)
-    finally:
-        set_activation_policy(None)
+    out.update(run_moe(mesh, inputs))
 
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)

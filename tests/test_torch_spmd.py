@@ -20,7 +20,20 @@ side runs here on the same numpy inputs:
     the tolerance, where averaging per-rank means reads outside it;
   * a conv that psums its weight grad over the batch axes on a batch
     block too (counted twice): outside the tolerance on the norms;
-  * the MoE family raising, naming ROADMAP A14;
+  * the MoE family (ROADMAP A14) on batch blocks through
+    ``sharded_step``, held to JAX's single-device step on the global batch
+    within the same tolerance: moonshot's smoke config under ``tp`` at 8
+    x 64 (one group of 512 tokens across the 4 data blocks: straddled),
+    under ``dp_only`` at 8 x 500 (8 blocks of 500 tokens across groups of
+    800: partial), with ``accum_steps=2`` (JAX's microbatches), and
+    DeepSeek-V3's (MLA, MTP) under ``tp`` at 8 x 64; a router that favours
+    one expert so that its queue overflows across the ranks at step 0 (the
+    dropped choices counted per rank); two mutations that read outside the
+    tolerance: each rank's own group arithmetic, and ``moe_lb`` as the mean
+    of each rank's own product;
+  * the training launcher on moonshot's smoke config under
+    ``torch.distributed.run`` on 2 ranks (``--conv-mesh dp_only``): its
+    losses within the tolerance of one process's;
   * the blocked state saved after step 2 as global arrays and restored
     onto one rank: the gathered parameters bit for bit, and its third
     step, run unsharded, within the tolerance of JAX's.
@@ -60,14 +73,29 @@ import _torch_spmd_worker as W  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
-#: the 8 ranks' start and 5 runs of 3 steps take ~15 s on 8 threads.
+#: the 8 ranks' start and 14 runs of 3 steps take ~35 s on 8 threads.
 TIMEOUT_S = 240
 JCFG = jget_smoke("smollm-360m")
 ACFG = JM.AutoencoderConfig(c_in=3, widths=(16, 32), k=3, conv_policy="lax")
+MOE_CFGS = {"moonshot": jget_smoke("moonshot-v1-16b-a3b"),
+            "deepseek": jget_smoke("deepseek-v3-671b")}
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def _favour_one_expert(params) -> dict:
+    """``params`` with a direction ``u`` added to every embedding row and
+    to the router's column of expert 0 in every MoE layer: most tokens
+    then take expert 0 first, past its capacity."""
+    u = np.random.RandomState(2).randn(params["embed"]["w"].shape[1])
+    u = (u / np.linalg.norm(u)).astype(np.float32)
+    emb = params["embed"]["w"]
+    out = jax.tree.map(np.copy, params)
+    out["embed"]["w"] = emb + 2 * np.linalg.norm(emb, axis=1).mean() * u
+    out["blocks_moe"]["moe"]["router"]["w"][..., 0] += u
+    return out
 
 
 def _mask() -> np.ndarray:
@@ -90,7 +118,15 @@ def runs(tmp_path_factory):
         "loss_mask": _mask(),
         "ae_params": _np(JM.init_autoencoder(jax.random.PRNGKey(0), ACFG)),
         "image": np.random.RandomState(0).randn(8, 3, 16, 16).astype(
-            np.float32)}
+            np.float32),
+        "moe_params": _np(JM.init_params(jax.random.PRNGKey(0),
+                                         MOE_CFGS["moonshot"])),
+        "ds_params": _np(JM.init_params(jax.random.PRNGKey(0),
+                                        MOE_CFGS["deepseek"])),
+        "tokens_64": toks,
+        "tokens_500": np.random.RandomState(3).randint(
+            0, MOE_CFGS["moonshot"].vocab, (8, 500)).astype(np.int32)}
+    inputs["cap_params"] = _favour_one_expert(inputs["moe_params"])
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
@@ -105,11 +141,17 @@ def runs(tmp_path_factory):
     return {"dir": tmp, "inputs": inputs, "ranks": ranks}
 
 
-def _jax_run(cfg, params, batch, loss=None, steps=W.STEPS):
-    kw = {} if loss is None else {"loss": loss}
-    step = jax.jit(JTS.make_train_step(
-        cfg, jadamw.AdamWConfig(peak_lr=W.LR), total_steps=10, warmup=1,
-        **kw))
+_JAX_STEPS: dict = {}
+
+
+def _jax_run(cfg, params, batch, loss=None, steps=W.STEPS, accum=1):
+    key = (cfg, loss, accum)
+    if key not in _JAX_STEPS:
+        kw = {} if loss is None else {"loss": loss}
+        _JAX_STEPS[key] = jax.jit(JTS.make_train_step(
+            cfg, jadamw.AdamWConfig(peak_lr=W.LR), total_steps=10,
+            warmup=1, accum_steps=accum, **kw))
+    step = _JAX_STEPS[key]
     p = jax.tree.map(jnp.asarray, params)
     o = jadamw.init_state(p)
     b = jax.tree.map(jnp.asarray, batch)
@@ -118,7 +160,16 @@ def _jax_run(cfg, params, batch, loss=None, steps=W.STEPS):
         p, o, m = step(p, o, b, jnp.int32(s))
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
+        if "moe_lb" in m:
+            out.setdefault("moe_lb", []).append(float(m["moe_lb"]))
     return out
+
+
+def _jax_moe(runs, case):
+    arch, params, toks, _, accum = W.MOE_CASES[case]
+    i = runs["inputs"]
+    return _jax_run(MOE_CFGS[arch], i[params],
+                    {"tokens": i[toks], "targets": i[toks]}, accum=accum)
 
 
 def _close(got, want) -> bool:
@@ -206,9 +257,109 @@ def test_double_counted_conv_weight_grad_fails_the_check(runs):
                                rtol=1e-4)
 
 
-def test_moe_family_raises_naming_the_roadmap_item(runs):
+@pytest.mark.parametrize("case", list(W.MOE_CASES))
+def test_moe_on_batch_blocks_matches_jax_single_device(runs, case):
+    """The groups, capacity queues and aux terms of the global batch:
+    losses, grad norms and the ``moe_lb`` metric (the ranks' shares
+    summed) within the tolerance of JAX's step at each of 3 steps, the
+    gathered parameters bit-identical on every rank."""
+    want = _jax_moe(runs, case)
+    per_rank = [r[case] for r in runs["ranks"]]
+    _assert_matches(per_rank, want)
+    for r in per_rank:
+        np.testing.assert_allclose(r["moe_lb"], want["moe_lb"], rtol=RTOL,
+                                   atol=ATOL)
+    assert len({r["params"] for r in per_rank}) == 1
+    policy, accum = W.MOE_CASES[case][3:]
+    rows = 8 // (8 if policy == "dp_only" else 4)
+    assert {r["rows"] for r in per_rank} == {rows}
+    assert accum == 1 or rows % accum == 0
+
+
+def test_moe_blocks_hold_the_dry_runs_bytes_a_device(runs):
+    """moonshot's expert tensors in their ``tp`` blocks (E over model, d_in
+    over data): each rank holds exactly the dry run's bytes a device."""
+    params = tree_from_numpy(runs["inputs"]["moe_params"], "cpu")
+    mesh = Mesh(("data", "model"), W.SHAPE)
+    spec = SH.param_specs(params, mesh, "tp")
+    assert spec["blocks_moe"]["moe"]["wi"]["w"] == SH.P(None, "model",
+                                                        "data", None)
+    p_bytes = dryrun.bytes_per_device(params, spec, mesh)
+    m_bytes = 2 * dryrun.bytes_per_device(params, spec, mesh, torch.float32)
     for r in runs["ranks"]:
-        assert "ROADMAP A14" in r["moe"], r["moe"]
+        assert r["moe_tp"]["param_bytes"] == p_bytes
+        assert r["moe_tp"]["moment_bytes"] == m_bytes
+
+
+def test_capacity_binds_across_the_ranks(runs):
+    """With the router favouring expert 0, the one group of 512 tokens
+    overflows its queue at step 0: the ranks drop (token, choice) pairs,
+    and which ones the queue over every rank's tokens decided (the losses
+    are JAX's, above; the same tokens queued per rank read outside the
+    tolerance, below).  The earlier data blocks come first in the queue,
+    so each drops no more than the next."""
+    drops = {c: [r[c]["dropped"] for r in runs["ranks"]]
+             for c in ("moe_tp", "moe_capacity")}
+    assert sum(drops["moe_capacity"]) > sum(drops["moe_tp"]), drops
+    by_data = [r["moe_capacity"]["dropped"] for r in sorted(
+        runs["ranks"], key=lambda r: r["coordinate"]["data"])]
+    assert by_data == sorted(by_data) and by_data[-1] > by_data[0], by_data
+
+
+@pytest.mark.parametrize("mutant,case,key", [
+    ("moe_groups_mutant", "moe_capacity", "losses"),
+    ("moe_lb_mutant", "moe_tp", "moe_lb")])
+def test_moe_mutations_read_outside_the_tolerance(runs, mutant, case, key):
+    """Each rank's own group arithmetic (its tokens as the batch: its
+    groups, capacity and queue) reads outside the tolerance on the losses;
+    ``moe_lb`` as the mean of each rank's own product on the metric."""
+    want = _jax_moe(runs, case)
+    got = runs["ranks"][0][mutant][key]
+    assert _close(runs["ranks"][0][case][key], want[key])
+    assert not _close(got, want[key]), (got, want[key])
+
+
+# ---------------------------------------------------------------------------
+# The launcher on moonshot under torch.distributed.run, 2 ranks
+# ---------------------------------------------------------------------------
+
+MOE_LAUNCH = ["--arch", "moonshot-v1-16b-a3b", "--smoke", "--device", "cpu",
+              "--steps", "3", "--batch", "4", "--seq", "64"]
+
+
+def test_moe_launcher_dp_only_on_two_ranks_matches_one_process(tmp_path):
+    """``--conv-mesh dp_only`` sets the activation policy for any
+    architecture: each rank trains its 2 x 64 block of one straddled
+    group, and the losses and grad norms are the one-process run's."""
+    from repro_torch.launch import train as launch
+    ckpt = tmp_path / "ckpt"
+    CKPT.save(str(ckpt), 0, {"w": np.zeros((2, 2), np.float32),
+                             "b": np.zeros(2, np.float32)})
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2",
+         str(ROOT / "tests" / "_torch_launch_ranks.py"), str(tmp_path),
+         str(ckpt), "--", *MOE_LAUNCH, "--conv-mesh", "dp_only"],
+        capture_output=True, text=True, env=env, timeout=TIMEOUT_S,
+        cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(2)]
+    hist: list = []
+    want = launch.main(MOE_LAUNCH, history=hist)
+    for r in ranks:
+        assert r["world"] == 2 and r["mesh"] == {"data": 2, "model": 1}
+        np.testing.assert_allclose(r["losses"], want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(r["grad_norms"],
+                                   [h["grad_norm"] for h in hist],
+                                   rtol=RTOL, atol=ATOL)
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert "conv mesh dp_only" in proc.stdout
 
 
 def test_blocked_checkpoint_restores_onto_one_rank(runs):
