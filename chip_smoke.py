@@ -15,7 +15,9 @@ PATH):
                    bf16 operands, the depthwise variant of each at 16 and
                    49 taps,
                    the four ``matmul`` tiles, the bf16
-                   flash attention at head dims 64, 128, 192 and 256); the
+                   flash attention at head dims 64, 128, 192 and 256, the
+                   float32 one at 64, 80, 128, 192 and 256, which must not
+                   spill nor pass 227 KB of shared memory); the
                    blocks an SM holds of each input-grad, weight-grad,
                    depthwise and ``matmul`` instance (the occupancy
                    calculator) against
@@ -110,11 +112,18 @@ PATH):
                    and float32) and recurrentgemma-9b's (16 heads of 256
                    against one KV head, causal P 1,024 in bf16 and float32,
                    a ragged P 1,000 and 256 queries against 1,024 keys in
-                   bf16) and hubert-xlarge's encoder (4 x 16 heads of
-                   80, full attention over 1,000 frames, bf16 and
-                   float32); two runs are bit-equal; kernel, plain and
+                   bf16, the last two in float32 too) and hubert-xlarge's
+                   encoder (4 x 16 heads of 80, full attention over 1,000
+                   frames, bf16 and float32, and causal in float32); the
+                   float32 instance's edges: head dims 96, 100 and 250
+                   (rows not 16-byte aligned) and one query row; two runs
+                   are bit-equal; kernel, plain and
                    ``F.scaled_dot_product_attention`` device times (timed
-                   only: the port never calls it), host time, bound.
+                   only: the port never calls it), host time, bound (a
+                   float32 row against its path's, three TF32 products a
+                   pair at 495 TFLOP/s, and beside it the float32 bound
+                   at 67 TFLOP/s); a float32 call counts one launch of
+                   ``flash_attention_f32`` as well.
  11. serve      -- SmolLM-360M at full width, initialised from a seed: the
                    port's prefill (one causal pass, the kernel in every
                    layer) against a lockstep scan of ``decode_step`` (plain
@@ -483,6 +492,10 @@ LM_GNORM_TOL = 1e-3
 #: H100 SXM float32 peak outside the tensor cores and memory rate (data sheet).
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+#: float32 flash attention runs three TF32 products (495 TFLOP/s dense) for
+#: each float32 product: its path's peak for float32 work.
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_PER_S = 3.35e12
 
 #: kernel -> (the TPU kernel it replaces, its source in the repo)
@@ -573,16 +586,20 @@ def bound(flops: float, nbytes_: float,
 #: kernels (the three tap GEMMs, float32 and bf16 instances, the
 #: depthwise forward, input grad and weight grad at 16 and 49 taps,
 #: the four ``matmul`` tiles, the bf16
-#: tensor-core flash attention: head dims 64, 128, 192 and 256, each with
-#: and without 16-byte rows), whose registers, spills and shared memory
-#: the build phase reports, and how many entries each has.
+#: tensor-core flash attention: head dims 64, 128, 192 and 256, and the
+#: float32 one, three TF32 products a pair: 64, 80, 128, 192 and 256, each
+#: with and without 16-byte rows), whose registers, spills and shared
+#: memory the build phase reports, and how many entries each has.
 REDESIGNED = {"tap_gemm": (("3fwd6kernel", "2dw10fwd_kernel"), 12),
               "tap_gemm_phased": (("6phased6kernel", "2dw13phased_kernel"),
                                   28),
               "tap_wgrad": (("5wgrad6kernel", "2dw12wgrad_kernel"), 20),
               "matmul": (("4gemm6kernel", "4tall6kernel", "6mirror6kernel"),
                          22),
-              "flash_attention": (("flash_bf16_kernel",), 8)}
+              "flash_attention": (("flash_bf16_kernel",), 8),
+              "flash_attention_f32": (("flash_f32_kernel",), 10)}
+#: the shared memory a block may take (232,448 bytes).
+SMEM_BLOCK_MAX = 227 * 1024
 
 
 def flash_bf16_smem(dm: int) -> int:
@@ -590,6 +607,19 @@ def flash_bf16_smem(dm: int) -> int:
     of K and V, 64 rows each, of DM + 8 bf16 (csrc/flash_attention.cu);
     168,960 bytes at DM 256, one block an SM."""
     return (64 + 4 * 64) * (dm + 8) * 2
+
+
+def flash_f32_smem(dm: int) -> int:
+    """Dynamic shared memory of ``flash_f32_kernel<DM>``: two stages of K
+    (rows of ``pk`` floats, 8 mod 32) and V (``pv``, 4 mod 32), 64 rows each
+    at DM 64 and 128, 32 at 80 and above 128, then Q (64 x DM): hi and lo,
+    raw at 256; from DM 128 (256 threads) a float a thread
+    (csrc/flash_attention.cu)."""
+    pk, pv = dm + (40 - dm % 32) % 32, dm + (36 - dm % 32) % 32
+    rows = 32 if dm == 80 or dm > 128 else 64
+    q_tiles = 2 if dm < 256 else 1
+    return (2 * rows * (pk + pv) + q_tiles * 64 * dm
+            + (256 if dm >= 128 else 0)) * 4
 
 
 def kernel_resources(log_dir: pathlib.Path) -> list[dict]:
@@ -608,7 +638,9 @@ def kernel_resources(log_dir: pathlib.Path) -> list[dict]:
                     dm = re.search(r"ILi(\d+)E", name)
                     cur["dynamic_smem_bytes"] = (
                         flash_bf16_smem(int(dm.group(1)))
-                        if kernel == "flash_attention" else 0)
+                        if kernel == "flash_attention" else
+                        flash_f32_smem(int(dm.group(1)))
+                        if kernel == "flash_attention_f32" else 0)
                     out.append(cur)
                 continue
             if cur is None:
@@ -966,13 +998,15 @@ def phase_matmul(smoke, torch, mm, kref, tg, cases, dev):
 #: launches of one conv2d forward + backward under each policy
 LAYER_LAUNCHES = {
     "pallas": {"tap_gemm": 1, "tap_gemm_phased": 1, "tap_wgrad": 1,
-               "matmul": 0, "flash_attention": 0},
+               "matmul": 0, "flash_attention": 0, "flash_attention_f32": 0},
     "traditional": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
-                    "matmul": 3, "flash_attention": 0},
+                    "matmul": 3, "flash_attention": 0,
+                    "flash_attention_f32": 0},
     "bp_im2col": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
-                  "matmul": 3, "flash_attention": 0},
+                  "matmul": 3, "flash_attention": 0,
+                  "flash_attention_f32": 0},
     "lax": {"tap_gemm": 0, "tap_gemm_phased": 0, "tap_wgrad": 0,
-            "matmul": 0, "flash_attention": 0},
+            "matmul": 0, "flash_attention": 0, "flash_attention_f32": 0},
 }
 
 
@@ -1060,7 +1094,7 @@ def phase_transposed(smoke, torch, conv, kernels, ConvTransposeSpec, dev):
                        rel_err_dw=errs[2], tol=LAYER_TOL,
                        forward_launches=fwd, launches=total,
                        dispatch=events)
-            check(fwd == {k: int(k == fwd_kernel) for k in KERNELS},
+            check(fwd == {k: int(k == fwd_kernel) for k in fwd},
                   f"{label} {policy}: forward launches {fwd}")
             check(max(errs) <= LAYER_TOL,
                   f"{label}: {policy} vs the lax materialization {errs}")
@@ -1284,8 +1318,13 @@ def phase_autotune(smoke, torch, ops, tg, ref, autotune, config, kernels,
 #: moonshot-v1-16b-a3b prefill's (16 heads of 128), DeepSeek-V3 MLA's
 #: (128 heads of 192: qk_nope 128 + qk_rope 64), recurrentgemma-9b's
 #: (16 heads of 256 against one KV head) and hubert-xlarge's encoder's (4
-#: clips of 1,000 frames, 16 heads of 80 on the D-128 instance, full
-#: attention) follow the SmolLM cases.
+#: clips of 1,000 frames, 16 heads of 80 on the D-128 instance in bf16 and
+#: the D-80 one in float32, full attention) follow the SmolLM cases; then
+#: the float32 instances' edges: hubert's D 80 causal, head dims 96 and 100
+#: (the D-128 instance; rows of 400 bytes are 16-byte aligned), 250 (rows
+#: of 1,000 bytes, not aligned: plain loads), one query row and
+#: recurrentgemma's 256 queries against 1,024 keys.  New cases go last, so
+#: the earlier ones keep their seeds (``300 + index``).
 FLASH_CASES = (
     [("serve P1024 bf16", 1, 15, 5, 1024, 1024, True, "bfloat16", 64)]
     + [(f"serve P{p} {dt[0]}{dt[-2:]}", 1, 15, 5, p, p, True, dt, 64)
@@ -1306,11 +1345,20 @@ FLASH_CASES = (
            ("q256 k1024", 256, 1024, ("bfloat16",)))
        for dt in dts]
     + [(f"hubert P1000 full {dt[0]}{dt[-2:]}", 4, 16, 16, 1000, 1000, False,
-        dt, 80) for dt in ("bfloat16", "float32")])
+        dt, 80) for dt in ("bfloat16", "float32")]
+    + [("hubert P1000 causal f32", 4, 16, 16, 1000, 1000, True, "float32",
+        80),
+       ("d96 P1024 f32", 1, 16, 8, 1024, 1024, True, "float32", 96),
+       ("d100 P1000 f32", 1, 16, 8, 1000, 1000, True, "float32", 100),
+       ("d250 P1000 f32", 1, 16, 1, 1000, 1000, True, "float32", 250),
+       ("q1 k1024 f32", 1, 15, 5, 1, 1024, True, "float32", 64),
+       ("rg q256 k1024 f32", 1, 16, 1, 256, 1024, True, "float32", 256)])
 #: the cases of the ``kernels`` line's rows beside the first case's:
-#: recurrentgemma-9b's prefill and hubert-xlarge's encoder.
+#: recurrentgemma-9b's prefill, hubert-xlarge's encoder and SmolLM's
+#: prefill in float32.
 FLASH_ROW_CASES = {"rg P1024 b16": "flash_attention_d256",
-                   "hubert P1000 full b16": "flash_attention_bidir_d80"}
+                   "hubert P1000 full b16": "flash_attention_bidir_d80",
+                   "serve P1024 f32": "flash_attention_f32"}
 
 
 def attention_pairs(lq: int, lk: int, causal: bool) -> int:
@@ -1326,7 +1374,10 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
     Returns the records of the first case (SmolLM's serving shape) and of
     ``FLASH_ROW_CASES``, which make up the kernel's rows of the final
     ``kernels`` line (``flash_attention``, ``flash_attention_d256``,
-    ``flash_attention_bidir_d80``)."""
+    ``flash_attention_bidir_d80``, ``flash_attention_f32``).  A bf16 row's
+    bound is at the bf16 peak, a float32 row's at its path's
+    (``PEAK_3XTF32_FLOPS``), with the float32 bound (``PEAK_F32_FLOPS``)
+    beside it."""
     rows = {}
     for i, (label, b, h, hk, lq, lk, causal, dt, d) in enumerate(
             FLASH_CASES):
@@ -1345,9 +1396,11 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask, is_causal=causal and mask is None,
             enable_gqa=hk != h)
-        before = fa.LAUNCHES["flash_attention"]
+        before = dict(fa.LAUNCHES)
         got = kern()
-        launches = fa.LAUNCHES["flash_attention"] - before
+        launches = fa.LAUNCHES["flash_attention"] - before["flash_attention"]
+        f32_launches = (fa.LAUNCHES["flash_attention_f32"]
+                        - before["flash_attention_f32"])
         want = plain()
         torch.cuda.synchronize()
         err, abs_err = rel_err(torch, got, want)
@@ -1356,23 +1409,29 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
               f"flash_attention differs run to run at {label}")
         flops = 4.0 * b * h * d * attention_pairs(lq, lk, causal)
         by = nbytes(q, k, v, got)
-        b_s, b_by = bound(flops, by, PEAK_BF16_FLOPS
-                          if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+        peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                else PEAK_3XTF32_FLOPS)
+        b_s, b_by = bound(flops, by, peak)
         tol = BF16_TOL if dtype == torch.bfloat16 else FLASH_TOL
         rec = {"kernel": "flash_attention", "case": label,
                "q": [b, h, lq, d], "kv": [b, hk, lk, d], "causal": causal,
                "dtype": dt, "max_rel_err": err, "max_abs_err": abs_err,
                "tol": tol, "library_rel_err": lib_err,
                "launches_per_call": launches,
+               "f32_launches_per_call": f32_launches,
                "kernel_ms": time_ms(torch, kern),
                "kernel_host_ms": host_ms(torch, kern),
                "plain_ms": time_ms(torch, plain),
                "library_ms": time_ms(torch, lib),
                "bound_us": b_s * 1e6, "bound_by": b_by,
                "gflop": flops / 1e9, "mbytes": by / 1e6}
+        if dtype == torch.float32:
+            rec["bound_f32_us"] = bound(flops, by, PEAK_F32_FLOPS)[0] * 1e6
         rec["roofline_share"] = rec["bound_us"] / 1e3 / rec["kernel_ms"]
         smoke.emit("flash", **rec)
-        check(launches == 1, f"flash_attention: {launches} launches")
+        check(launches == 1 and f32_launches == (dtype == torch.float32),
+              f"flash_attention: {launches} launches, {f32_launches} of "
+              f"the float32 instance")
         check(err <= tol, f"flash_attention at {label}: relative error "
                           f"{err} > {tol}")
         name = "flash_attention" if i == 0 else FLASH_ROW_CASES.get(label)
@@ -1380,7 +1439,7 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
             rows[name] = {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                           "library_ms": rec["library_ms"], "flops": flops,
                           "bytes": by, "max_abs_err": abs_err,
-                          "peak": PEAK_BF16_FLOPS}
+                          "peak": peak}
     return rows
 
 
@@ -1477,8 +1536,12 @@ def token_diffs(torch, M, cfg, params, runs_a, runs_b, dev) -> dict:
 
 def engines_agree(torch, serve, M, cfg, params, prompt_len, max_new, dev):
     """8 requests through both engines (static in one wave of 8, continuous
-    on 4 lanes): ``token_diffs`` of the two."""
+    on 4 lanes): ``token_diffs`` of the two, and the kernel launches of the
+    two engines' runs (counts set to 0 just before, read just after)."""
     import numpy as np
+
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
     runs = {}
     for engine, cls in serve.ENGINES.items():
         eng = cls(cfg, params, max_batch=8 if engine == "static" else 4,
@@ -1490,8 +1553,9 @@ def engines_agree(torch, serve, M, cfg, params, prompt_len, max_new, dev):
                                             prompt_len).tolist(),
                 max_new=max_new))
         runs[engine] = sorted(eng.run(), key=lambda r: r.rid)
-    return token_diffs(torch, M, cfg, params, runs["static"],
-                       runs["continuous"], dev)
+    launches = kernels.launch_counts()
+    return {**token_diffs(torch, M, cfg, params, runs["static"],
+                          runs["continuous"], dev), "launches": launches}
 
 
 def device_time(torch, fn, reps: int = 3, top: int = 6) -> dict:
@@ -1563,13 +1627,21 @@ def phase_serve(smoke, torch, kernels, serve, M, T, dev):
     paths = serve_engines(smoke, "serve", torch, kernels, serve, full,
                           SERVE_ARGV, dev)
     # The static engine serves the 8 requests in one wave of 8 (one
-    # lockstep prefill, not two); the continuous one recycles 4 lanes.
+    # lockstep prefill, not two); the continuous one recycles 4 lanes and
+    # prefills each request in one pass: the float32 flash instance once a
+    # layer a request, the main path of its ``kernels`` row.
     params = serve.init_params(cfg32, 0, dev)
     rec = engines_agree(torch, serve, M, cfg32, params, 1024, 32, dev)
     smoke.emit("serve", check="float32 greedy tokens, static vs continuous",
                **rec)
     check(all(d["margin"] < MARGIN_TOL for d in rec["differing"]),
           f"float32 engines disagree beyond a near-tie: {rec['differing']}")
+    n = cfg32.n_layers * rec["requests"]
+    check(rec["launches"]["flash_attention_f32"]
+          == rec["launches"]["flash_attention"] == n,
+          f"float32 engines launched {rec['launches']}, want {n} float32 "
+          f"flash launches")
+    paths["serve_f32 engines"] = rec["launches"]
     return paths
 
 
@@ -2149,8 +2221,11 @@ def hybrid_prefill_check(smoke, torch, M, T, kernels, tg, cfg, params,
     n_rec, n_attn = hybrid_layers(cfg)
     pallas = cfg.conv_policy == "pallas"
     flash = len(prompt) <= cfg.local_window
+    f32 = cfg.param_dtype == "float32"
     want_launches = {k: v for k, v in (("tap_gemm", n_rec * pallas),
-                                       ("flash_attention", n_attn * flash))
+                                       ("flash_attention", n_attn * flash),
+                                       ("flash_attention_f32",
+                                        n_attn * flash * f32))
                      if v}
     rec.update(config=cfg.name, dtype=cfg.param_dtype, layers=cfg.n_layers,
                conv_policy=cfg.conv_policy, prompt_len=len(prompt),
@@ -3967,6 +4042,11 @@ def main(argv=None) -> int:
           == sorted(k for k, (_, n) in REDESIGNED.items() for _ in range(n))
           and all("registers" in r for r in resources),
           f"build logs lack the redesigned kernels' entries: {resources}")
+    f32 = [r for r in resources if r["kernel"] == "flash_attention_f32"]
+    check(all(r["spill_store_bytes"] == r["spill_load_bytes"] == 0
+              and r["dynamic_smem_bytes"] + r["static_smem_bytes"]
+              <= SMEM_BLOCK_MAX for r in f32),
+          f"float32 flash instances spill or pass 227 KB: {f32}")
     occupancy = plan_occupancy(tg, mm)
     smoke.emit("build", occupancy=occupancy)
     check_occupancy(occupancy)
@@ -4033,6 +4113,7 @@ def main(argv=None) -> int:
     main_path["flash_attention"] = "serve continuous"
     main_path["flash_attention_d256"] = "serve_hybrid continuous"
     main_path["flash_attention_bidir_d80"] = "encode_audio"
+    main_path["flash_attention_f32"] = "serve_f32 engines"
     shapes = {"matmul": "sum over the 15 traditional GEMMs (forward, input "
                         "grad, weight grad) of the 5 Table II layers, batch "
                         "2, float32",
@@ -4047,7 +4128,12 @@ def main(argv=None) -> int:
                                            "layer's attention: full (4, 16, "
                                            "1000, 80) queries, keys and "
                                            "values, bf16, on the D-128 "
-                                           "instance"}
+                                           "instance",
+              "flash_attention_f32": "one float32 prefill's attention: "
+                                     "causal (1, 15, 1024, 64) queries "
+                                     "against (1, 5, 1024, 64) keys and "
+                                     "values, three TF32 products a pair; "
+                                     "bound at 165 TFLOP/s"}
     for name in TAP_KERNELS:
         agg[f"{name}_bf16"] = agg_bf16[name]
         main_path[f"{name}_bf16"] = "lm_train_ssm pallas"
@@ -4065,11 +4151,13 @@ def main(argv=None) -> int:
     # The tap kernels' bf16-operand instances (the TPU kernels take the
     # operands' dtype and sum in float32) have rows of their own, at
     # Mamba2's and recurrentgemma's convs; so has flash attention at
-    # recurrentgemma's head dim 256 and, full, at hubert-xlarge's 80.
+    # recurrentgemma's head dim 256 and, full, at hubert-xlarge's 80, and
+    # its float32 instance at SmolLM's prefill (launches counted apart).
     rows = {**KERNELS, **{f"{k}_bf16{g}": KERNELS[k] for k in TAP_KERNELS
                           for g in ("", "_g4096")},
             "flash_attention_d256": KERNELS["flash_attention"],
-            "flash_attention_bidir_d80": KERNELS["flash_attention"]}
+            "flash_attention_bidir_d80": KERNELS["flash_attention"],
+            "flash_attention_f32": KERNELS["flash_attention"]}
     out = []
     for name, (replaces, source) in rows.items():
         a = agg[name]

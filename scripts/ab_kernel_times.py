@@ -2,7 +2,7 @@
 """Kernel times of two checkouts of the PyTorch/CUDA port on one card, in turns.
 
     python3 scripts/ab_kernel_times.py --parent DIR [--child DIR] \
-        [--out PATH]
+        [--phases kernels,matmul,flash] [--out PATH]
 
 Runs, in the order parent, child, child, parent, each checkout's own
 ``chip_smoke.py`` phases ``kernels`` (the three tap-GEMM kernels at the
@@ -11,12 +11,13 @@ shapes, ``cnn_shapes`` and ``ae_shapes``), ``kernels_bf16`` where the
 checkout has it (their bf16 instances at Mamba2-370M's depthwise conv and
 a Table II layer, ``kernel_bf16_shapes``), ``matmul`` (every lowered GEMM
 of those layers and shapes, and the bf16 case) and ``flash``
-(``FLASH_CASES``), one process per turn, so
-both sides build their own kernels from their own sources and run on the
-same card.  Last in each turn, after every timing (a process that has
-run ``torch.profiler`` pays a per-kernel cost from then on), it times its
-checkout's ``input_grad_operands`` (the input grad's operands: padded dY
-and the weight stacks) at the same conv shapes and inputs, as the kernel
+(``FLASH_CASES``), or only the ``--phases`` named, one process per turn,
+so both sides build their own kernels from their own sources and run on
+the same card.  Last in each turn, after every timing (a process that
+has run ``torch.profiler`` pays a per-kernel cost from then on), it
+times, with the ``kernels`` phase, its checkout's
+``input_grad_operands`` (the input grad's operands: padded dY and the
+weight stacks) at the same conv shapes and inputs, as the kernel
 ``input_grad_operands``: the device time of 10 calls under
 ``torch.profiler`` (the parent's operands copy index lists to the card,
 which a CUDA graph does not capture), the median of 3 such windows.
@@ -42,6 +43,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 TURN = r"""
 import json, pathlib, statistics, sys
 root = pathlib.Path(sys.argv[1])
+phases = sys.argv[2].split(",")
 sys.path[:0] = [str(root), str(root / "src")]
 import torch
 import torch.nn.functional as F
@@ -62,15 +64,18 @@ smoke = cs.Smoke(None)
 shapes = ([("/".join(map(str, layer)), paper_cnn.dims(layer), 1, True)
            for layer in paper_cnn.TABLE2_LAYERS] + cs.cnn_shapes(ConvDims))
 ae = cs.ae_shapes(ConvDims, conv, ConvTransposeSpec)
-cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
-                 shapes + [row[:4] for row in ae], dev)
-if hasattr(cs, "kernel_bf16_shapes"):
+if "kernels" in phases:
+    cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
+                     shapes + [row[:4] for row in ae], dev)
+if "kernels" in phases and hasattr(cs, "kernel_bf16_shapes"):
     cs.phase_kernels(smoke, torch, F, nn_grad, ops, tg, ref,
                      cs.kernel_bf16_shapes(ConvDims, paper_cnn), dev,
                      torch.bfloat16, "kernels_bf16")
-cs.phase_matmul(smoke, torch, mm, ref, tg,
-                cs.matmul_cases(torch, conv, shapes, ae), dev)
-cs.phase_flash(smoke, torch, F, fa, ref, dev)
+if "matmul" in phases:
+    cs.phase_matmul(smoke, torch, mm, ref, tg,
+                    cs.matmul_cases(torch, conv, shapes, ae), dev)
+if "flash" in phases:
+    cs.phase_flash(smoke, torch, F, fa, ref, dev)
 
 
 def profiled_ms(fn, calls=10):
@@ -87,7 +92,8 @@ def profiled_ms(fn, calls=10):
                if e.device_type == DeviceType.CUDA) / 1e3 / calls
 
 
-for i, (layer, d, g, _) in enumerate(shapes + [row[:4] for row in ae]):
+for i, (layer, d, g, _) in enumerate(
+        shapes + [row[:4] for row in ae] if "kernels" in phases else []):
     gen = torch.Generator().manual_seed(i)     # phase_kernels' inputs
     torch.randn(d.B, d.C * g, d.H_i, d.W_i, generator=gen)
     w = torch.randn(d.N * g, d.C, d.K_h, d.K_w, generator=gen).to(dev)
@@ -108,6 +114,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=pathlib.Path, required=True)
     ap.add_argument("--child", type=pathlib.Path, default=ROOT)
+    ap.add_argument("--phases", default="kernels,matmul,flash",
+                    help="comma-separated chip_smoke phases to run")
     ap.add_argument("--out", type=pathlib.Path, default=None)
     args = ap.parse_args(argv)
 
@@ -124,7 +132,8 @@ def main(argv=None) -> int:
     times: dict[tuple[str, str], dict[str, list[float]]] = {}
     for turn, side in enumerate(("parent", "child", "child", "parent")):
         root = (args.parent if side == "parent" else args.child).resolve()
-        proc = subprocess.run([sys.executable, "-c", TURN, str(root)],
+        proc = subprocess.run([sys.executable, "-c", TURN, str(root),
+                               args.phases],
                               capture_output=True, text=True, cwd=root)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)

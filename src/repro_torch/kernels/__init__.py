@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (``tap_gemm``, ``matmul``,
 ``flash_attention``), their plain versions (``ref``), the build
 (``build``) and the kernel engine's conv passes (``ops``).
-:func:`launch_counts` gathers every wrapper's count."""
+:func:`launch_counts` gathers every wrapper's count (``flash_attention``
+of both types, and ``flash_attention_f32`` of the float32 instance alone)."""
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
@@ -16,7 +17,8 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     _tg.reset_launch_counts()
     _mm.LAUNCHES["matmul"] = 0
-    _fa.LAUNCHES["flash_attention"] = 0
+    for key in _fa.LAUNCHES:
+        _fa.LAUNCHES[key] = 0
 
 
 __all__ = ["launch_counts", "reset_launch_counts"]

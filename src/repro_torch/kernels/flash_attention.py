@@ -9,9 +9,14 @@ attention of every prefill of the LM server
 (``repro_torch.models.attention._sdpa``), MLA's at head dim 192 and
 recurrentgemma-9b's at 256 (its prompts that fit the local window).
 
-bfloat16 inputs run on the tensor cores (``mma.sync``) and round each
-probability to bf16 before the P V product, where the TPU kernel keeps
-float32 P; float32 inputs run full float32 FMA.
+Both types run on the tensor cores (``mma.sync``).  bfloat16 inputs
+round each probability to bf16 before the P V product, where the TPU
+kernel keeps float32 P.  float32 inputs take TF32 products three to a
+pair: each operand x splits into hi = tf32(x) and lo = tf32(x - hi), and
+a b sums a_hi b_lo + a_lo b_hi + a_hi b_hi in float32, about 2^-21 of
+|a b| from the exact product, float32's own scale, where one TF32 product
+(2^-11) would miss the float32 path's 1e-5; P stays float32 as in the
+TPU kernel.
 
 The TPU kernel's ``block_q``/``block_k`` tile arguments and its
 ``interpret`` flag are dropped: the CUDA kernel's tiles are fixed and
@@ -25,7 +30,9 @@ operands and launches the kernel (built at first use by
 ``repro_torch.kernels.build``) or raises; it never falls back.  On a CPU
 tensor it returns the plain version
 ``repro_torch.kernels.ref.flash_attention_ref``.
-``LAUNCHES["flash_attention"]`` counts kernel launches (CUDA only).
+``LAUNCHES["flash_attention"]`` counts kernel launches of both types,
+``LAUNCHES["flash_attention_f32"]`` those of the float32 instance alone
+(CUDA only).
 """
 
 from __future__ import annotations
@@ -39,10 +46,11 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.tap_gemm import GRID_YZ_MAX, _on_cuda, _stream
 
 #: kernel launches, counted only where the CUDA kernel launches.
-LAUNCHES: dict[str, int] = {"flash_attention": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "flash_attention_f32": 0}
 
 #: the largest head dim the kernel's shared-memory tiles hold (instances
-#: for D <= 64, 128, 192 and 256; the TPU kernel takes any D, ROADMAP B4).
+#: for D <= 64, 128, 192 and 256, and 80 in float32; the TPU kernel takes
+#: any D, ROADMAP B4).
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -113,4 +121,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention: CUDA launch failed with error "
                            f"{err}")
     LAUNCHES["flash_attention"] += 1
+    if q.dtype == torch.float32:
+        LAUNCHES["flash_attention_f32"] += 1
     return out

@@ -456,10 +456,28 @@ FLASH_CASES = [
     (1, 4, 1, 64, 300, 256, True, torch.float32),
     (2, 4, 2, 77, 130, 250, True, torch.bfloat16),
     (1, 4, 2, 1, 130, 256, True, torch.bfloat16),
-    # hubert-xlarge's encoder: 16 heads of 80 (the D-128 instance, zero
-    # past D), full attention over 1,000 frames (20 s at 50 frames/s).
+    # hubert-xlarge's encoder: 16 heads of 80 (bf16: the D-128 instance,
+    # zero past D; float32: the D-80 one), full attention over 1,000 frames
+    # (20 s at 50 frames/s).
     (4, 16, 16, 1000, 1000, 80, False, torch.bfloat16),
     (4, 16, 16, 1000, 1000, 80, False, torch.float32),
+    # The float32 instances' edges (three TF32 products a pair): D 80
+    # causal and full with GQA and D 72 (rows not 16-byte aligned: D 72 is,
+    # D 70 is not) on the D-80 instance; D 96 and D 90 (not aligned), D 100
+    # (rows of 400 bytes: aligned) on the D-128 one; D 250 (not aligned),
+    # one query row, Lq < Lk at D 192 and 256.
+    (2, 4, 2, 200, 200, 80, True, torch.float32),
+    (1, 4, 2, 77, 130, 80, False, torch.float32),
+    (1, 4, 2, 100, 200, 72, True, torch.float32),
+    (1, 4, 2, 100, 200, 70, False, torch.float32),
+    (1, 4, 2, 200, 200, 96, True, torch.float32),
+    (1, 4, 2, 77, 130, 90, True, torch.float32),
+    (1, 4, 2, 77, 130, 100, True, torch.float32),
+    (2, 4, 2, 77, 130, 250, True, torch.float32),
+    (1, 15, 5, 1, 1024, 64, True, torch.float32),
+    (1, 4, 2, 1, 130, 256, True, torch.float32),
+    (1, 4, 2, 48, 160, 192, True, torch.float32),
+    (1, 4, 1, 100, 300, 256, False, torch.float32),
 ]
 
 
@@ -476,6 +494,7 @@ def test_flash_attention_matches_plain_version(cuda, case):
     reset_launch_counts()
     got = flash_attention(q, k, v, causal=causal)
     assert launch_counts()["flash_attention"] == 1
+    assert launch_counts()["flash_attention_f32"] == (dtype == torch.float32)
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == want.shape
     assert bool(torch.isfinite(got.float()).all())
