@@ -347,7 +347,10 @@ PATH):
                    bytes ``launch.dryrun.bytes_per_device`` counts a
                    device of an abstract (2, 2) mesh, launches the ``dw``
                    kernels at batch 4, and the ranks' gathered parameters
-                   are bit-identical.  (c)'s and (d)'s losses and
+                   are bit-identical; its plan (``dist.tensor_parallel``:
+                   Mamba2's leaves gathered whole, not ported; the
+                   vocabulary on its rows) on a line.  (c)'s and (d)'s
+                   losses and
                    gradient norms at every step within
                    ``MESH_LM_LOSS_TOL`` / ``MESH_LM_GNORM_TOL`` of the
                    launcher's unsharded run, the ranks' losses equal.
@@ -361,7 +364,14 @@ PATH):
                    spawn: bytes a rank against the dry run, losses and
                    norms (``MESH_MOE_LOSS_TOL`` / ``MESH_MOE_GNORM_TOL``),
                    the tokens whose expert set or kept set differs at step
-                   0 (``MESH_MOE_ROUTE_TOL``), no launch.  Each rank's
+                   0 (``MESH_MOE_ROUTE_TOL``), no launch.  ``tp`` computes
+                   on the ``model`` blocks (``dist.tensor_parallel``):
+                   each rank's plan, the bytes it computes with in a step
+                   (the plan's count), its expert einsums' experts (32 of
+                   64; 64 under ``dp_only``), its peak memory over each
+                   step and its seconds a step beside those of the step
+                   that gathered every parameter whole, on the
+                   (e) lines.  Each rank's
                    launches, ``mesh:*`` events and halo bytes on lines of
                    their own; the ranks' seconds are those of processes
                    sharing one card, not speeds.  NCCL across cards is not
@@ -3343,6 +3353,9 @@ MESH_MOE_GNORM_TOL = 5e-3
 #: bf16 roundings only; a queue that read another rank's choices at the
 #: wrong offsets would differ on most tokens of its groups).
 MESH_MOE_ROUTE_TOL = 0.05
+#: (e)'s seconds a step on the H100 when every rank computed with every
+#: parameter gathered whole (PERF.md, section 6), beside this run's.
+MESH_MOE_WHOLE_STEP_S = "19-35 s a step, both policies, every leaf whole"
 #: the conv passes whose batch each rank's dispatch records.
 CONV_PASSES = ("forward", "input_grad", "weight_grad")
 #: each Table II layer's plan on (data=2, model=2) at batch 2: policy ->
@@ -3506,6 +3519,7 @@ def mesh_lm_blocks(torch, kernels, conv, mesh, dev) -> dict:
         cfg, adamw.AdamWConfig(peak_lr=3e-4), total_steps=MESH_LM_STEPS,
         warmup=1, conv_policy="pallas", conv_mesh="tp",
         guard=TS.GuardConfig()), mesh, p_spec, o_spec, b_spec)
+    plan = step_fn.layout.plan.table()
     kernels.reset_launch_counts()
     conv.reset_dispatch_events()
     losses, norms, secs = [], [], []
@@ -3534,7 +3548,8 @@ def mesh_lm_blocks(torch, kernels, conv, mesh, dev) -> dict:
     return {"losses": losses, "grad_norms": norms, "step_seconds": secs,
             "bytes_held": held, "bytes_dryrun": want_bytes,
             "launches": launches, "variants": variants, "events": events,
-            "conv_rows": rows, "params_sha256": digest.hexdigest()}
+            "conv_rows": rows, "params_sha256": digest.hexdigest(),
+            "plan": plan}
 
 
 def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
@@ -3546,9 +3561,12 @@ def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
     without ``mesh``; else its parameters, AdamW moments and batch in
     their ``policy`` blocks through ``dist.spmd.sharded_step``, with the
     bytes a rank holds against the dry run's and the gathered parameters'
-    digest.  Step 0's routing (the MoE layer's forward call: this rank's
-    first token, its tokens' experts and kept choices) is returned, or
-    saved to ``out`` with its path returned."""
+    digest, the plan of its compute (``dist.tensor_parallel``), the bytes
+    it computes with in each step against the plan's count, and its peak
+    memory over each step.  Step 0's routing (the MoE layer's forward
+    call: this rank's first token, its tokens' experts and kept choices,
+    the experts its einsums ran) is returned, or saved to ``out`` with its
+    path returned."""
     import contextlib
     import dataclasses
     import hashlib
@@ -3595,6 +3613,9 @@ def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
                                 mesh, policy)
         step_fn = sharded_step(step_fn, mesh, p_spec, o_spec, b_spec)
         cut = lambda b: SH.to_local(b, b_spec, mesh)      # noqa: E731
+        plan = step_fn.layout.plan
+        res["plan"] = plan.table()
+        res["plan_bytes"] = plan.held_bytes(meta)
     opt = adamw.init_state(params)
     if mesh is not None:
         res["bytes_held"] = {
@@ -3603,8 +3624,13 @@ def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
             "moments": sum(t.numel() * t.element_size()
                            for k in ("m", "v") for t in tree_leaves(opt[k]))}
     kernels.reset_launch_counts()
-    losses, norms, secs = [], [], []
+    losses, norms, secs, peaks, gathered = [], [], [], [], []
+    # The peak of the init and cut; then each step's own.
+    init_peak = torch.cuda.max_memory_allocated(dev) \
+        if dev.type == "cuda" else 0
     for step in range(MESH_MOE_STEPS):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         batch = {k: v.to(dev) for k, v in cut(
             {k: torch.from_numpy(v)
@@ -3616,14 +3642,21 @@ def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
             route = {k: v.cpu() if torch.is_tensor(v) else v
                      for k, v in log[0].items()}
             res["rows"] = batch["tokens"].shape[0]
+            res["experts_computed"] = sorted({r["experts_computed"]
+                                              for r in log})
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         secs.append(time.perf_counter() - t0)
+        if dev.type == "cuda":
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+        if mesh is not None:
+            gathered.append(step_fn.layout.stats["gathered_bytes"])
     res.update(losses=losses, grad_norms=norms, step_seconds=secs,
-               launches=kernels.launch_counts())
+               step_peak_bytes=peaks, launches=kernels.launch_counts())
+    if mesh is not None:
+        res["gathered_bytes"] = gathered
     if dev.type == "cuda":
-        res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
-            dev)
+        res["max_memory_allocated_bytes"] = max(init_peak, *peaks)
     if mesh is not None:
         whole = SH.gather_tree(params, p_spec, mesh)
         digest = hashlib.sha256()
@@ -3904,6 +3937,9 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
         check(b["events"].get("mesh:conv2d:data")
               and "mesh:fallback" not in b["events"],
               f"blocks rank {r['rank']}: events {b['events']}")
+        check(not any(keep for k, (keep, _) in b["plan"].items()
+                      if ".ssm." in k),
+              f"blocks rank {r['rank']}: a Mamba2 leaf on its model block")
     check(lm[0]["losses"] == lm[1]["losses"],
           f"the ranks' losses differ: {lm[0]['losses']} {lm[1]['losses']}")
     phase_mesh_moe(smoke, torch, smi, ranks, moe_ref, moe_ref_s)
@@ -3931,6 +3967,18 @@ def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
                                 for m in runs)}
         routes = [route_diffs(torch, want["route"],
                               torch.load(m["route"])) for m in runs]
+        for r, m in zip(ranks, runs):
+            smoke.emit("mesh_moe_rank", nvidia_smi=smi, policy=policy,
+                       rank=r["rank"], coordinate=r["coordinate"],
+                       plan=m["plan"], gathered_bytes=m["gathered_bytes"],
+                       plan_bytes=m["plan_bytes"],
+                       whole_param_bytes=2 * want["n_params"],
+                       experts_computed=m["experts_computed"],
+                       step_peak_bytes=m["step_peak_bytes"],
+                       step_seconds=m["step_seconds"],
+                       step_seconds_whole=MESH_MOE_WHOLE_STEP_S,
+                       seconds_note="4 processes sharing one card: not a "
+                                    "speed")
         smoke.emit("mesh_moe", nvidia_smi=smi, policy=policy,
                    config="moonshot-v1-16b-a3b", layers=MESH_MOE_LAYERS,
                    n_params=want["n_params"], batch=8, seq=seq,
@@ -3964,6 +4012,15 @@ def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
                   f"{m['bytes_dryrun']}")
             check(not any(m["launches"].values()),
                   f"{who}: launched {m['launches']}")
+            check(m["gathered_bytes"] == [m["plan_bytes"]] * MESH_MOE_STEPS,
+                  f"{who}: computed with {m['gathered_bytes']} bytes a "
+                  f"step, the plan counts {m['plan_bytes']}")
+            kept = sorted(k for k, (keep, _) in m["plan"].items() if keep)
+            e = 64 // MESH_SHAPE[1] if policy == "tp" else 64
+            check(m["experts_computed"] == [e]
+                  and bool(kept) == (policy == "tp"),
+                  f"{who}: experts {m['experts_computed']}, want [{e}]; "
+                  f"kept {kept}")
             worst = max(route["experts_differ"], route["kept_differ"])
             check(worst <= MESH_MOE_ROUTE_TOL * route["tokens"],
                   f"{who}: routing differs from unsharded at step 0: "

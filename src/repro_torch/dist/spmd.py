@@ -12,27 +12,40 @@ o_sh, None))`` (``tests/test_distributed.py``).
     p, o = to_local(params, p_spec, mesh), to_local(opt, o_spec, mesh)
     p, o, metrics = step(p, o, to_local(batch, b_spec, mesh), 0)
 
-Each rank holds only its blocks between steps.  A step gathers the
-parameters (``sharding.gather_tree``), runs the batch-sharded forward and
-backward of ``repro_torch.train.train_step`` on this rank's batch block
-(under the ambient ``with mesh:`` the wrapper enters), sums the grads
-over the batch axes, takes coordinate 0's grads along every other axis,
-takes the global norm and the guard's norm of the whole grads, cuts each
-grad to its parameter's block and runs AdamW on the parameter and moment
-blocks: element-wise, so the global update cut into blocks.  A key of the
-state without a spec (the guard's streak, the compression residual)
-stays whole on every rank.  ``ckpt.checkpoint.save(..., specs=, mesh=)``
-writes the blocks as global arrays.
+Each rank holds only its blocks between steps.  Under a policy whose
+specs cut parameters over ``model`` (``tp``), the step computes on the
+``model`` blocks wherever a layer has a rule for them
+(``repro_torch.dist.tensor_parallel.plan``, worked out once here from the
+specs and the step's config): each rank runs its own query heads and
+their KV groups, MLP columns, experts and vocabulary rows, summing partial
+outputs over ``model``; those leaves are gathered over ``data`` only.
+Every other leaf is gathered whole (``sharding.gather_tree``), with the
+plan's reason: MLA attention, Mamba2, the RG-LRU, the frontends and the
+MTP head (not ported), the router, conv kernels (``dist.conv_parallel``
+cuts them), heads that do not divide.  ``dp_only`` and ``tp_rep`` specs
+name no ``model`` axis, so there every leaf is gathered whole, as is
+every leaf of a model with no rule here (the autoencoder).
 
-Not in scope: tensor-parallel matmuls on the parameter blocks, which
-JAX's partitioner derives from the same specs.  Here every rank computes
-with the whole gathered parameters, so ``tp`` cuts the bytes a rank holds
-between steps (the dry run's ``bytes_per_device``), not its compute
-during one.  The MoE family trains so too: its expert tensors are held in
-their ``tp`` blocks (E over ``model``, d_in over ``data``) and gathered
-for the step like every other parameter, so each rank computes every
-expert; its groups, capacity queues and load-balance terms are the
-global batch's (``repro_torch.models.moe``).
+A step then runs the batch-sharded forward and backward of
+``repro_torch.train.train_step`` on this rank's batch block (under the
+ambient ``with mesh:`` the wrapper enters, and the plan's
+``model_axis``), sums the grads over the batch axes, takes coordinate 0's
+grads of every replicated leaf along every other axis (a kept leaf's is
+its own block), takes the global norm and the guard's norm (each kept
+leaf's blocks once, their squares summed over ``model``; each replicated
+leaf once), cuts each grad to its parameter's block (a kept leaf's over
+``data`` only) and runs AdamW on the parameter and moment blocks:
+element-wise, so the global update cut into blocks.  A key of the state
+without a spec (the guard's streak, the compression residual) stays whole
+on every rank.  ``ckpt.checkpoint.save(..., specs=, mesh=)`` writes the
+blocks as global arrays.
+
+Still gathered whole under ``tp``, in the order the roadmap takes them:
+MLA, Mamba2, the RG-LRU, the frontends and the MTP head.  The grads are
+summed over the batch axes by gathering every rank's buffer
+(``Mesh.psum_flat``), not by a reduce-scatter.  ``run.layout`` (the
+:class:`Blocks` of a step from :func:`sharded_step`) holds the plan and
+the bytes the last step gathered.
 """
 
 from __future__ import annotations
@@ -40,36 +53,52 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.dist import constraints
+from repro_torch.dist import constraints, tensor_parallel
 from repro_torch.dist.sharding import P, gather_tree, shard_count, to_local
+from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
 class Blocks:
-    """The parameters' blocks under ``specs`` on ``mesh``: what the train
-    step's ``layout=`` reads."""
+    """The parameters' blocks under ``specs`` on ``mesh`` and the plan of
+    their compute: what the train step's ``layout=`` reads.  ``stats``
+    holds ``gathered_bytes``, the bytes of the parameters the last
+    step computed with."""
 
     mesh: object
     specs: object
+    plan: tensor_parallel.Plan
+    stats: dict = dataclasses.field(default_factory=dict, compare=False)
 
     def gather(self, params):
-        """The whole parameters from every rank's blocks."""
-        return gather_tree(params, self.specs, self.mesh)
+        """Each parameter as the step computes with it: a kept leaf's
+        ``model`` block, every other leaf whole."""
+        full = gather_tree(params, self.plan.compute_specs, self.mesh)
+        self.stats["gathered_bytes"] = sum(
+            t.numel() * t.element_size() for t in tree_leaves(full))
+        return full
 
     def cut(self, grads):
-        """Each whole grad's block, contiguous."""
+        """Each grad's block, contiguous."""
         return tree_map(lambda g: g.contiguous(),
-                        to_local(grads, self.specs, self.mesh))
+                        to_local(grads, self.plan.compute_specs, self.mesh))
+
+    def global_norm(self, grads):
+        """The norm of the whole grads from this rank's."""
+        if not any(self.plan.kept):
+            return adamw.global_norm(grads)
+        return tensor_parallel.global_norm(grads, self.plan)
 
 
 def sharded_step(step_fn: Callable, mesh, param_specs, opt_specs,
                  batch_specs) -> Callable:
     """``step_fn`` (from ``make_train_step``) on this rank's blocks:
     ``(param blocks, opt blocks, batch block, step) -> (param blocks, opt
-    blocks, metrics)`` (module docstring).  The moments must be cut as
-    the parameters, and the batch as the activation policy cuts it on
-    ``mesh``; each raises otherwise."""
+    blocks, metrics)`` (module docstring), its compute planned from
+    ``step_fn.cfg``; ``run.layout`` is its :class:`Blocks`.  The moments
+    must be cut as the parameters, and the batch as the activation policy
+    cuts it on ``mesh``; each raises otherwise."""
     for key in ("m", "v"):
         if opt_specs[key] != param_specs:
             raise ValueError(f"AdamW's {key!r} is cut otherwise than the "
@@ -87,11 +116,13 @@ def sharded_step(step_fn: Callable, mesh, param_specs, opt_specs,
             f"activation policy into {want} on {mesh!r}: set the policy to "
             f"the batch specs' axes (sharding.batch_axes) and a batch that "
             f"divides")
-    layout = Blocks(mesh, param_specs)
+    layout = Blocks(mesh, param_specs, tensor_parallel.plan(
+        param_specs, step_fn.cfg, mesh))
 
     def run(params, opt_state, batch, step: int):
         with mesh:
             return step_fn(params, opt_state, batch, step, layout=layout)
 
+    run.layout = layout
     return run
 

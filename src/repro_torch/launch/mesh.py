@@ -27,7 +27,9 @@ transport is on the host.
 
 :meth:`Mesh.psum` sums in a fixed order (every member's block gathered,
 then added in the axis's coordinate order), so every rank of an axis holds
-the same bits, whatever the backend's own reduction order;
+the same bits, whatever the backend's own reduction order (the
+tensor-parallel layers' sums over ``model`` too,
+``repro_torch.dist.tensor_parallel``; :meth:`Mesh.pmax` their max);
 :meth:`Mesh.psum_flat` does so for a list of tensors through one buffer a
 dtype, a chunk at a time (the train step's grads), and
 :meth:`Mesh.broadcast` copies one rank's tensors along an axis.
@@ -136,6 +138,13 @@ class Mesh:
             t = parts[0].to(t.device)
             for p in parts[1:]:
                 t.add_(p.to(t.device))
+        return t
+
+    def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """The element-wise max of ``t`` over the ranks of ``axes``."""
+        for axis in axes:
+            t = torch.stack([p.to(t.device)
+                             for p in self._gather(t, axis)]).amax(0)
         return t
 
     def _gather(self, t: torch.Tensor, axis: str) -> list[torch.Tensor]:

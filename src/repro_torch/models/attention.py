@@ -32,6 +32,11 @@ the same route at head dim ``qk_nope + qk_rope`` (192 at DeepSeek-V3's
 widths), its ``v`` zero-padded to that dim and the output cropped, as in
 the JAX package.
 
+In the train step on ``tp`` blocks (``repro_torch.dist.tensor_parallel``)
+``gqa_prefill`` attends over the query heads and KV groups whose columns
+the rank holds and sums ``wo``'s partial outputs over ``model``; MLA is
+not computed on blocks (its leaves are gathered whole).
+
 A local ``window`` (RecurrentGemma's attention layers) masks keys at or
 more than ``window`` positions behind the query (``q_pos - k_pos <
 window``), in the dense and the blockwise path, with scalar or per-lane
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.config import config
 from repro_torch.device import resolve_device
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
@@ -176,11 +182,32 @@ def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
                        kv_len=kv_len, scale=scale, window=window)
 
 
+def _out_proj(p, o, cut: bool):
+    """``wo`` on the heads' outputs; on a block of the heads, the partial
+    outputs summed over ``model`` in float32 and rounded once, as the
+    whole contraction is."""
+    if not cut:
+        return L.linear(p, o)
+    return TP.leave(L.linear(p, o.float())).to(o.dtype)
+
+
 def gqa_prefill(p, x, cfg: ArchConfig, *, window=None, positions=None):
     """x (B, L, D) -> (out (B, L, D), k, v (B, L, Hk, Dh)): full-sequence
-    attention, and the rope'd keys and values of every position."""
+    attention, and the rope'd keys and values of every position.  Where
+    ``p`` holds this rank's block of the heads (the train step under
+    ``tp``: ``wq``/``wk``/``wv`` column blocks of whole query heads and
+    their KV groups, ``wo`` the row block), it attends over its own heads
+    and ``wo``'s partial outputs are summed over ``model``; ``k``/``v``
+    are its heads'."""
     b, l, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    h, hk = p["wq"]["w"].shape[-1] // dh, p["wk"]["w"].shape[-1] // dh
+    cut = TP.is_block(cfg.n_heads, h)
+    if cut != TP.is_block(cfg.n_kv_heads, hk):
+        raise RuntimeError(f"{h} of {cfg.n_heads} query heads with {hk} of "
+                           f"{cfg.n_kv_heads} KV heads")
+    if cut:
+        x = TP.enter(x)
     if positions is None:
         positions = torch.arange(l, device=x.device)
     ang = L.rope_freqs(dh, cfg.rope_theta, positions)
@@ -188,7 +215,7 @@ def gqa_prefill(p, x, cfg: ArchConfig, *, window=None, positions=None):
     k = L.apply_rope(_split_heads(L.linear(p["wk"], x), hk, dh), ang)
     v = _split_heads(L.linear(p["wv"], x), hk, dh)
     o = _sdpa(q, k, v, causal=not cfg.is_encoder_only, window=window)
-    return L.linear(p["wo"], o.reshape(b, l, h * dh)), k, v
+    return _out_proj(p["wo"], o.reshape(b, l, h * dh), cut), k, v
 
 
 def gqa_train(p, x, cfg: ArchConfig, *, window=None, positions=None):

@@ -1,6 +1,10 @@
 """Primitive layers: linear / norm / embedding / RoPE / SwiGLU / conv2d
 (counterpart of ``repro.models.layers``).
 
+Inside the train step on ``tp`` blocks, ``embed`` and ``mlp`` compute on
+the vocabulary rows and ``d_ff`` columns the rank holds
+(``repro_torch.dist.tensor_parallel``).
+
 ``init_*`` builds a parameter dict (optionally with a stacked leading
 layer dim ``L``, the layout the JAX package scans over), ``*_apply`` and
 the plain names consume it.  Init draws from an explicit
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.core import conv as C
 from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec
 from repro_torch.device import resolve_device
+from repro_torch.dist import tensor_parallel as TP
 
 
 def init_conv2d(generator: torch.Generator, c_in: int, c_out: int, k,
@@ -158,8 +163,19 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int, dtype,
     return {"w": _draw(generator, (vocab, d), 0.02, dtype, device)}
 
 
-def embed(p, ids):
-    return p["w"][ids]
+def embed(p, ids, vocab: int | None = None):
+    """The rows of ``ids``.  Where ``p`` holds this rank's block of the
+    ``vocab`` rows (the train step under ``tp``,
+    ``repro_torch.dist.tensor_parallel``), the ids in its range look up
+    their rows, the rest zeros, summed over ``model``."""
+    w = p["w"]
+    lo = None if vocab is None else TP.vocab_first(w.shape[0])
+    if lo is None:
+        return w[ids]
+    local = ids - lo
+    inside = (local >= 0) & (local < w.shape[0])
+    rows = w[torch.where(inside, local, 0)]
+    return TP.leave(torch.where(inside[..., None], rows, 0))
 
 
 def unembed(p, x):
@@ -204,5 +220,19 @@ def init_mlp(generator: torch.Generator, d: int, f: int, dtype, L=None,
     }
 
 
-def mlp(p, x):
-    return linear(p["wo"], F.silu(linear(p["wg"], x)) * linear(p["wi"], x))
+def swiglu(p, x, partial: bool = False):
+    """The SwiGLU MLP on the columns ``p`` holds; ``partial``: they are a
+    block of them, and the output is this rank's partial sum, in float32
+    (the partial sums are added in float32 and rounded once, as the whole
+    contraction is)."""
+    h = F.silu(linear(p["wg"], x)) * linear(p["wi"], x)
+    return linear(p["wo"], h.float() if partial else h)
+
+
+def mlp(p, x, d_ff: int | None = None):
+    """The SwiGLU MLP.  Where ``p`` holds this rank's block of the
+    ``d_ff`` columns (the train step under ``tp``), ``x`` enters the
+    block and the partial outputs are summed over ``model``."""
+    if d_ff is None or not TP.is_block(d_ff, p["wi"]["w"].shape[-1]):
+        return swiglu(p, x)
+    return TP.leave(swiglu(p, TP.enter(x), partial=True)).to(x.dtype)

@@ -45,6 +45,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.dist.constraints import constrain_batch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -93,9 +94,16 @@ def _device(params) -> torch.device:
 
 
 def _lm_head(params, cfg: ArchConfig, x):
+    """The logits; where the head (``lm_head``, or the tied ``embed``)
+    holds this rank's block of the vocabulary (the train step under
+    ``tp``), this rank's logit columns, ``x`` entering the block."""
+    w = params["embed" if cfg.tie_embeddings else "lm_head"]
+    if TP.is_block(cfg.vocab, w["w"].shape[0 if cfg.tie_embeddings
+                                           else -1]):
+        x = TP.enter(x)
     if cfg.tie_embeddings:
-        return L.unembed(params["embed"], x)
-    return L.linear(params["lm_head"], x)
+        return L.unembed(w, x)
+    return L.linear(w, x)
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig):
@@ -105,7 +113,7 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     if cfg.family == "audio":
         return L.linear(params["frontend_proj"],
                         batch["frontend"].to(cfg.adtype))
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.adtype)
+    x = L.embed(params["embed"], batch["tokens"], cfg.vocab).to(cfg.adtype)
     if cfg.family == "vlm" and "frontend" in batch:
         img = L.linear(params["frontend_proj"],
                        batch["frontend"].to(cfg.adtype))
@@ -118,7 +126,10 @@ def forward(params, batch, cfg: ArchConfig):
     ``moe_z`` summed over the MoE layers, and ``mtp_logits`` (B, L, V) for
     a config with ``mtp_depth``; ``{}`` for the other families.  The VLM's
     logits cover the text positions only: the image positions are dropped
-    before the head."""
+    before the head.  In the train step on ``tp`` blocks whose plan keeps
+    the vocabulary, the logits (and ``mtp_logits``) are this rank's
+    columns (B, L, V / model), which ``losses.softmax_xent`` reads as
+    such."""
     x = constrain_batch(_embed_inputs(params, batch, cfg))
     x, aux = T.forward_stacks(params, x, cfg)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -136,7 +147,7 @@ def _mtp_forward(params, batch, h, cfg: ArchConfig):
     block without MoE -> the shared head, predicting token t+2."""
     p = params["mtp"]
     nxt = torch.roll(batch["tokens"], -1, dims=1)
-    e = L.embed(params["embed"], nxt).to(h.dtype)
+    e = L.embed(params["embed"], nxt, cfg.vocab).to(h.dtype)
     hcat = torch.cat([L.rmsnorm(p["norm_h"], h, cfg.norm_eps),
                       L.rmsnorm(p["norm_e"], e, cfg.norm_eps)], dim=-1)
     hm = L.linear(p["proj"], hcat)

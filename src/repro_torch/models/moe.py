@@ -38,12 +38,22 @@ JAX's single-device step computes on the global batch:
     the loss, its metrics and the grads over the batch axes, so the shares
     add up to JAX's terms and their grads.
 
+Inside the train step on ``tp`` blocks whose plan keeps the experts
+(expert parallelism: E over ``model``), the router is whole and the
+routing, capacity and queues are computed on every ``model`` rank as
+above (the same inputs, so the same bits); each rank slices ``dispatch``
+and ``combine`` to its E / model experts and runs the three expert
+einsums on them only (the gates and tokens entering the block,
+``repro_torch.dist.tensor_parallel.enter``), adds the shared experts'
+partial output of its ``d_ff`` columns, and sums the output over
+``model``.
+
 Under remat the block runs again in the backward, and so does the gather:
 every rank recomputes its blocks in the same order, and the recomputed
 choices are the forward's (the same inputs through the same ops).
 Outside a block ``n = 1`` and nothing is gathered.  :func:`recording`
 lets a caller read each call's routing (the experts and the kept choices
-of this rank's tokens).
+of this rank's tokens, and the count of experts its einsums ran).
 
 Aux terms: the Switch-style load balance ``moe_lb`` and the router z-loss
 ``moe_z``.
@@ -58,6 +68,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import constraints
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.dist.sharding import P, from_local
 from repro_torch.models import layers as L
 
@@ -132,9 +143,10 @@ def _aux_shares(logits, probs, top1, t: int) -> dict:
 @contextlib.contextmanager
 def recording():
     """Each :func:`moe_apply` inside appends ``{"first", "experts",
-    "kept"}`` to the yielded list: the index of this rank's first token in
-    the batch, its tokens' experts ``(t_loc, k)`` and which of those
-    choices found a slot (bool), both detached.  Under remat a block's
+    "kept", "experts_computed"}`` to the yielded list: the index of this
+    rank's first token in the batch, its tokens' experts ``(t_loc, k)``
+    and which of those choices found a slot (bool), both detached, and
+    how many experts the einsums ran (E, or E / model on a block).  Under remat a block's
     layers log again in the backward, after every forward call."""
     log: list = []
     _LOGS.append(log)
@@ -156,12 +168,21 @@ def moe_apply(p, x, cfg: ArchConfig, capacity: int | None = None):
     cap = capacity or max(1, int(s * k * cfg.capacity_factor / e))
     cap = min(cap, s)
     xf = x.reshape(t_loc, d)
+    e_have = p["wi"]["w"].shape[-3]
+    cut = TP.is_block(e, e_have)
 
     logits = L.linear(p["router"], xf.float())                    # (T,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)            # (T,k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
+    if cut:
+        # The experts' compute starts here: the gates and the tokens
+        # enter the block, so their grads (each rank's experts' share)
+        # are summed over model before they reach the router.
+        gate_vals, xe_in = TP.enter(gate_vals), TP.enter(xf)
+    else:
+        xe_in = xf
     # Every token's choices when the batch is cut, in the batch's order.
     blk = constraints.current_block()
     every = gate_idx if t == t_loc else from_local(
@@ -173,7 +194,7 @@ def moe_apply(p, x, cfg: ArchConfig, capacity: int | None = None):
     def place(y):
         return F.pad(y, (0, 0, lo, g * s - lo - t_loc)).reshape(
             g, s, *y.shape[1:])
-    xg = place(xf)                                                # (G,S,D)
+    xg = place(xe_in)                                             # (G,S,D)
     gates = place(gate_vals)                                      # (G,S,k)
     own = place(torch.ones((t_loc, 1), dtype=torch.bool, device=x.device))
     idx = every[base:base + g * s].reshape(g, s, k)
@@ -198,6 +219,9 @@ def moe_apply(p, x, cfg: ArchConfig, capacity: int | None = None):
         if _LOGS:
             kept.append(keep.any(-1).reshape(g * s)[lo:lo + t_loc])
         del oh, pos, keep, gate
+    if cut:
+        e0 = TP.first(e_have)                    # this rank's experts
+        combine = combine[:, :, e0:e0 + e_have]
     dispatch = (combine > 0).to(x.dtype)                          # (G,S,E,C)
     combine = combine.to(x.dtype)
 
@@ -209,13 +233,28 @@ def moe_apply(p, x, cfg: ArchConfig, capacity: int | None = None):
     ye = torch.einsum("gecf,efd->gecd", F.silu(hg) * hi,
                       p["wo"]["w"].to(x.dtype))
     del hi, hg
+    if cut:
+        # This rank's experts' partial sums, in float32 (rounded once,
+        # after the sum over model, as the whole contraction is).
+        combine, ye = combine.float(), ye.float()
     out = torch.einsum("gsec,gecd->gsd", combine, ye)
     out = out.reshape(g * s, d)[lo:lo + t_loc]
 
     if "shared" in p:
-        out = out + L.mlp(p["shared"], xf)
+        f = cfg.moe_d_ff * cfg.n_shared_experts
+        if cut and TP.is_block(f, p["shared"]["wi"]["w"].shape[-1]):
+            # Its columns' partial output joins the experts' sum.
+            out = out + L.swiglu(p["shared"], xe_in, partial=True)
+        else:
+            shared = L.mlp(p["shared"], xf, f)
+            out = TP.leave(out).to(x.dtype) + shared if cut \
+                else out + shared
+            cut = False
+    if cut:
+        out = TP.leave(out).to(x.dtype)
 
     for log in _LOGS:
         log.append({"first": first, "experts": gate_idx.detach(),
-                    "kept": torch.stack(kept, -1)})
+                    "kept": torch.stack(kept, -1),
+                    "experts_computed": e_have})
     return out.reshape(b, l, d), _aux_shares(logits, probs, every[:, 0], t)

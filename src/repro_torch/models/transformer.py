@@ -13,7 +13,9 @@ block again in the backward.  ``constrain_batch`` stands at the block
 boundaries where the JAX package calls it: inside a batch-sharded train
 step every activation there is this rank's batch block, and one that is
 not raises (``repro_torch.dist.constraints``); elsewhere it is the
-identity.
+identity.  Inside the train step on ``tp`` blocks, the GQA attention,
+the MLPs and the experts of a block compute on the heads, columns and
+experts the rank holds (``repro_torch.dist.tensor_parallel``).
 
 Families:
   dense, vlm, audio : one stack of attention blocks, ``blocks`` (audio's
@@ -129,7 +131,7 @@ def attn_block(p, x, cfg: ArchConfig, capacity: int | None = None,
     if "moe" in p:
         y, aux = MOE.moe_apply(p["moe"], h, cfg, capacity)
     else:
-        y, aux = L.mlp(p["mlp"], h), {}
+        y, aux = L.mlp(p["mlp"], h, cfg.d_ff), {}
     return constrain_batch(x + y), aux, dict(zip(cache_keys(cfg), cached))
 
 
@@ -165,7 +167,7 @@ def rec_block(p, x, cfg: ArchConfig, capacity: int | None = None):
     y, h_last, conv = R.recurrent_block(p["rec"], h, cfg, return_cache=True)
     x = constrain_batch(x + y)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return (constrain_batch(x + L.mlp(p["mlp"], h)), {},
+    return (constrain_batch(x + L.mlp(p["mlp"], h, cfg.d_ff)), {},
             {"h": h_last, "conv": conv})
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.dist.constraints import current_block
 
 MOE_LB_WEIGHT = 0.01
@@ -47,10 +48,25 @@ def batch_mean(values, mask=None):
 
 def softmax_xent(logits, targets, mask=None):
     """Mean CE over the (optionally masked) positions, plus the z-loss;
-    logits promoted to float32."""
+    logits promoted to float32.  Where ``logits`` are this rank's columns
+    of the vocabulary (the train step under ``tp``), the loss is the same
+    on every ``model`` rank: the max over ``model``, the exp-sums summed
+    over it, and the gold logit from the rank that owns it (zeros
+    elsewhere, summed), in forward and backward."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    lo = TP.vocab_first(logits.shape[-1])
+    if lo is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    else:
+        top = TP.pmax(logits.amax(-1))
+        logz = torch.log(TP.leave(torch.exp(logits - top[..., None])
+                                  .sum(-1))) + top
+        local = targets.long() - lo
+        inside = (local >= 0) & (local < logits.shape[-1])
+        gold = torch.gather(logits, -1, torch.where(inside, local, 0)
+                            [..., None])[..., 0]
+        gold = TP.leave(torch.where(inside, gold, 0.0))
     return batch_mean(logz - gold + Z_LOSS_WEIGHT * logz ** 2, mask)
 
 

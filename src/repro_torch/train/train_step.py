@@ -45,8 +45,18 @@ parameters bit-identical.
 ``train_step(..., layout=)`` takes the parameters and AdamW moments as
 this rank's blocks (``repro_torch.dist.spmd.sharded_step``, the
 counterpart of ``jit(in_shardings=...)``): the step gathers the
-parameters, runs the above, takes the norm and the clip of the whole
-grads, cuts each grad to its parameter's block and updates the blocks.
+parameters as its plan says (``repro_torch.dist.tensor_parallel``: under
+``tp``, the leaves a layer computes on by ``model`` block -- GQA heads,
+MLP columns, experts, vocabulary rows -- over ``data`` only, every other
+leaf whole), runs the above inside the plan's ``model_axis`` (the layers
+sum their partial outputs over ``model``; every ``model`` rank computes
+the same loss), broadcasts coordinate 0's grads over ``model`` for the
+replicated leaves only, takes the norm and the clip of the whole grads
+(a kept leaf's squares summed over ``model``), cuts each grad to its
+parameter's block and updates the blocks.  Compression quantizes the
+whole grads: a kept leaf's blocks are put together over ``model`` for it,
+and cut again after.  ``train_step.cfg`` is the config the step was made
+for (the plan reads it).
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ import torch
 
 from repro_torch.dist import constraints, conv_parallel
 from repro_torch.dist.sharding import P, from_local
+from repro_torch.dist.tensor_parallel import MODEL
 from repro_torch.ft import inject
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compression, schedule
@@ -153,20 +164,25 @@ def _accumulated(loss: Callable, params, batch, cfg, accum_steps: int,
             tree_map(lambda g: g / accum_steps, g_acc))
 
 
-def _sync(mesh, batch_axes: tuple[str, ...], loss_val, metrics, grads):
+def _sync(mesh, batch_axes: tuple[str, ...], loss_val, metrics, grads,
+          kept=None):
     """Every rank's shares of the loss, its tensor metrics and the grads
     summed over ``batch_axes`` (``Mesh.psum_flat``: a fixed order, one
     buffer per dtype); then, over each other axis of size > 1 (whose
-    ranks hold the same batch block), coordinate 0's values."""
+    ranks hold the same batch block), coordinate 0's values, but for the
+    grads ``kept`` marks (per leaf): their ``model`` blocks differ from
+    rank to rank along ``model``."""
     keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
     vals = [loss_val, *(metrics[k] for k in keys)]
     leaves = tree_leaves(grads)
     if batch_axes:
         vals = mesh.psum_flat(vals, batch_axes)
         leaves = mesh.psum_flat(leaves, batch_axes)
+    kept = kept or [False] * len(leaves)
     for axis, n in mesh.shape.items():
         if n > 1 and axis not in batch_axes:
-            mesh.broadcast(vals + leaves, axis)
+            mesh.broadcast(vals + [g for g, k in zip(leaves, kept)
+                                   if not (k and axis == MODEL)], axis)
     return (vals[0], {**metrics, **dict(zip(keys, vals[1:]))},
             tree_unflatten(grads, leaves))
 
@@ -234,9 +250,12 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     def train_step(params, opt_state, batch, step: int, *, layout=None):
         split = constraints.batch_split()
         full = params if layout is None else layout.gather(params)
+        norm = adamw.global_norm if layout is None else layout.global_norm
         dev = tree_leaves(params)[0].device
         opt_in = opt_state            # the state that entered the step
-        with conv_parallel.conv_mesh(conv_mesh):
+        with conv_parallel.conv_mesh(conv_mesh), (
+                contextlib.nullcontext() if layout is None
+                else layout.plan.axis()):
             if accum_steps == 1:
                 loss_val, metrics, grads = _value_and_grad(loss, full, batch,
                                                            cfg, split)
@@ -250,7 +269,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         if mesh is not None and mesh.size > 1:
             loss_val, metrics, grads = _sync(
                 mesh, split.axes if split is not None else (), loss_val,
-                metrics, grads)
+                metrics, grads, None if layout is None else layout.plan.kept)
 
         # Fault injection on the gradient VALUES, where the JAX step has
         # it: the guard below then sees step N non-finite.
@@ -261,6 +280,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                 grads = tree_map(lambda g: g * factor, grads)
 
         if compress_grads:
+            if layout is not None:
+                grads = layout.plan.widen(grads)
             ef = opt_state.get("ef") or tree_map(
                 lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                       device=g.device), grads)
@@ -269,12 +290,14 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                 (NOISE_SEED << 32) + step)
             q, residual = compression.compress_tree_int8(grads, gen)
             grads = compression.decompress_tree_int8(q)
+            if layout is not None:
+                grads = layout.plan.narrow(grads)
             opt_state = {**opt_state, "ef": residual}
 
         if guard is not None:
             streak0 = opt_state.get("guard_streak", torch.zeros(
                 (), dtype=torch.int32, device=dev))
-            gnorm = adamw.global_norm(grads)
+            gnorm = norm(grads)
             # One reduction catches every inf/NaN leaf: a single non-finite
             # value makes the sqrt of the sum of squares non-finite.
             finite = torch.isfinite(loss_val) & torch.isfinite(gnorm)
@@ -290,7 +313,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         gnorm = None
         if layout is not None:
             # The clip of the whole grads, then each rank's blocks.
-            gnorm = adamw.global_norm(grads)
+            gnorm = norm(grads)
             grads = layout.cut(grads)
         new_params, new_opt, opt_metrics = adamw.apply_updates(
             params, grads,
@@ -328,4 +351,5 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                        "guard_clipped": (clipping & finite).float()}
         return new_params, new_opt, metrics
 
+    train_step.cfg = cfg
     return train_step

@@ -40,6 +40,9 @@ MOE_CASES = {
     "moe_capacity": ("moonshot", "cap_params", "tokens_64", "tp", 1),
     "moe_accum": ("moonshot", "moe_params", "tokens_64", "tp", 2),
 }
+#: SmolLM's smoke config with heads that divide by model = 2 (its 3
+#: query heads and 1 KV head do not), on both sides.
+HEADS = {"n_heads": 4, "n_kv_heads": 2}
 #: the step after which the SmolLM run saves its blocked state.
 SAVE_AFTER = 1
 LR = 1e-3
@@ -82,6 +85,8 @@ def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
            + _nbytes(o["v"]), "rows": tree_leaves(b)[0].shape[0]}
     n_moe = sum(map(cfg.is_moe_layer, range(cfg.n_layers))) \
         if getattr(cfg, "family", None) == "moe" else 0
+    plan = step_fn.layout.plan
+    res["plan"] = plan.table()
     for s in range(STEPS):
         with MOE.recording() if s == 0 and n_moe else \
                 contextlib.nullcontext([]) as log:
@@ -90,6 +95,14 @@ def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
             # The forward's calls come first; remat logs them again.
             res["dropped"] = int(sum((~r["kept"]).sum()
                                      for r in log[:n_moe]))
+            res["experts_computed"] = sorted({r["experts_computed"]
+                                              for r in log})
+            res["routes"] = [{"first": r["first"],
+                              "experts": r["experts"].tolist(),
+                              "kept": r["kept"].tolist()}
+                             for r in log[:n_moe]]
+        res.setdefault("gathered_bytes", []).append(
+            step_fn.layout.stats["gathered_bytes"])
         res["losses"].append(float(m["loss"]))
         res["grad_norms"].append(float(m["grad_norm"]))
         if "moe_lb" in m:
@@ -107,6 +120,8 @@ def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
                             for k, v in _leaf_paths(saved)})
     whole = SH.gather_tree(p, p_spec, mesh)
     res["params"] = _digest(*tree_leaves(whole))
+    res["replicated"] = _digest(*(t for t, k in zip(tree_leaves(whole),
+                                                    plan.kept) if not k))
     set_activation_policy(None)
     return res
 
@@ -178,6 +193,43 @@ def run_moe(mesh, inputs) -> dict:
         out["moe_lb_mutant"] = run("moe_tp")
     finally:
         MOE._aux_shares = sound_aux
+    return out
+
+
+def run_heads(mesh, cfg, inputs, batch) -> dict:
+    """SmolLM with ``HEADS`` under ``tp``: attention on its column and row
+    blocks; then the two tensor-parallel mutations: ``wo``'s partial
+    outputs not summed over ``model`` (on this case), and a norm that
+    counts each replicated leaf once per ``model`` rank (on SmolLM's own
+    case, whose attention is replicated)."""
+    import dataclasses
+
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.tree import tree_from_numpy, tree_leaves
+    heads = dataclasses.replace(cfg, **HEADS)
+    params = tree_from_numpy(inputs["lm_heads_params"], "cpu")
+    out = {"smollm_heads": run_sharded(mesh, heads, params, batch, "tp")}
+    sound_out, sound_norm = A._out_proj, TP.global_norm
+
+    def norm_per_rank(grads, plan):
+        sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+        total = mesh.psum(torch.stack(sq).sum().reshape(1), (TP.MODEL,))
+        return torch.sqrt(total[0])
+    try:
+        A._out_proj = lambda p, o, cut: L.linear(p, o)
+        out["wo_psum_mutant"] = run_sharded(mesh, heads, params, batch,
+                                            "tp")
+    finally:
+        A._out_proj = sound_out
+    try:
+        TP.global_norm = norm_per_rank
+        out["norm_mutant"] = run_sharded(
+            mesh, cfg, tree_from_numpy(inputs["lm_params"], "cpu"), batch,
+            "tp")
+    finally:
+        TP.global_norm = sound_norm
     return out
 
 
@@ -253,6 +305,7 @@ def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
         cp._wgrad_axes = sound_axes
 
     out.update(run_moe(mesh, inputs))
+    out.update(run_heads(mesh, cfg, inputs, lm_batch))
 
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)

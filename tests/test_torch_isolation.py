@@ -69,6 +69,7 @@ def test_module_list_covers_the_slice():
               "repro_torch.launch.train", "repro_torch.models.mamba2",
               "repro_torch.dist.sharding", "repro_torch.dist.constraints",
               "repro_torch.dist.conv_parallel", "repro_torch.launch.mesh",
+              "repro_torch.dist.spmd", "repro_torch.dist.tensor_parallel",
               "repro_torch.launch.dryrun",
               "repro_torch.configs.mamba2_370m",
               "repro_torch.models.recurrent",

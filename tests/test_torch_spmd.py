@@ -36,9 +36,21 @@ side runs here on the same numpy inputs:
     losses within the tolerance of one process's;
   * the blocked state saved after step 2 as global arrays and restored
     onto one rank: the gathered parameters bit for bit, and its third
-    step, run unsharded, within the tolerance of JAX's.
+    step, run unsharded, within the tolerance of JAX's;
+  * tensor- and expert-parallel compute on the ``tp`` blocks
+    (``repro_torch.dist.tensor_parallel``): every case above runs under
+    its plan, and SmolLM's smoke config with 4 query and 2 KV heads (on
+    both sides) runs its attention on column and row blocks, within the
+    tolerance of JAX's step; each rank's plan is the rule's, the bytes it
+    computes with in a step are the plan's count, the expert einsums run
+    4 of 8 experts, the replicated parameters are bit-identical on every
+    rank, and two mutations read outside the tolerance: ``wo``'s partial
+    outputs not summed over ``model``, and a norm that counts each
+    replicated leaf once per ``model`` rank.
 """
 
+import dataclasses
+import fnmatch
 import json
 import os
 import pathlib
@@ -73,10 +85,11 @@ import _torch_spmd_worker as W  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
-#: the 8 ranks' start and 14 runs of 3 steps take ~35 s on 8 threads.
+#: the 8 ranks' start and 17 runs of 3 steps take ~40 s on 8 threads.
 TIMEOUT_S = 240
 JCFG = jget_smoke("smollm-360m")
 ACFG = JM.AutoencoderConfig(c_in=3, widths=(16, 32), k=3, conv_policy="lax")
+JCFG_HEADS = dataclasses.replace(JCFG, **W.HEADS)
 MOE_CFGS = {"moonshot": jget_smoke("moonshot-v1-16b-a3b"),
             "deepseek": jget_smoke("deepseek-v3-671b")}
 
@@ -114,6 +127,8 @@ def runs(tmp_path_factory):
                                          JCFG.vocab), np.int32)
     inputs = {
         "lm_params": _np(JM.init_params(jax.random.PRNGKey(0), JCFG)),
+        "lm_heads_params": _np(JM.init_params(jax.random.PRNGKey(0),
+                                              JCFG_HEADS)),
         "lm_batch": {"tokens": toks, "targets": toks},
         "loss_mask": _mask(),
         "ae_params": _np(JM.init_autoencoder(jax.random.PRNGKey(0), ACFG)),
@@ -386,3 +401,152 @@ def test_blocked_checkpoint_restores_onto_one_rank(runs):
     np.testing.assert_allclose(float(m["loss"]),
                                runs["ranks"][0]["smollm_tp"]["losses"][-1],
                                rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# Tensor- and expert-parallel compute on the tp blocks
+# ---------------------------------------------------------------------------
+
+_SWIGLU = ("*.wi.w", "*.wg.w", "*.wo.w")
+_MOE_KEPT = ("embed.w", "lm_head.w", "blocks_dense.mlp.w?.w",
+             "blocks_moe.moe.w?.w", "blocks_moe.moe.shared.w?.w")
+#: each case's plan on (data=4, model=2): the leaves it computes with on
+#: their model block (path patterns), and for the leaves gathered whole
+#: whose spec cuts them over model, a pattern -> a phrase of the reason
+#: (any other leaf: its spec does not cut it over model).
+PLAN_RULES = {
+    "smollm_tp": (("embed.w", "blocks.mlp.w?.w"), {
+        "blocks.attn.w?.w": "3 query heads and 1 KV heads do not both "
+                            "divide by model=2",
+        "blocks.ln?.scale": "no rule"}),
+    "smollm_heads": (("embed.w", "blocks.mlp.w?.w", "blocks.attn.w?.w"),
+                     {"blocks.ln?.scale": "no rule"}),
+    "moe_tp": (_MOE_KEPT + ("blocks_*.attn.w?.w",), {
+        "*.router.w": "the router: every rank routes every token",
+        "*.ln?.scale": "no rule"}),
+    "moe_dp_only": ((), {}),
+    "deepseek_tp": (_MOE_KEPT, {
+        "mtp.block.*": "not ported: the MTP head",
+        "mtp.proj.w": "not ported: the MTP head",
+        "blocks_*.attn.w*": "not ported: MLA attention",
+        "*.router.w": "the router: every rank routes every token",
+        "blocks_*.attn.*_norm.scale": "no rule",
+        "*.ln?.scale": "no rule"}),
+}
+#: case -> the numpy parameters it starts from.
+CASE_PARAMS = {"smollm_tp": "lm_params", "smollm_heads": "lm_heads_params",
+               "moe_tp": "moe_params", "moe_dp_only": "moe_params",
+               "deepseek_tp": "ds_params"}
+
+
+def _paths(tree, path=()):
+    """``{"a.b.w": array}`` in the order the port's trees walk."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_paths(tree[k], path + (str(k),)))
+        return out
+    return {".".join(path): tree}
+
+
+def _kept(case, path) -> bool:
+    return any(fnmatch.fnmatch(path, pat) for pat in PLAN_RULES[case][0])
+
+
+@pytest.mark.parametrize("case", list(PLAN_RULES))
+def test_each_ranks_plan_is_the_rule(runs, case):
+    """Kept on its model block, or gathered whole with the rule's reason,
+    leaf by leaf, on every rank."""
+    whole = _paths(runs["inputs"][CASE_PARAMS[case]])
+    reasons = PLAN_RULES[case][1]
+    for r in runs["ranks"]:
+        plan = r[case]["plan"]
+        assert sorted(plan) == sorted(whole)
+        for path, (keep, why) in plan.items():
+            assert keep == _kept(case, path), (path, keep, why)
+            if not keep:
+                want = next((v for pat, v in reasons.items()
+                             if fnmatch.fnmatch(path, pat)),
+                            "its spec does not cut it over model")
+                assert want in why, (path, why)
+
+
+@pytest.mark.parametrize("case", list(PLAN_RULES))
+def test_bytes_a_rank_gathers_are_the_plans_count(runs, case):
+    """Each step computes with a kept leaf's model block (half of it) and
+    every other leaf whole: the plan's count, below the whole under tp."""
+    whole = _paths(runs["inputs"][CASE_PARAMS[case]])
+    want = sum(a.nbytes // (2 if _kept(case, p) else 1)
+               for p, a in whole.items())
+    for r in runs["ranks"]:
+        assert r[case]["gathered_bytes"] == [want] * W.STEPS
+    total = sum(a.nbytes for a in whole.values())
+    assert want == total if case == "moe_dp_only" else want < total
+
+
+@pytest.mark.parametrize("case,want", [
+    ("moe_tp", 4), ("moe_capacity", 4), ("moe_accum", 4),
+    ("deepseek_tp", 4), ("moe_dp_only", 8)])
+def test_expert_einsums_run_this_ranks_experts(runs, case, want):
+    """Under tp each rank's expert einsums run its 4 of the 8 experts;
+    under dp_only (no model blocks) all 8."""
+    for r in runs["ranks"]:
+        assert r[case]["experts_computed"] == [want]
+
+
+@pytest.mark.parametrize("case", ["moe_tp", "moe_dp_only", "moe_capacity",
+                                  "deepseek_tp"])
+def test_no_token_is_routed_otherwise(runs, case):
+    """Step 0's experts and kept choices of every rank's tokens in every
+    MoE layer are those of the port's unsharded step on the global batch:
+    the router, whole on every rank, routes as it does unsharded."""
+    from repro_torch.models import moe as MOE
+    arch, params, toks = W.MOE_CASES[case][:3]
+    cfg = get_smoke_config({"moonshot": "moonshot-v1-16b-a3b",
+                            "deepseek": "deepseek-v3-671b"}[arch])
+    batch = tree_from_numpy({"tokens": runs["inputs"][toks],
+                             "targets": runs["inputs"][toks]}, "cpu")
+    with MOE.recording() as log:
+        TS._value_and_grad(TS.loss_fn, tree_from_numpy(
+            runs["inputs"][params], "cpu"), batch, cfg)
+    want = log[:len(runs["ranks"][0][case]["routes"])]
+    for r in runs["ranks"]:
+        for got, ref in zip(r[case]["routes"], want):
+            lo, n = got["first"], len(got["experts"])
+            assert got["experts"] == ref["experts"][lo:lo + n].tolist()
+            assert got["kept"] == ref["kept"][lo:lo + n].tolist()
+
+
+@pytest.mark.parametrize("case", ["smollm_tp", "smollm_heads", "moe_tp",
+                                  "moe_accum", "deepseek_tp"])
+def test_replicated_parameters_are_bit_identical(runs, case):
+    """After 3 steps every leaf the plan gathers whole is the same bits
+    on every rank (a kept leaf's blocks differ by construction)."""
+    assert len({r[case]["replicated"] for r in runs["ranks"]}) == 1
+
+
+def test_heads_on_blocks_match_jax_single_device(runs):
+    """SmolLM with 4 query and 2 KV heads: each rank attends over its 2
+    heads and their KV head, ``wo``'s partial outputs summed over model,
+    within the tolerance of JAX's step on the same config."""
+    i = runs["inputs"]
+    want = _jax_run(JCFG_HEADS, i["lm_heads_params"], i["lm_batch"])
+    per_rank = [r["smollm_heads"] for r in runs["ranks"]]
+    _assert_matches(per_rank, want)
+    assert len({r["params"] for r in per_rank}) == 1
+
+
+@pytest.mark.parametrize("mutant,case,key", [
+    ("wo_psum_mutant", "smollm_heads", "losses"),
+    ("norm_mutant", "smollm_tp", "grad_norms")])
+def test_tp_mutations_read_outside_the_tolerance(runs, mutant, case, key):
+    """``wo``'s partial outputs left unsummed read outside the tolerance
+    on the losses; a norm that counts each replicated leaf once per model
+    rank on the norms."""
+    i = runs["inputs"]
+    cfg, params = ((JCFG_HEADS, "lm_heads_params") if case == "smollm_heads"
+                   else (JCFG, "lm_params"))
+    want = _jax_run(cfg, i[params], i["lm_batch"])
+    got = runs["ranks"][0][mutant][key]
+    assert _close(runs["ranks"][0][case][key], want[key])
+    assert not _close(got, want[key]), (got, want[key])
