@@ -345,15 +345,21 @@ PATH):
                    ``dist.spmd.sharded_step`` (``conv_mesh="tp"``, the
                    launcher's settings): each rank holds exactly the
                    bytes ``launch.dryrun.bytes_per_device`` counts a
-                   device of an abstract (2, 2) mesh, launches the ``dw``
-                   kernels at batch 4, and the ranks' gathered parameters
-                   are bit-identical; its plan (``dist.tensor_parallel``:
-                   Mamba2's leaves gathered whole, not ported; the
-                   vocabulary on its rows) on a line.  (c)'s and (d)'s
-                   losses and
-                   gradient norms at every step within
-                   ``MESH_LM_LOSS_TOL`` / ``MESH_LM_GNORM_TOL`` of the
-                   launcher's unsharded run, the ranks' losses equal.
+                   device of an abstract (2, 2) mesh and computes on its
+                   ``model`` block of every ``ssm`` leaf
+                   (``dist.tensor_parallel``: 16 of 32 heads, B and C
+                   whole; ``in_proj``, ``conv_w`` and ``out_proj`` taken
+                   from the leaf gathered whole), the bytes it gathers and
+                   computes with in each step the plan's counts, its
+                   depthwise conv on its 4 x 1,280 block (the ``dw``
+                   kernels, launched twice / once / once a layer a step;
+                   the conv hook cuts the block no further: ``mesh:*``
+                   events), the ranks' gathered parameters bit-identical;
+                   plan, model psums, peak memory and seconds a step on
+                   the (d) line.  (c)'s and (d)'s losses and gradient
+                   norms at every step within ``MESH_LM_LOSS_TOL`` /
+                   ``MESH_LM_GNORM_TOL`` of the launcher's unsharded run,
+                   the ranks' losses equal.
                    (e) on the same 4 ranks, moonshot-v1-16b-a3b at its
                    published widths cut to ``MESH_MOE_LAYERS`` layers
                    through ``sharded_step`` for ``MESH_MOE_STEPS`` steps,
@@ -371,7 +377,19 @@ PATH):
                    64; 64 under ``dp_only``), its peak memory over each
                    step and its seconds a step beside those of the step
                    that gathered every parameter whole, on the
-                   (e) lines.  Each rank's
+                   (e) lines.  (f) on the same 4 ranks, recurrentgemma-9b
+                   at its published widths cut to one super-block
+                   (``MESH_HYBRID_LAYERS``), lm_train_hybrid's 4 x 512
+                   for ``MESH_HYBRID_STEPS`` steps through
+                   ``sharded_step`` under ``tp`` (each rank 2,048 of 4,096
+                   RG-LRU channels, its gates reading the conv output
+                   gathered over ``model``; 8 of 16 query heads against
+                   the one KV head), against the same cut trained
+                   unsharded on the card before the spawn, checked as
+                   (d), with its ``gather`` calls.  (d) and (f) then hold
+                   each rank's first conv operands (its batch and channel
+                   block) on the three ``dw`` kernels against their plain
+                   versions, on a line of their own.  Each rank's
                    launches, ``mesh:*`` events and halo bytes on lines of
                    their own; the ranks' seconds are those of processes
                    sharing one card, not speeds.  NCCL across cards is not
@@ -397,6 +415,7 @@ it also does so without a CUDA device or without the package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -3327,6 +3346,21 @@ MESH_LM_STEPS = 3
 #: norms are what catch both (PERF.md, §6).
 MESH_LM_LOSS_TOL = 5e-4
 MESH_LM_GNORM_TOL = 2e-3
+#: (d) and (f), the LM runs on ``tp`` blocks (``mesh_lm_blocks``): case ->
+#: (arch, layers (None: all), global batch of 512-token rows, steps,
+#: donated).  (f) is recurrentgemma-9b at its published widths cut to one
+#: super-block (rec1, rec2, attn: 2,753,630,208 parameters) at
+#: lm_train_hybrid's 4 x 512, held to the same cut trained unsharded on
+#: the card before the spawn by ``MESH_LM_LOSS_TOL`` / ``MESH_LM_GNORM_TOL``.
+MESH_HYBRID_LAYERS = 3
+MESH_HYBRID_STEPS = 2
+MESH_LM_CASES = {"d": ("mamba2-370m", None, 8, MESH_LM_STEPS, False),
+                 "f": ("recurrentgemma-9b", MESH_HYBRID_LAYERS, 4,
+                       MESH_HYBRID_STEPS, True)}
+#: (d)'s and (f)'s depthwise conv channels a rank: Mamba2's 1,024 x
+#: channels of its 16 of 32 heads with B and C's 256 whole; the RG-LRU's
+#: 2,048 of 4,096.
+MESH_LM_CHANNELS = {"d": 1280, "f": 2048}
 #: (e): moonshot-v1-16b-a3b at its published widths cut to
 #: ``MESH_MOE_LAYERS`` layers (the dense one and one MoE layer,
 #: 1,344,940,032 parameters), ``MESH_MOE_STEPS`` steps through
@@ -3469,19 +3503,111 @@ def _conv_rows(conv) -> list[int]:
                    if p["pass"] in CONV_PASSES})
 
 
-def mesh_lm_blocks(torch, kernels, conv, mesh, dev) -> dict:
-    """(d): Mamba2-370M at full width, its parameters, AdamW moments and
-    batch in their ``tp`` blocks on the ranks' mesh, ``MESH_LM_STEPS``
-    steps through ``dist.spmd.sharded_step`` at the launcher's settings
-    (lm_train_ssm's batches, lr, guard and schedule), ``conv_mesh="tp"``:
-    the bytes each rank holds, its losses, norms, launches and the
-    gathered parameters' digest."""
-    import hashlib
+@contextlib.contextmanager
+def dw_calls(torch):
+    """Every depthwise causal conv the Mamba2 and RG-LRU layers call in
+    the ``with`` body: the channels of each call and the first call's
+    operands (input and weight, detached copies)."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import recurrent as R
+    sound = M2.depthwise_causal_conv1d
+    seen = {"channels": set(), "first": None}
+
+    def recorded(x, w, policy=None, **kw):
+        seen["channels"].add(int(x.shape[-1]))
+        if seen["first"] is None:
+            seen["first"] = (x.detach().clone(), w.detach().clone())
+        return sound(x, w, policy, **kw)
+    M2.depthwise_causal_conv1d = R.depthwise_causal_conv1d = recorded
+    try:
+        yield seen
+    finally:
+        M2.depthwise_causal_conv1d = R.depthwise_causal_conv1d = sound
+
+
+def dw_block_check(torch, x, w, dev) -> dict:
+    """One launch of each of the three ``dw`` tap kernels on a rank's own
+    conv operands (``x`` (B, L, C) and ``w`` (K, C), its batch and channel
+    block; the output grad drawn from a seed), each against its plain
+    version (``kernels/ref.py``): max |kernel - plain| / max |plain| and
+    max |kernel - plain|, the variant launched, the tolerance
+    (``BF16_TOL`` for the bf16 forward and input grad, ``REL_TOL`` for the
+    float32 weight grad, as in the kernels phase)."""
+    from repro_torch.core.im2col_ref import ConvDims
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tap_gemm as tg
+    b, length, c = x.shape
+    d = mamba2_conv_dims(ConvDims, b, length)
+    x4 = x.transpose(1, 2)[:, :, None, :].contiguous()     # (B, C, 1, L)
+    w4 = w.T[:, None, None, :].contiguous()                # (C, 1, 1, K)
+    gen = torch.Generator().manual_seed(700)
+    dy = torch.randn(b, c, 1, length, generator=gen).to(dev, x.dtype)
+    src, wt, taps = ops.forward_operands(x4, w4, d, c)
+    gsrc, ws, pp = ops.input_grad_operands(dy, w4, d, c)
+    wsrc, dyn, wtaps = ops.weight_grad_operands(x4, dy, d, c)
+    calls = {
+        "tap_gemm": (lambda: tg.tap_gemm(src, wt, taps, d.H_o, d.W_o),
+                     lambda: ref.tap_gemm_ref(src, wt, taps, d.H_o, d.W_o)),
+        "tap_gemm_phased": (
+            lambda: tg.tap_gemm_phased(gsrc, ws, pp.phase_taps, pp.n_qh,
+                                       pp.n_qw),
+            lambda: ref.tap_gemm_phased_ref(gsrc, ws, pp.phase_taps,
+                                            pp.n_qh, pp.n_qw)),
+        "tap_wgrad": (lambda: tg.tap_wgrad(wsrc, dyn, wtaps, d.H_o, d.W_o),
+                      lambda: ref.tap_wgrad_ref(wsrc, dyn, wtaps, d.H_o,
+                                                d.W_o))}
+    out = {"shape": [b, length, c], "dtype": str(x.dtype).split(".")[-1]}
+    for name, (kern, plain) in calls.items():
+        tg.reset_launch_counts()
+        got = kern()
+        variants = tg.variant_launch_counts()
+        want = plain()
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(torch, got, want)
+        tol = REL_TOL if name == "tap_wgrad" else BF16_TOL
+        out[name] = {"max_rel_err": err, "max_abs_err": abs_err, "tol": tol,
+                     "variants": variants}
+        check(variants == {f"{name}:{tg.DW}": 1},
+              f"{name} at the rank's block {out['shape']}: launched "
+              f"{variants}")
+        check(err <= tol, f"{name} at the rank's block {out['shape']}: "
+                          f"relative error {err} > {tol}")
+    return out
+
+
+def mesh_lm_config(case: str):
+    """(d)'s or (f)'s config: its published widths, (f) cut to
+    ``MESH_HYBRID_LAYERS`` layers."""
+    import dataclasses
 
     from repro_torch.configs import get_config
+    arch, layers = MESH_LM_CASES[case][:2]
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def mesh_lm_blocks(torch, kernels, conv, dev, case: str,
+                   mesh=None) -> dict:
+    """(d) or (f) (``MESH_LM_CASES``): the model at its published widths
+    (cut as the case says), lm_train's batches at the case's batch and
+    lr 3e-4, guard on, every conv under ``pallas``, for the case's steps.
+    Unsharded without ``mesh`` (f's reference); else its parameters,
+    AdamW moments and batch in their ``tp`` blocks on the ranks' mesh
+    through ``dist.spmd.sharded_step`` (``conv_mesh="tp"``): the bytes each
+    rank holds against the dry run's, the plan of its compute
+    (``dist.tensor_parallel``) and its counts of the bytes a step gathers
+    and computes with beside each step's, its losses, norms, peak memory
+    and seconds a step, its ``dw`` launches and the channels of each conv
+    call, the model gathers and psums it made, the gathered parameters'
+    digest, and its first conv call's operands held on the three ``dw``
+    kernels against their plain versions (:func:`dw_block_check`)."""
+    import hashlib
+
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.dist import set_activation_policy
     from repro_torch.dist import sharding as SH
+    from repro_torch.dist import tensor_parallel as TP
     from repro_torch.dist.spmd import sharded_step
     from repro_torch.kernels import tap_gemm as tg
     from repro_torch.launch import dryrun
@@ -3490,66 +3616,94 @@ def mesh_lm_blocks(torch, kernels, conv, mesh, dev) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as TS
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = get_config("mamba2-370m")
+    _, _, batch_rows, steps, donate = MESH_LM_CASES[case]
+    cfg = mesh_lm_config(case)
     model = M.build_model(cfg)
-    # The dry run's count: meta tensors on an abstract mesh.
-    meta = model.init(torch.Generator().manual_seed(0), dryrun.META)
-    abstract = Mesh(mesh.axis_names, mesh.axis_sizes)
-    meta_spec = SH.param_specs(meta, abstract, "tp")
-    want_bytes = {"params": dryrun.bytes_per_device(meta, meta_spec,
-                                                    abstract),
-                  "moments": 2 * dryrun.bytes_per_device(
-                      meta, meta_spec, abstract, torch.float32)}
+    dcfg = DataConfig(seed=0, seq_len=512, global_batch=batch_rows,
+                      vocab=cfg.vocab)
+    step_fn = TS.make_train_step(
+        cfg, adamw.AdamWConfig(peak_lr=3e-4), total_steps=steps, warmup=1,
+        conv_policy="pallas", conv_mesh=None if mesh is None else "tp",
+        guard=TS.GuardConfig(), donate=donate)
+    torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(torch.Generator().manual_seed(0), dev)
-    p_spec = SH.param_specs(params, mesh, "tp")
-    o_spec = SH.opt_state_specs(params, mesh, "tp")
-    blocks = tree_map(torch.clone, SH.to_local(params, p_spec, mesh))
-    del params
-    free_card(torch)
-    opt = adamw.init_state(blocks)
-    held = {"params": sum(t.numel() * t.element_size()
-                          for t in tree_leaves(blocks)),
+    res = {"n_params": M.count_params(params)}
+    cut = lambda b: b                                      # noqa: E731
+    if mesh is not None:
+        # The dry run's count: meta tensors on an abstract mesh.
+        meta = model.init(torch.Generator().manual_seed(0), dryrun.META)
+        abstract = Mesh(mesh.axis_names, mesh.axis_sizes)
+        meta_spec = SH.param_specs(meta, abstract, "tp")
+        res["bytes_dryrun"] = {
+            "params": dryrun.bytes_per_device(meta, meta_spec, abstract),
+            "moments": 2 * dryrun.bytes_per_device(meta, meta_spec,
+                                                   abstract, torch.float32)}
+        p_spec = SH.param_specs(params, mesh, "tp")
+        o_spec = SH.opt_state_specs(params, mesh, "tp")
+        params = tree_map(torch.clone, SH.to_local(params, p_spec, mesh))
+        free_card(torch)
+        set_activation_policy(SH.batch_axes(mesh, "tp"))
+        b_spec = SH.batch_specs({k: torch.empty(v.shape) for k, v in
+                                 make_batch(cfg, dcfg, 0).items()}, mesh,
+                                "tp")
+        step_fn = sharded_step(step_fn, mesh, p_spec, o_spec, b_spec)
+        cut = lambda b: SH.to_local(b, b_spec, mesh)      # noqa: E731
+        plan = step_fn.layout.plan
+        res["plan"] = plan.table()
+        res["plan_bytes"] = {"computed": plan.held_bytes(meta),
+                             "gathered": plan.gathered_bytes(meta)}
+    opt = adamw.init_state(params)
+    if mesh is not None:
+        res["bytes_held"] = {
+            "params": sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params)),
             "moments": sum(t.numel() * t.element_size()
                            for k in ("m", "v") for t in tree_leaves(opt[k]))}
-    set_activation_policy(SH.batch_axes(mesh, "tp"))
-    dcfg = DataConfig(seed=0, seq_len=512, global_batch=8, vocab=cfg.vocab)
-    b_spec = SH.batch_specs({k: torch.empty(v.shape) for k, v in
-                             make_batch(cfg, dcfg, 0).items()}, mesh, "tp")
-    step_fn = sharded_step(TS.make_train_step(
-        cfg, adamw.AdamWConfig(peak_lr=3e-4), total_steps=MESH_LM_STEPS,
-        warmup=1, conv_policy="pallas", conv_mesh="tp",
-        guard=TS.GuardConfig()), mesh, p_spec, o_spec, b_spec)
-    plan = step_fn.layout.plan.table()
+    init_peak = torch.cuda.max_memory_allocated(dev)
     kernels.reset_launch_counts()
     conv.reset_dispatch_events()
-    losses, norms, secs = [], [], []
-    for step in range(MESH_LM_STEPS):
-        t0 = time.perf_counter()
-        batch = {k: torch.from_numpy(v) for k, v in
-                 make_batch(cfg, dcfg, step).items()}
-        batch = {k: v.to(dev) for k, v in
-                 SH.to_local(batch, b_spec, mesh).items()}
-        blocks, opt, metrics = step_fn(blocks, opt, batch, step)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
-        secs.append(time.perf_counter() - t0)
-    launches = kernels.launch_counts()
-    variants = tg.variant_launch_counts()
-    events = _mesh_events(conv)
-    rows = _conv_rows(conv)
-    whole = SH.gather_tree(blocks, p_spec, mesh)
-    digest = hashlib.sha256()
-    for t in tree_leaves(whole):
-        digest.update(t.detach().cpu().reshape(-1).view(torch.uint8)
-                      .numpy().tobytes())
-    set_activation_policy(None)
-    del whole, blocks, opt
+    before = dict(TP.COUNTS)
+    hist = {k: [] for k in ("losses", "grad_norms", "step_seconds",
+                            "step_peak_bytes", "computed_bytes",
+                            "gathered_bytes")}
+    with dw_calls(torch) as seen:
+        for step in range(steps):
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            batch = {k: v.to(dev) for k, v in cut(
+                {k: torch.from_numpy(v)
+                 for k, v in make_batch(cfg, dcfg, step).items()}).items()}
+            params, opt, metrics = step_fn(params, opt, batch, step)
+            hist["losses"].append(float(metrics["loss"]))
+            hist["grad_norms"].append(float(metrics["grad_norm"]))
+            hist["step_seconds"].append(time.perf_counter() - t0)
+            hist["step_peak_bytes"].append(
+                torch.cuda.max_memory_allocated(dev))
+            if mesh is not None:
+                for k in ("computed_bytes", "gathered_bytes"):
+                    hist[k].append(step_fn.layout.stats[k])
+    res.update(hist, launches=kernels.launch_counts(),
+               variants=tg.variant_launch_counts(),
+               events=_mesh_events(conv), conv_rows=_conv_rows(conv),
+               conv_channels=sorted(seen["channels"]),
+               collectives={k: TP.COUNTS[k] - v for k, v in before.items()},
+               max_memory_allocated_bytes=max(init_peak,
+                                              *hist["step_peak_bytes"]))
+    if mesh is not None:
+        whole = SH.gather_tree(params, p_spec, mesh)
+        digest = hashlib.sha256()
+        for t in tree_leaves(whole):
+            digest.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes())
+        res["params_sha256"] = digest.hexdigest()
+        set_activation_policy(None)
+        del whole
+    del params, opt, metrics
     free_card(torch)
-    return {"losses": losses, "grad_norms": norms, "step_seconds": secs,
-            "bytes_held": held, "bytes_dryrun": want_bytes,
-            "launches": launches, "variants": variants, "events": events,
-            "conv_rows": rows, "params_sha256": digest.hexdigest(),
-            "plan": plan}
+    res["dw_block"] = dw_block_check(torch, *seen["first"], dev)
+    del seen
+    free_card(torch)
+    return res
 
 
 def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
@@ -3696,7 +3850,7 @@ def route_diffs(torch, ref: dict, got: dict) -> dict:
 
 
 def mesh_rank(rank: int, out_dir: str) -> None:
-    """One rank of the mesh phase's (a), (b), (d) and (e)
+    """One rank of the mesh phase's (a), (b), (d), (e) and (f)
     (``torch.multiprocessing`` spawn target): writes
     ``out_dir/rank<r>.json`` (and (e)'s routing beside it).  A failed check
     raises, which fails the spawn and the run."""
@@ -3727,7 +3881,7 @@ def mesh_rank(rank: int, out_dir: str) -> None:
     res["autoencoder"] = mesh_autoencoder(torch, conv, kernels,
                                           autoencoder_bp, mesh, dev, rank)
     t1 = time.perf_counter()
-    res["lm_blocks"] = mesh_lm_blocks(torch, kernels, conv, mesh, dev)
+    res["lm_blocks"] = mesh_lm_blocks(torch, kernels, conv, dev, "d", mesh)
     res["lm_blocks"]["seconds"] = time.perf_counter() - t1
     res["moe"] = {}
     for policy, seq in MESH_MOE_RUNS.items():
@@ -3736,6 +3890,9 @@ def mesh_rank(rank: int, out_dir: str) -> None:
             torch, kernels, dev, seq, mesh, policy,
             pathlib.Path(out_dir) / f"route_{policy}_rank{rank}.pt")
         res["moe"][policy]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res["hybrid"] = mesh_lm_blocks(torch, kernels, conv, dev, "f", mesh)
+    res["hybrid"]["seconds"] = time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - t0
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
     mesh.barrier()
@@ -3777,6 +3934,8 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
     import os
     import tempfile
 
+    from repro_torch.core import conv
+
     import torch.multiprocessing as mp
     t_phase = time.perf_counter()
     paths = {}
@@ -3792,6 +3951,11 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
     moe_ref_s = time.perf_counter() - t0
     for policy in MESH_MOE_RUNS:
         paths[f"mesh moe {policy} unsharded"] = moe_ref[policy]["launches"]
+    # (f)'s unsharded run.
+    t0 = time.perf_counter()
+    hybrid_ref = mesh_lm_blocks(torch, kernels, conv, dev, "f")
+    hybrid_ref["seconds"] = time.perf_counter() - t0
+    paths["mesh hybrid unsharded"] = hybrid_ref["launches"]
     held = {"allocated": torch.cuda.memory_allocated(dev),
             "reserved": torch.cuda.memory_reserved(dev)}
     # Four processes share the card: each rank's allocator maps segments
@@ -3817,7 +3981,7 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
                    autoencoder={k: {kk: vv for kk, vv in v.items()
                                     if kk != "params_sha256"}
                                 for k, v in r["autoencoder"].items()},
-                   lm_blocks=r["lm_blocks"],
+                   lm_blocks=r["lm_blocks"], hybrid=r["hybrid"],
                    moe={p: {k: v for k, v in m.items() if k != "route"}
                         for p, m in r["moe"].items()},
                    seconds=r["seconds"],
@@ -3829,6 +3993,7 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
             paths[f"mesh autoencoder {policy} rank{r['rank']}"] = \
                 a["launches"]
         paths[f"mesh lm_blocks rank{r['rank']}"] = r["lm_blocks"]["launches"]
+        paths[f"mesh hybrid rank{r['rank']}"] = r["hybrid"]["launches"]
     for r in ranks:
         check(r["backend"] == "gloo", f"rank {r['rank']}: {r['backend']}")
         check(all(r["table2"]["launches"][k] > 0 for k in TAP_KERNELS),
@@ -3929,29 +4094,125 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
     for r in lm:
         check(set(r["events"]) == {"mesh:conv2d:data"},
               f"launcher rank {r['rank']}: events {r['events']}")
-    for r in ranks:
-        b = r["lm_blocks"]
-        check(b["bytes_held"] == b["bytes_dryrun"],
-              f"blocks rank {r['rank']}: holds {b['bytes_held']}, the dry "
-              f"run counts {b['bytes_dryrun']}")
-        check(b["events"].get("mesh:conv2d:data")
-              and "mesh:fallback" not in b["events"],
-              f"blocks rank {r['rank']}: events {b['events']}")
-        check(not any(keep for k, (keep, _) in b["plan"].items()
-                      if ".ssm." in k),
-              f"blocks rank {r['rank']}: a Mamba2 leaf on its model block")
     check(lm[0]["losses"] == lm[1]["losses"],
           f"the ranks' losses differ: {lm[0]['losses']} {lm[1]['losses']}")
     phase_mesh_moe(smoke, torch, smi, ranks, moe_ref, moe_ref_s)
-    check(len({tuple(b["losses"]) for b in blk}) == 1
-          and len({r["lm_blocks"]["params_sha256"] for r in ranks}) == 1,
-          "the blocked ranks' losses or gathered parameters differ")
-    for name, err in (("launcher", lm_err), ("blocks", blk_err)):
-        check(err["loss"] <= MESH_LM_LOSS_TOL
-              and err["grad_norm"] <= MESH_LM_GNORM_TOL,
-              f"{name} vs unsharded: {err} (tol {MESH_LM_LOSS_TOL}, "
-              f"{MESH_LM_GNORM_TOL})")
+    check(lm_err["loss"] <= MESH_LM_LOSS_TOL
+          and lm_err["grad_norm"] <= MESH_LM_GNORM_TOL,
+          f"launcher vs unsharded: {lm_err} (tol {MESH_LM_LOSS_TOL}, "
+          f"{MESH_LM_GNORM_TOL})")
+    phase_mesh_lm(smoke, smi, [r["lm_blocks"] for r in ranks], "d",
+                  {"losses": ref, "grad_norms": ref_norms})
+    phase_mesh_lm(smoke, smi, [r["hybrid"] for r in ranks], "f", hybrid_ref)
     return paths
+
+
+#: (d)'s and (f)'s leaves that compute on their ``model`` block (path
+#: patterns of ``Plan.table``), and those gathered whole whose spec cuts
+#: them over model, by the plan's reason (any other leaf: its spec does
+#: not cut it over model).
+MESH_LM_PLANS = {
+    "d": (("embed.w", "blocks.ssm.*"),
+          {"blocks.ln.scale": "no rule"}),
+    "f": (("embed.w", "lm_head.w", "*.rec.*", "*.mlp.w?.w",
+           "super.attn.attn.wq.w", "super.attn.attn.wo.w"),
+          {"super.attn.attn.w[kv].w": "K and V computed whole",
+           "*.ln?.scale": "no rule"})}
+
+
+def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
+    """(d)'s or (f)'s lines and checks: each rank's run on ``tp`` blocks
+    (``mesh_lm_blocks``) against the unsharded one (``ref``: its losses
+    and norms), every rank's first conv operands on the ``dw`` kernels
+    against their plain versions on a line of their own."""
+    import fnmatch
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    arch, _, rows, steps, _ = MESH_LM_CASES[case]
+    err = {"loss": max(rel(b["losses"], ref["losses"]) for b in runs),
+           "grad_norm": max(rel(b["grad_norms"], ref["grad_norms"])
+                            for b in runs)}
+    cfg = mesh_lm_config(case)
+    # Each conv layer's forward twice a step (remat), its grads once.
+    conv_layers = hybrid_layers(cfg)[0] if case == "f" else cfg.n_layers
+    per_step = {"tap_gemm": 2, "tap_gemm_phased": 1, "tap_wgrad": 1}
+    kept, whole = MESH_LM_PLANS[case]
+    smoke.emit("mesh_lm_blocks", nvidia_smi=smi, case=case, config=arch,
+               layers=cfg.n_layers, n_params=runs[0]["n_params"],
+               batch=rows, seq=512, rows_a_rank=rows // MESH_SHAPE[0],
+               steps=steps, plan=runs[0]["plan"],
+               plan_bytes=runs[0]["plan_bytes"],
+               computed_bytes=[b["computed_bytes"] for b in runs],
+               gathered_bytes=[b["gathered_bytes"] for b in runs],
+               bytes_held=[b["bytes_held"] for b in runs],
+               bytes_dryrun=runs[0]["bytes_dryrun"],
+               losses_unsharded=ref["losses"],
+               grad_norms_unsharded=ref["grad_norms"],
+               losses=[b["losses"] for b in runs],
+               grad_norms=[b["grad_norms"] for b in runs], rel_err=err,
+               loss_tol=MESH_LM_LOSS_TOL, grad_norm_tol=MESH_LM_GNORM_TOL,
+               step_seconds=[b["step_seconds"] for b in runs],
+               step_seconds_unsharded=ref.get("step_seconds"),
+               step_peak_bytes=[b["step_peak_bytes"] for b in runs],
+               max_memory_allocated_bytes=[
+                   b["max_memory_allocated_bytes"] for b in runs],
+               max_memory_allocated_unsharded=ref.get(
+                   "max_memory_allocated_bytes"),
+               launches=[b["launches"] for b in runs],
+               variants=[b["variants"] for b in runs],
+               conv_channels=[b["conv_channels"] for b in runs],
+               conv_rows=[b["conv_rows"] for b in runs],
+               events=[b["events"] for b in runs],
+               collectives=[b["collectives"] for b in runs],
+               seconds=[b["seconds"] for b in runs],
+               unsharded_seconds=ref.get("seconds"),
+               seconds_note="4 processes sharing one card: not a speed")
+    smoke.emit("mesh_dw_block", nvidia_smi=smi, case=case, config=arch,
+               ranks=[b["dw_block"] for b in runs])
+    for rank, b in enumerate(runs):
+        who = f"({case}) {arch} rank {rank}"
+        check(len(b["losses"]) == steps
+              and all(math.isfinite(x) for x in b["losses"]),
+              f"{who}: losses {b['losses']}")
+        check(b["bytes_held"] == b["bytes_dryrun"],
+              f"{who}: holds {b['bytes_held']}, the dry run counts "
+              f"{b['bytes_dryrun']}")
+        check(b["computed_bytes"] == [b["plan_bytes"]["computed"]] * steps
+              and b["gathered_bytes"]
+              == [b["plan_bytes"]["gathered"]] * steps,
+              f"{who}: computed with {b['computed_bytes']} and gathered "
+              f"{b['gathered_bytes']} bytes a step, the plan counts "
+              f"{b['plan_bytes']}")
+        for path, (keep, why) in b["plan"].items():
+            want_keep = any(fnmatch.fnmatch(path, p) for p in kept)
+            want_why = next((v for p, v in whole.items()
+                             if fnmatch.fnmatch(path, p)),
+                            "its spec does not cut it over model")
+            check(keep == want_keep and (keep or want_why in why),
+                  f"{who}: plan {path}: {keep} {why!r}")
+        want = {k: n * conv_layers * steps for k, n in per_step.items()}
+        check({k: b["launches"][k] for k in TAP_KERNELS} == want
+              and set(b["variants"]) == {f"{k}:dw" for k in TAP_KERNELS},
+              f"{who}: launches {b['launches']} {b['variants']}, want "
+              f"{want} on dw")
+        check(b["conv_rows"] == [rows // MESH_SHAPE[0]]
+              and b["conv_channels"] == [MESH_LM_CHANNELS[case]],
+              f"{who}: conv passes on batches {b['conv_rows']} and "
+              f"channels {b['conv_channels']}")
+        check(set(b["events"]) == {"mesh:conv2d:data", "mesh:drop:cout"},
+              f"{who}: events {b['events']}: the conv hook cut the block "
+              f"again or fell back")
+        gathers = 2 * conv_layers * steps if case == "f" else 0
+        check(b["collectives"]["gathers"] == gathers,
+              f"{who}: {b['collectives']}, want {gathers} gathers")
+    check(len({tuple(b["losses"]) for b in runs}) == 1
+          and len({b["params_sha256"] for b in runs}) == 1,
+          f"({case}) the ranks' losses or gathered parameters differ")
+    check(err["loss"] <= MESH_LM_LOSS_TOL
+          and err["grad_norm"] <= MESH_LM_GNORM_TOL,
+          f"({case}) blocks vs unsharded: {err} (tol {MESH_LM_LOSS_TOL}, "
+          f"{MESH_LM_GNORM_TOL})")
 
 
 def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:

@@ -17,14 +17,20 @@ specs cut parameters over ``model`` (``tp``), the step computes on the
 ``model`` blocks wherever a layer has a rule for them
 (``repro_torch.dist.tensor_parallel.plan``, worked out once here from the
 specs and the step's config): each rank runs its own query heads and
-their KV groups, MLP columns, experts and vocabulary rows, summing partial
-outputs over ``model``; those leaves are gathered over ``data`` only.
-Every other leaf is gathered whole (``sharding.gather_tree``), with the
-plan's reason: MLA attention, Mamba2, the RG-LRU, the frontends and the
-MTP head (not ported), the router, conv kernels (``dist.conv_parallel``
-cuts them), heads that do not divide.  ``dp_only`` and ``tp_rep`` specs
-name no ``model`` axis, so there every leaf is gathered whole, as is
-every leaf of a model with no rule here (the autoencoder).
+their KV groups (or, where the KV heads do not divide, its query heads
+against K and V computed whole), Mamba2 heads, RG-LRU channels, MLP
+columns, experts and vocabulary rows, summing partial outputs over
+``model``.  A kept leaf is gathered over ``data`` only; a taken leaf
+(whose stored block cuts across the layer's units: Mamba2's ``in_proj``,
+``conv_w`` and ``out_proj``, the RG-LRU's ``wout``) is gathered whole and
+sliced, and its slice's grad folded back into its stored block before
+the grads are summed (``Plan.fold``).  Every other leaf is gathered
+whole (``sharding.gather_tree``), with the plan's reason: MLA attention,
+the frontends and the MTP head (not ported), the router, conv kernels
+(``dist.conv_parallel`` cuts them), heads that do not divide.
+``dp_only`` and ``tp_rep`` specs name no ``model`` axis, so there every
+leaf is gathered whole, as is every leaf of a model with no rule here
+(the autoencoder).
 
 A step then runs the batch-sharded forward and backward of
 ``repro_torch.train.train_step`` on this rank's batch block (under the
@@ -41,11 +47,11 @@ on every rank.  ``ckpt.checkpoint.save(..., specs=, mesh=)`` writes the
 blocks as global arrays.
 
 Still gathered whole under ``tp``, in the order the roadmap takes them:
-MLA, Mamba2, the RG-LRU, the frontends and the MTP head.  The grads are
-summed over the batch axes by gathering every rank's buffer
-(``Mesh.psum_flat``), not by a reduce-scatter.  ``run.layout`` (the
-:class:`Blocks` of a step from :func:`sharded_step`) holds the plan and
-the bytes the last step gathered.
+MLA, the frontends and the MTP head.  The grads are summed over the batch
+axes by gathering every rank's buffer (``Mesh.psum_flat``), not by a
+reduce-scatter.  ``run.layout`` (the :class:`Blocks` of a step from
+:func:`sharded_step`) holds the plan and the bytes the last step
+gathered and computed with.
 """
 
 from __future__ import annotations
@@ -59,12 +65,17 @@ from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_map
 
 
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
 @dataclasses.dataclass(frozen=True)
 class Blocks:
     """The parameters' blocks under ``specs`` on ``mesh`` and the plan of
     their compute: what the train step's ``layout=`` reads.  ``stats``
-    holds ``gathered_bytes``, the bytes of the parameters the last
-    step computed with."""
+    holds ``gathered_bytes``, the bytes of the parameters the last step
+    gathered, and ``computed_bytes``, the bytes it computed with (a taken
+    leaf's slice of its gathered whole)."""
 
     mesh: object
     specs: object
@@ -73,10 +84,11 @@ class Blocks:
 
     def gather(self, params):
         """Each parameter as the step computes with it: a kept leaf's
-        ``model`` block, every other leaf whole."""
-        full = gather_tree(params, self.plan.compute_specs, self.mesh)
-        self.stats["gathered_bytes"] = sum(
-            t.numel() * t.element_size() for t in tree_leaves(full))
+        ``model`` block, a taken leaf's slice, every other leaf whole."""
+        full = gather_tree(params, self.plan.gather_specs, self.mesh)
+        self.stats["gathered_bytes"] = _nbytes(full)
+        full = self.plan.take(full)
+        self.stats["computed_bytes"] = _nbytes(full)
         return full
 
     def cut(self, grads):

@@ -4,24 +4,46 @@ parameters: what JAX's partitioner derives from the ``tp`` specs of
 for the port's step on blocks (``repro_torch.dist.spmd``).
 
 :func:`plan` works out, once, from the parameter specs and the config,
-which leaves a rank computes with on its ``model`` block (gathered over
-``data`` only) and which it gathers whole, each with its reason.  A leaf
-keeps its block only where the block holds whole units of a layer that
-has a rule here:
+how each leaf is computed with, with its reason.  A leaf is one of three
+kinds:
+
+  * kept: a rank computes with its stored ``model`` block (gathered over
+    ``data`` only), which holds whole units of a layer with a rule here;
+  * taken (:class:`Take`): the stored block cuts across the layer's own
+    units, so the leaf is gathered whole and the rank computes with its
+    own slice of it (its units' ranges, and ranges every unit shares
+    whole); the slices' grads are gathered over ``model``, put together
+    into the leaf's and cut to the stored block (:meth:`Plan.fold`), so
+    the rest of the step treats it as a kept leaf;
+  * whole: gathered whole and computed with whole on every rank.
+
+The rules:
 
   * GQA attention: whole query heads with whole KV groups (the query and
     KV head counts both divide by the ``model`` size); ``wq``/``wk``/
     ``wv`` are column blocks (this rank's heads), ``wo`` a row block
     whose partial output is summed over ``model``;
+  * MQA-like attention (the query heads divide, the KV heads do not:
+    recurrentgemma's one KV head): ``wq``/``wo`` on their head blocks,
+    ``wk``/``wv`` whole, K and V computed whole on every rank and
+    entering the rank's heads (their grads summed over ``model``);
+  * Mamba2 (heads divide): ``a_log``/``dt_bias``/``d_skip`` and the
+    norm's scale on their stored blocks of heads; ``in_proj``, ``conv_w``
+    and ``out_proj`` taken: this rank's heads' z / x / dt columns with B
+    and C whole, its x channels with B and C's whole, its heads' rows;
+  * the RG-LRU (its width divides): ``wx``/``wgate``, the conv, ``lam``
+    and the dense ``W x W`` gates ``wr``/``wi`` on their column blocks of
+    this rank's channels (the gates read the conv output gathered over
+    ``model``, :func:`gather`), ``wout`` taken: its channels' rows;
   * a SwiGLU MLP (dense layers, the RG-LRU blocks' MLPs, shared experts):
     ``wi``/``wg`` column blocks of ``d_ff``, ``wo`` a row block;
   * routed experts: whole experts (E over ``model``: expert parallelism);
   * the vocabulary: the embedding's rows and the head's columns.
 
-Everything else is gathered whole, as are MLA attention, Mamba2, the
-RG-LRU, the frontends and the MTP head ("not ported"), the router (every
-rank routes every token) and conv kernels (``dist.conv_parallel`` cuts
-them itself).
+Everything else is gathered whole: MLA attention, the frontends and the
+MTP head ("not ported"), heads (or widths) that do not divide, the
+router (every rank routes every token), norms outside these layers and
+conv kernels (``dist.conv_parallel`` cuts them itself).
 
 Inside :func:`model_axis` (the step enters it around its forward and
 backward), a layer that finds a block where its config says whole units
@@ -29,10 +51,12 @@ backward), a layer that finds a block where its config says whole units
 ``Mesh.psum``'s fixed order so that every ``model`` rank holds the same
 bits: :func:`enter` (identity forward, psum of the grad backward) where
 replicated activations meet the block, and :func:`leave` (psum forward,
-identity backward) where the block's partial output rejoins them.  Every
-``model`` rank computes the same loss from the same inputs, so a
-replicated parameter's grad is whole on every rank and a kept leaf's is
-its block.  :data:`COUNTS` counts the model psums and their bytes.
+identity backward) where the block's partial output rejoins them; and
+:func:`gather` (all-gather forward, the summed grad's own slice
+backward) where a block's activations are read whole.  Every ``model``
+rank computes the same loss from the same inputs, so a replicated
+parameter's grad is whole on every rank and a kept leaf's is its block.
+:data:`COUNTS` counts the model psums and gathers and their bytes.
 """
 
 from __future__ import annotations
@@ -47,18 +71,78 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 MODEL = "model"
 
-#: the model psums of this process: ``enter`` (backward), ``leave``
-#: (forward) and ``pmax`` calls, and the bytes they summed.
-COUNTS = {"psums": 0, "psum_bytes": 0}
+#: the model collectives of this process: psums (``enter`` backward,
+#: ``leave`` forward, ``pmax``, the backward of ``gather``) and the bytes
+#: they summed; ``gather`` forward calls and the bytes of the blocks they
+#: gathered; :meth:`Plan.fold`'s gathers of a taken leaf's slices and
+#: their bytes.
+COUNTS = {"psums": 0, "psum_bytes": 0, "gathers": 0, "gather_bytes": 0,
+          "folds": 0, "fold_bytes": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class Take:
+    """The slice a rank computes with of a leaf gathered whole: along
+    ``dim``, the leaf's ``parts`` in order, each ``(width, own)``; of an
+    own part this rank's ``model`` block (its units), a shared part
+    whole."""
+
+    dim: int
+    parts: tuple[tuple[int, bool], ...]
+
+    def ranges(self, m: int, index: int) -> list[tuple[int, int, bool]]:
+        """``(start, length, own)`` in the whole leaf of each range the
+        slice holds, in order."""
+        out, start = [], 0
+        for width, own in self.parts:
+            if own:
+                out.append((start + index * (width // m), width // m, True))
+            else:
+                out.append((start, width, False))
+            start += width
+        return out
+
+    def width(self, m: int) -> int:
+        """The slice's size along ``dim``."""
+        return sum(w // m if own else w for w, own in self.parts)
+
+    def of(self, t: torch.Tensor, m: int, index: int) -> torch.Tensor:
+        """This rank's slice of the whole leaf ``t``."""
+        if t.shape[self.dim] != sum(w for w, _ in self.parts):
+            raise ValueError(f"a leaf of {t.shape[self.dim]} along dim "
+                             f"{self.dim}, its parts {self.parts}")
+        return torch.cat([t.narrow(self.dim, s, n)
+                          for s, n, _ in self.ranges(m, index)], self.dim)
+
+    def whole(self, slices: torch.Tensor) -> torch.Tensor:
+        """:meth:`of` undone on every rank's slice (``slices``: the
+        ``model`` ranks' slices stacked in coordinate order): the whole
+        leaf, each own range from the rank that holds it, each shared
+        range from coordinate 0 (every rank holds the same bits of it)."""
+        m = slices.shape[0]
+        shape = list(slices.shape[1:])
+        dim = self.dim % len(shape)
+        shape[dim] = sum(w for w, _ in self.parts)
+        out = slices.new_empty(shape)
+        for index in range(m):
+            at = 0
+            for s, n, own in self.ranges(m, index):
+                if own or index == 0:
+                    out.narrow(dim, s, n).copy_(
+                        slices[index].narrow(dim, at, n))
+                at += n
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
-    """One parameter's compute: on its ``model`` block (``keep``) or
-    gathered whole, and why."""
+    """One parameter's compute: on a ``model`` block (``keep``: its
+    stored one, or with ``take`` a slice of the leaf gathered whole) or
+    whole, and why."""
 
     keep: bool
     why: str
+    take: Take | None = None
 
 
 def _names_model(spec) -> bool:
@@ -86,6 +170,65 @@ def _only_model(spec) -> P:
 _SWIGLU = ("wi", "wg", "wo")
 
 
+def _ssm_rule(name: str, cfg, m: int) -> Leaf:
+    """A Mamba2 leaf (``name`` under ``ssm``): on this rank's heads."""
+    d, s = cfg.d_model, cfg.ssm_state
+    di = cfg.ssm_expand * d
+    h = di // cfg.ssm_head_dim
+    if h % m or 2 * s % m or d % m:
+        return Leaf(False, f"{h} Mamba2 heads (state {s}, d_model {d}) do "
+                           f"not divide by model={m}")
+    heads = f"heads, {h // m} of {h}"
+    if name == "in_proj":
+        return Leaf(True, f"{heads}: z, x and dt columns, B and C whole, "
+                          f"taken from the leaf gathered whole (in_proj "
+                          f"packs z/x/B/C/dt)",
+                    Take(-1, ((di, True), (di, True), (s, False), (s, False),
+                              (h, True))))
+    if name == "conv_w":
+        return Leaf(True, f"{heads}: x channels, B and C whole, taken from "
+                          f"the leaf gathered whole (conv_w packs x/B/C)",
+                    Take(-1, ((di, True), (s, False), (s, False))))
+    if name == "out_proj":
+        return Leaf(True, f"{heads}: rows, taken from the leaf gathered "
+                          f"whole (stored: columns of d_model)",
+                    Take(-2, ((di, True),)))
+    return Leaf(True, heads)
+
+
+def _rec_rule(name: str, cfg, m: int) -> Leaf:
+    """An RG-LRU leaf (``name`` under ``rec``): on this rank's
+    channels."""
+    w = cfg.rglru_width or cfg.d_model
+    if w % m or cfg.d_model % m:
+        return Leaf(False, f"RG-LRU width {w} (d_model {cfg.d_model}) does "
+                           f"not divide by model={m}")
+    chans = f"channels, {w // m} of {w}"
+    if name == "wout":
+        return Leaf(True, f"{chans}: rows, taken from the leaf gathered "
+                          f"whole (stored: columns of d_model)",
+                    Take(-2, ((w, True),)))
+    if name in ("wr", "wi"):
+        return Leaf(True, f"{chans}: columns of the dense {w} x {w} gate, "
+                          f"its rows read the conv output gathered over "
+                          f"model")
+    return Leaf(True, chans)
+
+
+def _attn_rule(name: str, cfg, m: int) -> Leaf:
+    h, hk = cfg.n_heads, cfg.n_kv_heads
+    if h % m:
+        return Leaf(False, f"{h} query heads and {hk} KV heads do not both "
+                           f"divide by model={m}")
+    if hk % m == 0:
+        return Leaf(True, f"heads, {h // m} of {h} (KV {hk // m} of {hk})")
+    if name in ("wk", "wv"):
+        return Leaf(False, f"{hk} KV heads do not divide by model={m}: K "
+                           f"and V computed whole, their grads summed over "
+                           f"model")
+    return Leaf(True, f"query heads, {h // m} of {h} (KV {hk} whole)")
+
+
 def _rule(path: tuple[str, ...], ndim: int, cfg, m: int) -> Leaf:
     """The compute of a leaf whose spec cuts it over ``model``."""
     if not hasattr(cfg, "n_heads"):
@@ -105,21 +248,15 @@ def _rule(path: tuple[str, ...], ndim: int, cfg, m: int) -> Leaf:
         return Leaf(False, "not ported: the frontend")
     if top == "mtp":
         return Leaf(False, "not ported: the MTP head")
-    if "ssm" in path:
-        return Leaf(False, "not ported: Mamba2 (in_proj's z/x/B/C/dt "
-                           "segments do not align with column blocks)")
-    if "rec" in path:
-        return Leaf(False, "not ported: the RG-LRU")
+    for layer, rule in (("ssm", _ssm_rule), ("rec", _rec_rule)):
+        if layer in path:
+            return rule(path[path.index(layer) + 1], cfg, m)
     unit, name = (path[-3], path[-2]) if len(path) >= 3 and \
         path[-1] == "w" else (None, None)
     if unit == "attn" and cfg.use_mla:
         return Leaf(False, "not ported: MLA attention")
     if unit == "attn" and name in ("wq", "wk", "wv", "wo"):
-        h, hk = cfg.n_heads, cfg.n_kv_heads
-        if h % m or hk % m:
-            return Leaf(False, f"{h} query heads and {hk} KV heads do not "
-                               f"both divide by model={m}")
-        return Leaf(True, f"heads, {h // m} of {h} (KV {hk // m} of {hk})")
+        return _attn_rule(name, cfg, m)
     if unit == "moe" and name == "router":
         return Leaf(False, "the router: every rank routes every token")
     if unit == "moe" and name in _SWIGLU:
@@ -155,11 +292,20 @@ class Plan:
 
     @property
     def compute_specs(self):
-        """The specs the step gathers by: a kept leaf's without
-        ``model``."""
+        """The specs of the grads after :meth:`fold`, and of the blocks
+        the step cuts them to: a kept leaf's without ``model``."""
         return tree_unflatten(self.specs, [
             _drop_model(s) if leaf.keep else s for s, leaf in
             zip(tree_leaves(self.specs), tree_leaves(self.tree))])
+
+    @property
+    def gather_specs(self):
+        """The specs the step gathers by: a kept leaf's without
+        ``model``, a taken leaf's whole."""
+        return tree_unflatten(self.specs, [
+            _drop_model(s) if leaf.keep and leaf.take is None else s
+            for s, leaf in zip(tree_leaves(self.specs),
+                               tree_leaves(self.tree))])
 
     def table(self) -> dict[str, tuple[bool, str]]:
         """``{"a.b.w": (keep, why)}``: the plan to print or compare."""
@@ -179,10 +325,52 @@ class Plan:
 
     def held_bytes(self, params) -> int:
         """The bytes of ``params`` (whole, or ``meta`` tensors) that a
-        rank computes with in a step: a kept leaf's ``model`` block, every
-        other leaf whole."""
-        return sum(t.numel() * t.element_size() // (self.size if k else 1)
-                   for t, k in zip(tree_leaves(params), self.kept))
+        rank computes with in a step: a kept leaf's ``model`` block, a
+        taken leaf's slice, every other leaf whole."""
+        total = 0
+        for t, leaf in zip(tree_leaves(params), tree_leaves(self.tree)):
+            n = t.numel() * t.element_size()
+            if leaf.take is not None:
+                n = n // t.shape[leaf.take.dim] * leaf.take.width(self.size)
+            elif leaf.keep:
+                n //= self.size
+            total += n
+        return total
+
+    def gathered_bytes(self, params) -> int:
+        """The bytes of ``params`` that a rank gathers in a step: a kept
+        leaf's ``model`` block, every other leaf (a taken one too)
+        whole."""
+        return sum(t.numel() * t.element_size() // (
+            self.size if leaf.keep and leaf.take is None else 1)
+            for t, leaf in zip(tree_leaves(params), tree_leaves(self.tree)))
+
+    def take(self, full):
+        """``full`` (gathered by :attr:`gather_specs`) as the layers
+        compute with it: each taken leaf's slice."""
+        index = self.mesh.coordinate(MODEL) if self.size > 1 else 0
+        return tree_unflatten(full, [
+            t if leaf.take is None else leaf.take.of(t, self.size, index)
+            for t, leaf in zip(tree_leaves(full), tree_leaves(self.tree))])
+
+    def fold(self, grads):
+        """The grads of :meth:`take`'s tree as those of the kept leaves:
+        each taken leaf's slices gathered over ``model`` and put together
+        (:meth:`Take.whole`), then cut to its stored ``model`` block; the
+        rest as they are.  A shared range's grad is whole on every rank
+        (the layer summed it over ``model``), an own range's this rank's
+        alone, so the whole is the sum of every rank's, with no add."""
+        out = []
+        for g, s, leaf in zip(tree_leaves(grads), tree_leaves(self.specs),
+                              tree_leaves(self.tree)):
+            if leaf.take is not None:
+                COUNTS["folds"] += 1
+                COUNTS["fold_bytes"] += g.numel() * g.element_size()
+                whole = leaf.take.whole(
+                    self.mesh.all_gather(g[None], MODEL, 0))
+                g = local_block(whole, _only_model(s), self.mesh).contiguous()
+            out.append(g)
+        return tree_unflatten(grads, out)
 
     def axis(self):
         """The context the step's forward and backward run in: the
@@ -331,6 +519,20 @@ class _Leave(torch.autograd.Function):
         return g, None
 
 
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, index):
+        ctx.mesh, ctx.start, ctx.n = mesh, index * x.shape[-1], x.shape[-1]
+        COUNTS["gathers"] += 1
+        COUNTS["gather_bytes"] += x.numel() * x.element_size()
+        return mesh.all_gather(x, MODEL, x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_psum(g, ctx.mesh).narrow(-1, ctx.start, ctx.n), None,
+                None)
+
+
 def enter(x: torch.Tensor) -> torch.Tensor:
     """``x`` (the same on every ``model`` rank) into a block's compute:
     the identity; its grad summed over ``model``."""
@@ -341,6 +543,14 @@ def leave(x: torch.Tensor) -> torch.Tensor:
     """A block's partial ``x`` summed over ``model``; the grad passes
     unchanged to every rank's block."""
     return _Leave.apply(x, active().mesh)
+
+
+def gather(x: torch.Tensor) -> torch.Tensor:
+    """Every ``model`` rank's block ``x`` of the last dim, concatenated
+    in coordinate order; the grad summed over ``model``, this rank's
+    slice of it (a reduce-scatter)."""
+    ax = active()
+    return _Gather.apply(x, ax.mesh, ax.index)
 
 
 def pmax(x: torch.Tensor) -> torch.Tensor:

@@ -34,8 +34,10 @@ the JAX package.
 
 In the train step on ``tp`` blocks (``repro_torch.dist.tensor_parallel``)
 ``gqa_prefill`` attends over the query heads and KV groups whose columns
-the rank holds and sums ``wo``'s partial outputs over ``model``; MLA is
-not computed on blocks (its leaves are gathered whole).
+the rank holds (or, where the KV heads do not divide, its query heads
+against K and V computed whole) and sums ``wo``'s partial outputs over
+``model``; MLA is not computed on blocks (its leaves are gathered
+whole).
 
 A local ``window`` (RecurrentGemma's attention layers) masks keys at or
 more than ``window`` positions behind the query (``q_pos - k_pos <
@@ -195,25 +197,32 @@ def gqa_prefill(p, x, cfg: ArchConfig, *, window=None, positions=None):
     """x (B, L, D) -> (out (B, L, D), k, v (B, L, Hk, Dh)): full-sequence
     attention, and the rope'd keys and values of every position.  Where
     ``p`` holds this rank's block of the heads (the train step under
-    ``tp``: ``wq``/``wk``/``wv`` column blocks of whole query heads and
-    their KV groups, ``wo`` the row block), it attends over its own heads
-    and ``wo``'s partial outputs are summed over ``model``; ``k``/``v``
-    are its heads'."""
+    ``tp``: ``wq`` a column block of whole query heads, ``wo`` the row
+    block), it attends over its own heads and ``wo``'s partial outputs
+    are summed over ``model``.  ``wk``/``wv`` are then the column blocks of
+    their KV groups, or, where the KV heads do not divide (MQA), whole:
+    K and V are computed from the replicated ``x`` (not the one entering
+    the block, whose grad is summed over ``model`` already) and enter the
+    rank's heads, so their grads sum every rank's heads; ``k``/``v`` are
+    its heads' or whole."""
     b, l, _ = x.shape
     dh = cfg.head_dim
     h, hk = p["wq"]["w"].shape[-1] // dh, p["wk"]["w"].shape[-1] // dh
     cut = TP.is_block(cfg.n_heads, h)
-    if cut != TP.is_block(cfg.n_kv_heads, hk):
+    kv_cut = TP.is_block(cfg.n_kv_heads, hk)
+    if kv_cut and not cut:
         raise RuntimeError(f"{h} of {cfg.n_heads} query heads with {hk} of "
                            f"{cfg.n_kv_heads} KV heads")
-    if cut:
-        x = TP.enter(x)
+    xq = TP.enter(x) if cut else x
+    xkv = xq if kv_cut else x
     if positions is None:
         positions = torch.arange(l, device=x.device)
     ang = L.rope_freqs(dh, cfg.rope_theta, positions)
-    q = L.apply_rope(_split_heads(L.linear(p["wq"], x), h, dh), ang)
-    k = L.apply_rope(_split_heads(L.linear(p["wk"], x), hk, dh), ang)
-    v = _split_heads(L.linear(p["wv"], x), hk, dh)
+    q = L.apply_rope(_split_heads(L.linear(p["wq"], xq), h, dh), ang)
+    k = L.apply_rope(_split_heads(L.linear(p["wk"], xkv), hk, dh), ang)
+    v = _split_heads(L.linear(p["wv"], xkv), hk, dh)
+    if cut and not kv_cut:
+        k, v = TP.enter(k), TP.enter(v)
     o = _sdpa(q, k, v, causal=not cfg.is_encoder_only, window=window)
     return _out_proj(p["wo"], o.reshape(b, l, h * dh), cut), k, v
 

@@ -36,6 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.config import config
 from repro_torch.core.conv import depthwise_causal_conv1d
 from repro_torch.device import resolve_device
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.models import layers as L
 
 
@@ -137,30 +138,79 @@ def _split_proj(zxbcdt, cfg: ArchConfig):
     return torch.split(zxbcdt, [di, di, ds, ds, n_heads(cfg)], dim=-1)
 
 
+def _proj_on_heads(w, x, di: int, ds: int):
+    """``in_proj`` on this rank's heads (the train step on ``tp``
+    blocks): ``w`` holds its z, x and dt columns around B and C's whole
+    (``dist.tensor_parallel``'s take).  z, x and dt read ``x`` entering
+    the heads' block; B and C, which every head reads, the replicated
+    ``x`` itself, so that their share of its grad is counted once."""
+    xe = TP.enter(x)
+    zx = xe @ w[..., :2 * di].to(x.dtype)
+    bc = x @ w[..., 2 * di:2 * di + 2 * ds].to(x.dtype)
+    dt = xe @ w[..., 2 * di + 2 * ds:].to(x.dtype)
+    return (*torch.split(zx, [di, di], dim=-1),
+            *torch.split(bc, [ds, ds], dim=-1), dt)
+
+
+def _shared_into_heads(Bc, Cc):
+    """B and C, the same on every ``model`` rank, into this rank's heads:
+    their grads summed over ``model``."""
+    return TP.enter(Bc), TP.enter(Cc)
+
+
+def _norm_on_heads(p, y, width: int, eps: float = 1e-6):
+    """``layers.rmsnorm`` over all ``width`` channels of which ``y``
+    holds this rank's block: the sum of squares summed over ``model``
+    (forward and backward: each rank's channels read the whole sum)."""
+    y32 = y.float()
+    ss = TP.enter(TP.leave((y32 * y32).sum(dim=-1, keepdim=True)))
+    out = y32 * torch.rsqrt(ss / width + eps)
+    return (out * p["scale"].float()).to(y.dtype)
+
+
 def mamba2_block(p, x, cfg: ArchConfig, return_cache: bool = False):
     """Full-sequence forward.  x (B, L, D) -> (B, L, D); with
     ``return_cache``, ``(y, ssm, conv)``: the SSM state after the last
     position (B, H, P, S) and the last ``ssm_conv - 1`` conv inputs
     (B, ssm_conv - 1, d_inner + 2 ssm_state), zero on the left of a prompt
     shorter than that, both in ``cfg.adtype`` -- what a scan of decode
-    steps leaves in the cache."""
+    steps leaves in the cache.
+
+    Where ``p`` holds this rank's block of the heads (the train step under
+    ``tp``: ``a_log`` holds H / model heads), the layer computes its heads
+    only: their z, x and dt (B and C whole), the conv over its x channels
+    and B and C's, the SSD of its heads, the gated norm over every
+    channel (its sum of squares summed over ``model``) and ``out_proj``'s
+    rows, whose partial outputs are summed over ``model``; the cache is
+    its heads' and channels'."""
     b, l, _ = x.shape
-    di, h, ds, dh = d_inner(cfg), n_heads(cfg), cfg.ssm_state, \
-        cfg.ssm_head_dim
-    z, xs, Bc, Cc, dt = _split_proj(L.linear(p["in_proj"], x), cfg)
+    h, ds, dh = n_heads(cfg), cfg.ssm_state, cfg.ssm_head_dim
+    hb = p["a_log"]["w"].shape[-1]
+    di = hb * dh
+    cut = TP.is_block(h, hb)
+    if cut:
+        z, xs, Bc, Cc, dt = _proj_on_heads(p["in_proj"]["w"], x, di, ds)
+    else:
+        z, xs, Bc, Cc, dt = _split_proj(L.linear(p["in_proj"], x), cfg)
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)                # (B,L,di+2S)
     conv_out = depthwise_causal_conv1d(conv_in, p["conv_w"]["w"],
                                        cfg.conv_engine_policy)
     conv_out = F.silu(conv_out)
     xs, Bc, Cc = torch.split(conv_out, [di, ds, ds], dim=-1)
+    if cut:
+        Bc, Cc = _shared_into_heads(Bc, Cc)
     dt = F.softplus(dt.float() + p["dt_bias"]["w"][None, None, :])
-    xh = xs.reshape(b, l, h, dh)
+    xh = xs.reshape(b, l, hb, dh)
     y, state = _ssd_chunked(xh, dt, p["a_log"]["w"], Bc.to(xh.dtype),
                             Cc.to(xh.dtype))
     y = y + xh * p["d_skip"]["w"][None, None, :, None].to(xh.dtype)
     y = y.reshape(b, l, di)
-    y = L.rmsnorm(p["norm"], y * F.silu(z))
-    out = L.linear(p["out_proj"], y)
+    if cut:
+        y = _norm_on_heads(p["norm"], y * F.silu(z), h * dh)
+        out = TP.leave(L.linear(p["out_proj"], y.float())).to(y.dtype)
+    else:
+        y = L.rmsnorm(p["norm"], y * F.silu(z))
+        out = L.linear(p["out_proj"], y)
     if not return_cache:
         return out
     conv = F.pad(conv_in, (0, 0, cfg.ssm_conv - 1, 0))[:, l:]

@@ -21,6 +21,9 @@ Pallas kernel).  Beyond the JAX block, :func:`recurrent_block` can also
 return what a scan of decode steps leaves in the cache (``return_cache``),
 which the one-pass prefill of ``models/model.py`` writes.
 
+In the train step on ``tp`` blocks (``repro_torch.dist.tensor_parallel``)
+each rank computes its block of the ``W`` channels (:func:`recurrent_block`).
+
 Dtypes are the JAX package's: ``r``, ``i``, ``lam`` and the recurrence in
 float32, the gate and its product with ``h`` in the activation type, the
 recurrent state ``h`` float32 and the conv state in ``cfg.adtype``.
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.conv import depthwise_causal_conv1d
 from repro_torch.device import resolve_device
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.models import layers as L
 
 RG_C = 8.0
@@ -104,15 +108,30 @@ def recurrent_block(p, x, cfg: ArchConfig, return_cache: bool = False):
     in float32 and the last ``rglru_conv - 1`` conv inputs (B,
     rglru_conv - 1, W) in ``cfg.adtype``, zero on the left of a prompt
     shorter than that -- what a scan of decode steps leaves in the
-    cache."""
-    xb = L.linear(p["wx"], x)                                    # (B,L,W)
+    cache.
+
+    Where ``p`` holds this rank's block of the channels (the train step
+    under ``tp``: ``lam`` holds W / model of them), the layer computes
+    its channels only: ``wx`` and ``wgate`` on ``x`` entering the block,
+    the conv and the scan on its channels, the gates ``r`` and ``i`` of
+    its channels from the conv output gathered whole over ``model`` (``wr``
+    and ``wi`` are dense ``W x W``), and ``wout``'s rows, whose partial
+    outputs are summed over ``model``; the cache is its channels'."""
+    cut = TP.is_block(rec_width(cfg), p["lam"]["w"].shape[-1])
+    xe = TP.enter(x) if cut else x
+    xb = L.linear(p["wx"], xe)                                   # (B,L,W)
     xc = depthwise_causal_conv1d(xb, p["conv_w"]["w"],
                                  cfg.conv_engine_policy)
-    r = torch.sigmoid(L.linear(p["wr"], xc).float())
-    i = torch.sigmoid(L.linear(p["wi"], xc).float())
+    xa = TP.gather(xc) if cut else xc
+    r = torch.sigmoid(L.linear(p["wr"], xa).float())
+    i = torch.sigmoid(L.linear(p["wi"], xa).float())
     h = _rglru_scan(xc.float(), r, i, p["lam"]["w"])
-    gate = _gelu(L.linear(p["wgate"], x))
-    out = L.linear(p["wout"], h.to(x.dtype) * gate)
+    gate = _gelu(L.linear(p["wgate"], xe))
+    if cut:
+        out = TP.leave(L.linear(p["wout"], (h.to(x.dtype) * gate).float()))
+        out = out.to(x.dtype)
+    else:
+        out = L.linear(p["wout"], h.to(x.dtype) * gate)
     if not return_cache:
         return out
     conv = F.pad(xb, (0, 0, cfg.rglru_conv - 1, 0))[:, x.shape[1]:]

@@ -46,17 +46,20 @@ parameters bit-identical.
 this rank's blocks (``repro_torch.dist.spmd.sharded_step``, the
 counterpart of ``jit(in_shardings=...)``): the step gathers the
 parameters as its plan says (``repro_torch.dist.tensor_parallel``: under
-``tp``, the leaves a layer computes on by ``model`` block -- GQA heads,
-MLP columns, experts, vocabulary rows -- over ``data`` only, every other
-leaf whole), runs the above inside the plan's ``model_axis`` (the layers
-sum their partial outputs over ``model``; every ``model`` rank computes
-the same loss), broadcasts coordinate 0's grads over ``model`` for the
-replicated leaves only, takes the norm and the clip of the whole grads
-(a kept leaf's squares summed over ``model``), cuts each grad to its
-parameter's block and updates the blocks.  Compression quantizes the
-whole grads: a kept leaf's blocks are put together over ``model`` for it,
-and cut again after.  ``train_step.cfg`` is the config the step was made
-for (the plan reads it).
+``tp``, the leaves a layer computes on by ``model`` block -- attention
+heads, Mamba2 heads, RG-LRU channels, MLP columns, experts, vocabulary
+rows -- over ``data`` only, a taken leaf -- Mamba2's ``in_proj``,
+``conv_w`` and ``out_proj``, the RG-LRU's ``wout`` -- whole and then
+sliced, every other leaf whole), runs the above inside the plan's
+``model_axis`` (the layers sum their partial outputs over ``model``;
+every ``model`` rank computes the same loss), folds each taken leaf's
+grad into its stored ``model`` block, broadcasts coordinate 0's grads
+over ``model`` for the replicated leaves only, takes the norm and the
+clip of the whole grads (a kept leaf's squares summed over ``model``),
+cuts each grad to its parameter's block and updates the blocks.
+Compression quantizes the whole grads: a kept leaf's blocks are put
+together over ``model`` for it, and cut again after.  ``train_step.cfg``
+is the config the step was made for (the plan reads it).
 """
 
 from __future__ import annotations
@@ -263,6 +266,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                 loss_val, metrics, grads = _accumulated(
                     loss, full, batch, cfg, accum_steps, split)
         del full
+        if layout is not None:
+            grads = layout.plan.fold(grads)
         mesh = split.mesh if split is not None else (
             layout.mesh if layout is not None else
             constraints._active_mesh() if conv_mesh is not None else None)

@@ -7,8 +7,10 @@ initial parameters as numpy trees, the batches drawn from a seed).  Each
 rank runs every case on a ``(data=4, model=2)`` mesh and writes
 ``OUT_DIR/rank<r>.json``; the blocked state of the SmolLM run is saved to
 ``OUT_DIR/ckpt`` after its second step, and rank 0 writes the gathered
-parameters of that step as ``OUT_DIR/saved.npz``.  Imports torch and the
-port only: the JAX side of each comparison runs in the test.
+parameters of that step as ``OUT_DIR/saved.npz``; rank 0 also runs the
+whole-tensor paths of ``CONV_FAMILIES`` through the layers and through
+``tests/_torch_whole_layers.py``.  Imports torch and the port only: the
+JAX side of each comparison runs in the test.
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ MOE_CASES = {
 #: SmolLM's smoke config with heads that divide by model = 2 (its 3
 #: query heads and 1 KV head do not), on both sides.
 HEADS = {"n_heads": 4, "n_kv_heads": 2}
+#: the families whose layers host the paper's conv, under ``tp`` with the
+#: depthwise conv on the tap kernels' plain versions and the mesh hook:
+#: case -> (arch, params of inputs.pkl).
+CONV_FAMILIES = {"mamba2_tp": ("mamba2-370m", "m2_params"),
+                 "hybrid_tp": ("recurrentgemma-9b", "rg_params")}
 #: the step after which the SmolLM run saves its blocked state.
 SAVE_AFTER = 1
 LR = 1e-3
@@ -101,8 +108,8 @@ def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
                               "experts": r["experts"].tolist(),
                               "kept": r["kept"].tolist()}
                              for r in log[:n_moe]]
-        res.setdefault("gathered_bytes", []).append(
-            step_fn.layout.stats["gathered_bytes"])
+        for key in ("gathered_bytes", "computed_bytes"):
+            res.setdefault(key, []).append(step_fn.layout.stats[key])
         res["losses"].append(float(m["loss"]))
         res["grad_norms"].append(float(m["grad_norm"]))
         if "moe_lb" in m:
@@ -233,6 +240,119 @@ def run_heads(mesh, cfg, inputs, batch) -> dict:
     return out
 
 
+def _count_collectives(run):
+    """``run()``'s result with the model collectives it made
+    (``tensor_parallel.COUNTS``) under ``"collectives"``."""
+    from repro_torch.dist import tensor_parallel as TP
+    before = dict(TP.COUNTS)
+    res = run()
+    res["collectives"] = {k: TP.COUNTS[k] - v for k, v in before.items()}
+    return res
+
+
+def run_conv_families(mesh, inputs, batch) -> dict:
+    """Mamba2 and recurrentgemma (``CONV_FAMILIES``) under ``tp``: Mamba2's
+    heads, the RG-LRU's channels and the MQA query heads on their blocks,
+    the depthwise conv on each rank's channel block (``pallas`` under
+    ``conv_mesh="tp"``: its ``mesh:*`` events); then the three mutations:
+    Mamba2's gated norm without the ``model`` sum of its squares, B and C
+    not entering the heads' block, and a ``gather`` whose backward takes
+    its slice of the unsummed grad."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import conv as C
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.tree import tree_from_numpy
+    out = {}
+
+    def run(case):
+        arch, params = CONV_FAMILIES[case]
+        C.reset_dispatch_events()
+        res = _count_collectives(lambda: run_sharded(
+            mesh, get_smoke_config(arch),
+            tree_from_numpy(inputs[params], "cpu"), batch, "tp",
+            conv_policy="pallas", conv_mesh="tp"))
+        res["events"] = _mesh_events(C)
+        return res
+    for case in CONV_FAMILIES:
+        out[case] = run(case)
+
+    class UnsummedGather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            ax = TP.active()
+            ctx.start, ctx.n = ax.index * x.shape[-1], x.shape[-1]
+            return ax.mesh.all_gather(x, TP.MODEL, x.dim() - 1)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g.narrow(-1, ctx.start, ctx.n)
+    mutants = {
+        "ssm_norm_mutant": ("mamba2_tp", M2, "_norm_on_heads",
+                            lambda p, y, width: L.rmsnorm(p, y)),
+        "ssm_bc_mutant": ("mamba2_tp", M2, "_shared_into_heads",
+                          lambda b, c: (b, c)),
+        "gather_mutant": ("hybrid_tp", TP, "gather", UnsummedGather.apply)}
+    for name, (case, module, attr, mutant) in mutants.items():
+        sound = getattr(module, attr)
+        setattr(module, attr, mutant)
+        try:
+            out[name] = run(case)
+        finally:
+            setattr(module, attr, sound)
+    return out
+
+
+def run_whole_paths(inputs, batch) -> dict:
+    """Serving (a prefill and 3 decode steps) and 2 unsharded steps of
+    both ``CONV_FAMILIES`` configs on whole tensors, through the layers
+    as they are and through the layers as they were before any of them
+    computed on ``model`` blocks (:mod:`_torch_whole_layers`): the logits',
+    losses', norms' and parameters' digests of each."""
+    import _torch_whole_layers as WL
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import model as M
+    from repro_torch.models import recurrent as R
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_from_numpy, tree_leaves
+
+    def paths(cfg, params):
+        logits, cache = M.prefill(params, batch["tokens"][:2, :16], cfg, 24)
+        outs = [logits]
+        tok = logits.argmax(-1)
+        for pos in range(16, 19):
+            logits, cache = M.decode_step(params, cache, tok, pos, cfg)
+            outs.append(logits)
+            tok = logits.argmax(-1)
+        step = make_train_step(cfg, adamw.AdamWConfig(peak_lr=LR),
+                               total_steps=10, warmup=1,
+                               conv_policy="pallas")
+        p, o, metrics = params, adamw.init_state(params), []
+        for s in range(2):
+            p, o, m = step(p, o, batch, s)
+            metrics += [m["loss"], m["grad_norm"]]
+        return {"serve": _digest(*outs), "train": _digest(*metrics),
+                "params": _digest(*tree_leaves(p))}
+    out = {}
+    for case, (arch, key) in CONV_FAMILIES.items():
+        cfg = get_smoke_config(arch)
+        params = tree_from_numpy(inputs[key], "cpu")
+        now = paths(cfg, params)
+        sound = (M2.mamba2_block, R.recurrent_block, A.gqa_prefill)
+        M2.mamba2_block, R.recurrent_block, A.gqa_prefill = (
+            WL.mamba2_block, WL.recurrent_block, WL.gqa_prefill)
+        try:
+            before = paths(cfg, params)
+        finally:
+            M2.mamba2_block, R.recurrent_block, A.gqa_prefill = sound
+        out[case] = {"now": now, "before": before}
+    return out
+
+
 def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -306,6 +426,9 @@ def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
 
     out.update(run_moe(mesh, inputs))
     out.update(run_heads(mesh, cfg, inputs, lm_batch))
+    out.update(run_conv_families(mesh, inputs, lm_batch))
+    if rank == 0:
+        out["whole_paths"] = run_whole_paths(inputs, lm_batch)
 
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)

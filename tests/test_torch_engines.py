@@ -9,6 +9,7 @@ training steps of the CNN under ``traditional``.
 two packages sum in different orders, and an element that cancels to near
 zero carries the rounding of terms far larger than itself."""
 
+import contextlib
 import pathlib
 import sys
 
@@ -338,6 +339,22 @@ def test_cnn_losses_under_traditional_match_jax_example():
         params = jax.tree.map(lambda p, gg: p - 0.05 * gg, params, g)
         want.append(float(loss))
     for policy in ("traditional", "bp_im2col"):
-        res = cnn_bp.train(policy, steps=20, batch=32, lr=0.05, device="cpu",
-                           params=cnn_bp.params_from_numpy(params0, "cpu"))
+        with _one_thread():
+            res = cnn_bp.train(policy, steps=20, batch=32, lr=0.05,
+                               device="cpu",
+                               params=cnn_bp.params_from_numpy(params0,
+                                                               "cpu"))
         np.testing.assert_allclose(res["losses"], want, rtol=1e-4, atol=1e-4)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """torch's intra-op threads set to one, restored after: the CNN's
+    small ops, beside other test processes, cost far more in waking a
+    pool of threads than in the ops themselves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

@@ -14,7 +14,11 @@ key tiles in exp2 units) stays within 1e-5 of JAX's
 ``flash_attention_ref``, while the same walk with one TF32 product a pair
 does not; and with each mma step rounded toward zero, as the tensor cores
 round, one accumulator over a 1,000-key walk drifts past 1e-5 where the
-kernel's short chains stay well inside."""
+kernel's short chains stay well inside.  The emulation runs its many
+small ops on one intra-op thread: beside other test processes, a pool of
+threads waking for each op costs far more than the op."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -129,17 +133,33 @@ def _toward_zero(x64: torch.Tensor) -> torch.Tensor:
     return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
 
 
+def _steps(x, y, tc_rounding: bool):
+    """Every k-step's product of ``x @ y`` at once: (nk, ..., m, n), step
+    s = x[..., 8s:8s+8] @ y[8s:8s+8, :], in float64 (exact for TF32
+    operands) with ``tc_rounding``, else in float32.  K is zero-padded to
+    a multiple of 8 (the padding adds exact zeros)."""
+    pad = -x.shape[-1] % 8
+    x = torch.nn.functional.pad(x, (0, pad))
+    y = torch.nn.functional.pad(y, (0, 0, 0, pad))
+    if tc_rounding:
+        x, y = x.double(), y.double()
+    xs = x.unflatten(-1, (-1, 8)).movedim(-2, 0)       # (nk, ..., m, 8)
+    ys = y.unflatten(-2, (-1, 8)).movedim(-3, 0)       # (nk, ..., 8, n)
+    return xs @ ys
+
+
 def _chain(acc, pairs, tc_rounding: bool):
     """One accumulator through m16n8k8 steps: for each k-step of 8, in
     order, each (x, y) of ``pairs`` adds x[..., k-step] @ y[k-step, :]
     (TF32 operands, exact products).  With ``tc_rounding`` each step sums
     exactly and rounds toward zero, as the tensor cores do; else it is a
-    float32 sum."""
-    for k0 in range(0, pairs[0][0].shape[-1], 8):
-        for x, y in pairs:
-            x, y = x[..., k0:k0 + 8], y[..., k0:k0 + 8, :]
-            acc = (_toward_zero(acc.double() + x.double() @ y.double())
-                   if tc_rounding else acc + x @ y)
+    float32 sum.  The products of every k-step and pair come from one
+    batched matmul a pair (:func:`_steps`); only the sums run in order."""
+    prods = [_steps(x, y, tc_rounding) for x, y in pairs]
+    for k in range(prods[0].shape[0]):
+        for p in prods:
+            acc = (_toward_zero(acc.double() + p[k]) if tc_rounding
+                   else acc + p[k])
     return acc
 
 
@@ -160,6 +180,18 @@ def _products(a, b, *, three: bool = True, tc_rounding: bool = False,
         if three else big
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """torch's intra-op threads set to one, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@_one_thread()
 def flash_f32_emulated(q, k, v, *, causal: bool, three: bool = True,
                        tc_rounding: bool = False, short_chains: bool = True):
     """The float32 kernel's walk: Q scaled by scale * log2(e), key tiles of

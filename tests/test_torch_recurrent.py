@@ -65,6 +65,17 @@ JCFG = jget_smoke(ARCH)
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """torch's intra-op threads set to one for each test, restored after:
+    beside other test processes, the smoke config's small ops cost far
+    more in waking a pool of threads than in the ops themselves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32),

@@ -46,7 +46,18 @@ side runs here on the same numpy inputs:
     4 of 8 experts, the replicated parameters are bit-identical on every
     rank, and two mutations read outside the tolerance: ``wo``'s partial
     outputs not summed over ``model``, and a norm that counts each
-    replicated leaf once per ``model`` rank.
+    replicated leaf once per ``model`` rank;
+  * the smoke configs of Mamba2-370M (each rank its heads) and
+    recurrentgemma-9b (its RG-LRU channels, its query heads against the
+    one KV head) under ``tp``, the depthwise conv under ``pallas`` on
+    each rank's batch and channel block through the ``tp`` conv hook,
+    within the tolerance of JAX's step: plans, the bytes a rank gathers
+    and computes with, replicated bits, the conv hook's ``mesh:*`` events
+    and the RG-LRU's gathers; three mutations read outside the tolerance
+    (Mamba2's gated norm without the ``model`` sum of its squares, B and
+    C not entering the heads' block, a ``gather`` whose backward skips
+    the sum); serving and the unsharded step of both bit-equal through
+    the layers and through their whole-tensor versions.
 """
 
 import dataclasses
@@ -85,13 +96,16 @@ import _torch_spmd_worker as W  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
-#: the 8 ranks' start and 17 runs of 3 steps take ~40 s on 8 threads.
+#: the 8 ranks' start and 22 runs of 3 steps take ~90 s on 8 threads.
 TIMEOUT_S = 240
 JCFG = jget_smoke("smollm-360m")
 ACFG = JM.AutoencoderConfig(c_in=3, widths=(16, 32), k=3, conv_policy="lax")
 JCFG_HEADS = dataclasses.replace(JCFG, **W.HEADS)
 MOE_CFGS = {"moonshot": jget_smoke("moonshot-v1-16b-a3b"),
             "deepseek": jget_smoke("deepseek-v3-671b")}
+#: the JAX configs of the worker's ``CONV_FAMILIES``.
+CONV_CFGS = {case: jget_smoke(arch)
+             for case, (arch, _) in W.CONV_FAMILIES.items()}
 
 
 def _np(tree):
@@ -138,6 +152,8 @@ def runs(tmp_path_factory):
                                          MOE_CFGS["moonshot"])),
         "ds_params": _np(JM.init_params(jax.random.PRNGKey(0),
                                         MOE_CFGS["deepseek"])),
+        **{key: _np(JM.init_params(jax.random.PRNGKey(0), CONV_CFGS[case]))
+           for case, (_, key) in W.CONV_FAMILIES.items()},
         "tokens_64": toks,
         "tokens_500": np.random.RandomState(3).randint(
             0, MOE_CFGS["moonshot"].vocab, (8, 500)).astype(np.int32)}
@@ -432,11 +448,24 @@ PLAN_RULES = {
         "*.router.w": "the router: every rank routes every token",
         "blocks_*.attn.*_norm.scale": "no rule",
         "*.ln?.scale": "no rule"}),
+    "mamba2_tp": (("embed.w", "blocks.ssm.*"), {"blocks.ln.scale": "no rule"}),
+    "hybrid_tp": (("embed.w", "lm_head.w", "*.rec.*", "*.mlp.w?.w",
+                   "super.attn.attn.wq.w", "super.attn.attn.wo.w"), {
+        "super.attn.attn.w[kv].w": "1 KV heads do not divide by model=2: "
+                                   "K and V computed whole",
+        "*.ln?.scale": "no rule"}),
 }
 #: case -> the numpy parameters it starts from.
 CASE_PARAMS = {"smollm_tp": "lm_params", "smollm_heads": "lm_heads_params",
                "moe_tp": "moe_params", "moe_dp_only": "moe_params",
-               "deepseek_tp": "ds_params"}
+               "deepseek_tp": "ds_params",
+               **{case: key for case, (_, key) in W.CONV_FAMILIES.items()}}
+#: the taken leaves (gathered whole, computed with on a slice): pattern ->
+#: (the dim sliced, its width every rank computes with whole: Mamba2's B
+#: and C); the rest of the dim is cut into this rank's half.
+TAKEN = {"blocks.ssm.in_proj.w": (-1, 2 * CONV_CFGS["mamba2_tp"].ssm_state),
+         "blocks.ssm.conv_w.w": (-1, 2 * CONV_CFGS["mamba2_tp"].ssm_state),
+         "blocks.ssm.out_proj.w": (-2, 0), "*.rec.wout.w": (-2, 0)}
 
 
 def _paths(tree, path=()):
@@ -471,17 +500,34 @@ def test_each_ranks_plan_is_the_rule(runs, case):
                 assert want in why, (path, why)
 
 
+def _taken(path):
+    return next((v for pat, v in TAKEN.items()
+                 if fnmatch.fnmatch(path, pat)), None)
+
+
 @pytest.mark.parametrize("case", list(PLAN_RULES))
 def test_bytes_a_rank_gathers_are_the_plans_count(runs, case):
-    """Each step computes with a kept leaf's model block (half of it) and
-    every other leaf whole: the plan's count, below the whole under tp."""
+    """Each step gathers a kept leaf's model block (half of it) and every
+    other leaf whole, a taken one too, and computes with a kept leaf's
+    block, a taken leaf's slice (its own half, B and C whole) and every
+    other leaf whole: the plan's counts, below the whole under tp."""
     whole = _paths(runs["inputs"][CASE_PARAMS[case]])
-    want = sum(a.nbytes // (2 if _kept(case, p) else 1)
-               for p, a in whole.items())
+    gathered = computed = 0
+    for p, a in whole.items():
+        take, kept = _taken(p), _kept(case, p)
+        gathered += a.nbytes // (2 if kept and take is None else 1)
+        if take is None:
+            computed += a.nbytes // (2 if kept else 1)
+        else:
+            dim, shared = take
+            computed += a.nbytes // a.shape[dim] * (
+                (a.shape[dim] - shared) // 2 + shared)
     for r in runs["ranks"]:
-        assert r[case]["gathered_bytes"] == [want] * W.STEPS
+        assert r[case]["gathered_bytes"] == [gathered] * W.STEPS
+        assert r[case]["computed_bytes"] == [computed] * W.STEPS
     total = sum(a.nbytes for a in whole.values())
-    assert want == total if case == "moe_dp_only" else want < total
+    assert computed == total if case == "moe_dp_only" else computed < total
+    assert computed <= gathered <= total
 
 
 @pytest.mark.parametrize("case,want", [
@@ -518,7 +564,8 @@ def test_no_token_is_routed_otherwise(runs, case):
 
 
 @pytest.mark.parametrize("case", ["smollm_tp", "smollm_heads", "moe_tp",
-                                  "moe_accum", "deepseek_tp"])
+                                  "moe_accum", "deepseek_tp",
+                                  *W.CONV_FAMILIES])
 def test_replicated_parameters_are_bit_identical(runs, case):
     """After 3 steps every leaf the plan gathers whole is the same bits
     on every rank (a kept leaf's blocks differ by construction)."""
@@ -536,16 +583,61 @@ def test_heads_on_blocks_match_jax_single_device(runs):
     assert len({r["params"] for r in per_rank}) == 1
 
 
+@pytest.mark.parametrize("case", list(W.CONV_FAMILIES))
+def test_conv_families_on_model_blocks_match_jax_single_device(runs, case):
+    """Mamba2 (each rank its 2 of 4 heads) and recurrentgemma (its 32 of
+    64 RG-LRU channels, 2 of 4 query heads against the one KV head) under
+    tp, the depthwise conv under pallas on this rank's batch and channel
+    block: within the tolerance of JAX's step, the same on every rank.
+    The conv hook takes the block as the whole conv: it cuts the batch
+    block no further and drops the channel cut of a grouped conv, so no
+    weight grad is summed over model (``mesh:*`` events).  The RG-LRU's
+    gates read the conv output gathered once a layer a pass (3 layers,
+    remat), Mamba2 gathers nothing."""
+    i = runs["inputs"]
+    want = _jax_run(CONV_CFGS[case], i[W.CONV_FAMILIES[case][1]],
+                    i["lm_batch"])
+    per_rank = [r[case] for r in runs["ranks"]]
+    _assert_matches(per_rank, want)
+    assert len({r["params"] for r in per_rank}) == 1
+    for r in per_rank:
+        ev = r["events"]
+        assert set(ev) == {"mesh:conv2d:data", "mesh:drop:cout"}, ev
+        assert ev["mesh:conv2d:data"] == ev["mesh:drop:cout"], ev
+        gathers = 3 * 2 * W.STEPS if case == "hybrid_tp" else 0
+        assert r["collectives"]["gathers"] == gathers, r["collectives"]
+
+
+@pytest.mark.parametrize("case", list(W.CONV_FAMILIES))
+def test_whole_tensor_paths_are_unchanged(runs, case):
+    """Serving (a prefill and 3 decode steps) and 2 unsharded steps on
+    whole tensors give the same bits through the layers as through their
+    versions that know no Mamba2, RG-LRU or MQA blocks
+    (``tests/_torch_whole_layers.py``)."""
+    got = runs["ranks"][0]["whole_paths"][case]
+    assert got["now"] == got["before"], got
+
+
 @pytest.mark.parametrize("mutant,case,key", [
     ("wo_psum_mutant", "smollm_heads", "losses"),
-    ("norm_mutant", "smollm_tp", "grad_norms")])
+    ("norm_mutant", "smollm_tp", "grad_norms"),
+    ("ssm_norm_mutant", "mamba2_tp", "losses"),
+    ("ssm_bc_mutant", "mamba2_tp", "grad_norms"),
+    ("gather_mutant", "hybrid_tp", "grad_norms")])
 def test_tp_mutations_read_outside_the_tolerance(runs, mutant, case, key):
     """``wo``'s partial outputs left unsummed read outside the tolerance
     on the losses; a norm that counts each replicated leaf once per model
-    rank on the norms."""
+    rank on the norms; Mamba2's gated norm over this rank's channels only
+    on the losses; B and C not entering the heads' block (their grads
+    this rank's heads' only) and a gather whose backward skips the sum
+    over model on the norms."""
     i = runs["inputs"]
-    cfg, params = ((JCFG_HEADS, "lm_heads_params") if case == "smollm_heads"
-                   else (JCFG, "lm_params"))
+    if case in W.CONV_FAMILIES:
+        cfg, params = CONV_CFGS[case], W.CONV_FAMILIES[case][1]
+    elif case == "smollm_heads":
+        cfg, params = JCFG_HEADS, "lm_heads_params"
+    else:
+        cfg, params = JCFG, "lm_params"
     want = _jax_run(cfg, i[params], i["lm_batch"])
     got = runs["ranks"][0][mutant][key]
     assert _close(runs["ranks"][0][case][key], want[key])

@@ -57,6 +57,17 @@ CFG = get_smoke_config("smollm-360m")
 JCFG = jget_smoke("smollm-360m")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """torch's intra-op threads set to one for each test, restored after:
+    beside other test processes, the smoke configs' small ops cost far
+    more in waking a pool of threads than in the ops themselves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

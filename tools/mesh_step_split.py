@@ -23,7 +23,8 @@ batches are the launcher's pipeline's (seed 0).  Each rank times,
   * ``fwd_bwd``: the loss and its grads on the block
     (``train_step._value_and_grad`` under the batch block; mamba2's convs
     on the bf16 ``dw`` kernels; moonshot's under the plan's
-    ``model_axis``, with the layers' psums over ``model``, counted);
+    ``model_axis``, with the layers' psums over ``model``, counted, and
+    ``Plan.fold``);
   * ``grad_psum``: the grads summed over the batch axes (``Mesh.psum_flat``,
     one bf16 buffer; moonshot: ``train_step._sync``, then coordinate 0's
     replicated grads broadcast over ``model``);
@@ -123,8 +124,9 @@ def moonshot_main(rank: int, world: int, reps: int, pg: str, out) -> None:
     def fwd_bwd():
         before = dict(TP.COUNTS)
         with mesh, layout.plan.axis():
-            state["vals"] = TS._value_and_grad(TS.loss_fn, state["full"],
-                                               batch, cfg, split)
+            loss, metrics, grads = TS._value_and_grad(
+                TS.loss_fn, state["full"], batch, cfg, split)
+        state["vals"] = (loss, metrics, layout.plan.fold(grads))
         state["model_psums"] = {k: TP.COUNTS[k] - before[k]
                                 for k in before}
 
