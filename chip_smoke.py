@@ -135,7 +135,7 @@ PATH):
                    prefill and one decode step of 4 lanes, all 32 layers;
                    then ``python -m repro_torch.launch.serve --full`` for
                    both engines (``SERVE_ARGV``: continuous, 8 requests of
-                   1,024 tokens, 32 new, batch 4; static, 8 of 128 tokens,
+                   1,024 tokens, 32 new, batch 4; static, 8 of 32 tokens,
                    8 new): every request ``ok`` with its tokens, the
                    continuous engine launches the kernel 32 x admitted
                    times and the static engine none; prefill s per
@@ -157,7 +157,7 @@ PATH):
                    1,024-token prefill and one decode step of 4 lanes;
                    ``launch.serve --full --arch moonshot-v1-16b-a3b`` under
                    ``continuous`` (8 requests of 1,024 tokens, 32 new,
-                   batch 4: 48 launches a request) and ``static`` (8 of 128
+                   batch 4: 48 launches a request) and ``static`` (8 of 32
                    tokens, 8 new: none), tokens/s, p50 and peak memory; in
                    float32 at ``MOE_F32_LAYERS`` layers, prefill vs scan
                    (``SERVE_F32_TOL``) and the engines' greedy tokens (as
@@ -170,10 +170,11 @@ PATH):
                    new (4 launches a request).
  13. serve_ssm  -- Mamba2-370M at full width (48 layers, 368,227,840
                    parameters, bf16, drawn on the card from seed 0) under
-                   ``conv_policy="pallas"``: the one-pass prefill (chunked
-                   SSD with a ragged last chunk, the conv on ``tap_gemm``:
-                   48 bf16 launches of ``dw``) vs the decode scan (none) on
-                   a ``MAMBA2_PROMPT``-token prompt, logits and each layer's
+                   ``conv_policy="pallas"``: at ``SSM_SCAN_LAYERS`` layers
+                   the one-pass prefill (chunked SSD with a ragged last
+                   chunk, the conv on ``tap_gemm``: one bf16 launch of
+                   ``dw`` a layer) vs the decode scan (none) on a
+                   ``MAMBA2_PROMPT``-token prompt, logits and each layer's
                    SSM state and conv inputs (largest error within
                    ``SSM_BF16_TOL``, the first ``SSM_EARLY_LAYERS`` within
                    ``SERVE_BF16_TOL``); the device time of a 1,024-token
@@ -184,7 +185,7 @@ PATH):
                    under ``--conv-policy pallas`` and ``auto``, both engines
                    (continuous: 8 requests of 1,024 tokens, 32 new, batch
                    4, 48 ``tap_gemm`` launches a request under ``pallas``;
-                   static: 8 of 128 tokens, 8 new, none), tokens/s, p50,
+                   static: 8 of 32 tokens, 8 new, none), tokens/s, p50,
                    peak memory.
  14. serve_hybrid -- recurrentgemma-9b at its published widths (38 layers,
                    10,444,664,832 parameters, bf16, drawn on the card from
@@ -201,7 +202,7 @@ PATH):
                    launch); ``launch.serve --full --arch recurrentgemma-9b
                    --conv-policy pallas`` on both engines (continuous: 8
                    requests of 1,024 tokens, 32 new, batch 4, 26 + 12
-                   launches a request; static: 8 of 128 tokens, 8 new,
+                   launches a request; static: 8 of 32 tokens, 8 new,
                    none); float32 at ``HYBRID_F32_LAYERS`` layers: prefill
                    vs scan on 2,100 tokens (``SERVE_F32_TOL``), greedy
                    tokens of the two engines and of ``pallas`` against
@@ -362,10 +363,10 @@ PATH):
                    the ranks' losses equal.
                    (e) on the same 4 ranks, moonshot-v1-16b-a3b at its
                    published widths cut to ``MESH_MOE_LAYERS`` layers
-                   through ``sharded_step`` for ``MESH_MOE_STEPS`` steps,
-                   each policy of ``MESH_MOE_RUNS`` (``tp`` at 8 x 512: 2
+                   through ``sharded_step``, each policy of
+                   ``MESH_MOE_RUNS`` (``tp`` at 8 x 512 for 2 steps: 2
                    batch blocks of whole MoE groups; ``dp_only`` at 8 x
-                   500: 4 blocks across groups of 800) against an
+                   500 for 1 step: 4 blocks across groups of 800) against an
                    unsharded run of the same cut and batch made before the
                    spawn: bytes a rank against the dry run, losses and
                    norms (``MESH_MOE_LOSS_TOL`` / ``MESH_MOE_GNORM_TOL``),
@@ -379,7 +380,7 @@ PATH):
                    that gathered every parameter whole, on the
                    (e) lines.  (f) on the same 4 ranks, recurrentgemma-9b
                    at its published widths cut to one super-block
-                   (``MESH_HYBRID_LAYERS``), lm_train_hybrid's 4 x 512
+                   (``MESH_HYBRID_CUT``), lm_train_hybrid's 4 x 512
                    for ``MESH_HYBRID_STEPS`` steps through
                    ``sharded_step`` under ``tp`` (each rank 2,048 of 4,096
                    RG-LRU channels, its gates reading the conv output
@@ -389,7 +390,21 @@ PATH):
                    (d), with its ``gather`` calls.  (d) and (f) then hold
                    each rank's first conv operands (its batch and channel
                    block) on the three ``dw`` kernels against their plain
-                   versions, on a line of their own.  Each rank's
+                   versions, on a line of their own.  (g) on the same 4
+                   ranks, DeepSeek-V3 at its published widths cut to one
+                   dense MLA layer and its MTP block (``MESH_MLA_CUT``),
+                   2 x 512 for ``MESH_MLA_STEPS`` steps through
+                   ``sharded_step`` under ``tp`` (each rank 64 of 128 MLA
+                   heads against the latents computed whole, 9,216 of
+                   18,432 MLP columns, 3,584 of 7,168 ``d_model`` columns
+                   of ``mtp.proj``, its output gathered over ``model``
+                   once a step), against the same cut trained unsharded
+                   on the card before the spawn, checked as (f) without
+                   the conv, no launch, its ``model_flops`` beside its
+                   seconds a step; then the plans of internvl2-76b at 8
+                   layers and hubert-xlarge (``MESH_PLAN_COUNTS``) counted
+                   on ``meta`` tensors (``frontend_proj`` on its
+                   ``d_model`` columns), with no step.  Each rank's
                    launches, ``mesh:*`` events and halo bytes on lines of
                    their own; the ranks' seconds are those of processes
                    sharing one card, not speeds.  NCCL across cards is not
@@ -1472,20 +1487,22 @@ def phase_flash(smoke, torch, F, fa, kref, dev):
     return rows
 
 
+#: the static engine's prompts in every launcher run: its lockstep
+#: prefill is one decode step a token (75-330 ms each on the H100's host),
+#: so its five runs at 128 tokens took 188 s of the script's time on a
+#: slow host (PERF.md, §6), at 1,024 (SmolLM) 158 s alone.
+STATIC_PROMPT = "32"
 #: SmolLM-360M through the launcher: the continuous engine on 1,024-token
-#: prompts, the static engine (whose lockstep prefill is one decode step a
-#: token, 75 ms each on the H100's host) on 128-token prompts, as
-#: moonshot's; 1,024 took 158 s of the script's time (PERF.md, §6).
+#: prompts, the static engine on ``STATIC_PROMPT``-token prompts.
 SERVE_ARGV = {
     "continuous": ["--full", "--requests", "8", "--prompt-len", "1024",
                    "--max-new", "32", "--max-batch", "4"],
-    "static": ["--full", "--requests", "8", "--prompt-len", "128",
+    "static": ["--full", "--requests", "8", "--prompt-len", STATIC_PROMPT,
                "--max-new", "8", "--max-batch", "4"]}
-#: the bf16 prefill-vs-scan check runs a quarter of SmolLM's 32 layers,
-#: every width kept (its 1,024-step scan took 59 s at 32; 16 until the
-#: dense, VLM and audio phases came); the device times and the launcher
-#: run all 32.
-SERVE_BF16_LAYERS = 8
+#: the bf16 prefill-vs-scan check runs an eighth of SmolLM's 32 layers,
+#: every width kept (its 1,024-step scan took 59 s at 32 and 24 s at 8 on
+#: a slow host); the device times and the launcher run all 32.
+SERVE_BF16_LAYERS = 4
 
 
 def prefill_vs_scan(torch, M, T, cfg, params, prompt, dev):
@@ -1737,23 +1754,23 @@ def serve_engines(smoke, phase, torch, kernels, serve, cfg, argvs,
     return paths
 
 #: moonshot-v1-16b-a3b at full width through the launcher: the continuous
-#: engine on 1,024-token prompts, the static engine (whose lockstep prefill
-#: is 128 decode steps a wave) on 128-token prompts.
+#: engine on 1,024-token prompts, the static engine on
+#: ``STATIC_PROMPT``-token prompts.
 SERVE_MOE_ARGV = {
     "continuous": ["--full", "--arch", "moonshot-v1-16b-a3b", "--requests",
                    "8", "--prompt-len", "1024", "--max-new", "32",
                    "--max-batch", "4"],
     "static": ["--full", "--arch", "moonshot-v1-16b-a3b", "--requests", "8",
-               "--prompt-len", "128", "--max-new", "8", "--max-batch", "4"]}
+               "--prompt-len", STATIC_PROMPT, "--max-new", "8",
+               "--max-batch", "4"]}
 #: prompt of the MoE prefill-vs-scan checks (the scan reads every expert
 #: of every layer at each of its steps).
 MOE_PROMPT = 512
-#: moonshot's bf16 prefill-vs-scan check runs its first 8 of 48 layers
-#: (the dense one and 7 MoE layers), every width kept: the 512-step scan
-#: of all 48 took 152 s on the H100's host (16 layers until the dense,
-#: VLM and audio phases came); the device times and the launcher run all
-#: 48.
-MOE_SCAN_LAYERS = 8
+#: moonshot's bf16 prefill-vs-scan check runs its first 4 of 48 layers
+#: (the dense one and 3 MoE layers), every width kept: the 512-step scan
+#: of all 48 took 152 s on the H100's host, of 8 layers 27 s on a slow
+#: host; the device times and the launcher run all 48.
+MOE_SCAN_LAYERS = 4
 #: the float32 moonshot checks run 4 of its 48 layers (the dense first
 #: layer and 3 MoE layers), every width kept.
 MOE_F32_LAYERS = 4
@@ -1942,20 +1959,24 @@ def phase_serve_moe(smoke, torch, kernels, serve, M, T, dev) -> dict:
 
 
 #: Mamba2-370M (``configs/mamba2_370m.py``): the prefill-vs-scan prompt (not
-#: a multiple of the SSD chunk, 128: its last chunk is ragged), and the
-#: float32 checks' depth (every width kept).
+#: a multiple of the SSD chunk, 128: its last chunk is ragged), the bf16
+#: check's depth (its 500-step scan of all 48 layers took 49 s on a slow
+#: host; the device times and the launcher run all 48) and the float32
+#: checks' depth (every width kept).
 MAMBA2_PROMPT = 500
+SSM_SCAN_LAYERS = 16
 SSM_F32_LAYERS = 4
 #: the launcher under each conv policy: the continuous engine on 1,024-token
 #: prompts (one ``tap_gemm`` launch a layer in each prefill under
 #: ``pallas``), the static engine (lockstep prefill through the decode
-#: path, which has no conv launch) on 128-token prompts.
+#: path, which has no conv launch) on ``STATIC_PROMPT``-token prompts.
 SERVE_SSM_ARGV = {
     "continuous": ["--full", "--arch", "mamba2-370m", "--requests", "8",
                    "--prompt-len", "1024", "--max-new", "32",
                    "--max-batch", "4"],
     "static": ["--full", "--arch", "mamba2-370m", "--requests", "8",
-               "--prompt-len", "128", "--max-new", "8", "--max-batch", "4"]}
+               "--prompt-len", STATIC_PROMPT, "--max-new", "8",
+               "--max-batch", "4"]}
 
 
 def mamba2_conv_dims(ConvDims, batch: int, length: int):
@@ -2106,20 +2127,26 @@ def ssm_policies_agree(torch, serve, M, cfg, params, prompt_len, max_new,
 
 
 def phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T, dev) -> dict:
-    """Mamba2-370M at full width: prefill vs the decode scan in bf16 (48
-    layers) and float32 (``SSM_F32_LAYERS``), device times of a prefill and
+    """Mamba2-370M at full width: prefill vs the decode scan in bf16
+    (``SSM_SCAN_LAYERS``) and float32 (``SSM_F32_LAYERS``), device times of
+    a prefill and
     a decode step, greedy tokens under ``pallas`` and ``auto`` (float32),
     and both engines through the launcher under both policies.  Returns
     each engine's kernel launches."""
     import dataclasses
     full = dataclasses.replace(serve.get_config("mamba2-370m"),
                                conv_policy="pallas")
+    cut = dataclasses.replace(full, n_layers=SSM_SCAN_LAYERS)
+    params, info = init_timed(torch, serve, M, cut, dev)
+    ssm_prefill_check(smoke, torch, M, T, tg, cut, params,
+                      prompt_for(cut, MAMBA2_PROMPT), dev, SSM_BF16_TOL,
+                      SERVE_BF16_TOL, check="prefill vs decode scan", **info)
+    del params
+    free_card(torch)
     params, info = init_timed(torch, serve, M, full, dev)
+    smoke.emit("serve_ssm", check="init", config=full.name, **info)
     check(info["n_params"] == 368_227_840,
           f"mamba2-370m: {info['n_params']} parameters")
-    ssm_prefill_check(smoke, torch, M, T, tg, full, params,
-                      prompt_for(full, MAMBA2_PROMPT), dev, SSM_BF16_TOL,
-                      SERVE_BF16_TOL, check="prefill vs decode scan", **info)
     toks = torch.as_tensor([prompt_for(full, 1024, seed=1)], device=dev)
     cache = T.init_cache(full, 4, 1024 + 34, dev)
     nxt = toks[0, :4].clone()
@@ -2169,14 +2196,14 @@ def phase_serve_ssm(smoke, torch, kernels, tg, serve, M, T, dev) -> dict:
 #: continuous engine on 1,024-token prompts (inside the 2,048-token window:
 #: each prefill runs ``tap_gemm`` once in each of the 26 RG-LRU layers and
 #: the flash kernel once in each of the 12 attention layers), the static
-#: engine on 128-token prompts.
+#: engine on ``STATIC_PROMPT``-token prompts.
 SERVE_HYBRID_ARGV = {
     "continuous": ["--full", "--arch", "recurrentgemma-9b", "--requests",
                    "8", "--prompt-len", "1024", "--max-new", "32",
                    "--max-batch", "4", "--conv-policy", "pallas"],
     "static": ["--full", "--arch", "recurrentgemma-9b", "--requests", "8",
-               "--prompt-len", "128", "--max-new", "8", "--max-batch", "4",
-               "--conv-policy", "pallas"]}
+               "--prompt-len", STATIC_PROMPT, "--max-new", "8",
+               "--max-batch", "4", "--conv-policy", "pallas"]}
 #: the prefill-vs-scan checks' depth: one (rec, rec, attn) super-block and
 #: the two extra RG-LRU layers (the remainder full depth has), every width
 #: kept; the launcher and the device times run all 38 layers.
@@ -3346,31 +3373,43 @@ MESH_LM_STEPS = 3
 #: norms are what catch both (PERF.md, §6).
 MESH_LM_LOSS_TOL = 5e-4
 MESH_LM_GNORM_TOL = 2e-3
-#: (d) and (f), the LM runs on ``tp`` blocks (``mesh_lm_blocks``): case ->
-#: (arch, layers (None: all), global batch of 512-token rows, steps,
+#: (d), (f) and (g), the LM runs on ``tp`` blocks (``mesh_lm_blocks``):
+#: case -> (arch, the config's cut (``dataclasses.replace`` of the
+#: published config; none: whole), global batch of 512-token rows, steps,
 #: donated).  (f) is recurrentgemma-9b at its published widths cut to one
 #: super-block (rec1, rec2, attn: 2,753,630,208 parameters) at
-#: lm_train_hybrid's 4 x 512, held to the same cut trained unsharded on
-#: the card before the spawn by ``MESH_LM_LOSS_TOL`` / ``MESH_LM_GNORM_TOL``.
-MESH_HYBRID_LAYERS = 3
+#: lm_train_hybrid's 4 x 512; (g) DeepSeek-V3 at its published widths cut
+#: to one dense MLA layer and its MTP block (3,123,106,816 parameters: an
+#: empty MoE stack), at 2 x 512, one row a data rank (at 4 x 512 the 4
+#: ranks' peaks would pass ~72 GB of the card's 80); each held to the same
+#: cut trained unsharded on the card before the spawn by
+#: ``MESH_LM_LOSS_TOL`` / ``MESH_LM_GNORM_TOL``.
+MESH_HYBRID_CUT = {"n_layers": 3}
 MESH_HYBRID_STEPS = 2
-MESH_LM_CASES = {"d": ("mamba2-370m", None, 8, MESH_LM_STEPS, False),
-                 "f": ("recurrentgemma-9b", MESH_HYBRID_LAYERS, 4,
-                       MESH_HYBRID_STEPS, True)}
+MESH_MLA_CUT = {"n_layers": 1, "first_dense_layers": 1}
+MESH_MLA_STEPS = 2
+MESH_LM_CASES = {"d": ("mamba2-370m", {}, 8, MESH_LM_STEPS, False),
+                 "f": ("recurrentgemma-9b", MESH_HYBRID_CUT, 4,
+                       MESH_HYBRID_STEPS, True),
+                 "g": ("deepseek-v3-671b", MESH_MLA_CUT, 2, MESH_MLA_STEPS,
+                       True)}
+#: configs whose plan on an abstract (data 2, model 2) mesh the mesh phase
+#: counts on ``meta`` tensors, with no step: arch -> its cut.
+MESH_PLAN_COUNTS = {"internvl2-76b": {"n_layers": 8}, "hubert-xlarge": {}}
 #: (d)'s and (f)'s depthwise conv channels a rank: Mamba2's 1,024 x
 #: channels of its 16 of 32 heads with B and C's 256 whole; the RG-LRU's
 #: 2,048 of 4,096.
 MESH_LM_CHANNELS = {"d": 1280, "f": 2048}
 #: (e): moonshot-v1-16b-a3b at its published widths cut to
 #: ``MESH_MOE_LAYERS`` layers (the dense one and one MoE layer,
-#: 1,344,940,032 parameters), ``MESH_MOE_STEPS`` steps through
-#: ``dist.spmd.sharded_step`` on the 4 ranks: policy -> the sequence of
-#: its 8-row batch.  ``tp`` cuts the batch over ``data`` into 2 blocks of 4
-#: x 512 tokens, each 4 whole groups of 512 (aligned); ``dp_only`` over
-#: (data, model) into 4 blocks of 2 x 500, across groups of 800 (partial).
+#: 1,344,940,032 parameters) through ``dist.spmd.sharded_step`` on the 4
+#: ranks: policy -> (the sequence of its 8-row batch, its steps).  ``tp``
+#: cuts the batch over ``data`` into 2 blocks of 4 x 512 tokens, each 4
+#: whole groups of 512 (aligned); ``dp_only`` over (data, model) into 4
+#: blocks of 2 x 500, across groups of 800 (partial).  ``dp_only`` gathers
+#: every leaf whole, ~30 s a step on 4 ranks sharing the card: one step.
 MESH_MOE_LAYERS = 2
-MESH_MOE_STEPS = 2
-MESH_MOE_RUNS = {"tp": 512, "dp_only": 500}
+MESH_MOE_RUNS = {"tp": (512, 2), "dp_only": (500, 1)}
 #: (e) against the unsharded run of the same cut and batch, relative, at
 #: every step.  As (d): the first loss differs in the order of float32
 #: sums and in bf16 roundings of GEMMs of other row counts; the grads are
@@ -3576,23 +3615,22 @@ def dw_block_check(torch, x, w, dev) -> dict:
 
 
 def mesh_lm_config(case: str):
-    """(d)'s or (f)'s config: its published widths, (f) cut to
-    ``MESH_HYBRID_LAYERS`` layers."""
+    """(d)'s, (f)'s or (g)'s config: its published widths, cut as
+    ``MESH_LM_CASES`` says."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    arch, layers = MESH_LM_CASES[case][:2]
-    cfg = get_config(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
+    arch, cut = MESH_LM_CASES[case][:2]
+    return dataclasses.replace(get_config(arch), **cut)
 
 
 def mesh_lm_blocks(torch, kernels, conv, dev, case: str,
                    mesh=None) -> dict:
-    """(d) or (f) (``MESH_LM_CASES``): the model at its published widths
-    (cut as the case says), lm_train's batches at the case's batch and
-    lr 3e-4, guard on, every conv under ``pallas``, for the case's steps.
-    Unsharded without ``mesh`` (f's reference); else its parameters,
+    """(d), (f) or (g) (``MESH_LM_CASES``): the model at its published
+    widths (cut as the case says), lm_train's batches at the case's batch
+    and lr 3e-4, guard on, every conv under ``pallas``, for the case's
+    steps.  Unsharded without ``mesh`` (f's and g's reference); else its
+    parameters,
     AdamW moments and batch in their ``tp`` blocks on the ranks' mesh
     through ``dist.spmd.sharded_step`` (``conv_mesh="tp"``): the bytes each
     rank holds against the dry run's, the plan of its compute
@@ -3600,8 +3638,9 @@ def mesh_lm_blocks(torch, kernels, conv, dev, case: str,
     and computes with beside each step's, its losses, norms, peak memory
     and seconds a step, its ``dw`` launches and the channels of each conv
     call, the model gathers and psums it made, the gathered parameters'
-    digest, and its first conv call's operands held on the three ``dw``
-    kernels against their plain versions (:func:`dw_block_check`)."""
+    digest, and its first conv call's operands (where it has a conv) held
+    on the three ``dw`` kernels against their plain versions
+    (:func:`dw_block_check`)."""
     import hashlib
 
     from repro_torch.data.pipeline import DataConfig, make_batch
@@ -3700,18 +3739,19 @@ def mesh_lm_blocks(torch, kernels, conv, dev, case: str,
         del whole
     del params, opt, metrics
     free_card(torch)
-    res["dw_block"] = dw_block_check(torch, *seen["first"], dev)
+    if seen["first"] is not None:
+        res["dw_block"] = dw_block_check(torch, *seen["first"], dev)
     del seen
     free_card(torch)
     return res
 
 
-def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
-                 out=None) -> dict:
+def mesh_moe_run(torch, kernels, dev, seq: int, steps: int, mesh=None,
+                 policy=None, out=None) -> dict:
     """(e) one run: moonshot's ``MESH_MOE_LAYERS``-layer cut at 8 x
     ``seq`` (lm_train's batches, lr and schedule; donated, no guard: four
     ranks' blocks, gathered parameters and grads share the card),
-    ``MESH_MOE_STEPS`` steps: unsharded through ``make_train_step``
+    ``steps`` steps: unsharded through ``make_train_step``
     without ``mesh``; else its parameters, AdamW moments and batch in
     their ``policy`` blocks through ``dist.spmd.sharded_step``, with the
     bytes a rank holds against the dry run's and the gathered parameters'
@@ -3742,8 +3782,8 @@ def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
     dcfg = DataConfig(seed=0, seq_len=seq, global_batch=8, vocab=cfg.vocab)
     model = M.build_model(cfg)
     step_fn = TS.make_train_step(
-        cfg, adamw.AdamWConfig(peak_lr=3e-4), total_steps=MESH_MOE_STEPS,
-        warmup=1, donate=True)
+        cfg, adamw.AdamWConfig(peak_lr=3e-4), total_steps=steps, warmup=1,
+        donate=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     params = model.init(torch.Generator().manual_seed(0), dev)
@@ -3782,7 +3822,7 @@ def mesh_moe_run(torch, kernels, dev, seq: int, mesh=None, policy=None,
     # The peak of the init and cut; then each step's own.
     init_peak = torch.cuda.max_memory_allocated(dev) \
         if dev.type == "cuda" else 0
-    for step in range(MESH_MOE_STEPS):
+    for step in range(steps):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -3850,7 +3890,7 @@ def route_diffs(torch, ref: dict, got: dict) -> dict:
 
 
 def mesh_rank(rank: int, out_dir: str) -> None:
-    """One rank of the mesh phase's (a), (b), (d), (e) and (f)
+    """One rank of the mesh phase's (a), (b), (d), (e), (f) and (g)
     (``torch.multiprocessing`` spawn target): writes
     ``out_dir/rank<r>.json`` (and (e)'s routing beside it).  A failed check
     raises, which fails the spawn and the run."""
@@ -3884,15 +3924,18 @@ def mesh_rank(rank: int, out_dir: str) -> None:
     res["lm_blocks"] = mesh_lm_blocks(torch, kernels, conv, dev, "d", mesh)
     res["lm_blocks"]["seconds"] = time.perf_counter() - t1
     res["moe"] = {}
-    for policy, seq in MESH_MOE_RUNS.items():
+    for policy, (seq, steps) in MESH_MOE_RUNS.items():
         t1 = time.perf_counter()
         res["moe"][policy] = mesh_moe_run(
-            torch, kernels, dev, seq, mesh, policy,
+            torch, kernels, dev, seq, steps, mesh, policy,
             pathlib.Path(out_dir) / f"route_{policy}_rank{rank}.pt")
         res["moe"][policy]["seconds"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     res["hybrid"] = mesh_lm_blocks(torch, kernels, conv, dev, "f", mesh)
     res["hybrid"]["seconds"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res["mla"] = mesh_lm_blocks(torch, kernels, conv, dev, "g", mesh)
+    res["mla"]["seconds"] = time.perf_counter() - t1
     res["seconds"] = time.perf_counter() - t0
     (pathlib.Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
     mesh.barrier()
@@ -3946,8 +3989,8 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
     ae_ref = autoencoder_bp.train("pallas", MESH_AE_STEPS, device=dev)["mses"]
     # (e)'s unsharded runs, one a batch shape.
     t0 = time.perf_counter()
-    moe_ref = {policy: mesh_moe_run(torch, kernels, dev, seq)
-               for policy, seq in MESH_MOE_RUNS.items()}
+    moe_ref = {policy: mesh_moe_run(torch, kernels, dev, seq, steps)
+               for policy, (seq, steps) in MESH_MOE_RUNS.items()}
     moe_ref_s = time.perf_counter() - t0
     for policy in MESH_MOE_RUNS:
         paths[f"mesh moe {policy} unsharded"] = moe_ref[policy]["launches"]
@@ -3956,6 +3999,11 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
     hybrid_ref = mesh_lm_blocks(torch, kernels, conv, dev, "f")
     hybrid_ref["seconds"] = time.perf_counter() - t0
     paths["mesh hybrid unsharded"] = hybrid_ref["launches"]
+    # (g)'s unsharded run.
+    t0 = time.perf_counter()
+    mla_ref = mesh_lm_blocks(torch, kernels, conv, dev, "g")
+    mla_ref["seconds"] = time.perf_counter() - t0
+    paths["mesh mla unsharded"] = mla_ref["launches"]
     held = {"allocated": torch.cuda.memory_allocated(dev),
             "reserved": torch.cuda.memory_reserved(dev)}
     # Four processes share the card: each rank's allocator maps segments
@@ -3982,6 +4030,7 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
                                     if kk != "params_sha256"}
                                 for k, v in r["autoencoder"].items()},
                    lm_blocks=r["lm_blocks"], hybrid=r["hybrid"],
+                   mla=r["mla"],
                    moe={p: {k: v for k, v in m.items() if k != "route"}
                         for p, m in r["moe"].items()},
                    seconds=r["seconds"],
@@ -3994,6 +4043,7 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
                 a["launches"]
         paths[f"mesh lm_blocks rank{r['rank']}"] = r["lm_blocks"]["launches"]
         paths[f"mesh hybrid rank{r['rank']}"] = r["hybrid"]["launches"]
+        paths[f"mesh mla rank{r['rank']}"] = r["mla"]["launches"]
     for r in ranks:
         check(r["backend"] == "gloo", f"rank {r['rank']}: {r['backend']}")
         check(all(r["table2"]["launches"][k] > 0 for k in TAP_KERNELS),
@@ -4101,31 +4151,60 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
           and lm_err["grad_norm"] <= MESH_LM_GNORM_TOL,
           f"launcher vs unsharded: {lm_err} (tol {MESH_LM_LOSS_TOL}, "
           f"{MESH_LM_GNORM_TOL})")
-    phase_mesh_lm(smoke, smi, [r["lm_blocks"] for r in ranks], "d",
+    phase_mesh_lm(smoke, torch, smi, [r["lm_blocks"] for r in ranks], "d",
                   {"losses": ref, "grad_norms": ref_norms})
-    phase_mesh_lm(smoke, smi, [r["hybrid"] for r in ranks], "f", hybrid_ref)
+    phase_mesh_lm(smoke, torch, smi, [r["hybrid"] for r in ranks], "f",
+                  hybrid_ref)
+    phase_mesh_lm(smoke, torch, smi, [r["mla"] for r in ranks], "g", mla_ref)
+    mesh_plan_counts(smoke, torch)
     return paths
 
 
-#: (d)'s and (f)'s leaves that compute on their ``model`` block (path
-#: patterns of ``Plan.table``), and those gathered whole whose spec cuts
-#: them over model, by the plan's reason (any other leaf: its spec does
-#: not cut it over model).
+#: (d)'s, (f)'s and (g)'s leaves that compute on their ``model`` block
+#: (path patterns of ``Plan.table``), and those gathered whole whose spec
+#: cuts them over model, by the plan's reason (any other leaf: its spec
+#: does not cut it over model).  No leaf's reason may read "not ported".
 MESH_LM_PLANS = {
     "d": (("embed.w", "blocks.ssm.*"),
           {"blocks.ln.scale": "no rule"}),
     "f": (("embed.w", "lm_head.w", "*.rec.*", "*.mlp.w?.w",
            "super.attn.attn.wq.w", "super.attn.attn.wo.w"),
           {"super.attn.attn.w[kv].w": "K and V computed whole",
+           "*.ln?.scale": "no rule"}),
+    "g": (("embed.w", "lm_head.w", "*.attn.wq_b.w", "*.attn.wkv_b.w",
+           "*.attn.wo.w", "*.mlp.w?.w", "blocks_moe.moe.w?.w",
+           "blocks_moe.moe.shared.w?.w", "mtp.proj.w"),
+          {"*.attn.w*_a.w": "a latent's columns, not heads",
+           "*.router.w": "the router", "*.attn.*_norm.scale": "no rule",
            "*.ln?.scale": "no rule"})}
 
 
-def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
-    """(d)'s or (f)'s lines and checks: each rank's run on ``tp`` blocks
-    (``mesh_lm_blocks``) against the unsharded one (``ref``: its losses
-    and norms), every rank's first conv operands on the ``dw`` kernels
-    against their plain versions on a line of their own."""
+def _plan_mismatches(plan: dict, case: str) -> list:
+    """The leaves of ``plan`` (``Plan.table``) that ``MESH_LM_PLANS[case]``
+    does not expect."""
     import fnmatch
+    kept, whole = MESH_LM_PLANS[case]
+    bad = []
+    for path, (keep, why) in plan.items():
+        want_keep = any(fnmatch.fnmatch(path, p) for p in kept)
+        want_why = next((v for p, v in whole.items()
+                         if fnmatch.fnmatch(path, p)),
+                        "its spec does not cut it over model")
+        if keep != want_keep or "not ported" in why or not (
+                keep or want_why in why):
+            bad.append((path, keep, why))
+    return bad
+
+
+def phase_mesh_lm(smoke, torch, smi, runs, case: str, ref: dict) -> None:
+    """(d)'s, (f)'s or (g)'s lines and checks: each rank's run on ``tp``
+    blocks (``mesh_lm_blocks``) against the unsharded one (``ref``: its
+    losses and norms); (d)'s and (f)'s conv passes, and every rank's
+    first conv operands on the ``dw`` kernels against their plain
+    versions on a line of their own; (g)'s ``model_flops`` a step."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
 
     def rel(got, want):
         return max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -4134,15 +4213,22 @@ def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
            "grad_norm": max(rel(b["grad_norms"], ref["grad_norms"])
                             for b in runs)}
     cfg = mesh_lm_config(case)
+    has_conv = case in MESH_LM_CHANNELS
     # Each conv layer's forward twice a step (remat), its grads once.
     conv_layers = hybrid_layers(cfg)[0] if case == "f" else cfg.n_layers
     per_step = {"tap_gemm": 2, "tap_gemm_phased": 1, "tap_wgrad": 1}
-    kept, whole = MESH_LM_PLANS[case]
+    # The RG-LRU's gathers (each layer's forward twice a step); the MTP
+    # head's join (once a step, outside the blocks' remat).
+    gathers = {"d": 0, "f": 2 * conv_layers * steps, "g": steps}[case]
+    flops = dryrun.model_flops(
+        cfg, ShapeCfg(f"mesh_{case}", 512, rows, "train"),
+        M.build_model(cfg).init(torch.Generator().manual_seed(0),
+                                dryrun.META))
     smoke.emit("mesh_lm_blocks", nvidia_smi=smi, case=case, config=arch,
-               layers=cfg.n_layers, n_params=runs[0]["n_params"],
-               batch=rows, seq=512, rows_a_rank=rows // MESH_SHAPE[0],
-               steps=steps, plan=runs[0]["plan"],
-               plan_bytes=runs[0]["plan_bytes"],
+               cut=MESH_LM_CASES[case][1], layers=cfg.n_layers,
+               n_params=runs[0]["n_params"], batch=rows, seq=512,
+               rows_a_rank=rows // MESH_SHAPE[0], steps=steps,
+               plan=runs[0]["plan"], plan_bytes=runs[0]["plan_bytes"],
                computed_bytes=[b["computed_bytes"] for b in runs],
                gathered_bytes=[b["gathered_bytes"] for b in runs],
                bytes_held=[b["bytes_held"] for b in runs],
@@ -4152,6 +4238,7 @@ def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
                losses=[b["losses"] for b in runs],
                grad_norms=[b["grad_norms"] for b in runs], rel_err=err,
                loss_tol=MESH_LM_LOSS_TOL, grad_norm_tol=MESH_LM_GNORM_TOL,
+               model_flops_a_step=flops,
                step_seconds=[b["step_seconds"] for b in runs],
                step_seconds_unsharded=ref.get("step_seconds"),
                step_peak_bytes=[b["step_peak_bytes"] for b in runs],
@@ -4168,8 +4255,9 @@ def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
                seconds=[b["seconds"] for b in runs],
                unsharded_seconds=ref.get("seconds"),
                seconds_note="4 processes sharing one card: not a speed")
-    smoke.emit("mesh_dw_block", nvidia_smi=smi, case=case, config=arch,
-               ranks=[b["dw_block"] for b in runs])
+    if has_conv:
+        smoke.emit("mesh_dw_block", nvidia_smi=smi, case=case, config=arch,
+                   ranks=[b["dw_block"] for b in runs])
     for rank, b in enumerate(runs):
         who = f"({case}) {arch} rank {rank}"
         check(len(b["losses"]) == steps
@@ -4184,13 +4272,15 @@ def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
               f"{who}: computed with {b['computed_bytes']} and gathered "
               f"{b['gathered_bytes']} bytes a step, the plan counts "
               f"{b['plan_bytes']}")
-        for path, (keep, why) in b["plan"].items():
-            want_keep = any(fnmatch.fnmatch(path, p) for p in kept)
-            want_why = next((v for p, v in whole.items()
-                             if fnmatch.fnmatch(path, p)),
-                            "its spec does not cut it over model")
-            check(keep == want_keep and (keep or want_why in why),
-                  f"{who}: plan {path}: {keep} {why!r}")
+        bad = _plan_mismatches(b["plan"], case)
+        check(not bad, f"{who}: plan leaves off their rule: {bad}")
+        check(b["collectives"]["gathers"] == gathers,
+              f"{who}: {b['collectives']}, want {gathers} gathers")
+        if not has_conv:
+            check(not any(b["launches"].values()),
+                  f"{who}: a kernel launched while training: "
+                  f"{b['launches']}")
+            continue
         want = {k: n * conv_layers * steps for k, n in per_step.items()}
         check({k: b["launches"][k] for k in TAP_KERNELS} == want
               and set(b["variants"]) == {f"{k}:dw" for k in TAP_KERNELS},
@@ -4203,9 +4293,6 @@ def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
         check(set(b["events"]) == {"mesh:conv2d:data", "mesh:drop:cout"},
               f"{who}: events {b['events']}: the conv hook cut the block "
               f"again or fell back")
-        gathers = 2 * conv_layers * steps if case == "f" else 0
-        check(b["collectives"]["gathers"] == gathers,
-              f"{who}: {b['collectives']}, want {gathers} gathers")
     check(len({tuple(b["losses"]) for b in runs}) == 1
           and len({b["params_sha256"] for b in runs}) == 1,
           f"({case}) the ranks' losses or gathered parameters differ")
@@ -4215,12 +4302,51 @@ def phase_mesh_lm(smoke, smi, runs, case: str, ref: dict) -> None:
           f"{MESH_LM_GNORM_TOL})")
 
 
+def mesh_plan_counts(smoke, torch) -> None:
+    """The plans of ``MESH_PLAN_COUNTS``' configs under ``tp`` on an
+    abstract (data 2, model 2) mesh, counted on ``meta`` tensors with no
+    step: parameters, the bytes a rank computes with and gathers, the dry
+    run's bytes a device, and the leaves gathered whole whose spec cuts
+    them over model, with their reasons.  ``frontend_proj`` must be kept
+    and no reason read "not ported"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    mesh = Mesh(("data", "model"), MESH_SHAPE)
+    for arch, cut in MESH_PLAN_COUNTS.items():
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        meta = M.build_model(cfg).init(torch.Generator().manual_seed(0),
+                                       dryrun.META)
+        spec = SH.param_specs(meta, mesh, "tp")
+        tp_plan = TP.plan(spec, cfg, mesh)
+        plan = tp_plan.table()
+        whole = {k: why for k, (keep, why) in plan.items()
+                 if not keep and "does not cut" not in why}
+        smoke.emit("mesh_plan_counts", config=arch, cut=cut,
+                   n_params=M.count_params(meta),
+                   computed_bytes=tp_plan.held_bytes(meta),
+                   gathered_bytes=tp_plan.gathered_bytes(meta),
+                   bytes_dryrun={
+                       "params": dryrun.bytes_per_device(meta, spec, mesh),
+                       "moments": 2 * dryrun.bytes_per_device(
+                           meta, spec, mesh, torch.float32)},
+                   frontend_proj=plan["frontend_proj.w"], whole=whole)
+        check(plan["frontend_proj.w"][0]
+              and not any("not ported" in why for _, why in plan.values()),
+              f"{arch}: plan {plan}")
+
+
 def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
     """(e)'s line and checks: each policy's ranks against its unsharded
     run (``MESH_MOE_*``)."""
     def rel(got, want):
         return max(abs(a - b) / abs(b) for a, b in zip(got, want))
-    for policy, seq in MESH_MOE_RUNS.items():
+    for policy, (seq, steps) in MESH_MOE_RUNS.items():
         runs = [r["moe"][policy] for r in ranks]
         want = ref[policy]
         err = {"loss": max(rel(m["losses"], want["losses"]) for m in runs),
@@ -4242,7 +4368,7 @@ def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
                                     "speed")
         smoke.emit("mesh_moe", nvidia_smi=smi, policy=policy,
                    config="moonshot-v1-16b-a3b", layers=MESH_MOE_LAYERS,
-                   n_params=want["n_params"], batch=8, seq=seq,
+                   n_params=want["n_params"], batch=8, seq=seq, steps=steps,
                    rows_a_rank=[m["rows"] for m in runs],
                    losses_unsharded=want["losses"],
                    grad_norms_unsharded=want["grad_norms"],
@@ -4264,7 +4390,7 @@ def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
                    seconds_note="4 processes sharing one card: not a speed")
         for r, m, route in zip(ranks, runs, routes):
             who = f"(e) {policy} rank {r['rank']}"
-            check(len(m["losses"]) == MESH_MOE_STEPS
+            check(len(m["losses"]) == steps
                   and all(math.isfinite(x)
                           for x in m["losses"] + m["grad_norms"]),
                   f"{who}: losses {m['losses']} norms {m['grad_norms']}")
@@ -4273,7 +4399,7 @@ def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
                   f"{m['bytes_dryrun']}")
             check(not any(m["launches"].values()),
                   f"{who}: launched {m['launches']}")
-            check(m["gathered_bytes"] == [m["plan_bytes"]] * MESH_MOE_STEPS,
+            check(m["gathered_bytes"] == [m["plan_bytes"]] * steps,
                   f"{who}: computed with {m['gathered_bytes']} bytes a "
                   f"step, the plan counts {m['plan_bytes']}")
             kept = sorted(k for k, (keep, _) in m["plan"].items() if keep)

@@ -18,16 +18,19 @@ specs cut parameters over ``model`` (``tp``), the step computes on the
 (``repro_torch.dist.tensor_parallel.plan``, worked out once here from the
 specs and the step's config): each rank runs its own query heads and
 their KV groups (or, where the KV heads do not divide, its query heads
-against K and V computed whole), Mamba2 heads, RG-LRU channels, MLP
-columns, experts and vocabulary rows, summing partial outputs over
-``model``.  A kept leaf is gathered over ``data`` only; a taken leaf
-(whose stored block cuts across the layer's units: Mamba2's ``in_proj``,
-``conv_w`` and ``out_proj``, the RG-LRU's ``wout``) is gathered whole and
-sliced, and its slice's grad folded back into its stored block before
-the grads are summed (``Plan.fold``).  Every other leaf is gathered
-whole (``sharding.gather_tree``), with the plan's reason: MLA attention,
-the frontends and the MTP head (not ported), the router, conv kernels
-(``dist.conv_parallel`` cuts them), heads that do not divide.
+against K and V computed whole), MLA heads (against the latents and the
+rope key computed whole), Mamba2 heads, RG-LRU channels, MLP columns,
+experts and vocabulary rows, summing partial outputs over ``model``, and
+its ``d_model`` columns of the frontends' and the MTP head's
+projections, gathering their outputs over ``model``.  A kept leaf is
+gathered over ``data`` only; a taken leaf (whose stored block cuts
+across the layer's units: Mamba2's ``in_proj``, ``conv_w`` and
+``out_proj``, the RG-LRU's ``wout``) is gathered whole and sliced, and
+its slice's grad folded back into its stored block before the grads are
+summed (``Plan.fold``).  Every other leaf is gathered whole
+(``sharding.gather_tree``), with the plan's reason: MLA's latent
+projections, the router, conv kernels (``dist.conv_parallel`` cuts
+them), heads that do not divide.
 ``dp_only`` and ``tp_rep`` specs name no ``model`` axis, so there every
 leaf is gathered whole, as is every leaf of a model with no rule here
 (the autoencoder).
@@ -46,12 +49,10 @@ without a spec (the guard's streak, the compression residual) stays whole
 on every rank.  ``ckpt.checkpoint.save(..., specs=, mesh=)`` writes the
 blocks as global arrays.
 
-Still gathered whole under ``tp``, in the order the roadmap takes them:
-MLA, the frontends and the MTP head.  The grads are summed over the batch
-axes by gathering every rank's buffer (``Mesh.psum_flat``), not by a
-reduce-scatter.  ``run.layout`` (the :class:`Blocks` of a step from
-:func:`sharded_step`) holds the plan and the bytes the last step
-gathered and computed with.
+The grads are summed over the batch axes by gathering every rank's
+buffer (``Mesh.psum_flat``), not by a reduce-scatter.  ``run.layout``
+(the :class:`Blocks` of a step from :func:`sharded_step`) holds the plan
+and the bytes the last step gathered and computed with.
 """
 
 from __future__ import annotations

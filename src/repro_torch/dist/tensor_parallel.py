@@ -27,6 +27,12 @@ The rules:
     recurrentgemma's one KV head): ``wq``/``wo`` on their head blocks,
     ``wk``/``wv`` whole, K and V computed whole on every rank and
     entering the rank's heads (their grads summed over ``model``);
+  * MLA attention (DeepSeek-V3; its heads divide): ``wq_b``/``wkv_b``
+    column blocks of whole heads, ``wo`` the row block; ``wq_a``/
+    ``wkv_a`` (stored as column blocks of a latent, not of heads) whole,
+    the normed latents and the shared rope key computed whole on every
+    rank and entering the rank's heads (their grads summed over
+    ``model``), as MQA's K and V;
   * Mamba2 (heads divide): ``a_log``/``dt_bias``/``d_skip`` and the
     norm's scale on their stored blocks of heads; ``in_proj``, ``conv_w``
     and ``out_proj`` taken: this rank's heads' z / x / dt columns with B
@@ -38,12 +44,16 @@ The rules:
   * a SwiGLU MLP (dense layers, the RG-LRU blocks' MLPs, shared experts):
     ``wi``/``wg`` column blocks of ``d_ff``, ``wo`` a row block;
   * routed experts: whole experts (E over ``model``: expert parallelism);
-  * the vocabulary: the embedding's rows and the head's columns.
+  * the vocabulary: the embedding's rows and the head's columns;
+  * the frontends' ``frontend_proj`` and the MTP head's ``mtp.proj``:
+    column blocks of ``d_model``, their outputs gathered over ``model``
+    into the replicated residual stream (:func:`join`); the MTP block's
+    attention and MLP by the rules above.
 
-Everything else is gathered whole: MLA attention, the frontends and the
-MTP head ("not ported"), heads (or widths) that do not divide, the
-router (every rank routes every token), norms outside these layers and
-conv kernels (``dist.conv_parallel`` cuts them itself).
+Everything else is gathered whole: heads (or widths) that do not
+divide, MLA's latent projections, the router (every rank routes every
+token), norms outside these layers and conv kernels
+(``dist.conv_parallel`` cuts them itself).
 
 Inside :func:`model_axis` (the step enters it around its forward and
 backward), a layer that finds a block where its config says whole units
@@ -51,12 +61,16 @@ backward), a layer that finds a block where its config says whole units
 ``Mesh.psum``'s fixed order so that every ``model`` rank holds the same
 bits: :func:`enter` (identity forward, psum of the grad backward) where
 replicated activations meet the block, and :func:`leave` (psum forward,
-identity backward) where the block's partial output rejoins them; and
+identity backward) where the block's partial output rejoins them;
 :func:`gather` (all-gather forward, the summed grad's own slice
-backward) where a block's activations are read whole.  Every ``model``
-rank computes the same loss from the same inputs, so a replicated
-parameter's grad is whole on every rank and a kept leaf's is its block.
-:data:`COUNTS` counts the model psums and gathers and their bytes.
+backward) where a block's activations are read whole by other blocks;
+and :func:`join` (all-gather forward, the grad's own slice backward,
+no sum) where a column block's output joins the replicated activations,
+whose grad is whole and the same on every rank already.  Every
+``model`` rank computes the same loss from the same inputs, so a
+replicated parameter's grad is whole on every rank and a kept leaf's is
+its block.  :data:`COUNTS` counts the model psums and gathers and their
+bytes.
 """
 
 from __future__ import annotations
@@ -73,9 +87,9 @@ MODEL = "model"
 
 #: the model collectives of this process: psums (``enter`` backward,
 #: ``leave`` forward, ``pmax``, the backward of ``gather``) and the bytes
-#: they summed; ``gather`` forward calls and the bytes of the blocks they
-#: gathered; :meth:`Plan.fold`'s gathers of a taken leaf's slices and
-#: their bytes.
+#: they summed; ``gather`` and ``join`` forward calls and the bytes of the
+#: blocks they gathered; :meth:`Plan.fold`'s gathers of a taken leaf's
+#: slices and their bytes.
 COUNTS = {"psums": 0, "psum_bytes": 0, "gathers": 0, "gather_bytes": 0,
           "folds": 0, "fold_bytes": 0}
 
@@ -229,6 +243,23 @@ def _attn_rule(name: str, cfg, m: int) -> Leaf:
     return Leaf(True, f"query heads, {h // m} of {h} (KV {hk} whole)")
 
 
+def _mla_rule(name: str, cfg, m: int) -> Leaf:
+    """An MLA leaf (``name`` under ``attn``): on this rank's heads."""
+    h = cfg.n_heads
+    if name in ("wq_a", "wkv_a"):
+        return Leaf(False, "a latent's columns, not heads: the latent "
+                           "computed whole, its grad summed over model")
+    if h % m:
+        return Leaf(False, f"{h} MLA heads do not divide by model={m}")
+    return Leaf(True, f"heads, {h // m} of {h}")
+
+
+def _columns(cfg, m: int, what: str) -> Leaf:
+    d = cfg.d_model
+    return Leaf(True, f"d_model columns, {d // m} of {d}: {what}'s output "
+                      f"gathered over model")
+
+
 def _rule(path: tuple[str, ...], ndim: int, cfg, m: int) -> Leaf:
     """The compute of a leaf whose spec cuts it over ``model``."""
     if not hasattr(cfg, "n_heads"):
@@ -245,16 +276,16 @@ def _rule(path: tuple[str, ...], ndim: int, cfg, m: int) -> Leaf:
         return Leaf(True, f"vocabulary columns, {cfg.vocab // m} of "
                           f"{cfg.vocab}")
     if top == "frontend_proj":
-        return Leaf(False, "not ported: the frontend")
-    if top == "mtp":
-        return Leaf(False, "not ported: the MTP head")
+        return _columns(cfg, m, "the frontend")
+    if path[:2] == ("mtp", "proj"):
+        return _columns(cfg, m, "the MTP head")
     for layer, rule in (("ssm", _ssm_rule), ("rec", _rec_rule)):
         if layer in path:
             return rule(path[path.index(layer) + 1], cfg, m)
     unit, name = (path[-3], path[-2]) if len(path) >= 3 and \
         path[-1] == "w" else (None, None)
     if unit == "attn" and cfg.use_mla:
-        return Leaf(False, "not ported: MLA attention")
+        return _mla_rule(name, cfg, m)
     if unit == "attn" and name in ("wq", "wk", "wv", "wo"):
         return _attn_rule(name, cfg, m)
     if unit == "moe" and name == "router":
@@ -533,6 +564,12 @@ class _Gather(torch.autograd.Function):
                 None)
 
 
+class _Join(_Gather):
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.start, ctx.n), None, None
+
+
 def enter(x: torch.Tensor) -> torch.Tensor:
     """``x`` (the same on every ``model`` rank) into a block's compute:
     the identity; its grad summed over ``model``."""
@@ -551,6 +588,15 @@ def gather(x: torch.Tensor) -> torch.Tensor:
     slice of it (a reduce-scatter)."""
     ax = active()
     return _Gather.apply(x, ax.mesh, ax.index)
+
+
+def join(x: torch.Tensor) -> torch.Tensor:
+    """Every ``model`` rank's block ``x`` of the last dim, concatenated
+    in coordinate order, joining the replicated activations (a column
+    block's output); the grad, whole and the same on every rank, cut to
+    this rank's slice with no sum (Megatron's gather-from-region)."""
+    ax = active()
+    return _Join.apply(x, ax.mesh, ax.index)
 
 
 def pmax(x: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,13 @@ model's parameters, AdamW moments, batch and decode cache as SHAPES only
 (``meta`` tensors: nothing is allocated), takes their
 ``repro_torch.dist.sharding`` spec trees on the abstract production mesh
 (``launch.mesh.make_production_mesh``), and reports the bytes each device
-would hold of each.  There is no HLO and no compile, so the JAX dry run's
-FLOP, bytes-accessed and collective counts have no counterpart here; the
-conv cell's halo bytes come from its plans (the bytes the ``halo`` events
-of a sharded run record).
+would hold of each, and the cell's analytic ``model_flops`` (6 · N ·
+tokens to train, 2 · N · tokens to prefill, 2 · N a token to decode,
+expert weights at top_k / E; :func:`model_flops`).  There is no HLO and
+no compile, so the JAX dry run's HLO-derived FLOP, bytes-accessed and
+collective counts have no counterpart here; the conv cell's halo bytes
+come from its plans (the bytes the ``halo`` events of a sharded run
+record).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m \\
         --shape train_4k
@@ -98,7 +101,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeCfg) -> dict:
 
 def plan_cell(cfg: ArchConfig, shape: ShapeCfg, mesh,
               policy: str = "tp") -> dict:
-    """Bytes per device of one cell's state under ``policy``'s specs."""
+    """Bytes per device of one cell's state under ``policy``'s specs, and
+    the cell's :func:`model_flops`."""
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
     params = M.build_model(cfg).init(torch.Generator().manual_seed(0), META)
@@ -126,7 +130,41 @@ def plan_cell(cfg: ArchConfig, shape: ShapeCfg, mesh,
     return {"bytes_per_device": per_dev, "bytes_global": total,
             "param_count": sum(x.numel() for x in tree_leaves(params)),
             "param_leaves": len(tree_leaves(params)),
-            "replicated_param_leaves": replicated}
+            "replicated_param_leaves": replicated,
+            "model_flops": model_flops(cfg, shape, params)}
+
+
+def model_flops(cfg: ArchConfig, shape: ShapeCfg, params) -> float:
+    """The analytic FLOPs of one cell (JAX's ``model_flops``): 6 · N ·
+    tokens to train, 2 · N · tokens to prefill, 2 · N · the batch to
+    decode one token a sequence; for an MoE config N counts each leaf
+    whose path names ``moe``, of at least 3 dims, whose third-last dim is
+    the expert count, at top_k / E of its size.  ``params`` may be ``meta``
+    tensors."""
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    if cfg.n_experts:
+        total = 0
+
+        def walk(tree, path):
+            nonlocal total
+            if isinstance(tree, dict):
+                for k, v in tree.items():
+                    walk(v, path + (k,))
+                return
+            if "moe" in "/".join(path) and tree.dim() >= 3 \
+                    and tree.shape[-3] == cfg.n_experts:
+                total += tree.numel() * cfg.moe_top_k // cfg.n_experts
+            else:
+                total += tree.numel()
+        walk(params, ())
+        n_params = total
+    if shape.kind in ("train", "prefill"):
+        tokens = shape.global_batch * shape.seq_len
+        mult = 6 if shape.kind == "train" else 2
+    else:
+        tokens = shape.global_batch
+        mult = 2
+    return float(mult) * n_params * tokens
 
 
 def _write(report_dir: str, name: str, result: dict) -> str:
@@ -151,7 +189,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     per = result["bytes_per_device"]
     print(f"[dryrun] {arch} {shape_name} mesh={mesh.name} policy={policy} "
           + " ".join(f"{k}={v / 1e9:.3f}GB" for k, v in per.items())
-          + " per device", flush=True)
+          + f" per device model_flops={result['model_flops']:.3e}",
+          flush=True)
     return result
 
 

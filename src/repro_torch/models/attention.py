@@ -35,9 +35,10 @@ the JAX package.
 In the train step on ``tp`` blocks (``repro_torch.dist.tensor_parallel``)
 ``gqa_prefill`` attends over the query heads and KV groups whose columns
 the rank holds (or, where the KV heads do not divide, its query heads
-against K and V computed whole) and sums ``wo``'s partial outputs over
-``model``; MLA is not computed on blocks (its leaves are gathered
-whole).
+against K and V computed whole) and ``mla_prefill`` over its MLA heads
+(the latents and the shared rope key computed whole), each summing
+``wo``'s partial outputs over ``model``.  ``mla_decode``'s absorbed
+latents run on no ``tp`` path: serving computes whole.
 
 A local ``window`` (RecurrentGemma's attention layers) masks keys at or
 more than ``window`` positions behind the query (``q_pos - k_pos <
@@ -292,42 +293,52 @@ def init_mla(generator: torch.Generator, cfg: ArchConfig, nl=None,
     }
 
 
-def _mla_qkv(p, x, cfg: ArchConfig, positions):
-    b, l, _ = x.shape
-    h, kvr = cfg.n_heads, cfg.kv_lora_rank
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    ang = L.rope_freqs(dr, cfg.rope_theta, positions)
-    q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"], L.linear(p["wq_a"], x)))
-    q = q.reshape(b, l, h, dn + dr)
-    q_nope, q_rope = q[..., :dn], L.apply_rope(q[..., dn:], ang)
-    kv = L.linear(p["wkv_a"], x)
-    c_kv = L.rmsnorm(p["kv_norm"], kv[..., :kvr])
-    k_rope = L.apply_rope(kv[..., None, kvr:], ang)            # (B,L,1,dr)
-    kvu = L.linear(p["wkv_b"], c_kv).reshape(b, l, h, dn + dv)
-    k_nope, v = kvu[..., :dn], kvu[..., dn:]
-    return q_nope, q_rope, k_nope, k_rope, v, c_kv
+def _latents_into_heads(cq, c_kv, k_rope):
+    """MLA's normed latents and shared rope key, the same on every
+    ``model`` rank, into this rank's heads: their grads summed over
+    ``model``."""
+    return TP.enter(cq), TP.enter(c_kv), TP.enter(k_rope)
 
 
 def mla_prefill(p, x, cfg: ArchConfig, *, positions=None):
     """x (B, L, D) -> (out (B, L, D), c_kv (B, L, kv_lora_rank), k_rope
     (B, L, qk_rope_head_dim)): full-sequence attention, and the normed
     latent and rope'd shared key of every position -- what
-    :func:`mla_decode` writes to the cache."""
+    :func:`mla_decode` writes to the cache.  Where ``p`` holds this
+    rank's block of the heads (the train step under ``tp``: ``wq_b``/
+    ``wkv_b`` column blocks of whole heads, ``wo`` the row block), the
+    latents and the rope key are computed whole from the replicated ``x``
+    and enter the rank's heads (so their grads sum every rank's heads),
+    it attends over its own heads and ``wo``'s partial outputs are
+    summed over ``model``."""
     b, l, _ = x.shape
-    h = cfg.n_heads
+    kvr = cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h = p["wq_b"]["w"].shape[-1] // (dn + dr)
+    cut = TP.is_block(cfg.n_heads, h)
     if positions is None:
         positions = torch.arange(l, device=x.device)
-    q_nope, q_rope, k_nope, k_rope, v, c_kv = _mla_qkv(p, x, cfg, positions)
+    ang = L.rope_freqs(dr, cfg.rope_theta, positions)
+    cq = L.rmsnorm(p["q_norm"], L.linear(p["wq_a"], x))
+    kv = L.linear(p["wkv_a"], x)
+    c_kv = L.rmsnorm(p["kv_norm"], kv[..., :kvr])
+    k_rope = L.apply_rope(kv[..., None, kvr:], ang)            # (B,L,1,dr)
+    c_in, k_in = c_kv, k_rope
+    if cut:
+        cq, c_in, k_in = _latents_into_heads(cq, c_kv, k_rope)
+    q = L.linear(p["wq_b"], cq).reshape(b, l, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], L.apply_rope(q[..., dn:], ang)
+    kvu = L.linear(p["wkv_b"], c_in).reshape(b, l, h, dn + dv)
+    k_nope, v = kvu[..., :dn], kvu[..., dn:]
     # Fold the shared rope key into per-head features so the common
     # attention core applies at head dim dn + dr; pad v to it and crop.
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
-    k_cat = torch.cat([k_nope, k_rope.expand(b, l, h, dr)], dim=-1)
+    k_cat = torch.cat([k_nope, k_in.expand(b, l, h, dr)], dim=-1)
     if dv < dn + dr:
         v = F.pad(v, (0, dn + dr - dv))
     o = _sdpa(q_cat, k_cat, v, causal=True, scale=(dn + dr) ** -0.5)
     o = o[..., :dv].reshape(b, l, h * dv)
-    return L.linear(p["wo"], o), c_kv, k_rope[:, :, 0]
+    return _out_proj(p["wo"], o, cut), c_kv, k_rope[:, :, 0]
 
 
 def mla_train(p, x, cfg: ArchConfig, *, positions=None):

@@ -106,17 +106,28 @@ def _lm_head(params, cfg: ArchConfig, x):
     return L.linear(w, x)
 
 
+def _project(p, x, cfg: ArchConfig):
+    """``x`` through ``frontend_proj`` or ``mtp.proj``.  Where ``p`` holds
+    this rank's block of the ``d_model`` columns (the train step under
+    ``tp``), ``x`` enters the block and the block's output is gathered
+    over ``model`` into the replicated activations (``TP.join``: its
+    grad is this rank's slice, with no sum)."""
+    if not TP.is_block(cfg.d_model, p["w"].shape[-1]):
+        return L.linear(p, x)
+    return TP.join(L.linear(p, TP.enter(x)))
+
+
 def _embed_inputs(params, batch, cfg: ArchConfig):
     """The input sequence (B, L, D): the audio encoder's projected frames;
     the VLM's projected image embeddings ahead of the token embeddings;
     else the token embeddings."""
     if cfg.family == "audio":
-        return L.linear(params["frontend_proj"],
-                        batch["frontend"].to(cfg.adtype))
+        return _project(params["frontend_proj"],
+                        batch["frontend"].to(cfg.adtype), cfg)
     x = L.embed(params["embed"], batch["tokens"], cfg.vocab).to(cfg.adtype)
     if cfg.family == "vlm" and "frontend" in batch:
-        img = L.linear(params["frontend_proj"],
-                       batch["frontend"].to(cfg.adtype))
+        img = _project(params["frontend_proj"],
+                       batch["frontend"].to(cfg.adtype), cfg)
         x = torch.cat([img, x], dim=1)
     return x
 
@@ -144,13 +155,15 @@ def forward(params, batch, cfg: ArchConfig):
 def _mtp_forward(params, batch, h, cfg: ArchConfig):
     """DeepSeek-V3 multi-token prediction (depth 1, the JAX package's
     simplified structure): h'_t = W[norm(h_t); norm(E(t_{t+1}))] -> one
-    block without MoE -> the shared head, predicting token t+2."""
+    block without MoE -> the shared head, predicting token t+2.  Under
+    ``tp`` the projection runs on its ``d_model`` columns
+    (:func:`_project`) and the block on its heads and MLP columns."""
     p = params["mtp"]
     nxt = torch.roll(batch["tokens"], -1, dims=1)
     e = L.embed(params["embed"], nxt, cfg.vocab).to(h.dtype)
     hcat = torch.cat([L.rmsnorm(p["norm_h"], h, cfg.norm_eps),
                       L.rmsnorm(p["norm_e"], e, cfg.norm_eps)], dim=-1)
-    hm = L.linear(p["proj"], hcat)
+    hm = _project(p["proj"], hcat, cfg)
     hm = T.attn_block(T._layers(p["block"])[0], hm, cfg)[0]
     return _lm_head(params, cfg, hm)
 

@@ -13,9 +13,9 @@ block again in the backward.  ``constrain_batch`` stands at the block
 boundaries where the JAX package calls it: inside a batch-sharded train
 step every activation there is this rank's batch block, and one that is
 not raises (``repro_torch.dist.constraints``); elsewhere it is the
-identity.  Inside the train step on ``tp`` blocks, the GQA attention,
-the MLPs and the experts of a block compute on the heads, columns and
-experts the rank holds (``repro_torch.dist.tensor_parallel``).
+identity.  Inside the train step on ``tp`` blocks, the GQA and MLA
+attention, the MLPs and the experts of a block compute on the heads,
+columns and experts the rank holds (``repro_torch.dist.tensor_parallel``).
 
 Families:
   dense, vlm, audio : one stack of attention blocks, ``blocks`` (audio's

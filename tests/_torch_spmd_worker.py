@@ -50,6 +50,19 @@ HEADS = {"n_heads": 4, "n_kv_heads": 2}
 #: case -> (arch, params of inputs.pkl).
 CONV_FAMILIES = {"mamba2_tp": ("mamba2-370m", "m2_params"),
                  "hybrid_tp": ("recurrentgemma-9b", "rg_params")}
+#: the frontends under ``tp`` (``frontend_proj`` on its ``d_model``
+#: columns): case -> (arch, params of inputs.pkl, batch of inputs.pkl).
+#: internvl2's smoke config has one KV head, so it also runs the MQA rule.
+FRONTEND_CASES = {"vlm_tp": ("internvl2-76b", "vlm_params", "vlm_batch"),
+                  "audio_tp": ("hubert-xlarge", "audio_params",
+                               "audio_batch")}
+#: the configs whose whole-tensor paths ``run_whole_paths`` holds to the
+#: layers before MLA, the frontends and MTP computed on blocks: case ->
+#: (arch, params, batch of inputs.pkl, whether it serves).
+BLOCK_FAMILIES = {"deepseek": ("deepseek-v3-671b", "ds_params", "lm_batch",
+                               True),
+                  "vlm": FRONTEND_CASES["vlm_tp"] + (False,),
+                  "audio": FRONTEND_CASES["audio_tp"] + (False,)}
 #: the step after which the SmolLM run saves its blocked state.
 SAVE_AFTER = 1
 LR = 1e-3
@@ -176,7 +189,7 @@ def run_moe(mesh, inputs) -> dict:
                            {"tokens": toks, "targets": toks}, policy,
                            accum_steps=accum, **kw)
     for case in MOE_CASES:
-        out[case] = run(case)
+        out[case] = _count_collectives(lambda: run(case))
 
     sound_layout, sound_aux = MOE._layout, MOE._aux_shares
 
@@ -304,12 +317,50 @@ def run_conv_families(mesh, inputs, batch) -> dict:
     return out
 
 
+def run_block_families(mesh, inputs) -> dict:
+    """internvl2-76b and hubert-xlarge (``FRONTEND_CASES``) under ``tp``:
+    ``frontend_proj`` on its ``d_model`` columns, its output gathered over
+    ``model`` (``TP.join``); then the two mutations on DeepSeek-V3's
+    (``MOE_CASES["deepseek_tp"]``): the rope key not entering MLA's heads,
+    and a ``join`` whose backward sums the grad over ``model`` (the MTP
+    head's ``mtp.proj``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.models import attention as A
+    from repro_torch.tree import tree_from_numpy
+    out = {}
+    for case, (arch, params, batch) in FRONTEND_CASES.items():
+        out[case] = _count_collectives(lambda: run_sharded(
+            mesh, get_smoke_config(arch),
+            tree_from_numpy(inputs[params], "cpu"),
+            tree_from_numpy(inputs[batch], "cpu"), "tp"))
+    arch, params, toks = MOE_CASES["deepseek_tp"][:3]
+    toks = tree_from_numpy(inputs[toks], "cpu")
+    mutants = {
+        "mla_rope_mutant": (A, "_latents_into_heads",
+                            lambda cq, c, k: (TP.enter(cq), TP.enter(c), k)),
+        "join_mutant": (TP, "join", TP.gather)}
+    for name, (module, attr, mutant) in mutants.items():
+        sound = getattr(module, attr)
+        setattr(module, attr, mutant)
+        try:
+            out[name] = run_sharded(
+                mesh, get_smoke_config("deepseek-v3-671b"),
+                tree_from_numpy(inputs[params], "cpu"),
+                {"tokens": toks, "targets": toks}, "tp")
+        finally:
+            setattr(module, attr, sound)
+    return out
+
+
 def run_whole_paths(inputs, batch) -> dict:
     """Serving (a prefill and 3 decode steps) and 2 unsharded steps of
-    both ``CONV_FAMILIES`` configs on whole tensors, through the layers
-    as they are and through the layers as they were before any of them
-    computed on ``model`` blocks (:mod:`_torch_whole_layers`): the logits',
-    losses', norms' and parameters' digests of each."""
+    both ``CONV_FAMILIES`` configs and of ``BLOCK_FAMILIES`` (DeepSeek's
+    serving: MLA's prefill and its absorbed decode; internvl2's and
+    hubert's steps only) on whole tensors, through the layers as they are
+    and through the layers as they were before any of them computed on
+    ``model`` blocks (:mod:`_torch_whole_layers`): the logits', losses',
+    norms' and parameters' digests of each."""
     import _torch_whole_layers as WL
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import attention as A
@@ -320,14 +371,17 @@ def run_whole_paths(inputs, batch) -> dict:
     from repro_torch.train.train_step import make_train_step
     from repro_torch.tree import tree_from_numpy, tree_leaves
 
-    def paths(cfg, params):
-        logits, cache = M.prefill(params, batch["tokens"][:2, :16], cfg, 24)
-        outs = [logits]
-        tok = logits.argmax(-1)
-        for pos in range(16, 19):
-            logits, cache = M.decode_step(params, cache, tok, pos, cfg)
+    def paths(cfg, params, batch, serve=True):
+        outs = []
+        if serve:
+            logits, cache = M.prefill(params, batch["tokens"][:2, :16], cfg,
+                                      24)
             outs.append(logits)
             tok = logits.argmax(-1)
+            for pos in range(16, 19):
+                logits, cache = M.decode_step(params, cache, tok, pos, cfg)
+                outs.append(logits)
+                tok = logits.argmax(-1)
         step = make_train_step(cfg, adamw.AdamWConfig(peak_lr=LR),
                                total_steps=10, warmup=1,
                                conv_policy="pallas")
@@ -337,18 +391,29 @@ def run_whole_paths(inputs, batch) -> dict:
             metrics += [m["loss"], m["grad_norm"]]
         return {"serve": _digest(*outs), "train": _digest(*metrics),
                 "params": _digest(*tree_leaves(p))}
+    cases = {case: (arch, key, batch, True)
+             for case, (arch, key) in CONV_FAMILIES.items()}
+    cases.update({case: (arch, key, tree_from_numpy(inputs[b], "cpu"), serve)
+                  for case, (arch, key, b, serve) in BLOCK_FAMILIES.items()})
+    swaps = [(M2, "mamba2_block", WL.mamba2_block),
+             (R, "recurrent_block", WL.recurrent_block),
+             (A, "gqa_prefill", WL.gqa_prefill),
+             (A, "mla_prefill", WL.mla_prefill),
+             (M, "_embed_inputs", WL.embed_inputs),
+             (M, "_mtp_forward", WL.mtp_forward)]
     out = {}
-    for case, (arch, key) in CONV_FAMILIES.items():
+    for case, (arch, key, b, serve) in cases.items():
         cfg = get_smoke_config(arch)
         params = tree_from_numpy(inputs[key], "cpu")
-        now = paths(cfg, params)
-        sound = (M2.mamba2_block, R.recurrent_block, A.gqa_prefill)
-        M2.mamba2_block, R.recurrent_block, A.gqa_prefill = (
-            WL.mamba2_block, WL.recurrent_block, WL.gqa_prefill)
+        now = paths(cfg, params, b, serve)
+        sound = [getattr(module, attr) for module, attr, _ in swaps]
+        for module, attr, old in swaps:
+            setattr(module, attr, old)
         try:
-            before = paths(cfg, params)
+            before = paths(cfg, params, b, serve)
         finally:
-            M2.mamba2_block, R.recurrent_block, A.gqa_prefill = sound
+            for (module, attr, _), fn in zip(swaps, sound):
+                setattr(module, attr, fn)
         out[case] = {"now": now, "before": before}
     return out
 
@@ -427,6 +492,7 @@ def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
     out.update(run_moe(mesh, inputs))
     out.update(run_heads(mesh, cfg, inputs, lm_batch))
     out.update(run_conv_families(mesh, inputs, lm_batch))
+    out.update(run_block_families(mesh, inputs))
     if rank == 0:
         out["whole_paths"] = run_whole_paths(inputs, lm_batch)
 

@@ -1,9 +1,11 @@
 """The port's Mamba2 block, RG-LRU block and GQA prefill as they were before
 any of them computed on Mamba2 heads, RG-LRU channels or MQA query heads
-of a ``model`` block: the reference ``tests/_torch_spmd_worker.py`` holds
-the layers' whole-tensor paths (serving, the unsharded step) to, bit for
-bit.  Their GQA prefill still computes on whole query heads with whole KV
-groups, as before.
+of a ``model`` block, and its MLA prefill, input embedding (the
+frontends) and MTP head as they were before any of them computed on MLA
+heads or ``d_model`` columns: the reference ``tests/_torch_spmd_worker.py``
+holds the layers' whole-tensor paths (serving, the unsharded step) to,
+bit for bit.  Their GQA prefill still computes on whole query heads with
+whole KV groups, as before.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.core.conv import depthwise_causal_conv1d
 from repro_torch.dist import tensor_parallel as TP
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.attention import _out_proj, _sdpa, _split_heads
 from repro_torch.models.mamba2 import (_split_proj, _ssd_chunked, d_inner,
                                        n_heads)
@@ -77,3 +80,59 @@ def gqa_prefill(p, x, cfg, *, window=None, positions=None):
     v = _split_heads(L.linear(p["wv"], x), hk, dh)
     o = _sdpa(q, k, v, causal=not cfg.is_encoder_only, window=window)
     return _out_proj(p["wo"], o.reshape(b, l, h * dh), cut), k, v
+
+
+def _mla_qkv(p, x, cfg, positions):
+    b, l, _ = x.shape
+    h, kvr = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    ang = L.rope_freqs(dr, cfg.rope_theta, positions)
+    q = L.linear(p["wq_b"], L.rmsnorm(p["q_norm"], L.linear(p["wq_a"], x)))
+    q = q.reshape(b, l, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], L.apply_rope(q[..., dn:], ang)
+    kv = L.linear(p["wkv_a"], x)
+    c_kv = L.rmsnorm(p["kv_norm"], kv[..., :kvr])
+    k_rope = L.apply_rope(kv[..., None, kvr:], ang)            # (B,L,1,dr)
+    kvu = L.linear(p["wkv_b"], c_kv).reshape(b, l, h, dn + dv)
+    k_nope, v = kvu[..., :dn], kvu[..., dn:]
+    return q_nope, q_rope, k_nope, k_rope, v, c_kv
+
+
+def mla_prefill(p, x, cfg, *, positions=None):
+    b, l, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(l, device=x.device)
+    q_nope, q_rope, k_nope, k_rope, v, c_kv = _mla_qkv(p, x, cfg, positions)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope.expand(b, l, h, dr)], dim=-1)
+    if dv < dn + dr:
+        v = F.pad(v, (0, dn + dr - dv))
+    o = _sdpa(q_cat, k_cat, v, causal=True, scale=(dn + dr) ** -0.5)
+    o = o[..., :dv].reshape(b, l, h * dv)
+    return L.linear(p["wo"], o), c_kv, k_rope[:, :, 0]
+
+
+def embed_inputs(params, batch, cfg):
+    if cfg.family == "audio":
+        return L.linear(params["frontend_proj"],
+                        batch["frontend"].to(cfg.adtype))
+    x = L.embed(params["embed"], batch["tokens"], cfg.vocab).to(cfg.adtype)
+    if cfg.family == "vlm" and "frontend" in batch:
+        img = L.linear(params["frontend_proj"],
+                       batch["frontend"].to(cfg.adtype))
+        x = torch.cat([img, x], dim=1)
+    return x
+
+
+def mtp_forward(params, batch, h, cfg):
+    from repro_torch.models.model import _lm_head
+    p = params["mtp"]
+    nxt = torch.roll(batch["tokens"], -1, dims=1)
+    e = L.embed(params["embed"], nxt, cfg.vocab).to(h.dtype)
+    hcat = torch.cat([L.rmsnorm(p["norm_h"], h, cfg.norm_eps),
+                      L.rmsnorm(p["norm_e"], e, cfg.norm_eps)], dim=-1)
+    hm = L.linear(p["proj"], hcat)
+    hm = T.attn_block(T._layers(p["block"])[0], hm, cfg)[0]
+    return _lm_head(params, cfg, hm)

@@ -12,6 +12,7 @@ one-process run, and the elastic checkpoint restore onto ``P("data",
 None)`` on that 2-rank mesh and on a 1-rank one.
 """
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -30,6 +31,7 @@ from functools import partial  # noqa: E402
 
 from repro.configs import ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs.base import SHAPES as JSHAPES  # noqa: E402
 from repro.core import conv as jconv  # noqa: E402
 from repro.core.convspec import ConvSpec as JSpec  # noqa: E402
 from repro.core.convspec import ConvTransposeSpec as JTSpec  # noqa: E402
@@ -39,7 +41,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 
-from repro_torch.configs import get_config, paper_cnn  # noqa: E402
+from repro_torch.configs import (all_arch_ids, applicable_shapes,  # noqa: E402
+                                 get_config, paper_cnn)
 from repro_torch.core import conv as C  # noqa: E402
 from repro_torch.core.convspec import ConvSpec, ConvTransposeSpec  # noqa: E402
 from repro_torch.dist import conv_parallel as cp  # noqa: E402
@@ -441,6 +444,47 @@ def test_dryrun_bytes_per_device_match_jax_specs(arch, tmp_path):
     assert per["params"] == want_p and per["adamw_moments"] == want_m
     assert res["param_count"] == sum(v.size for _, v in leaves)
     assert (tmp_path / f"{arch}__train_4k__16x16.json").exists()
+
+
+def _jax_model_flops():
+    """JAX's ``repro.launch.dryrun.model_flops``.  That module sets
+    ``XLA_FLAGS`` to 512 host devices when imported, so the backend is
+    locked in first and the variable put back after."""
+    jax.devices()
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as jdryrun
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return jdryrun.model_flops
+
+
+FLOP_CASES = [(a, s) for a in all_arch_ids()
+              for s in applicable_shapes(get_config(a))]
+
+
+@pytest.mark.parametrize("arch,shape", FLOP_CASES,
+                         ids=[f"{a}-{s}" for a, s in FLOP_CASES])
+def test_dryrun_model_flops_match_jax(arch, shape):
+    """The analytic ``model_flops`` of every architecture's every
+    applicable shape at its published widths, from ``meta`` parameters:
+    exactly JAX's, from ``eval_shape`` leaves (expert stacks at top_k /
+    E); ``run_cell`` reports it."""
+    jcfg, tcfg = jget_config(arch), get_config(arch)
+    jp = jax.eval_shape(partial(JM.init_params, cfg=jcfg),
+                        jax.random.PRNGKey(0))
+    tp = M.build_model(tcfg).init(torch.Generator().manual_seed(0), META)
+    want = _jax_model_flops()(jcfg, JSHAPES[shape], jp)
+    got = dryrun.model_flops(tcfg, dryrun.SHAPES[shape], tp)
+    assert got == want and got > 0
+    if tcfg.n_experts:
+        assert got < dryrun.model_flops(
+            dataclasses.replace(tcfg, n_experts=0), dryrun.SHAPES[shape], tp)
+    cell = dryrun.plan_cell(tcfg, dryrun.SHAPES[shape], PROD)
+    assert cell["model_flops"] == want
 
 
 def test_autoencoder_param_specs_match_jax():

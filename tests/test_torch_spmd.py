@@ -106,6 +106,9 @@ MOE_CFGS = {"moonshot": jget_smoke("moonshot-v1-16b-a3b"),
 #: the JAX configs of the worker's ``CONV_FAMILIES``.
 CONV_CFGS = {case: jget_smoke(arch)
              for case, (arch, _) in W.CONV_FAMILIES.items()}
+#: the JAX configs of the worker's ``FRONTEND_CASES``.
+FRONTEND_CFGS = {case: jget_smoke(arch)
+                 for case, (arch, _, _) in W.FRONTEND_CASES.items()}
 
 
 def _np(tree):
@@ -134,6 +137,20 @@ def _mask() -> np.ndarray:
     return mask
 
 
+def _frontend_batch(cfg, toks) -> dict:
+    """internvl2's batch: ``frontend_tokens`` (8) image embeddings a row
+    ahead of 56 text tokens; hubert's: 64 frames a row and their
+    targets; embeddings drawn from a seed."""
+    rng = np.random.RandomState(4)
+    if cfg.family == "vlm":
+        text = toks[:, :toks.shape[1] - cfg.frontend_tokens]
+        return {"tokens": text, "targets": np.roll(text, -1, axis=1),
+                "frontend": rng.randn(toks.shape[0], cfg.frontend_tokens,
+                                      cfg.d_frontend).astype(np.float32)}
+    return {"frontend": rng.randn(*toks.shape, cfg.d_frontend).astype(
+        np.float32), "targets": toks % cfg.vocab}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("spmd")
@@ -154,6 +171,11 @@ def runs(tmp_path_factory):
                                         MOE_CFGS["deepseek"])),
         **{key: _np(JM.init_params(jax.random.PRNGKey(0), CONV_CFGS[case]))
            for case, (_, key) in W.CONV_FAMILIES.items()},
+        **{key: _np(JM.init_params(jax.random.PRNGKey(0),
+                                   FRONTEND_CFGS[case]))
+           for case, (_, key, _) in W.FRONTEND_CASES.items()},
+        "vlm_batch": _frontend_batch(FRONTEND_CFGS["vlm_tp"], toks),
+        "audio_batch": _frontend_batch(FRONTEND_CFGS["audio_tp"], toks),
         "tokens_64": toks,
         "tokens_500": np.random.RandomState(3).randint(
             0, MOE_CFGS["moonshot"].vocab, (8, 500)).astype(np.int32)}
@@ -441,14 +463,22 @@ PLAN_RULES = {
         "*.router.w": "the router: every rank routes every token",
         "*.ln?.scale": "no rule"}),
     "moe_dp_only": ((), {}),
-    "deepseek_tp": (_MOE_KEPT, {
-        "mtp.block.*": "not ported: the MTP head",
-        "mtp.proj.w": "not ported: the MTP head",
-        "blocks_*.attn.w*": "not ported: MLA attention",
+    "deepseek_tp": (_MOE_KEPT + (
+        "*.attn.wq_b.w", "*.attn.wkv_b.w", "*.attn.wo.w",
+        "mtp.block.mlp.w?.w", "mtp.proj.w"), {
+        "*.attn.w*_a.w": "a latent's columns, not heads",
         "*.router.w": "the router: every rank routes every token",
-        "blocks_*.attn.*_norm.scale": "no rule",
+        "*.attn.*_norm.scale": "no rule",
         "*.ln?.scale": "no rule"}),
     "mamba2_tp": (("embed.w", "blocks.ssm.*"), {"blocks.ln.scale": "no rule"}),
+    "vlm_tp": (("embed.w", "lm_head.w", "frontend_proj.w", "blocks.mlp.w?.w",
+                "blocks.attn.wq.w", "blocks.attn.wo.w"), {
+        "blocks.attn.w[kv].w": "1 KV heads do not divide by model=2: K "
+                               "and V computed whole",
+        "*.ln?.scale": "no rule"}),
+    "audio_tp": (("embed.w", "lm_head.w", "frontend_proj.w",
+                  "blocks.mlp.w?.w", "blocks.attn.w?.w"),
+                 {"*.ln?.scale": "no rule"}),
     "hybrid_tp": (("embed.w", "lm_head.w", "*.rec.*", "*.mlp.w?.w",
                    "super.attn.attn.wq.w", "super.attn.attn.wo.w"), {
         "super.attn.attn.w[kv].w": "1 KV heads do not divide by model=2: "
@@ -459,7 +489,9 @@ PLAN_RULES = {
 CASE_PARAMS = {"smollm_tp": "lm_params", "smollm_heads": "lm_heads_params",
                "moe_tp": "moe_params", "moe_dp_only": "moe_params",
                "deepseek_tp": "ds_params",
-               **{case: key for case, (_, key) in W.CONV_FAMILIES.items()}}
+               **{case: key for case, (_, key) in W.CONV_FAMILIES.items()},
+               **{case: key for case, (_, key, _) in
+                  W.FRONTEND_CASES.items()}}
 #: the taken leaves (gathered whole, computed with on a slice): pattern ->
 #: (the dim sliced, its width every rank computes with whole: Mamba2's B
 #: and C); the rest of the dim is cut into this rank's half.
@@ -565,7 +597,7 @@ def test_no_token_is_routed_otherwise(runs, case):
 
 @pytest.mark.parametrize("case", ["smollm_tp", "smollm_heads", "moe_tp",
                                   "moe_accum", "deepseek_tp",
-                                  *W.CONV_FAMILIES])
+                                  *W.CONV_FAMILIES, *W.FRONTEND_CASES])
 def test_replicated_parameters_are_bit_identical(runs, case):
     """After 3 steps every leaf the plan gathers whole is the same bits
     on every rank (a kept leaf's blocks differ by construction)."""
@@ -608,14 +640,62 @@ def test_conv_families_on_model_blocks_match_jax_single_device(runs, case):
         assert r["collectives"]["gathers"] == gathers, r["collectives"]
 
 
-@pytest.mark.parametrize("case", list(W.CONV_FAMILIES))
+@pytest.mark.parametrize("case", [*W.CONV_FAMILIES, *W.BLOCK_FAMILIES])
 def test_whole_tensor_paths_are_unchanged(runs, case):
-    """Serving (a prefill and 3 decode steps) and 2 unsharded steps on
-    whole tensors give the same bits through the layers as through their
-    versions that know no Mamba2, RG-LRU or MQA blocks
+    """Serving (a prefill and 3 decode steps: DeepSeek's absorbed MLA
+    decode; none for internvl2 and hubert) and 2 unsharded steps on whole
+    tensors give the same bits through the layers as through their
+    versions that know no Mamba2, RG-LRU, MQA or MLA blocks and no
+    ``d_model`` columns of the frontends or the MTP head
     (``tests/_torch_whole_layers.py``)."""
     got = runs["ranks"][0]["whole_paths"][case]
     assert got["now"] == got["before"], got
+
+
+@pytest.mark.parametrize("case", list(W.FRONTEND_CASES))
+def test_frontends_on_blocks_match_jax_single_device(runs, case):
+    """internvl2 (8 images a row ahead of its text; 2 of 4 query heads
+    against its one KV head) and hubert (64 frames a row, bidirectional)
+    under tp, ``frontend_proj`` on this rank's 32 of 64 ``d_model``
+    columns, its output gathered over model once a step: within the
+    tolerance of JAX's step, the same on every rank."""
+    i = runs["inputs"]
+    arch, params, batch = W.FRONTEND_CASES[case]
+    want = _jax_run(FRONTEND_CFGS[case], i[params], i[batch])
+    per_rank = [r[case] for r in runs["ranks"]]
+    _assert_matches(per_rank, want)
+    assert len({r["params"] for r in per_rank}) == 1
+    assert {r["rows"] for r in per_rank} == {2}
+    for r in per_rank:
+        assert r["collectives"]["gathers"] == W.STEPS, r["collectives"]
+
+
+def test_mla_and_mtp_run_on_their_blocks(runs):
+    """DeepSeek-V3 under tp (held to JAX above, with the MoE cases): no
+    leaf is gathered whole for want of a rule, and ``mtp.proj``'s output
+    is gathered over model once a step (the only ``join``; MLA gathers
+    nothing)."""
+    for r in runs["ranks"]:
+        plan = r["deepseek_tp"]["plan"]
+        assert not any("not ported" in why for _, why in plan.values())
+        assert plan["mtp.proj.w"][0] and plan["mtp.block.attn.wq_b.w"][0]
+        assert r["deepseek_tp"]["collectives"]["gathers"] == W.STEPS
+
+
+def _jax_case(runs, case) -> dict:
+    """JAX's single-device step on the inputs of a tp case."""
+    i = runs["inputs"]
+    if case in W.CONV_FAMILIES:
+        return _jax_run(CONV_CFGS[case], i[W.CONV_FAMILIES[case][1]],
+                        i["lm_batch"])
+    if case in W.FRONTEND_CASES:
+        _, params, batch = W.FRONTEND_CASES[case]
+        return _jax_run(FRONTEND_CFGS[case], i[params], i[batch])
+    if case in W.MOE_CASES:
+        return _jax_moe(runs, case)
+    if case == "smollm_heads":
+        return _jax_run(JCFG_HEADS, i["lm_heads_params"], i["lm_batch"])
+    return _jax_run(JCFG, i["lm_params"], i["lm_batch"])
 
 
 @pytest.mark.parametrize("mutant,case,key", [
@@ -623,22 +703,19 @@ def test_whole_tensor_paths_are_unchanged(runs, case):
     ("norm_mutant", "smollm_tp", "grad_norms"),
     ("ssm_norm_mutant", "mamba2_tp", "losses"),
     ("ssm_bc_mutant", "mamba2_tp", "grad_norms"),
-    ("gather_mutant", "hybrid_tp", "grad_norms")])
+    ("gather_mutant", "hybrid_tp", "grad_norms"),
+    ("mla_rope_mutant", "deepseek_tp", "grad_norms"),
+    ("join_mutant", "deepseek_tp", "grad_norms")])
 def test_tp_mutations_read_outside_the_tolerance(runs, mutant, case, key):
     """``wo``'s partial outputs left unsummed read outside the tolerance
     on the losses; a norm that counts each replicated leaf once per model
     rank on the norms; Mamba2's gated norm over this rank's channels only
     on the losses; B and C not entering the heads' block (their grads
-    this rank's heads' only) and a gather whose backward skips the sum
-    over model on the norms."""
-    i = runs["inputs"]
-    if case in W.CONV_FAMILIES:
-        cfg, params = CONV_CFGS[case], W.CONV_FAMILIES[case][1]
-    elif case == "smollm_heads":
-        cfg, params = JCFG_HEADS, "lm_heads_params"
-    else:
-        cfg, params = JCFG, "lm_params"
-    want = _jax_run(cfg, i[params], i["lm_batch"])
+    this rank's heads' only), a gather whose backward skips the sum over
+    model, MLA's rope key not entering its heads, and the MTP head's
+    ``join`` summing its grad over model (a grad already whole counted
+    twice) on the norms."""
+    want = _jax_case(runs, case)
     got = runs["ranks"][0][mutant][key]
     assert _close(runs["ranks"][0][case][key], want[key])
     assert not _close(got, want[key]), (got, want[key])
