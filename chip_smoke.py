@@ -408,9 +408,21 @@ PATH):
                    launches, ``mesh:*`` events and halo bytes on lines of
                    their own; the ranks' seconds are those of processes
                    sharing one card, not speeds.  NCCL across cards is not
-                   run.
+                   run.  Every mesh line also carries the bytes each rank
+                   sends and receives a step in the grad sync (a
+                   fixed-order reduce-scatter into each rank's blocks on
+                   ``sharded_step``), the model psums and the folds
+                   (``tensor_parallel.COUNTS``), held to the counts worked
+                   out from the plan and the specs (``want_sync_bytes``,
+                   ``want_fold_bytes``; a model psum at ``model`` = 2
+                   sends and receives the bytes it sums; (a) makes none).
  27. summary    -- every kernel's launches on each path, each path run with
                    the counts set to 0 just before it and read just after.
+ 28. quickstart -- (after transposed) ``repro_torch.quickstart`` on the card:
+                   the sparsities, Algorithm 1 against explicit
+                   zero-insertion, the implicit grads against the dense
+                   library conv (TF32 off), the traffic figures; its
+                   checks raise, its printed lines on the line.
 
 On the card the conv dispatch degrades only on an injected fault, and
 the continuous engine fails a request only on one: a kernel that fails
@@ -1144,6 +1156,24 @@ def phase_transposed(smoke, torch, conv, kernels, ConvTransposeSpec, dev):
                   f"{label}: {policy} vs the lax materialization {errs}")
 
 
+def phase_quickstart(smoke, torch, dev) -> None:
+    """The ``quickstart`` phase (module docstring, 28):
+    ``repro_torch.quickstart`` on the card; its checks raise."""
+    import contextlib
+    import io
+
+    from repro_torch import quickstart
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        figures = quickstart.run(dev)
+    lines = out.getvalue().splitlines()
+    smoke.emit("quickstart", device=str(dev), figures=figures,
+               printed=lines, seconds=time.perf_counter() - t0)
+    check(sum(line.endswith("OK") for line in lines) == 2,
+          f"quickstart: {lines}")
+
+
 def phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp, dev):
     """The trainers' CLIs at their defaults under pallas, then lax,
     traditional and auto.  Returns each path's kernel launches, every path
@@ -1337,11 +1367,19 @@ def phase_autotune(smoke, torch, ops, tg, ref, autotune, config, kernels,
                   f"autotune {mode}: eval accuracy {res['eval_acc']}")
         (meas, ev_m, plans_m), (cached, ev_c, plans_c) = \
             runs["measure"], runs["cached"]
-        check(set(ev_m) == {f"{r}_autotune_miss" for r in ops.PLAN_ROLES},
-              f"measure run: {ev_m}")
-        check(set(ev_c) == {f"{r}_autotune_hit" for r in ops.PLAN_ROLES}
-              and sum(ev_c.values()) == sum(ev_m.values()),
-              f"cached run: {ev_c} (measure run: {ev_m})")
+        # The tuner's outcomes, and the planner's one {role}_pallas a
+        # geometry and plan beside each (kernels/ops.py::launch_gap).
+        tuner_m, tuner_c = ({k: v for k, v in ev.items() if "_autotune_" in k}
+                            for ev in (ev_m, ev_c))
+        planned = {f"{r}_pallas": ev_m.get(f"{r}_autotune_miss")
+                   for r in ops.PLAN_ROLES}
+        check(set(tuner_m) == {f"{r}_autotune_miss" for r in ops.PLAN_ROLES}
+              and {k: v for k, v in ev_m.items() if k not in tuner_m}
+              == planned, f"measure run: {ev_m}")
+        check(set(tuner_c) == {f"{r}_autotune_hit" for r in ops.PLAN_ROLES}
+              and sum(tuner_c.values()) == sum(tuner_m.values())
+              and {k: v for k, v in ev_c.items() if k not in tuner_c}
+              == planned, f"cached run: {ev_c} (measure run: {ev_m})")
         check([p[:4] for p in plans_c] == [p[:4] for p in plans_m],
               "the cached run's plans differ from the measure run's")
         check(bool(torch.equal(torch.tensor(cached["losses"]),
@@ -3453,8 +3491,10 @@ def mesh_table2(torch, conv, cp, kernels, obs_events, ops, paper_cnn,
                 ConvSpec, mesh, dev, rank) -> dict:
     """(a): each Table II layer's three passes sharded against unsharded,
     under ``spatial`` and ``tp``."""
+    from repro_torch.dist import tensor_parallel as TP
     out = {}
     launches = {k: 0 for k in kernels.launch_counts()}
+    before = dict(TP.COUNTS)
     for policy in MESH_TABLE2:
         for i, (hi, ci, co, k, s, p) in enumerate(paper_cnn.TABLE2_LAYERS):
             gen = torch.Generator().manual_seed(100 + i)
@@ -3510,7 +3550,10 @@ def mesh_table2(torch, conv, cp, kernels, obs_events, ops, paper_cnn,
             check(_halo_bytes(obs_events) == want_halo,
                   f"rank {rank} {policy} layer {i}: halo bytes "
                   f"{_halo_bytes(obs_events)}, want {want_halo}")
-    return {"layers": out, "launches": launches}
+    # No train step: no grad sync, no fold, no model psum (the convs'
+    # own psums are the mesh-parallel conv's).
+    return {"layers": out, "launches": launches,
+            "wire": wire_since(TP, before)}
 
 
 def mesh_autoencoder(torch, conv, kernels, autoencoder_bp, mesh, dev,
@@ -3518,21 +3561,40 @@ def mesh_autoencoder(torch, conv, kernels, autoencoder_bp, mesh, dev,
     """(b): the autoencoder CLI's loop, sharded under each policy."""
     import hashlib
 
+    from repro_torch.dist import tensor_parallel as TP
     from repro_torch.tree import tree_leaves
     out = {}
     for policy in ("tp", "dp_only", "spatial"):
         conv.reset_dispatch_events()
         kernels.reset_launch_counts()
+        before = dict(TP.COUNTS)
         with mesh:
             res = autoencoder_bp.train("pallas", MESH_AE_STEPS, device=dev,
                                        conv_mesh=policy)
+        total = wire_since(TP, before)
+        # No activation policy: every rank runs the whole batch, and each
+        # axis takes coordinate 0's whole grads (``Mesh.broadcast``).
+        grad_bytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(res["params"]))
+        want = [0, 0]
+        for axis, n in mesh.shape.items():
+            if mesh.coordinate(axis) == 0:
+                want[0] += (n - 1) * grad_bytes
+            else:
+                want[1] += grad_bytes
         digest = hashlib.sha256()
         for t in tree_leaves(res["params"]):
             digest.update(t.detach().cpu().numpy().tobytes())
         out[policy] = {"losses": res["mses"], "seconds": res["seconds"],
                        "events": _mesh_events(conv),
                        "launches": kernels.launch_counts(),
-                       "params_sha256": digest.hexdigest()}
+                       "params_sha256": digest.hexdigest(),
+                       "wire_a_step": {k: v // MESH_AE_STEPS
+                                       for k, v in total.items()},
+                       "wire_want": {"sync": want, "fold": [0, 0]}}
+        check(all(v % MESH_AE_STEPS == 0 for v in total.values()),
+              f"rank {rank} autoencoder {policy}: {total} bytes over "
+              f"{MESH_AE_STEPS} steps")
     return out
 
 
@@ -3614,6 +3676,116 @@ def dw_block_check(torch, x, w, dev) -> dict:
     return out
 
 
+#: what ``tensor_parallel.COUNTS`` holds of the bytes a rank sends and
+#: receives in the grad sync, the model psums and the folds (and the
+#: bytes the model psums summed).
+WIRE_KEYS = ("scatter_bytes", "scatter_received", "psum_sent",
+             "psum_received", "psum_bytes", "fold_bytes", "fold_received")
+
+
+def wire_since(TP, before: dict) -> dict:
+    """The ``WIRE_KEYS`` counts since ``before`` (a copy of ``COUNTS``)."""
+    return {k: TP.COUNTS[k] - before[k] for k in WIRE_KEYS}
+
+
+def _axis_dim(spec, axis: str):
+    return next((d for d, e in enumerate(spec) if e == axis), None)
+
+
+def want_sync_bytes(plan, params, coord: dict, batch_axes) -> list[int]:
+    """``[sent, received]`` of one rank's grad sync a step, worked out
+    from the plan and the specs (``train_step._sync_blocks``): along each
+    batch axis of n ranks a leaf its spec cuts there sends n - 1 of its n
+    blocks and receives n - 1 parts of its own, the rest of a dtype go
+    through one flat buffer padded to n shares, scattered then gathered;
+    along each other axis, coordinate 0 sends each member its block of
+    each leaf not kept on its ``model`` block (the whole of one the spec
+    does not cut there), which the member receives.  A kept leaf's grad
+    enters as its ``model`` block."""
+    from repro_torch.tree import tree_leaves
+    shape = dict(plan.mesh.shape)
+    m = shape.get("model", 1)
+    cur = [[p.numel() // (m if k else 1), p.element_size(), p.dtype, s, k]
+           for p, s, k in zip(tree_leaves(params),
+                              tree_leaves(plan.compute_specs), plan.kept)]
+    sent = received = 0
+    for axis in batch_axes:
+        n, whole = shape[axis], {}
+        for c in cur:
+            if _axis_dim(c[3], axis) is not None:
+                sent += (n - 1) * (c[0] // n) * c[1]
+                received += (n - 1) * (c[0] // n) * c[1]
+                c[0] //= n
+            else:
+                whole.setdefault(c[2], [0, c[1]])[0] += c[0]
+        for elems, es in whole.values():
+            share = -(-elems // n) * es
+            sent += 2 * (n - 1) * share
+            received += 2 * (n - 1) * share
+    for axis, n in shape.items():
+        if n == 1 or axis in batch_axes:
+            continue
+        for c in cur:
+            if c[4] and axis == "model":
+                continue
+            cut = _axis_dim(c[3], axis) is not None
+            b = c[0] // (n if cut else 1) * c[1]
+            if coord[axis] == 0:
+                sent += (n - 1) * b
+            else:
+                received += b
+            if cut:
+                c[0] //= n
+    return [sent, received]
+
+
+def want_fold_bytes(plan, params, coord: dict) -> list[int]:
+    """``[sent, received]`` of one rank's fold a step, element by element:
+    an own range of a taken leaf comes from the ``model`` rank whose units
+    it holds, a shared range from coordinate 0, and each element goes to
+    the rank whose stored block holds it, when that is another rank."""
+    from repro_torch.tree import tree_leaves
+    m = dict(plan.mesh.shape).get("model", 1)
+    me = coord["model"]
+    sent = received = 0
+    for p, s, leaf in zip(tree_leaves(params), tree_leaves(plan.specs),
+                          tree_leaves(plan.tree)):
+        if leaf.take is None:
+            continue
+        dt, db = leaf.take.dim % p.dim(), _axis_dim(s, "model")
+        src = []
+        for width, own in leaf.take.parts:
+            src += [i * m // width if own else 0 for i in range(width)]
+        per = p.numel() // p.shape[dt] * p.element_size()
+        if dt == db:
+            owner = [x * m // p.shape[dt] for x in range(p.shape[dt])]
+            sent += per * sum(a == me != o for a, o in zip(src, owner))
+            received += per * sum(o == me != a for a, o in zip(src, owner))
+        else:
+            mine = sum(a == me for a in src)
+            sent += mine * per * (m - 1) // m
+            received += (len(src) - mine) * per // m
+    return [sent, received]
+
+
+def check_wire(who: str, wire: list, want: dict) -> None:
+    """Each step's grad sync and fold bytes against ``want`` (the plan's
+    counts), and its model psums: at ``model`` = 2 a psum sends and
+    receives half its tensor in the scatter and half in the gather, so
+    each step sends and receives the bytes its psums summed."""
+    for step, w in enumerate(wire):
+        check([w["scatter_bytes"], w["scatter_received"]] == want["sync"]
+              and [w["fold_bytes"], w["fold_received"]] == want["fold"],
+              f"{who} step {step}: grad sync {w['scatter_bytes']} / "
+              f"{w['scatter_received']}, folds {w['fold_bytes']} / "
+              f"{w['fold_received']} bytes sent / received, the plan "
+              f"counts {want}")
+        check(w["psum_sent"] == w["psum_received"] == w["psum_bytes"],
+              f"{who} step {step}: model psums sent {w['psum_sent']} and "
+              f"received {w['psum_received']} bytes, summed "
+              f"{w['psum_bytes']}")
+
+
 def mesh_lm_config(case: str):
     """(d)'s, (f)'s or (g)'s config: its published widths, cut as
     ``MESH_LM_CASES`` says."""
@@ -3691,6 +3863,11 @@ def mesh_lm_blocks(torch, kernels, conv, dev, case: str,
         res["plan"] = plan.table()
         res["plan_bytes"] = {"computed": plan.held_bytes(meta),
                              "gathered": plan.gathered_bytes(meta)}
+        coord = {a: mesh.coordinate(a) for a in mesh.axis_names}
+        res["wire_want"] = {
+            "sync": want_sync_bytes(plan, meta, coord,
+                                    SH.batch_axes(mesh, "tp")),
+            "fold": want_fold_bytes(plan, meta, coord)}
     opt = adamw.init_state(params)
     if mesh is not None:
         res["bytes_held"] = {
@@ -3704,10 +3881,11 @@ def mesh_lm_blocks(torch, kernels, conv, dev, case: str,
     before = dict(TP.COUNTS)
     hist = {k: [] for k in ("losses", "grad_norms", "step_seconds",
                             "step_peak_bytes", "computed_bytes",
-                            "gathered_bytes")}
+                            "gathered_bytes", "wire")}
     with dw_calls(torch) as seen:
         for step in range(steps):
             torch.cuda.reset_peak_memory_stats(dev)
+            step_counts = dict(TP.COUNTS)
             t0 = time.perf_counter()
             batch = {k: v.to(dev) for k, v in cut(
                 {k: torch.from_numpy(v)
@@ -3721,6 +3899,7 @@ def mesh_lm_blocks(torch, kernels, conv, dev, case: str,
             if mesh is not None:
                 for k in ("computed_bytes", "gathered_bytes"):
                     hist[k].append(step_fn.layout.stats[k])
+                hist["wire"].append(wire_since(TP, step_counts))
     res.update(hist, launches=kernels.launch_counts(),
                variants=tg.variant_launch_counts(),
                events=_mesh_events(conv), conv_rows=_conv_rows(conv),
@@ -3769,6 +3948,7 @@ def mesh_moe_run(torch, kernels, dev, seq: int, steps: int, mesh=None,
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.dist import set_activation_policy
     from repro_torch.dist import sharding as SH
+    from repro_torch.dist import tensor_parallel as TP
     from repro_torch.dist.spmd import sharded_step
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
@@ -3810,6 +3990,11 @@ def mesh_moe_run(torch, kernels, dev, seq: int, steps: int, mesh=None,
         plan = step_fn.layout.plan
         res["plan"] = plan.table()
         res["plan_bytes"] = plan.held_bytes(meta)
+        coord = {a: mesh.coordinate(a) for a in mesh.axis_names}
+        res["wire_want"] = {
+            "sync": want_sync_bytes(plan, meta, coord,
+                                    SH.batch_axes(mesh, policy)),
+            "fold": want_fold_bytes(plan, meta, coord)}
     opt = adamw.init_state(params)
     if mesh is not None:
         res["bytes_held"] = {
@@ -3818,13 +4003,14 @@ def mesh_moe_run(torch, kernels, dev, seq: int, steps: int, mesh=None,
             "moments": sum(t.numel() * t.element_size()
                            for k in ("m", "v") for t in tree_leaves(opt[k]))}
     kernels.reset_launch_counts()
-    losses, norms, secs, peaks, gathered = [], [], [], [], []
+    losses, norms, secs, peaks, gathered, wire = [], [], [], [], [], []
     # The peak of the init and cut; then each step's own.
     init_peak = torch.cuda.max_memory_allocated(dev) \
         if dev.type == "cuda" else 0
     for step in range(steps):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        step_counts = dict(TP.COUNTS)
         t0 = time.perf_counter()
         batch = {k: v.to(dev) for k, v in cut(
             {k: torch.from_numpy(v)
@@ -3845,10 +4031,12 @@ def mesh_moe_run(torch, kernels, dev, seq: int, steps: int, mesh=None,
             peaks.append(torch.cuda.max_memory_allocated(dev))
         if mesh is not None:
             gathered.append(step_fn.layout.stats["gathered_bytes"])
+            wire.append(wire_since(TP, step_counts))
     res.update(losses=losses, grad_norms=norms, step_seconds=secs,
                step_peak_bytes=peaks, launches=kernels.launch_counts())
     if mesh is not None:
         res["gathered_bytes"] = gathered
+        res["wire"] = wire
     if dev.type == "cuda":
         res["max_memory_allocated_bytes"] = max(init_peak, *peaks)
     if mesh is not None:
@@ -4026,6 +4214,7 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
                    device=r["device"], coordinate=r["coordinate"],
                    table2=r["table2"]["layers"],
                    table2_launches=r["table2"]["launches"],
+                   table2_wire=r["table2"]["wire"],
                    autoencoder={k: {kk: vv for kk, vv in v.items()
                                     if kk != "params_sha256"}
                                 for k, v in r["autoencoder"].items()},
@@ -4046,6 +4235,12 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
         paths[f"mesh mla rank{r['rank']}"] = r["mla"]["launches"]
     for r in ranks:
         check(r["backend"] == "gloo", f"rank {r['rank']}: {r['backend']}")
+        check(not any(r["table2"]["wire"].values()),
+              f"rank {r['rank']} Table II: grad sync, model psum or fold "
+              f"bytes {r['table2']['wire']}, want none")
+        for policy, a in r["autoencoder"].items():
+            check_wire(f"rank {r['rank']} autoencoder {policy}",
+                       [a["wire_a_step"]], a["wire_want"])
         check(all(r["table2"]["launches"][k] > 0 for k in TAP_KERNELS),
               f"rank {r['rank']} Table II launches "
               f"{r['table2']['launches']}")
@@ -4128,6 +4323,13 @@ def phase_mesh(smoke, torch, kernels, autoencoder_bp, train, smi, dev):
                    s for b in blk for s in b["step_seconds"][1:]),
                lm_blocks_bytes=[b["bytes_held"] for b in blk],
                lm_blocks_bytes_dryrun=blk[0]["bytes_dryrun"],
+               table2_wire=[r["table2"]["wire"] for r in ranks],
+               autoencoder_wire={p: [r["autoencoder"][p]["wire_a_step"]
+                                     for r in ranks]
+                                 for p in ("tp", "dp_only", "spatial")},
+               autoencoder_wire_want={
+                   p: [r["autoencoder"][p]["wire_want"] for r in ranks]
+                   for p in ("tp", "dp_only", "spatial")},
                lm_stdout_tail=proc.stdout[-1500:], spawn_seconds=spawn_s,
                parent_card_bytes_at_spawn=held,
                lm_seconds=lm_s, seconds=time.perf_counter() - t_phase)
@@ -4252,6 +4454,8 @@ def phase_mesh_lm(smoke, torch, smi, runs, case: str, ref: dict) -> None:
                conv_rows=[b["conv_rows"] for b in runs],
                events=[b["events"] for b in runs],
                collectives=[b["collectives"] for b in runs],
+               wire_a_step=[b["wire"] for b in runs],
+               wire_want=[b["wire_want"] for b in runs],
                seconds=[b["seconds"] for b in runs],
                unsharded_seconds=ref.get("seconds"),
                seconds_note="4 processes sharing one card: not a speed")
@@ -4274,6 +4478,7 @@ def phase_mesh_lm(smoke, torch, smi, runs, case: str, ref: dict) -> None:
               f"{b['plan_bytes']}")
         bad = _plan_mismatches(b["plan"], case)
         check(not bad, f"{who}: plan leaves off their rule: {bad}")
+        check_wire(who, b["wire"], b["wire_want"])
         check(b["collectives"]["gathers"] == gathers,
               f"{who}: {b['collectives']}, want {gathers} gathers")
         if not has_conv:
@@ -4361,6 +4566,7 @@ def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
                        plan_bytes=m["plan_bytes"],
                        whole_param_bytes=2 * want["n_params"],
                        experts_computed=m["experts_computed"],
+                       wire_a_step=m["wire"], wire_want=m["wire_want"],
                        step_peak_bytes=m["step_peak_bytes"],
                        step_seconds=m["step_seconds"],
                        step_seconds_whole=MESH_MOE_WHOLE_STEP_S,
@@ -4402,6 +4608,7 @@ def phase_mesh_moe(smoke, torch, smi, ranks, ref, ref_s) -> None:
             check(m["gathered_bytes"] == [m["plan_bytes"]] * steps,
                   f"{who}: computed with {m['gathered_bytes']} bytes a "
                   f"step, the plan counts {m['plan_bytes']}")
+            check_wire(who, m["wire"], m["wire_want"])
             kept = sorted(k for k, (keep, _) in m["plan"].items() if keep)
             e = 64 // MESH_SHAPE[1] if policy == "tp" else 64
             check(m["experts_computed"] == [e]
@@ -4518,6 +4725,7 @@ def main(argv=None) -> int:
     smoke.emit("gather_maps", bytes_held_after_layers=held
                - torch.cuda.memory_allocated(dev))
     phase_transposed(smoke, torch, conv, kernels, ConvTransposeSpec, dev)
+    phase_quickstart(smoke, torch, dev)
     paths = phase_train(smoke, torch, conv, kernels, cnn_bp, autoencoder_bp,
                         dev)
     paths.update(phase_autotune(

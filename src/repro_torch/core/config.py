@@ -23,6 +23,11 @@ validate values, drop the tuner's in-process memo when a plan-affecting
 field changes, re-arm the fault injector when a fault field changes and
 re-sync the telemetry when a telemetry field changes.  A bad fault spec
 fails the ``update()`` that sets it.
+
+As in the JAX package, changing a ``REPRO_*`` variable after import still
+works: each attribute read compares the variable with the value seen at
+init (or at the field's last ``update``), adopts a changed one, and
+emits a ``DeprecationWarning``.  New code calls ``config.update(...)``.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import contextlib
 import dataclasses
 import os
 import sys
+import warnings
 from typing import Any, Callable
 
 AUTOTUNE_MODES = ("off", "measure", "cached")
@@ -162,8 +168,12 @@ _OBS_FIELDS = ("telemetry", "trace_path", "metrics_path")
 
 
 def _invalidate_plan_caches() -> None:
-    """Drop the tuner's in-process memo (not the file).  Through
-    sys.modules: config must not import the kernel stack."""
+    """Drop the tuner's in-process memo (not the file) and the planners'
+    memo of planned geometries.  Through sys.modules: config must not
+    import the kernel stack."""
+    ops = sys.modules.get("repro_torch.kernels.ops")
+    if ops is not None:
+        ops.clear_plan_memo()
     autotune = sys.modules.get("repro_torch.kernels.autotune")
     if autotune is not None:
         autotune.clear_memo()
@@ -196,23 +206,43 @@ def _sync_obs(import_now: bool = False) -> None:
 
 class GlobalConfig:
     """The configuration singleton.  Frozen: ``config.field = x`` raises;
-    go through :meth:`update` (permanent) or :meth:`override` (scoped)."""
+    go through :meth:`update` (permanent) or :meth:`override` (scoped).
+    Reading a field whose env var changed since init adopts the env value
+    with a ``DeprecationWarning`` (the post-import env-mutation shim)."""
 
     def __init__(self, env: dict | None = None):
         env = os.environ if env is None else env
+        object.__setattr__(self, "_env", env)
+        object.__setattr__(self, "_env_raw", {
+            name: env.get(f.env) for name, f in FIELDS.items()})
         object.__setattr__(self, "_values", {
             name: f.default if env.get(f.env) is None
             else f.parse(env[f.env]) for name, f in FIELDS.items()})
 
     def __getattr__(self, name: str):
-        if name not in FIELDS:
+        f = FIELDS.get(name)
+        if f is None:
             raise AttributeError(
                 f"config has no field {name!r}; fields: {tuple(FIELDS)}")
+        raw = self._env.get(f.env)
+        if raw != self._env_raw[name]:
+            warnings.warn(
+                f"mutating {f.env} after import is deprecated; use "
+                f"config.update({name}=...) instead", DeprecationWarning,
+                stacklevel=2)
+            self._env_raw[name] = raw
+            self._values[name] = f.default if raw is None else f.parse(raw)
+            if f.plan_affecting:
+                _invalidate_plan_caches()
+            if name in _FAULT_FIELDS:
+                _sync_fault_injector()
+            if name in _OBS_FIELDS:
+                _sync_obs()
         return self._values[name]
 
     def snapshot(self) -> dict[str, Any]:
         """Current value of every field (a plain dict copy)."""
-        return dict(self._values)
+        return {name: getattr(self, name) for name in FIELDS}
 
     def __setattr__(self, name: str, value) -> None:
         raise AttributeError(
@@ -233,6 +263,10 @@ class GlobalConfig:
         changed = {name for name, v in new.items()
                    if self._values[name] != v}
         self._values.update(new)
+        # An explicit update() supersedes the env var: re-snapshot it, so
+        # a later read does not adopt the stale env value.
+        for name in new:
+            self._env_raw[name] = self._env.get(FIELDS[name].env)
         if any(FIELDS[name].plan_affecting for name in changed):
             _invalidate_plan_caches()
         if changed & set(_FAULT_FIELDS):

@@ -38,21 +38,25 @@ leaf is gathered whole, as is every leaf of a model with no rule here
 A step then runs the batch-sharded forward and backward of
 ``repro_torch.train.train_step`` on this rank's batch block (under the
 ambient ``with mesh:`` the wrapper enters, and the plan's
-``model_axis``), sums the grads over the batch axes, takes coordinate 0's
-grads of every replicated leaf along every other axis (a kept leaf's is
-its own block), takes the global norm and the guard's norm (each kept
-leaf's blocks once, their squares summed over ``model``; each replicated
-leaf once), cuts each grad to its parameter's block (a kept leaf's over
-``data`` only) and runs AdamW on the parameter and moment blocks:
-element-wise, so the global update cut into blocks.  A key of the state
-without a spec (the guard's streak, the compression residual) stays whole
-on every rank.  ``ckpt.checkpoint.save(..., specs=, mesh=)`` writes the
-blocks as global arrays.
+``model_axis``), folds each taken leaf's grad into its stored block,
+and syncs each grad into the block its parameter's spec stores
+(``train_step._sync`` with the layout): a fixed-order reduce-scatter
+over each batch axis that cuts the leaf and a fixed-order psum over each
+that does not (what XLA lowers the sharded ``jit``'s grad sum to), then
+coordinate 0's block of every replicated leaf along every other axis (a
+kept leaf's is its own block).  It takes the global norm and the
+guard's norm from the blocks (each element counted once over the mesh,
+the squares summed over the mesh in coordinate order) and runs AdamW on
+the parameter and moment blocks: element-wise, so the global update cut
+into blocks.  A key of the state without a spec (the guard's streak,
+the compression residual) stays whole on every rank.
+``ckpt.checkpoint.save(..., specs=, mesh=)`` writes the blocks as global
+arrays.
 
-The grads are summed over the batch axes by gathering every rank's
-buffer (``Mesh.psum_flat``), not by a reduce-scatter.  ``run.layout``
-(the :class:`Blocks` of a step from :func:`sharded_step`) holds the plan
-and the bytes the last step gathered and computed with.
+Each grad's block holds the bits of the whole sum, added in coordinate
+order, cut to the block.  ``run.layout`` (the :class:`Blocks` of a step from
+:func:`sharded_step`) holds the plan and the bytes the last step
+gathered and computed with.
 """
 
 from __future__ import annotations
@@ -61,9 +65,8 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.dist import constraints, tensor_parallel
-from repro_torch.dist.sharding import P, gather_tree, shard_count, to_local
-from repro_torch.optim import adamw
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.dist.sharding import P, gather_tree, shard_count
+from repro_torch.tree import tree_leaves
 
 
 def _nbytes(tree) -> int:
@@ -92,15 +95,8 @@ class Blocks:
         self.stats["computed_bytes"] = _nbytes(full)
         return full
 
-    def cut(self, grads):
-        """Each grad's block, contiguous."""
-        return tree_map(lambda g: g.contiguous(),
-                        to_local(grads, self.plan.compute_specs, self.mesh))
-
     def global_norm(self, grads):
-        """The norm of the whole grads from this rank's."""
-        if not any(self.plan.kept):
-            return adamw.global_norm(grads)
+        """The norm of the whole grads from this rank's blocks."""
         return tensor_parallel.global_norm(grads, self.plan)
 
 

@@ -12,9 +12,10 @@ kinds:
   * taken (:class:`Take`): the stored block cuts across the layer's own
     units, so the leaf is gathered whole and the rank computes with its
     own slice of it (its units' ranges, and ranges every unit shares
-    whole); the slices' grads are gathered over ``model``, put together
-    into the leaf's and cut to the stored block (:meth:`Plan.fold`), so
-    the rest of the step treats it as a kept leaf;
+    whole); each rank sends each ``model`` member only the ranges of its
+    slice's grad that fall in that member's stored block, and the owner
+    puts its block together (:meth:`Plan.fold`), so the rest of the step
+    treats it as a kept leaf;
   * whole: gathered whole and computed with whole on every rank.
 
 The rules:
@@ -69,8 +70,8 @@ no sum) where a column block's output joins the replicated activations,
 whose grad is whole and the same on every rank already.  Every
 ``model`` rank computes the same loss from the same inputs, so a
 replicated parameter's grad is whole on every rank and a kept leaf's is
-its block.  :data:`COUNTS` counts the model psums and gathers and their
-bytes.
+its block.  :data:`COUNTS` counts the model psums, gathers and folds,
+their bytes, and the bytes the step's grad sync sends and receives.
 """
 
 from __future__ import annotations
@@ -80,18 +81,23 @@ import dataclasses
 
 import torch
 
-from repro_torch.dist.sharding import P, from_local, local_block
+from repro_torch.dist.sharding import P, gather_tree, to_local
+from repro_torch.launch.mesh import tally
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 MODEL = "model"
 
 #: the model collectives of this process: psums (``enter`` backward,
-#: ``leave`` forward, ``pmax``, the backward of ``gather``) and the bytes
-#: they summed; ``gather`` and ``join`` forward calls and the bytes of the
-#: blocks they gathered; :meth:`Plan.fold`'s gathers of a taken leaf's
-#: slices and their bytes.
-COUNTS = {"psums": 0, "psum_bytes": 0, "gathers": 0, "gather_bytes": 0,
-          "folds": 0, "fold_bytes": 0}
+#: ``leave`` forward, ``pmax``, the backward of ``gather``), the bytes
+#: they summed and the bytes they sent and received; ``gather`` and
+#: ``join`` forward calls and the bytes of the blocks they gathered;
+#: :meth:`Plan.fold`'s taken leaves and the bytes it sent and received;
+#: and the bytes the train step's grad sync sent (``scatter_bytes``) and
+#: received (``train_step._sync`` on blocks).  Sent and received bytes
+#: are ``launch.mesh.WIRE``'s: what moves between ranks.
+COUNTS = {"psums": 0, "psum_bytes": 0, "psum_sent": 0, "psum_received": 0,
+          "gathers": 0, "gather_bytes": 0, "folds": 0, "fold_bytes": 0,
+          "fold_received": 0, "scatter_bytes": 0, "scatter_received": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,24 +134,48 @@ class Take:
         return torch.cat([t.narrow(self.dim, s, n)
                           for s, n, _ in self.ranges(m, index)], self.dim)
 
-    def whole(self, slices: torch.Tensor) -> torch.Tensor:
-        """:meth:`of` undone on every rank's slice (``slices``: the
-        ``model`` ranks' slices stacked in coordinate order): the whole
-        leaf, each own range from the rank that holds it, each shared
-        range from coordinate 0 (every rank holds the same bits of it)."""
-        m = slices.shape[0]
-        shape = list(slices.shape[1:])
-        dim = self.dim % len(shape)
-        shape[dim] = sum(w for w, _ in self.parts)
-        out = slices.new_empty(shape)
-        for index in range(m):
-            at = 0
-            for s, n, own in self.ranges(m, index):
-                if own or index == 0:
-                    out.narrow(dim, s, n).copy_(
-                        slices[index].narrow(dim, at, n))
-                at += n
+    def pieces(self, m: int, src: int, owner: int, block_dim: int,
+               shape) -> list[tuple[tuple, tuple]]:
+        """What rank ``src`` sends ``owner`` of its slice's grad (of
+        ``shape``) when the whole leaf's stored ``model`` block ``owner``
+        cuts dim ``block_dim``: each range ``src`` is the source of (its
+        own ranges; at coordinate 0 the shared ones too: every rank
+        holds the same bits of them) that falls in the block, as ``(slice region, block
+        region)``, each region ``((dim, start, length), ...)``."""
+        nd = len(shape)
+        dim, block_dim = self.dim % nd, block_dim % nd
+        width = sum(w for w, _ in self.parts) if dim == block_dim \
+            else shape[block_dim]
+        b = width // m
+        lo_b, hi_b = owner * b, (owner + 1) * b
+        out, at = [], 0
+        for s, n, own in self.ranges(m, src):
+            if own or src == 0:
+                if dim == block_dim:
+                    lo, hi = max(s, lo_b), min(s + n, hi_b)
+                    if lo < hi:
+                        out.append((((dim, at + lo - s, hi - lo),),
+                                    ((dim, lo - lo_b, hi - lo),)))
+                else:
+                    out.append((((dim, at, n), (block_dim, lo_b, b)),
+                                ((dim, s, n),)))
+            at += n
         return out
+
+
+def _region(t: torch.Tensor, region) -> torch.Tensor:
+    for dim, start, length in region:
+        t = t.narrow(dim, start, length)
+    return t
+
+
+def _model_dim(spec) -> int:
+    """The dim a spec cuts over ``model``."""
+    dims = [d for d, e in enumerate(spec) if e is not None
+            and MODEL in (e if isinstance(e, tuple) else (e,))]
+    if len(dims) != 1:
+        raise ValueError(f"{spec} does not cut one dim over {MODEL}")
+    return dims[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,11 +203,6 @@ def _drop_model(spec) -> P:
             return rest if len(rest) > 1 else (rest[0] if rest else None)
         return None if e == MODEL else e
     return P(*(drop(e) for e in spec))
-
-
-def _only_model(spec) -> P:
-    return P(*(MODEL if e is not None and MODEL in (
-        e if isinstance(e, tuple) else (e,)) else None for e in spec))
 
 
 #: a SwiGLU MLP's (or an expert stack's) weights.
@@ -386,21 +411,67 @@ class Plan:
 
     def fold(self, grads):
         """The grads of :meth:`take`'s tree as those of the kept leaves:
-        each taken leaf's slices gathered over ``model`` and put together
-        (:meth:`Take.whole`), then cut to its stored ``model`` block; the
-        rest as they are.  A shared range's grad is whole on every rank
-        (the layer summed it over ``model``), an own range's this rank's
-        alone, so the whole is the sum of every rank's, with no add."""
-        out = []
-        for g, s, leaf in zip(tree_leaves(grads), tree_leaves(self.specs),
-                              tree_leaves(self.tree)):
-            if leaf.take is not None:
-                COUNTS["folds"] += 1
-                COUNTS["fold_bytes"] += g.numel() * g.element_size()
-                whole = leaf.take.whole(
-                    self.mesh.all_gather(g[None], MODEL, 0))
-                g = local_block(whole, _only_model(s), self.mesh).contiguous()
-            out.append(g)
+        each taken leaf's grad cut to its stored ``model`` block.  Each
+        rank sends each ``model`` member only the ranges of its slice's
+        grad that fall in that member's block (:meth:`Take.pieces`, one
+        ``all_to_all`` a dtype), and the owner copies them into place: a
+        shared range's grad is whole on every rank (the layer summed it
+        over ``model``) and comes from coordinate 0, an own range's from
+        the rank that holds it, so the block is put together with no add,
+        as a gather of the whole leaf would give it.  The rest as they
+        are."""
+        leaves = tree_leaves(grads)
+        taken = [(i, leaf.take, _model_dim(s)) for i, (s, leaf) in
+                 enumerate(zip(tree_leaves(self.specs),
+                               tree_leaves(self.tree)))
+                 if leaf.take is not None]
+        if not taken:
+            return grads
+        m, me, mesh = self.size, self.mesh.coordinate(MODEL), self.mesh
+        COUNTS["folds"] += len(taken)
+        out = list(leaves)
+        by_dtype: dict = {}
+        for item in taken:
+            by_dtype.setdefault(leaves[item[0]].dtype, []).append(item)
+        with tally(COUNTS, "fold_bytes", "fold_received"):
+            for items in by_dtype.values():
+                blocks = {}
+                for i, take, bdim in items:
+                    g = leaves[i]
+                    shape = list(g.shape)
+                    d = take.dim % g.dim()
+                    shape[d] = sum(w for w, _ in take.parts)
+                    shape[bdim] //= m
+                    blocks[i] = g.new_empty(shape)
+                sends, sizes = [None] * m, [0] * m
+                for k in range(m):
+                    if k == me:
+                        continue
+                    mine = [_region(leaves[i], src).reshape(-1)
+                            for i, take, bdim in items
+                            for src, _ in take.pieces(m, me, k, bdim,
+                                                      leaves[i].shape)]
+                    sends[k] = torch.cat(mine) if mine else None
+                    sizes[k] = sum(
+                        _region(leaves[i], src).numel()
+                        for i, take, bdim in items
+                        for src, _ in take.pieces(m, k, me, bdim,
+                                                  leaves[i].shape))
+                got = mesh._all_to_all(sends, sizes, MODEL,
+                                       leaves[items[0][0]])
+                for k in range(m):
+                    at = 0
+                    for i, take, bdim in items:
+                        g = leaves[i]
+                        for src, dst in take.pieces(m, k, me, bdim, g.shape):
+                            piece = _region(g, src)
+                            if k != me:
+                                n = piece.numel()
+                                piece = got[k][at:at + n].view(piece.shape)
+                                at += n
+                            _region(blocks[i], dst).copy_(piece)
+                for i in blocks:
+                    out[i] = blocks[i]
         return tree_unflatten(grads, out)
 
     def axis(self):
@@ -411,18 +482,15 @@ class Plan:
         return model_axis(self.mesh, self.vocab)
 
     def widen(self, grads):
-        """Each kept leaf's block put back together over ``model``."""
-        return tree_unflatten(grads, [
-            from_local(g, _only_model(s), self.mesh) if k else g
-            for g, s, k in zip(tree_leaves(grads),
-                               tree_leaves(self.specs), self.kept)])
+        """Each grad, its parameter's block (the step's sync leaves every
+        grad so), put back together over the mesh."""
+        return gather_tree(grads, self.specs, self.mesh)
 
     def narrow(self, grads):
-        """:meth:`widen` undone: each kept leaf's ``model`` block."""
+        """:meth:`widen` undone: each grad's block, contiguous."""
         return tree_unflatten(grads, [
-            local_block(g, _only_model(s), self.mesh).contiguous() if k
-            else g for g, s, k in zip(tree_leaves(grads),
-                                      tree_leaves(self.specs), self.kept)])
+            g.contiguous() for g in tree_leaves(
+                to_local(grads, self.specs, self.mesh))])
 
 
 def plan(specs, cfg, mesh) -> Plan:
@@ -451,15 +519,24 @@ def plan(specs, cfg, mesh) -> Plan:
 
 
 def global_norm(grads, plan: Plan) -> torch.Tensor:
-    """The norm of the whole grads from this rank's: each kept leaf's
-    block once (its squares summed over ``model``), each replicated leaf
-    once."""
-    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-    zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
-    blocks = sum((s for s, k in zip(sq, plan.kept) if k), zero)
-    whole = sum((s for s, k in zip(sq, plan.kept) if not k), zero)
-    blocks = plan.mesh.psum(blocks.reshape(1), (MODEL,))[0]
-    return torch.sqrt(blocks + whole)
+    """The norm of the whole grads from this rank's blocks (each grad its
+    parameter's block under ``plan.specs``): every element counted once
+    over the mesh -- a block's squares added only on the ranks at
+    coordinate 0 of every axis its spec does not cut, so a replica counts
+    once -- and the squares summed over the mesh's axes in coordinate
+    order (``Mesh.psum``)."""
+    mesh = plan.mesh
+    axes = tuple(a for a, n in mesh.shape.items() if n > 1)
+    leaves = tree_leaves(grads)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g, spec in zip(leaves, tree_leaves(plan.specs)):
+        named = {a for e in spec if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,))}
+        if all(mesh.coordinate(a) == 0 for a in axes if a not in named):
+            total = total + torch.sum(torch.square(g.float()))
+    if axes:
+        total = mesh.psum(total.reshape(1), axes)[0]
+    return torch.sqrt(total)
 
 
 # ---------------------------------------------------------------------------
@@ -526,7 +603,8 @@ def vocab_first(have: int) -> int | None:
 def _psum(t: torch.Tensor, mesh) -> torch.Tensor:
     COUNTS["psums"] += 1
     COUNTS["psum_bytes"] += t.numel() * t.element_size()
-    return mesh.psum(t, (MODEL,))
+    with tally(COUNTS, "psum_sent", "psum_received"):
+        return mesh.psum(t, (MODEL,))
 
 
 class _Enter(torch.autograd.Function):
@@ -604,5 +682,6 @@ def pmax(x: torch.Tensor) -> torch.Tensor:
     ax = active()
     COUNTS["psums"] += 1
     COUNTS["psum_bytes"] += x.numel() * x.element_size()
-    return ax.mesh.pmax(x.detach(), (MODEL,))
+    with tally(COUNTS, "psum_sent", "psum_received"):
+        return ax.mesh.pmax(x.detach(), (MODEL,))
 

@@ -41,9 +41,16 @@ _cdiv = tg._cdiv
 #: the three tap-kernel roles the plans (and the tuner) speak.
 PLAN_ROLES = ("forward", "weight_grad", "input_grad")
 
-#: the tuner's outcomes, ``{role}_autotune_{hit,miss,stale,poisoned,
-#: measure_failed}`` -> count (``kernels/autotune.py``).
+#: the planners' outcomes -> count: ``{role}_pallas`` / ``{role}_fallback``
+#: once per geometry and plan (:func:`launch_gap`), and the tuner's
+#: ``{role}_autotune_{hit,miss,stale,poisoned,measure_failed}``
+#: (``kernels/autotune.py``).
 PLAN_EVENTS: dict[str, int] = {}
+
+#: the (role, geometry, groups, plan, dtype) keys whose ``{role}_pallas``
+#: / ``{role}_fallback`` event has fired (the JAX planners' memo, which
+#: counts a geometry once).
+_PLANNED: set = set()
 
 
 def _count_event(name: str) -> None:
@@ -59,6 +66,14 @@ def reset_plan_events() -> None:
     PLAN_EVENTS.clear()
     # Keep the bus-backed view in lockstep with the legacy dict (no-op off).
     obs_events.drop("plan")
+
+
+def clear_plan_memo() -> None:
+    """Forget which geometries were planned, so the next :func:`launch_gap`
+    of each counts its ``{role}_pallas`` / ``_fallback`` event again (the
+    JAX package's ``clear_tile_plan_cache``; a change of a plan-affecting
+    config field calls it)."""
+    _PLANNED.clear()
 
 
 def _taps_halo(taps) -> tuple[int, int]:
@@ -231,13 +246,28 @@ def launch_gap(pass_name: str, d: ConvDims, groups: int = 1,
     With a ``plan`` (:func:`pass_plan`), whether that plan can launch for
     ``groups`` groups on operands of ``dtype``
     (:func:`repro_torch.kernels.tap_gemm.plan_gap`); without one, the
-    limits every plan shares."""
+    limits every plan shares.
+
+    This is where the port's planner decides a pass, as the JAX
+    package's ``_forward_plan`` / ``_weight_grad_plan`` /
+    ``_input_grad_plan`` do: once per geometry and plan it counts
+    ``{pass}_pallas`` when the tap kernel launches for the pass and
+    ``{pass}_fallback`` when the planner gives the pass up (the engine
+    resolver then sends it down the fallback chain)."""
     if plan is not None:
-        return tg.plan_gap(problem(pass_name, d, groups, dtype), plan)
-    if pass_name == "input_grad":
+        gap = tg.plan_gap(problem(pass_name, d, groups, dtype), plan)
+    elif pass_name == "input_grad":
         m = d.B * _cdiv(d.H_i, d.s_h) * _cdiv(d.W_i, d.s_w)
-        return tg.launch_gap(m, d.C, d.s_h * d.s_w)
-    return tg.launch_gap(d.B * d.H_o * d.W_o, d.N, 1)
+        gap = tg.launch_gap(m, d.C, d.s_h * d.s_w)
+    else:
+        gap = tg.launch_gap(d.B * d.H_o * d.W_o, d.N, 1)
+    key = (pass_name, _canonical(d), groups,
+           None if plan is None else plan.key, str(dtype))
+    if key not in _PLANNED:
+        _PLANNED.add(key)
+        _count_event(f"{pass_name}_pallas" if gap is None
+                     else f"{pass_name}_fallback")
+    return gap
 
 
 # ---------------------------------------------------------------------------

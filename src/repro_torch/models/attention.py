@@ -45,9 +45,10 @@ more than ``window`` positions behind the query (``q_pos - k_pos <
 window``), in the dense and the blockwise path, with scalar or per-lane
 query offsets.  The flash kernel takes no window (nor does the TPU
 kernel): a windowed call goes to it only when it has no more queries than
-the window, where the mask excludes nothing.  The JAX package's
-``_sdpa_local_window`` (behind its ``WINDOW_SKIP = False``, so it never
-runs there) is not ported (ROADMAP A0).
+the window, where the mask excludes nothing.  :func:`_sdpa_local_window`
+(the JAX package's: each block of ``window`` queries against the ``2 *
+window`` keys before and at it, never the keys outside the window) sits
+behind ``WINDOW_SKIP = False``, as there, so it runs on no path.
 """
 
 from __future__ import annotations
@@ -154,6 +155,52 @@ def _sdpa_blockwise(q, k, v, *, causal, q_offset, kv_len, scale,
     return out.permute(0, 3, 1, 2, 4).reshape(b, lq, h, dh).to(q.dtype)
 
 
+#: When True, a full-sequence causal call with a local window of at most
+#: half its length attends over the key blocks inside the window only
+#: (:func:`_sdpa_local_window`, O(L W) instead of O(L^2)); False, as in the
+#: JAX package, so it runs on no path.
+WINDOW_SKIP = False
+
+
+def _sdpa_local_window(q, k, v, *, window: int, scale: float):
+    """Causal local-window self-attention that never touches keys outside
+    the window (the JAX package's).  q/k/v (B, L, *, D) of one length;
+    query block i of ``window`` rows attends the ``2 window`` keys
+    ``[(i - 1) W, (i + 1) W)``, masked to the exact window."""
+    b, l, h, dh = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    w = window
+    pad = (-l) % w
+    lp = l + pad
+    nq = lp // w
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad))
+    # Keys get a leading block of W zeros, so block i - 1 always exists.
+    kp = F.pad(k, (0, 0, 0, 0, w, pad))
+    vp = F.pad(v, (0, 0, 0, 0, w, pad))
+    qb = qp.reshape(b, nq, w, hk, g, dh).float() * scale
+    kb = kp.reshape(b, nq + 1, w, hk, dh)
+    vb = vp.reshape(b, nq + 1, w, hk, dh)
+    k2 = torch.cat([kb[:, :-1], kb[:, 1:]], dim=2)        # (B, nq, 2W, Hk, D)
+    v2 = torch.cat([vb[:, :-1], vb[:, 1:]], dim=2)
+    logits = torch.einsum("bnqkgd,bnskd->bnkgqs", qb, k2.float())
+    # Query block i, row qi: absolute query i W + qi; slab index s covers
+    # absolute key (i - 1) W + s.  The window: 0 <= q - k < window, with
+    # k >= 0 (the leading zero block) and k < l (the tail padding).
+    dev = q.device
+    qi = torch.arange(w, device=dev)
+    si = torch.arange(2 * w, device=dev)
+    d = w + qi[:, None] - si[None, :]                      # (W, 2W)
+    base = (d >= 0) & (d < window)
+    k_abs = (torch.arange(nq, device=dev)[:, None] - 1) * w + si[None, :]
+    in_range = (k_abs >= 0) & (k_abs < l)
+    mask = base[None] & in_range[:, None, :]               # (nq, W, 2W)
+    logits = logits.masked_fill(~mask[None, :, None, None], NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bnkgqs,bnskd->bnqkgd", p.to(v.dtype), v2)
+    return o.reshape(b, lp, h, dh)[:, :l]
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -169,6 +216,11 @@ def _sdpa(q, k, v, *, causal: bool, window: int | None = None,
     kernel (heads-first copies in and out); the rest (training, decode) is
     dense, or blockwise past the key-length threshold."""
     scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if (WINDOW_SKIP and window is not None and causal
+            and q.shape[1] == k.shape[1] and q.shape[1] >= 2 * window
+            and kv_len is None and isinstance(q_offset, int)
+            and q_offset == 0):
+        return _sdpa_local_window(q, k, v, window=window, scale=scale)
     if (kv_len is None and isinstance(q_offset, int) and q_offset == 0
             and q.shape[1] == k.shape[1]
             and (window is None or q.shape[1] <= window)

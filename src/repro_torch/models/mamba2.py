@@ -40,6 +40,14 @@ from repro_torch.dist import tensor_parallel as TP
 from repro_torch.models import layers as L
 
 
+def __getattr__(name):
+    # The deprecated alias of the JAX package's old module constant: the
+    # SSD chunk length lives at config.ssd_chunk (read per call).
+    if name == "CHUNK":
+        return config.ssd_chunk
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def d_inner(cfg: ArchConfig) -> int:
     return cfg.ssm_expand * cfg.d_model
 

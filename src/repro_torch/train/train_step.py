@@ -24,7 +24,8 @@ block of the global batch (``dist.sharding.batch_specs``), and the
 forward and backward run on that block only: the losses take this rank's
 share of the global mean (``losses.batch_mean``), the loss, its metrics
 and every grad are summed over the batch axes (``Mesh.psum``, a fixed
-order, so every rank holds the same bits), and the global norm and the
+order, so every rank holds the same bits; on blocks, each grad's block
+only), and the global norm and the
 clip are the global batch's.  An MoE layer on a block takes its groups,
 capacity and expert queues from the global batch and adds this rank's
 shares of its load-balance and z terms (``repro_torch.models.moe``), so
@@ -53,13 +54,17 @@ rows -- over ``data`` only, a taken leaf -- Mamba2's ``in_proj``,
 sliced, every other leaf whole), runs the above inside the plan's
 ``model_axis`` (the layers sum their partial outputs over ``model``;
 every ``model`` rank computes the same loss), folds each taken leaf's
-grad into its stored ``model`` block, broadcasts coordinate 0's grads
-over ``model`` for the replicated leaves only, takes the norm and the
-clip of the whole grads (a kept leaf's squares summed over ``model``),
-cuts each grad to its parameter's block and updates the blocks.
-Compression quantizes the whole grads: a kept leaf's blocks are put
-together over ``model`` for it, and cut again after.  ``train_step.cfg``
-is the config the step was made for (the plan reads it).
+grad into its stored ``model`` block (``Plan.fold``: each rank sends
+each member only what lands in its block), and syncs each grad into
+the block its parameter's spec stores (:func:`_sync_blocks`): along the
+batch axes a fixed-order reduce-scatter where the spec cuts the leaf
+and a fixed-order psum where it does not, as JAX's sharded ``jit``
+lowers the sum of the grads, then, along ``model``, coordinate 0's
+values of the replicated leaves, each rank receiving only its block.
+It takes the norm and the clip of the whole grads from the blocks
+(each element counted once over the mesh) and updates the blocks.
+Compression quantizes the whole grads: the blocks are put together for
+it, and cut again after.  ``train_step.cfg`` is the config the step was made for (the plan reads it).
 """
 
 from __future__ import annotations
@@ -71,9 +76,11 @@ from typing import Callable
 import torch
 
 from repro_torch.dist import constraints, conv_parallel
+from repro_torch.dist import tensor_parallel as TP
 from repro_torch.dist.sharding import P, from_local
 from repro_torch.dist.tensor_parallel import MODEL
 from repro_torch.ft import inject
+from repro_torch.launch.mesh import tally
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, compression, schedule
 from repro_torch.train import losses
@@ -168,26 +175,75 @@ def _accumulated(loss: Callable, params, batch, cfg, accum_steps: int,
 
 
 def _sync(mesh, batch_axes: tuple[str, ...], loss_val, metrics, grads,
-          kept=None):
+          layout=None):
     """Every rank's shares of the loss, its tensor metrics and the grads
     summed over ``batch_axes`` (``Mesh.psum_flat``: a fixed order, one
     buffer per dtype); then, over each other axis of size > 1 (whose
-    ranks hold the same batch block), coordinate 0's values, but for the
-    grads ``kept`` marks (per leaf): their ``model`` blocks differ from
-    rank to rank along ``model``."""
+    ranks hold the same batch block), coordinate 0's values.
+
+    With a ``layout`` (``dist.spmd.Blocks``) each grad leaves as the block
+    its parameter's spec stores (:func:`_sync_blocks`); without one every
+    grad leaves whole.  The bytes the grads' collectives send and receive
+    are counted in ``tensor_parallel.COUNTS`` (``scatter_bytes``,
+    ``scatter_received``)."""
     keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
     vals = [loss_val, *(metrics[k] for k in keys)]
     leaves = tree_leaves(grads)
     if batch_axes:
         vals = mesh.psum_flat(vals, batch_axes)
-        leaves = mesh.psum_flat(leaves, batch_axes)
-    kept = kept or [False] * len(leaves)
-    for axis, n in mesh.shape.items():
-        if n > 1 and axis not in batch_axes:
-            mesh.broadcast(vals + [g for g, k in zip(leaves, kept)
-                                   if not (k and axis == MODEL)], axis)
+    others = [a for a, n in mesh.shape.items()
+              if n > 1 and a not in batch_axes]
+    for axis in others:
+        mesh.broadcast(vals, axis)
+    with tally(TP.COUNTS, "scatter_bytes", "scatter_received"):
+        if layout is not None:
+            leaves = _sync_blocks(mesh, batch_axes, others, leaves, layout)
+        else:
+            if batch_axes:
+                leaves = mesh.psum_flat(leaves, batch_axes)
+            for axis in others:
+                mesh.broadcast(leaves, axis)
     return (vals[0], {**metrics, **dict(zip(keys, vals[1:]))},
             tree_unflatten(grads, leaves))
+
+
+def _cut_dim(spec, axis: str):
+    """The dim ``spec`` cuts over ``axis`` alone, or None."""
+    for d, e in enumerate(spec):
+        names = e if isinstance(e, tuple) else (e,)
+        if axis in names:
+            if len(names) > 1:
+                raise ValueError(f"{spec} cuts a dim over {names}: the "
+                                 f"sync cuts one axis a dim")
+            return d
+    return None
+
+
+def _sync_blocks(mesh, batch_axes, others, leaves, layout):
+    """The grads (a kept leaf's its ``model`` block, every other leaf's
+    whole) as their parameters' stored blocks, summed over the batch
+    axes: along each batch axis, a reduce-scatter of the leaves the
+    spec cuts on it and a psum of the rest (``Mesh.psum_scatter_flat``,
+    the sums' order ``Mesh.psum``'s, so the blocks hold the bits of the
+    whole sum cut); then, along each other axis, coordinate 0's values of
+    the leaves not kept on their ``model`` block: each member receives
+    only the block it stores (``Mesh.scatter``), a leaf the spec does
+    not cut on the axis whole (``Mesh.broadcast``)."""
+    specs = tree_leaves(layout.plan.compute_specs)
+    kept = layout.plan.kept
+    for axis in batch_axes:
+        leaves = mesh.psum_scatter_flat(leaves, axis,
+                                        [_cut_dim(s, axis) for s in specs])
+    for axis in others:
+        sync = [i for i, k in enumerate(kept) if not (k and axis == MODEL)]
+        dims = {i: _cut_dim(specs[i], axis) for i in sync}
+        cut = [i for i in sync if dims[i] is not None]
+        if cut:
+            for i, g in zip(cut, mesh.scatter([leaves[i] for i in cut], axis,
+                                              [dims[i] for i in cut])):
+                leaves[i] = g
+        mesh.broadcast([leaves[i] for i in sync if dims[i] is None], axis)
+    return leaves
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
@@ -274,7 +330,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         if mesh is not None and mesh.size > 1:
             loss_val, metrics, grads = _sync(
                 mesh, split.axes if split is not None else (), loss_val,
-                metrics, grads, None if layout is None else layout.plan.kept)
+                metrics, grads, layout)
 
         # Fault injection on the gradient VALUES, where the JAX step has
         # it: the guard below then sees step N non-finite.
@@ -315,11 +371,9 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
 
         lr = sched(step + 1, peak_lr=opt_cfg.peak_lr, warmup=warmup,
                    total=total_steps)
-        gnorm = None
-        if layout is not None:
-            # The clip of the whole grads, then each rank's blocks.
-            gnorm = norm(grads)
-            grads = layout.cut(grads)
+        # On blocks, the clip of the whole grads from each rank's blocks
+        # (the sync left every grad its parameter's block).
+        gnorm = None if layout is None else norm(grads)
         new_params, new_opt, opt_metrics = adamw.apply_updates(
             params, grads,
             {k: v for k, v in opt_state.items()

@@ -9,12 +9,17 @@ rank runs every case on a ``(data=4, model=2)`` mesh and writes
 ``OUT_DIR/ckpt`` after its second step, and rank 0 writes the gathered
 parameters of that step as ``OUT_DIR/saved.npz``; rank 0 also runs the
 whole-tensor paths of ``CONV_FAMILIES`` through the layers and through
-``tests/_torch_whole_layers.py``.  Imports torch and the port only: the
-JAX side of each comparison runs in the test.
+``tests/_torch_whole_layers.py``.  Each rank also holds the mesh's
+collectives (``Mesh.psum``, ``psum_scatter``, ``psum_scatter_flat``) and
+the step's grad sync and fold (``SYNC_CASES``) to copies of the
+gather-and-add forms they replace (:func:`old_psum`, :func:`old_fold`,
+:func:`old_sync`).  Imports torch and the port only: the JAX side of each
+comparison runs in the test.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -63,6 +68,13 @@ BLOCK_FAMILIES = {"deepseek": ("deepseek-v3-671b", "ds_params", "lm_batch",
                                True),
                   "vlm": FRONTEND_CASES["vlm_tp"] + (False,),
                   "audio": FRONTEND_CASES["audio_tp"] + (False,)}
+#: the cases whose first step's fold and grad sync are held to the
+#: gather-and-add forms (:func:`holding_sync`): case -> (arch, params of
+#: inputs.pkl).
+SYNC_CASES = {"smollm_tp": ("smollm-360m", "lm_params"),
+              "moe_tp": ("moonshot-v1-16b-a3b", "moe_params"),
+              "mamba2_tp": ("mamba2-370m", "m2_params"),
+              "deepseek_tp": ("deepseek-v3-671b", "ds_params")}
 #: the step after which the SmolLM run saves its blocked state.
 SAVE_AFTER = 1
 LR = 1e-3
@@ -73,14 +85,15 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
+def run_sharded(mesh, cfg, params, batch, policy, out_dir=None,
+                hold_sync=False, **kw):
     """``STEPS`` steps of ``make_train_step(cfg, **kw)`` through
     ``sharded_step`` on blocks under ``policy``; the losses, grad norms
     (and ``moe_lb`` where the model has it), blocks' bytes and the
     gathered parameters' digest; for an MoE model, the (token, choice)
-    pairs of this rank's tokens that its MoE layers dropped at step 0."""
-    import contextlib
-
+    pairs of this rank's tokens that its MoE layers dropped at step 0;
+    with ``hold_sync``, step 0's fold and grad sync held to the old forms
+    (:func:`holding_sync`, under ``"sync_check"``)."""
     from repro_torch.ckpt import checkpoint as CKPT
     from repro_torch.dist import set_activation_policy
     from repro_torch.dist import sharding as SH
@@ -109,7 +122,9 @@ def run_sharded(mesh, cfg, params, batch, policy, out_dir=None, **kw):
     res["plan"] = plan.table()
     for s in range(STEPS):
         with MOE.recording() if s == 0 and n_moe else \
-                contextlib.nullcontext([]) as log:
+                contextlib.nullcontext([]) as log, \
+                holding_sync(res.setdefault("sync_check", {})) \
+                if s == 0 and hold_sync else contextlib.nullcontext():
             p, o, m = step_fn(p, o, b, s)
         if log:
             # The forward's calls come first; remat logs them again.
@@ -189,7 +204,8 @@ def run_moe(mesh, inputs) -> dict:
                            {"tokens": toks, "targets": toks}, policy,
                            accum_steps=accum, **kw)
     for case in MOE_CASES:
-        out[case] = _count_collectives(lambda: run(case))
+        out[case] = _count_collectives(
+            lambda: run(case, hold_sync=case in SYNC_CASES))
 
     sound_layout, sound_aux = MOE._layout, MOE._aux_shares
 
@@ -234,8 +250,11 @@ def run_heads(mesh, cfg, inputs, batch) -> dict:
     sound_out, sound_norm = A._out_proj, TP.global_norm
 
     def norm_per_rank(grads, plan):
+        # Every rank's blocks' squares summed over the mesh, a replicated
+        # block's once per rank that holds it.
         sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-        total = mesh.psum(torch.stack(sq).sum().reshape(1), (TP.MODEL,))
+        total = mesh.psum(torch.stack(sq).sum().reshape(1),
+                          ("data", TP.MODEL))
         return torch.sqrt(total[0])
     try:
         A._out_proj = lambda p, o, cut: L.linear(p, o)
@@ -279,17 +298,17 @@ def run_conv_families(mesh, inputs, batch) -> dict:
     from repro_torch.tree import tree_from_numpy
     out = {}
 
-    def run(case):
+    def run(case, hold_sync=False):
         arch, params = CONV_FAMILIES[case]
         C.reset_dispatch_events()
         res = _count_collectives(lambda: run_sharded(
             mesh, get_smoke_config(arch),
             tree_from_numpy(inputs[params], "cpu"), batch, "tp",
-            conv_policy="pallas", conv_mesh="tp"))
+            hold_sync=hold_sync, conv_policy="pallas", conv_mesh="tp"))
         res["events"] = _mesh_events(C)
         return res
     for case in CONV_FAMILIES:
-        out[case] = run(case)
+        out[case] = run(case, hold_sync=case in SYNC_CASES)
 
     class UnsummedGather(torch.autograd.Function):
         @staticmethod
@@ -418,6 +437,195 @@ def run_whole_paths(inputs, batch) -> dict:
     return out
 
 
+def old_psum(mesh, t, axes):
+    """The sum over ``axes`` as the mesh made it before the reduce-scatter:
+    every rank's whole tensor gathered, then added in coordinate order."""
+    for axis in axes:
+        parts = mesh._gather(t, axis)
+        t = parts[0].clone()
+        for p in parts[1:]:
+            t.add_(p)
+    return t
+
+
+def _whole(take, slices):
+    """The whole leaf from every ``model`` rank's slice (``slices``, stacked
+    in coordinate order): each own range from the rank that holds it,
+    each shared range from coordinate 0."""
+    m = slices.shape[0]
+    shape = list(slices.shape[1:])
+    dim = take.dim % len(shape)
+    shape[dim] = sum(w for w, _ in take.parts)
+    out = slices.new_empty(shape)
+    for index in range(m):
+        at = 0
+        for s, n, own in take.ranges(m, index):
+            if own or index == 0:
+                out.narrow(dim, s, n).copy_(slices[index].narrow(dim, at, n))
+            at += n
+    return out
+
+
+def old_fold(plan, grads):
+    """``Plan.fold`` as it was: each taken leaf's slices gathered over
+    ``model`` whole, put together, then cut to the stored block."""
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.dist.sharding import local_block
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    out = []
+    for g, s, leaf in zip(tree_leaves(grads), tree_leaves(plan.specs),
+                          tree_leaves(plan.tree)):
+        if leaf.take is not None:
+            whole = _whole(leaf.take, plan.mesh.all_gather(g[None],
+                                                           TP.MODEL, 0))
+            only = TP.P(*(TP.MODEL if e == TP.MODEL else None for e in s))
+            g = local_block(whole, only, plan.mesh).contiguous()
+        out.append(g)
+    return tree_unflatten(grads, out)
+
+
+def old_sync(mesh, axes, leaves, plan):
+    """The grads' blocks as the step made them before the reduce-scatter:
+    every grad summed whole over the batch axes (:func:`old_psum`),
+    coordinate 0's replicated grads broadcast over every other axis, then
+    cut to the blocks."""
+    from repro_torch.dist.sharding import local_block
+    from repro_torch.tree import tree_leaves
+    leaves = [old_psum(mesh, g, axes) for g in leaves]
+    for axis, n in mesh.shape.items():
+        if n > 1 and axis not in axes:
+            mesh.broadcast([g for g, k in zip(leaves, plan.kept)
+                            if not (k and axis == "model")], axis)
+    return [local_block(g, s, mesh).contiguous() for g, s in
+            zip(leaves, tree_leaves(plan.compute_specs))]
+
+
+def run_collectives(mesh) -> dict:
+    """``Mesh.psum`` over each axis and both, ``psum_scatter`` on each
+    axis and ``psum_scatter_flat`` (a dim cut and whole tensors), in
+    float32 and bf16, at lengths that divide and that do not: whether
+    each is ``torch.equal`` to :func:`old_psum` (cut to this rank's
+    block)."""
+    from repro_torch.launch import mesh as LM
+    gen = torch.Generator().manual_seed(11 + dist.get_rank())
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for shape in ((8, 6), (7, 3), (13,)):
+            t = (torch.randn(*shape, generator=gen) * 100).to(dtype)
+            key = f"{name} {'x'.join(map(str, shape))}"
+            for axes in (("data",), ("model",), ("data", "model")):
+                out[f"psum {key} {'+'.join(axes)}"] = torch.equal(
+                    mesh.psum(t, axes), old_psum(mesh, t, axes))
+            for axis in ("data", "model"):
+                n, j = mesh.shape[axis], mesh.coordinate(axis)
+                c = -(-shape[0] // n)
+                out[f"psum_scatter {key} {axis}"] = torch.equal(
+                    mesh.psum_scatter(t, axis),
+                    old_psum(mesh, t, (axis,))[j * c:(j + 1) * c])
+        ts = [(torch.randn(8, 6, generator=gen) * 10).to(dtype),
+              torch.randn(5, generator=gen).to(dtype),
+              torch.randn(2, 3, 8, generator=gen).to(dtype)]
+        dims = [0, None, -1]
+        for axis in ("data", "model"):
+            n, j = mesh.shape[axis], mesh.coordinate(axis)
+            want = []
+            for t, d in zip(ts, dims):
+                w = old_psum(mesh, t, (axis,))
+                if d is not None:
+                    w = w.narrow(d, j * (t.shape[d] // n), t.shape[d] // n)
+                want.append(w)
+            got = mesh.psum_scatter_flat(ts, axis, dims)
+            out[f"psum_scatter_flat {name} {axis}"] = all(
+                torch.equal(a, b) for a, b in zip(got, want))
+    out["wire"] = dict(LM.WIRE)
+    return out
+
+
+@contextlib.contextmanager
+def holding_sync(out: dict):
+    """Inside, the step's ``Plan.fold`` and grad sync (``train_step._sync``)
+    are each followed by :func:`old_fold` / :func:`old_sync` on copies of
+    the same grads (every rank runs both at the same point): ``out`` gets
+    whether each result is ``torch.equal`` to the old form's, leaf by
+    leaf, and the bytes each sent and received
+    (``tensor_parallel.COUNTS``) beside those of the old forms."""
+    from repro_torch.dist import tensor_parallel as TP
+    from repro_torch.launch import mesh as LM
+    from repro_torch.train import train_step as TS
+    from repro_torch.tree import tree_leaves
+    sound_fold, sound_sync = TP.Plan.fold, TS._sync
+
+    def wire(fn):
+        w0 = dict(LM.WIRE)
+        res = fn()
+        return res, [LM.WIRE[k] - w0[k] for k in ("sent", "received")]
+
+    def fold(plan, grads):
+        old, old_bytes = wire(lambda: old_fold(plan, grads))
+        before = dict(TP.COUNTS)
+        res = sound_fold(plan, grads)
+        out.update({k: TP.COUNTS[k] - before[k]
+                    for k in ("fold_bytes", "fold_received")},
+                   old_fold_sent=old_bytes[0],
+                   old_fold_received=old_bytes[1],
+                   fold_equal=all(torch.equal(a, b) for a, b in zip(
+                       tree_leaves(res), tree_leaves(old))))
+        return res
+
+    def sync(mesh, axes, loss, metrics, grads, layout=None):
+        copies = [g.clone() for g in tree_leaves(grads)]
+        before = dict(TP.COUNTS)
+        res = sound_sync(mesh, axes, loss, metrics, grads, layout)
+        out.update({k: TP.COUNTS[k] - before[k]
+                    for k in ("scatter_bytes", "scatter_received")})
+        want, old_bytes = wire(lambda: old_sync(mesh, axes, copies,
+                                                layout.plan))
+        out.update(old_sync_sent=old_bytes[0],
+                   old_sync_received=old_bytes[1], leaves=len(want),
+                   sync_equal=all(torch.equal(a, b) for a, b in zip(
+                       tree_leaves(res[2]), want)))
+        return res
+    TP.Plan.fold, TS._sync = fold, sync
+    try:
+        yield out
+    finally:
+        TP.Plan.fold, TS._sync = sound_fold, sound_sync
+
+
+def run_dropping_scatter(mesh, cfg, params, batch) -> dict:
+    """A mutation of the grad sync: the owner of each block adds every
+    part but the next member's (a reduce-scatter that drops a part)."""
+    from repro_torch.launch import mesh as LM
+    sound_flat, sound_rows = LM.Mesh.psum_scatter_flat, \
+        LM.Mesh._reduce_rows
+
+    def dropping_rows(self, t, axis):
+        j = self.coordinate(axis)
+        got = self._all_to_all(list(t), [t[0].numel()] * t.shape[0], axis,
+                               t)
+        parts = [t[j] if i == j else p.view(t.shape[1:])
+                 for i, p in enumerate(got)]
+        drop = (j + 1) % len(parts)
+        keep = [p for i, p in enumerate(parts) if i != drop]
+        total = keep[0].clone()
+        for p in keep[1:]:
+            total.add_(p)
+        return total
+
+    def dropping_flat(self, *args, **kw):
+        LM.Mesh._reduce_rows = dropping_rows
+        try:
+            return sound_flat(self, *args, **kw)
+        finally:
+            LM.Mesh._reduce_rows = sound_rows
+    LM.Mesh.psum_scatter_flat = dropping_flat
+    try:
+        return run_sharded(mesh, cfg, params, batch, "tp")
+    finally:
+        LM.Mesh.psum_scatter_flat = sound_flat
+
+
 def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -441,7 +649,7 @@ def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
 
     # JAX's own case: SmolLM, tp, parameters, moments and batch in blocks.
     out["smollm_tp"] = run_sharded(mesh, cfg, lm_params, lm_batch, "tp",
-                                   out_dir=out_dir)
+                                   out_dir=out_dir, hold_sync=True)
 
     # A loss_mask whose count differs between the ranks' blocks (path A),
     # then the same with per-rank means averaged (a mutation).
@@ -493,6 +701,11 @@ def rank_main(rank: int, in_dir: str, out_dir: str) -> None:
     out.update(run_heads(mesh, cfg, inputs, lm_batch))
     out.update(run_conv_families(mesh, inputs, lm_batch))
     out.update(run_block_families(mesh, inputs))
+    out["collectives_check"] = run_collectives(mesh)
+    out["sync_cases"] = {case: out[case].pop("sync_check")
+                         for case in SYNC_CASES}
+    out["scatter_mutant"] = run_dropping_scatter(mesh, cfg, lm_params,
+                                                 lm_batch)
     if rank == 0:
         out["whole_paths"] = run_whole_paths(inputs, lm_batch)
 

@@ -458,8 +458,10 @@ def test_plan_report_carries_autotune_fields():
 def test_auto_resolves_with_the_tuned_plans():
     res = tconv.resolve_policy(D, "auto", device=DEV)
     assert all(v["engine"] == "pallas" for v in res.values()), res
-    assert ops.plan_events() == {f"{r}_autotune_miss": 1
-                                 for r in ops.PLAN_ROLES}
+    assert ops.plan_events() == {**{f"{r}_autotune_miss": 1
+                                    for r in ops.PLAN_ROLES},
+                                 **{f"{r}_pallas": 1
+                                    for r in ops.PLAN_ROLES}}
 
 
 def test_auto_judges_a_pass_by_the_tuned_plans_launch_gap(monkeypatch):
@@ -499,7 +501,10 @@ def test_cpu_tensors_never_reach_the_tuner(monkeypatch):
                  "pallas").sum().backward()
     spec = ConvTransposeSpec.make(stride=2, padding=1, output_padding=1)
     tconv.conv2d_transpose(x, w, spec, "pallas").sum().backward()
-    assert ops.plan_events() == {} and autotune._MEMO == {}
+    # The planner decides each pass of both convs (the transposed one's
+    # under its mirror roles); the tuner is never asked.
+    assert ops.plan_events() == {f"{r}_pallas": 2 for r in ops.PLAN_ROLES}
+    assert autotune._MEMO == {}
 
 
 # ---------------------------------------------------------------------------

@@ -875,11 +875,14 @@ def test_tuning_from_inside_backward(tuned):
         w = w0.clone().requires_grad_(True)
         y = tconv.conv2d(x, w, spec, policy)
         if policy == "pallas":
-            assert ops.plan_events() == {"forward_autotune_miss": 1}
+            assert ops.plan_events() == {"forward_autotune_miss": 1,
+                                         "forward_pallas": 1}
         y.square().sum().backward()
         out[policy] = (y.detach(), x.grad, w.grad)
-    assert ops.plan_events() == {f"{r}_autotune_miss": 1
-                                 for r in ops.PLAN_ROLES}
+    assert ops.plan_events() == {**{f"{r}_autotune_miss": 1
+                                    for r in ops.PLAN_ROLES},
+                                 **{f"{r}_pallas": 1
+                                    for r in ops.PLAN_ROLES}}
     assert all(p.autotuned and p.measured_us > 0
                for p in autotune._MEMO.values())
     for a, b in zip(out["pallas"], out["lax"]):
@@ -922,10 +925,11 @@ def test_a_cached_process_is_served_only_hits(tuned):
             text=True, timeout=600)
         assert proc.returncode == 0, proc.stderr[-3000:]
         events[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert events["measure"] == {f"{r}_autotune_miss": 1
-                                 for r in ops.PLAN_ROLES}
-    assert events["cached"] == {f"{r}_autotune_hit": 1
-                                for r in ops.PLAN_ROLES}
+    planned = {f"{r}_pallas": 1 for r in ops.PLAN_ROLES}
+    assert events["measure"] == {**{f"{r}_autotune_miss": 1
+                                    for r in ops.PLAN_ROLES}, **planned}
+    assert events["cached"] == {**{f"{r}_autotune_hit": 1
+                                   for r in ops.PLAN_ROLES}, **planned}
     a = torch.load(tuned / "measure.pt")
     b = torch.load(tuned / "cached.pt")
     assert all(torch.equal(u, v) for u, v in zip(a, b))

@@ -57,7 +57,15 @@ side runs here on the same numpy inputs:
     (Mamba2's gated norm without the ``model`` sum of its squares, B and
     C not entering the heads' block, a ``gather`` whose backward skips
     the sum); serving and the unsharded step of both bit-equal through
-    the layers and through their whole-tensor versions.
+    the layers and through their whole-tensor versions;
+  * the collectives of the grad sync (``launch.mesh``): ``Mesh.psum``,
+    ``psum_scatter`` and ``psum_scatter_flat`` ``torch.equal`` to the
+    gather-and-add they replace, in float32 and bf16, on each axis and at
+    lengths that do not divide; the first step's ``Plan.fold`` and grad
+    sync of SmolLM, moonshot, Mamba2 and DeepSeek ``torch.equal`` to the
+    old fold and the old whole sums cut to blocks, the bytes each rank
+    sends and receives in them the plan's counts, below the old forms';
+    a reduce-scatter that drops a part reads outside the tolerance.
 """
 
 import dataclasses
@@ -151,6 +159,10 @@ def _frontend_batch(cfg, toks) -> dict:
         np.float32), "targets": toks % cfg.vocab}
 
 
+#: the fixture's numpy inputs, for the plan counts worked out here.
+_SPMD_INPUTS: dict = {}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("spmd")
@@ -182,6 +194,7 @@ def runs(tmp_path_factory):
     inputs["cap_params"] = _favour_one_expert(inputs["moe_params"])
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
+    _SPMD_INPUTS.update(inputs)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
@@ -719,3 +732,153 @@ def test_tp_mutations_read_outside_the_tolerance(runs, mutant, case, key):
     got = runs["ranks"][0][mutant][key]
     assert _close(runs["ranks"][0][case][key], want[key])
     assert not _close(got, want[key]), (got, want[key])
+
+
+# ---------------------------------------------------------------------------
+# The grad sync's reduce-scatter and the fold sent to owners only
+# ---------------------------------------------------------------------------
+
+def test_collectives_are_bit_equal_to_gather_and_add(runs):
+    """``Mesh.psum`` (over data, model and both), ``psum_scatter`` (each
+    axis; 7 and 13 rows do not divide by 4 or 2) and
+    ``psum_scatter_flat`` (a cut dim and whole tensors in one buffer), in
+    float32 and bf16, are ``torch.equal`` to every rank's whole tensor
+    gathered and added in coordinate order, cut to this rank's block."""
+    for r in runs["ranks"]:
+        got = {k: v for k, v in r["collectives_check"].items()
+               if k != "wire"}
+        assert len(got) == 2 * (3 * 5 + 2) and all(got.values()), \
+            [k for k, v in got.items() if not v]
+        assert any(" 7x3 " in k for k in got) and any(" 13 " in k
+                                                      for k in got)
+
+
+@pytest.mark.parametrize("case", list(W.SYNC_CASES))
+def test_grad_blocks_equal_the_old_sync_cut(runs, case):
+    """The first step's fold and grad sync leave every grad as its
+    parameter's block, ``torch.equal`` to the old fold and to the old
+    whole sums cut to the same blocks, on every rank."""
+    for r in runs["ranks"]:
+        res = r["sync_cases"][case]
+        assert res["fold_equal"] and res["sync_equal"], res
+        assert res["leaves"] > 0
+
+
+def _sync_plan(case):
+    """The parameters of ``case`` and the port's plan of them on an
+    abstract (data=4, model=2) mesh."""
+    from repro_torch.dist import tensor_parallel as TP
+    arch, key = W.SYNC_CASES[case]
+    params = tree_from_numpy(_SPMD_INPUTS[key], "cpu")
+    mesh = Mesh(("data", "model"), W.SHAPE)
+    specs = SH.param_specs(params, mesh, "tp")
+    return params, TP.plan(specs, get_smoke_config(arch), mesh)
+
+
+def _axis_dim(spec, axis):
+    return next((d for d, e in enumerate(spec) if e == axis), None)
+
+
+def _want_sync_bytes(case, coord) -> tuple[int, int]:
+    """What a rank at ``coord`` sends and receives in the grad sync,
+    worked out from the plan and the specs: over ``data`` (4), a leaf cut
+    on it sends 3 of its 4 blocks and receives 3 parts of its own, the
+    rest go through one flat buffer padded to 4 shares, scattered and
+    gathered; over ``model`` (2), coordinate 0 sends the other its block
+    of each leaf not kept on its model block (the whole of one the spec
+    does not cut on ``model``), which receives it."""
+    from repro_torch.tree import tree_leaves
+    params, plan = _sync_plan(case)
+    n, m = W.SHAPE
+    cut = whole = 0
+    cur = []
+    for p, s, k in zip(tree_leaves(params), tree_leaves(plan.compute_specs),
+                       plan.kept):
+        es = p.element_size()
+        x = p.numel() // (m if k else 1)
+        if _axis_dim(s, "data") is not None:
+            cut += x * es // n
+            x //= n
+        else:
+            whole += x
+        cur.append((x * es, s, k))
+    sent = received = (n - 1) * cut
+    if whole:
+        share = -(-whole // n) * es
+        sent += 2 * (n - 1) * share
+        received += 2 * (n - 1) * share
+    for b, s, k in cur:
+        if k:
+            continue
+        b //= m if _axis_dim(s, "model") is not None else 1
+        if coord["model"] == 0:
+            sent += (m - 1) * b
+        else:
+            received += b
+    return sent, received
+
+
+def _want_fold_bytes(case, coord) -> tuple[int, int]:
+    """What a rank sends and receives in the fold, element by element: an
+    own range of a taken leaf comes from the rank whose units it holds, a
+    shared range from coordinate 0; each element goes to the rank whose
+    stored block holds it, if that is another rank."""
+    from repro_torch.tree import tree_leaves
+    params, plan = _sync_plan(case)
+    m, me = W.SHAPE[1], coord["model"]
+    sent = received = 0
+    for p, s, leaf in zip(tree_leaves(params), tree_leaves(plan.specs),
+                          tree_leaves(plan.tree)):
+        if leaf.take is None:
+            continue
+        dt = leaf.take.dim % p.dim()
+        db = _axis_dim(s, "model")
+        src = []
+        for width, own in leaf.take.parts:
+            src += [i * m // width if own else 0 for i in range(width)]
+        per = p.numel() // p.shape[dt] * p.element_size()
+        if dt == db:
+            owner = [x * m // p.shape[dt] for x in range(p.shape[dt])]
+            sent += per * sum(a == me != o for a, o in zip(src, owner))
+            received += per * sum(o == me != a for a, o in zip(src, owner))
+        else:
+            mine = sum(a == me for a in src)
+            sent += mine * per * (m - 1) // m
+            received += (len(src) - mine) * per // m
+    return sent, received
+
+
+@pytest.mark.parametrize("case", list(W.SYNC_CASES))
+def test_sync_and_fold_bytes_are_the_plans_counts(runs, case):
+    """``COUNTS["scatter_bytes"]`` / ``scatter_received`` and
+    ``fold_bytes`` / ``fold_received`` of each rank's step are the counts
+    worked out from the plan and the specs, and below what the
+    gather-and-add forms send and receive (the data axis has 4 ranks)."""
+    for r in runs["ranks"]:
+        res = r["sync_cases"][case]
+        sent, received = _want_sync_bytes(case, r["coordinate"])
+        assert (res["scatter_bytes"], res["scatter_received"]) == (
+            sent, received), (res, sent, received)
+        assert sent < res["old_sync_sent"]
+        assert received < res["old_sync_received"]
+        fsent, freceived = _want_fold_bytes(case, r["coordinate"])
+        assert (res["fold_bytes"], res["fold_received"]) == (
+            fsent, freceived), (res, fsent, freceived)
+        if case == "mamba2_tp":
+            assert 0 < fsent < res["old_fold_sent"]
+            assert 0 < freceived < res["old_fold_received"]
+        else:
+            assert fsent == freceived == res["old_fold_sent"] == 0
+
+
+def test_dropping_scatter_reads_outside_the_tolerance(runs):
+    """A reduce-scatter whose owner drops the next member's part: the
+    grads miss a batch block, and the norms read outside the tolerance of
+    JAX's step."""
+    i = runs["inputs"]
+    want = _jax_run(JCFG, i["lm_params"], i["lm_batch"])
+    got = runs["ranks"][0]["scatter_mutant"]
+    assert _close(runs["ranks"][0]["smollm_tp"]["grad_norms"],
+                  want["grad_norms"])
+    assert not _close(got["grad_norms"], want["grad_norms"]), (
+        got["grad_norms"], want["grad_norms"])

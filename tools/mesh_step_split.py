@@ -25,11 +25,15 @@ batches are the launcher's pipeline's (seed 0).  Each rank times,
     on the bf16 ``dw`` kernels; moonshot's under the plan's
     ``model_axis``, with the layers' psums over ``model``, counted, and
     ``Plan.fold``);
-  * ``grad_psum``: the grads summed over the batch axes (``Mesh.psum_flat``,
-    one bf16 buffer; moonshot: ``train_step._sync``, then coordinate 0's
-    replicated grads broadcast over ``model``);
+  * ``grad_sync``: the step's own sync of the grads
+    (``train_step._sync``): mamba2's summed whole over the batch axes
+    (``Mesh.psum_flat``, one bf16 buffer); moonshot's synced into each
+    parameter's block with its layout (a fixed-order reduce-scatter over
+    ``data``, then coordinate 0's block of each replicated leaf over
+    ``model``), with the bytes a rank sent and received
+    (``tensor_parallel.COUNTS``);
   * ``update``: AdamW (float32 moments) on the whole parameters (mamba2),
-    or the norm, the cut and AdamW on the blocks (moonshot).
+    or the norm and AdamW on the blocks (moonshot).
 
 Rank 0 prints the card's name and power limit first, then one JSON line
 with each window's median and every reading (moonshot: every rank's);
@@ -130,25 +134,29 @@ def moonshot_main(rank: int, world: int, reps: int, pg: str, out) -> None:
         state["model_psums"] = {k: TP.COUNTS[k] - before[k]
                                 for k in before}
 
-    def grad_psum():
+    def grad_sync():
+        before = dict(TP.COUNTS)
         state["synced"] = TS._sync(mesh, split.axes, *state["vals"],
-                                   layout.plan.kept)
+                                   layout)
+        state["sync_bytes"] = {k: TP.COUNTS[k] - before[k] for k in
+                               ("scatter_bytes", "scatter_received")}
 
     def update():
         grads = state["synced"][2]
         gnorm = layout.global_norm(grads)
-        adamw.apply_updates(blocks, layout.cut(grads), opt, 1e-4,
+        adamw.apply_updates(blocks, grads, opt, 1e-4,
                             adamw.AdamWConfig(), in_place=True, gnorm=gnorm)
 
     times = _time((("gather", gather), ("fwd_bwd", fwd_bwd),
-                   ("grad_psum", grad_psum), ("update", update)), reps,
+                   ("grad_sync", grad_sync), ("update", update)), reps,
                   dist.barrier)
     res = {"rank": rank, "coordinate": {a: mesh.coordinate(a)
                                         for a in mesh.axis_names},
            "gathered_bytes": layout.stats["gathered_bytes"],
            "grad_bytes": sum(g.numel() * g.element_size()
                              for g in tree_leaves(state["vals"][2])),
-           "model_psums_fwd_bwd": state["model_psums"], "windows": times}
+           "model_psums_fwd_bwd": state["model_psums"],
+           "grad_sync_bytes": state["sync_bytes"], "windows": times}
     parts = [None] * world
     dist.all_gather_object(parts, res)
     if rank == 0:
@@ -199,21 +207,22 @@ def rank_main(rank: int, world: int, reps: int, pg: str, out) -> None:
              make_batch(cfg, dcfg, 0).items()}
     batch = {k: v.to(dev) for k, v in SH.to_local(
         batch, SH.batch_specs(batch, mesh, "dp_only"), mesh).items()}
-    grads = None
+    state: dict = {}
 
     def fwd_bwd():
-        nonlocal grads
-        _, _, grads = TS._value_and_grad(TS.loss_fn, params, batch, cfg,
-                                         split)
+        state["vals"] = TS._value_and_grad(TS.loss_fn, params, batch, cfg,
+                                           split)
 
-    def grad_psum():
-        mesh.psum_flat(tree_leaves(grads), split.axes)
+    def grad_sync():
+        state["synced"] = TS._sync(mesh, split.axes, *state["vals"])
 
     def update():
-        adamw.apply_updates(params, grads, opt, 1e-4, adamw.AdamWConfig())
+        adamw.apply_updates(params, state["synced"][2], opt, 1e-4,
+                            adamw.AdamWConfig())
 
-    times = _time((("fwd_bwd", fwd_bwd), ("grad_psum", grad_psum),
+    times = _time((("fwd_bwd", fwd_bwd), ("grad_sync", grad_sync),
                    ("update", update)), reps, dist.barrier)
+    grads = state["vals"][2]
     if rank == 0:
         smi = _smi()
         line = json.dumps({"nvidia_smi": smi, "config": "mamba2-370m",
